@@ -1,0 +1,30 @@
+"""Data layer: atlas, synthetic connectomes, graph containers, padded
+batches (COO and dense), loader."""
+
+from connectome_gnn_tpu_torch.data.atlas import NUM_REGIONS, REGION_NAMES
+from connectome_gnn_tpu_torch.data.batch import ConnectomeBatch, collate_graphs, round_up
+from connectome_gnn_tpu_torch.data.dense import DenseConnectomeBatch, collate_dense
+from connectome_gnn_tpu_torch.data.graph import ConnectomeGraph
+from connectome_gnn_tpu_torch.data.loader import ConnectomeDataLoader
+from connectome_gnn_tpu_torch.data.synthetic import (
+    TRAIT_NAMES,
+    generate_connectome,
+    generate_dataset,
+    small_world_stats,
+)
+
+__all__ = [
+    "NUM_REGIONS",
+    "REGION_NAMES",
+    "TRAIT_NAMES",
+    "ConnectomeBatch",
+    "ConnectomeDataLoader",
+    "ConnectomeGraph",
+    "DenseConnectomeBatch",
+    "collate_dense",
+    "collate_graphs",
+    "generate_connectome",
+    "generate_dataset",
+    "round_up",
+    "small_world_stats",
+]

@@ -1,0 +1,16 @@
+"""Neural-net building blocks: dense, masked BatchNorm, initializers."""
+
+from connectome_gnn_tpu_torch.nn.initializers import (
+    torch_linear_bias,
+    torch_linear_kernel,
+    xavier_uniform,
+)
+from connectome_gnn_tpu_torch.nn.layers import Dense, MaskedBatchNorm
+
+__all__ = [
+    "Dense",
+    "MaskedBatchNorm",
+    "torch_linear_bias",
+    "torch_linear_kernel",
+    "xavier_uniform",
+]
