@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA card.
+"""Drive the PyTorch port's serving paths once on one NVIDIA card.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -22,9 +22,37 @@ Phases, one line each:
    of 100 after warm-up) and as device time by ``torch.profiler``, at batch
    16 and 512, and ``predict`` over the 64 graphs by the host clock.
 
-It prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as
-the last line.  Any failure raises and exits non-zero; without CUDA it
-fails at once.  JAX is not imported: the machine with the card has none.
+Then the giant-graph node-classification serving path, at the 5qs
+configuration of ``benchmarks/suite.py:676-737`` (1,048,576 nodes, degree
+38, band ±512, block 256 so W = 2, 64 input channels, hidden 64, 2 layers;
+random weights from seed 0 and non-trivial BatchNorm state):
+
+6. the band: ``generate_spatial_graph`` on the host, ``to_banded`` on the
+   card, the float32 logits of ``BandedNodeGCN`` / ``BandedNodeSAGE``, then
+   ``prepare_quantized`` (feature-major and row-major) and the float32 band
+   freed; bytes and the memory peak;
+7. each band kernel (K3, K4, K5) against its plain PyTorch version on the
+   card, rtol 1e-5 / atol 1e-5: on random non-symmetric int8 bands at small
+   shapes (the ragged tail, W = 0, F = 5, F = 1, a block of 100) and on the
+   prepared 1M-node bands;
+8. the serving path: ``apply_quantized`` feature-major (K4), w8a8 (K5),
+   row-major (K3), on a hybrid graph with 10 % shortcuts (K3 and the COO
+   remainder), and ``BandedNodeSAGE`` feature-major (K4), each with its
+   kernel's launch count, against the plain path on the card (rtol 1e-4 /
+   atol 1e-4) and against the float32 logits (relative Frobenius error and
+   argmax agreement, the gates of ``tests/test_banded_quant.py``);
+9. RCM at the demo size (20,000 nodes, degree 12, band 256): scramble,
+   recover, bandwidth before and after;
+10. times: each band kernel and its plain version per call at full size
+   (CUDA events, median, in turns and back to back, then the card's SM
+   clock and power; device time from ``torch.profiler``), and
+   ``apply_quantized`` ms per forward and edge-messages/s for
+   feature-major and w8a8 serving, with a device-time breakdown by kernel.
+
+It prints the kernels' JSON line (K1 to K5), then ``{"ok": true,
+"device": ...}`` as the last line.  Any failure raises and exits non-zero;
+without CUDA it fails at once.  JAX is not imported: the machine with the
+card has none.
 """
 
 from __future__ import annotations
@@ -40,13 +68,19 @@ import torch
 from torch.autograd import DeviceType
 
 from connectome_gnn_tpu_torch import (
+    BandedNodeGCN,
+    BandedNodeSAGE,
     ConnectomeDataLoader,
     GCNConnectome,
     GraphSAGEConnectome,
     Trainer,
     generate_dataset,
+    generate_spatial_graph,
 )
+from connectome_gnn_tpu_torch.data import apply_ordering, bandwidth, reverse_cuthill_mckee
 from connectome_gnn_tpu_torch.ops import _build
+from connectome_gnn_tpu_torch.ops import banded_quant as bq
+from connectome_gnn_tpu_torch.ops.banded import to_banded, to_hybrid
 from connectome_gnn_tpu_torch.ops.fused import (
     fused_gcn_forward_reference,
     fused_gcn_kernel,
@@ -73,6 +107,33 @@ KERNELS = {
     ),
 }
 SOURCE = "connectome_gnn_tpu_torch/csrc/fused_forward.cu"
+
+#: the giant serving configuration 5qs (benchmarks/suite.py:676-737)
+GIANT = dict(num_nodes=1 << 20, degree=38, band=512, block=256, in_channels=64, hidden=64, layers=2)
+#: band kernel vs plain version: the JAX package's kernel-vs-emulation gate
+BAND_RTOL, BAND_ATOL = 1e-5, 1e-5
+#: quantized model vs its plain path on the card
+SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-4
+#: quantized vs float32 logits: (largest relative Frobenius error, least
+#: argmax agreement), tests/test_banded_quant.py:295-418
+GATES = {"bf16": (5e-2, 0.99), "w8a8": (8e-2, 0.98)}
+#: (num_blocks, W, block, num_nodes, F): the ragged tail, W = 0, SAGE's
+#: F = 5, F = 1, a block of 100 with two feature slices, the full block
+BAND_SHAPES = [(10, 1, 64, 640, 16), (10, 1, 64, 600, 16), (10, 0, 64, 600, 16),
+               (10, 1, 64, 600, 5), (10, 2, 64, 640, 1), (7, 1, 100, 650, 70),
+               (16, 2, 256, 4000, 64)]
+BAND_KERNELS = {
+    "K3": dict(name="banded_spmm_quant", kernel=bq.banded_spmm_quant_kernel,
+               plain=bq.banded_spmm_quant_reference, feature_major=False,
+               replaces="connectome_gnn_tpu/ops/banded_quant.py:820"),
+    "K4": dict(name="banded_spmm_quant_fm", kernel=bq.banded_spmm_quant_fm_kernel,
+               plain=bq.banded_spmm_quant_fm_reference, feature_major=True,
+               replaces="connectome_gnn_tpu/ops/banded_quant.py:284"),
+    "K5": dict(name="banded_spmm_quant_fm_w8a8", kernel=bq.banded_spmm_quant_fm_w8a8_kernel,
+               plain=bq.banded_spmm_quant_fm_w8a8_reference, feature_major=True,
+               replaces="connectome_gnn_tpu/ops/banded_quant.py:434"),
+}
+BAND_SOURCE = "connectome_gnn_tpu_torch/csrc/banded_spmm.cu"
 
 
 def check(ok: bool, what) -> None:
@@ -161,6 +222,250 @@ def device_ms(fn, iters=20):
         e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA
     )
     return busy_us / 1e3 / iters
+
+
+def device_breakdown(fn, iters=5):
+    """Device time (ms) per call by kernel name, largest first, from
+    torch.profiler (CUDA-typed events only)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [
+        (e.key, e.self_device_time_total / 1e3 / iters)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def random_quantized_band(nb, W, block, n, seed, device):
+    """A random NON-symmetric int8 band (70 % zeros; tile (0, 0) all zero
+    with scale 1), so a swapped tile axis cannot go unseen."""
+    rng = np.random.default_rng(seed)
+    shape = (nb, 2 * W + 1, block, block)
+    q = (rng.integers(-127, 128, shape) * (rng.random(shape) < 0.3)).astype(np.int8)
+    scales = rng.uniform(1e-3, 1.1e-2, shape[:2]).astype(np.float32)
+    q[0, 0], scales[0, 0] = 0, 1.0
+    return bq.QuantizedBandedMatrix(
+        torch.from_numpy(q).to(device), torch.from_numpy(scales).to(device), n, W
+    )
+
+
+def check_band_kernel(kid, q, x) -> float:
+    """One band kernel against its plain version on the same operands;
+    returns max |kernel - plain|."""
+    k = BAND_KERNELS[kid]
+    got = k["kernel"](q, x)
+    torch.cuda.synchronize()
+    want = k["plain"](q, x)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()), (kid, tuple(got.shape)))
+    torch.testing.assert_close(got, want, rtol=BAND_RTOL, atol=BAND_ATOL)
+    return float((got - want).abs().max())
+
+
+def band_launches() -> dict:
+    return {kid: k["kernel"].launches for kid, k in BAND_KERNELS.items()}
+
+
+def quant_gate(got, want, gate):
+    """Relative Frobenius error and argmax agreement of quantized against
+    float32 logits, held to the gate."""
+    rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    agree = float((got.argmax(1) == want.argmax(1)).float().mean())
+    max_rel, min_agree = GATES[gate]
+    check(rel < max_rel and agree > min_agree, (gate, rel, agree))
+    return rel, agree
+
+
+def make_node_model(cls, device, seed=0):
+    model = cls(
+        in_channels=GIANT["in_channels"], hidden_dim=GIANT["hidden"], num_classes=2,
+        num_layers=GIANT["layers"], generator=torch.Generator().manual_seed(seed),
+    )
+    randomize_batch_norms(model, np.random.default_rng(seed))
+    return model.to(device).eval()
+
+
+@torch.no_grad()
+def giant_graph_phases(dev, card) -> list[dict]:
+    """Phases 6-10; returns the band kernels' entries of the JSON line."""
+    L, block = GIANT["layers"], GIANT["block"]
+
+    # 6. the band, built on the card
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph = generate_spatial_graph(
+        GIANT["num_nodes"], degree=GIANT["degree"], band=GIANT["band"],
+        num_features=GIANT["in_channels"], seed=0,
+    )
+    t_gen = time.perf_counter() - t0
+    n, E = graph.num_nodes, graph.num_edges
+    t0 = time.perf_counter()
+    a = to_banded(graph.edge_index[0], graph.edge_index[1], graph.edge_weight, n, block=block,
+                  device=dev)
+    torch.cuda.synchronize()
+    t_band = time.perf_counter() - t0
+    check(a.bandwidth == 2 and a.num_blocks * block == n, (a.bandwidth, a.num_blocks))
+    x = torch.from_numpy(graph.node_features).to(dev)
+    xT = x.T.contiguous()
+    gcn, sage = make_node_model(BandedNodeGCN, dev), make_node_model(BandedNodeSAGE, dev)
+    f32 = {"gcn": gcn(a, x), "sage": sage(a, x)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q_fm, dinv = gcn.prepare_quantized(a)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    q_rm, _ = gcn.prepare_quantized(a, feature_major=False)
+    sage_q, w_sum = sage.prepare_quantized(a)
+    f32_bytes = a.band.numel() * 4
+    del a  # the float32 band: only the int8 bands serve
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(
+        f"[6 band] {n:,} nodes, {E:,} edges, W={q_fm.bandwidth}, block {block}: "
+        f"f32 band {f32_bytes:,} B, int8 band {q_fm.band_qT.numel():,} B; "
+        f"generate {t_gen:.2f} s (host), to_banded {t_band:.2f} s (card), "
+        f"GCN prepare_quantized {t_prep:.3f} s; max_memory_allocated {peak:,} B; "
+        f"f32 band freed, {torch.cuda.memory_allocated():,} B now allocated",
+        flush=True,
+    )
+
+    # 7. each band kernel against its plain version
+    max_err = dict.fromkeys(BAND_KERNELS, 0.0)
+    for shape in BAND_SHAPES:
+        nb, W, b, nodes, F = shape
+        q = random_quantized_band(nb, W, b, nodes, seed=sum(shape), device=dev)
+        xs = torch.from_numpy(
+            np.random.default_rng(nodes + F).standard_normal((nodes, F)).astype(np.float32)
+        ).to(dev)
+        errs = {}
+        for kid, k in BAND_KERNELS.items():
+            operands = (bq.to_feature_major(q), xs.T.contiguous()) if k["feature_major"] else (q, xs)
+            errs[kid] = check_band_kernel(kid, *operands)
+            max_err[kid] = max(max_err[kid], errs[kid])
+        print(f"[7 band kernel] NB={nb} W={W} b={b} n={nodes} F={F}, random non-symmetric band: "
+              + ", ".join(f"{kid} max|kernel-plain| = {e:.3e}" for kid, e in errs.items()), flush=True)
+    full = {"K3": (q_rm, x), "K4": (q_fm, xT), "K5": (q_fm, xT)}
+    for kid, operands in full.items():
+        err = check_band_kernel(kid, *operands)
+        max_err[kid] = max(max_err[kid], err)
+        print(f"[7 band kernel] {kid} at {n:,} nodes, F={x.shape[1]}, the prepared GCN band: "
+              f"max|kernel-plain| = {err:.3e}", flush=True)
+
+    # 8. the giant serving path
+    hybrid_graph = generate_spatial_graph(
+        n, degree=GIANT["degree"], band=GIANT["band"], num_features=GIANT["in_channels"],
+        seed=3, shortcut_frac=0.1,
+    )
+    h = to_hybrid(hybrid_graph.edge_index[0], hybrid_graph.edge_index[1],
+                  hybrid_graph.edge_weight, n, block=block, bandwidth=2, device=dev)
+    remainder = int((h.remainder_weights > 0).sum())
+    xh = torch.from_numpy(hybrid_graph.node_features).to(dev)
+    f32["hybrid"] = gcn(h, xh)
+    hq, hdinv = gcn.prepare_quantized(h)
+    del h
+    runs = [
+        ("GCN feature-major", gcn, q_fm, dinv, x, {}, "K4", "gcn", "bf16"),
+        ("GCN w8a8", gcn, q_fm, dinv, x, {"w8a8": True}, "K5", "gcn", "w8a8"),
+        ("GCN row-major", gcn, q_rm, dinv, x, {}, "K3", "gcn", "bf16"),
+        (f"GCN hybrid ({remainder:,} remainder edges)", gcn, hq, hdinv, xh, {}, "K3", "hybrid", "bf16"),
+        ("SAGE feature-major", sage, sage_q, w_sum, x, {}, "K4", "sage", "bf16"),
+    ]
+    torch.cuda.synchronize()
+    for k in BAND_KERNELS.values():
+        k["kernel"].launches = 0
+    logits = {}
+    for label, model, adj_q, norm, inputs, kw, kid, ref, gate in runs:
+        before = band_launches()
+        logits[label] = model.apply_quantized(adj_q, norm, inputs, **kw)
+        torch.cuda.synchronize()
+        delta = {k: c - before[k] for k, c in band_launches().items()}
+        check(delta == {k: L if k == kid else 0 for k in BAND_KERNELS}, (label, delta))
+    launches = band_launches()
+    for label, model, adj_q, norm, inputs, kw, kid, ref, gate in runs:
+        out = logits[label]
+        check(out.shape == (n, 2) and bool(torch.isfinite(out).all()), (label, tuple(out.shape)))
+        plain = model.apply_quantized(adj_q, norm, inputs, plain=True, **kw)
+        torch.testing.assert_close(out, plain, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+        rel, agree = quant_gate(out, f32[ref], gate)
+        print(
+            f"[8 giant serving] {label}: logits {tuple(out.shape)} finite, {kid} launches {L}, "
+            f"max|kernels-plain| = {float((out - plain).abs().max()):.3e}; against f32: "
+            f"relative error {rel:.4e}, argmax agreement {agree:.5f}",
+            flush=True,
+        )
+    del hq, hdinv, xh, f32, logits
+
+    # 9. RCM at the demo size
+    demo_n = 20_000
+    demo = generate_spatial_graph(demo_n, degree=12, band=256, seed=0)
+    scrambled = apply_ordering(demo, np.random.default_rng(0).permutation(demo_n))
+    t0 = time.perf_counter()
+    recovered = apply_ordering(scrambled, reverse_cuthill_mckee(scrambled.edge_index, demo_n))
+    t_rcm = time.perf_counter() - t0
+    before_bw, after_bw = bandwidth(scrambled.edge_index), bandwidth(recovered.edge_index)
+    check(after_bw < before_bw // 4, (before_bw, after_bw))
+    banded = to_banded(recovered.edge_index[0], recovered.edge_index[1], recovered.edge_weight,
+                       demo_n, block=128, device=dev)
+    print(f"[9 RCM] {demo_n:,} nodes, {demo.num_edges:,} edges: scrambled bandwidth {before_bw:,}, "
+          f"RCM bandwidth {after_bw:,} ({t_rcm:.2f} s host); banded at block 128: "
+          f"W={banded.bandwidth}, {banded.num_blocks} row blocks", flush=True)
+
+    # 10. times (nothing asserted)
+    times = {}
+    for kid, (q, xin) in full.items():
+        k = BAND_KERNELS[kid]
+        run_kernel = lambda k=k, q=q, xin=xin: k["kernel"](q, xin)  # noqa: E731
+        run_plain = lambda k=k, q=q, xin=xin: k["plain"](q, xin)  # noqa: E731
+        times[kid] = cuda_ms([run_kernel, run_plain], iters=20, warmup=3)
+        (alone,) = cuda_ms([run_kernel], iters=20, warmup=3)
+        clocks = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        ).stdout.strip()
+        dev_kernel, dev_plain = device_ms(run_kernel, iters=5), device_ms(run_plain, iters=5)
+        print(
+            f"[10 times] {card} | {kid} {k['name']} at {n:,} nodes, F={GIANT['in_channels']}: "
+            f"kernel {times[kid][0]:.4f} ms, plain {times[kid][1]:.4f} ms per call (CUDA events, "
+            f"median of 20, in turns; kernel back to back {alone:.4f} ms; then SM clock, max "
+            f"clock, power, temperature: {clocks}); "
+            f"device time kernel {dev_kernel:.4f} ms, plain {dev_plain:.4f} ms (torch.profiler, "
+            f"mean of 5); kernel {E / times[kid][0] / 1e6:.4g} G edges/s",
+            flush=True,
+        )
+    for label, kw in (("feature-major", {}), ("w8a8", {"w8a8": True})):
+        forward = lambda kw=kw: gcn.apply_quantized(q_fm, dinv, x, **kw)  # noqa: E731
+        plain = lambda kw=kw: gcn.apply_quantized(q_fm, dinv, x, plain=True, **kw)  # noqa: E731
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms, plain_ms = host_ms([forward, plain], iters=10)
+        serve_peak = torch.cuda.max_memory_allocated()
+        rows = device_breakdown(forward)
+        busy = sum(ms for _, ms in rows)
+        print(
+            f"[10 times] {card} | GCN apply_quantized {label}, {n:,} nodes, L={L}: "
+            f"{fwd_ms:.3f} ms/forward ({L * E / fwd_ms * 1e3:.4g} edge-messages/s); plain path "
+            f"{plain_ms:.3f} ms/forward (host clock, median of 10, in turns); device busy "
+            f"{busy:.3f} ms/forward ({busy / fwd_ms:.1%} of its wall time); "
+            f"max_memory_allocated {serve_peak:,} B",
+            flush=True,
+        )
+        for name, ms in rows[:10]:
+            print(f"[10 times]     {ms:9.4f} ms/forward  {name[:200]}", flush=True)
+
+    return [
+        {
+            "name": k["name"], "route": "cuda", "source": BAND_SOURCE, "replaces": k["replaces"],
+            "launches": launches[kid], "max_abs_err": max_err[kid],
+            "ms": times[kid][0], "plain_ms": times[kid][1],
+        }
+        for kid, k in BAND_KERNELS.items()
+    ]
 
 
 def main() -> None:
@@ -257,6 +562,9 @@ def main() -> None:
             flush=True,
         )
 
+    # 6-10. the giant-graph serving path
+    band_entries = giant_graph_phases(dev, card)
+
     print(json.dumps({"kernels": [
         {
             "name": k["name"], "route": "cuda", "source": SOURCE, "replaces": k["replaces"],
@@ -264,7 +572,7 @@ def main() -> None:
             "ms": times[kind, 16][0], "plain_ms": times[kind, 16][1],
         }
         for kind, k in KERNELS.items()
-    ]}))
+    ] + band_entries}))
     print(json.dumps({
         "ok": True,
         "device": {

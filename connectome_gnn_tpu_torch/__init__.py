@@ -5,11 +5,18 @@ as the reference.  This package imports torch and numpy, never JAX and
 never the JAX package.  Module names follow the JAX package, so each
 counterpart sits at the same relative path.
 
-Ported so far: the serving path — synthetic connectomes, COO and dense
-batches, the loader, ``GCNConnectome`` and ``GraphSAGEConnectome``, and
-``Trainer.evaluate`` / ``Trainer.predict``, which serves dense batches on
-CUDA through hand-written fused forward kernels (``csrc/``, built by
-``nvcc`` at first use).
+Ported so far, both serving paths:
+
+* graph classification: synthetic connectomes, COO and dense batches, the
+  loader, ``GCNConnectome`` and ``GraphSAGEConnectome``, and
+  ``Trainer.evaluate`` / ``Trainer.predict``, which serves dense batches on
+  CUDA through hand-written fused forward kernels;
+* giant-graph node classification: ``generate_spatial_graph``, RCM
+  reordering, the block band (``ops.banded``) and its int8 form, and
+  ``BandedNodeGCN`` / ``BandedNodeSAGE``, which serve through hand-written
+  int8 band SpMM kernels (``prepare_quantized`` / ``apply_quantized``).
+
+The kernels are CUDA C++ in ``csrc/``, built by ``nvcc`` at first use.
 
 Quickstart
 ----------
@@ -21,6 +28,19 @@ Quickstart
                                   layout="dense", device="cuda")
     model = GCNConnectome(in_channels=5, hidden_dim=64, num_classes=2)
     logits = Trainer(model, device="cuda").predict(loader)
+
+Giant graph, int8 serving:
+
+    import torch
+    from connectome_gnn_tpu_torch import BandedNodeGCN, generate_spatial_graph
+    from connectome_gnn_tpu_torch.ops import to_banded
+
+    g = generate_spatial_graph(1 << 20, degree=38, band=512, num_features=64)
+    a = to_banded(*g.edge_index, g.edge_weight, g.num_nodes, device="cuda")
+    model = BandedNodeGCN(in_channels=64, num_layers=2).cuda().eval()
+    adj_q, dinv = model.prepare_quantized(a)
+    logits = model.apply_quantized(adj_q, dinv,
+                                   torch.from_numpy(g.node_features).cuda())
 """
 
 from connectome_gnn_tpu_torch.data import (
@@ -32,9 +52,15 @@ from connectome_gnn_tpu_torch.data import (
     collate_graphs,
     generate_connectome,
     generate_dataset,
+    generate_spatial_graph,
     small_world_stats,
 )
-from connectome_gnn_tpu_torch.models import GCNConnectome, GraphSAGEConnectome
+from connectome_gnn_tpu_torch.models import (
+    BandedNodeGCN,
+    BandedNodeSAGE,
+    GCNConnectome,
+    GraphSAGEConnectome,
+)
 from connectome_gnn_tpu_torch.train import Trainer
 
 __version__ = "0.1.0"
@@ -42,6 +68,8 @@ __version__ = "0.1.0"
 __all__ = [
     "NUM_REGIONS",
     "REGION_NAMES",
+    "BandedNodeGCN",
+    "BandedNodeSAGE",
     "ConnectomeBatch",
     "ConnectomeDataLoader",
     "ConnectomeGraph",
@@ -51,6 +79,7 @@ __all__ = [
     "collate_graphs",
     "generate_connectome",
     "generate_dataset",
+    "generate_spatial_graph",
     "small_world_stats",
     "__version__",
 ]

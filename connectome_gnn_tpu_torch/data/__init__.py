@@ -1,15 +1,21 @@
-"""Data layer: atlas, synthetic connectomes, graph containers, padded
-batches (COO and dense), loader."""
+"""Data layer: atlas, synthetic connectomes and giant spatial graphs, graph
+containers, padded batches (COO and dense), loader, RCM reordering."""
 
 from connectome_gnn_tpu_torch.data.atlas import NUM_REGIONS, REGION_NAMES
 from connectome_gnn_tpu_torch.data.batch import ConnectomeBatch, collate_graphs, round_up
 from connectome_gnn_tpu_torch.data.dense import DenseConnectomeBatch, collate_dense
 from connectome_gnn_tpu_torch.data.graph import ConnectomeGraph
 from connectome_gnn_tpu_torch.data.loader import ConnectomeDataLoader
+from connectome_gnn_tpu_torch.data.reorder import (
+    apply_ordering,
+    bandwidth,
+    reverse_cuthill_mckee,
+)
 from connectome_gnn_tpu_torch.data.synthetic import (
     TRAIT_NAMES,
     generate_connectome,
     generate_dataset,
+    generate_spatial_graph,
     small_world_stats,
 )
 
@@ -21,10 +27,14 @@ __all__ = [
     "ConnectomeDataLoader",
     "ConnectomeGraph",
     "DenseConnectomeBatch",
+    "apply_ordering",
+    "bandwidth",
     "collate_dense",
     "collate_graphs",
     "generate_connectome",
     "generate_dataset",
+    "generate_spatial_graph",
+    "reverse_cuthill_mckee",
     "round_up",
     "small_world_stats",
 ]

@@ -13,7 +13,12 @@ read backwards is the whole transplant:
 ``batch_norms.{i}.running_*``   ``state["norms"][i]["mean"/"var"]``
 ``classifier.0.*``              ``params["head"]["fc1"]`` (transposed)
 ``classifier.3.*``              ``params["head"]["fc2"]`` (transposed)
+``head.*`` (node models)        ``params["head"]`` (one dense layer)
 ==============================  =======================================
+
+The node models (``BandedNodeGCN``, ``BandedNodeSAGE``) share the conv and
+BatchNorm keys; their head is one dense layer, which the table's last row
+carries.  SAGE's conv kernel is ``[2·in, out]`` in both packages.
 
 The pytrees are taken with numpy leaves (``jax.tree_util.tree_map(
 np.asarray, params)``); this module imports neither JAX nor the JAX
@@ -44,21 +49,29 @@ def reference_state_dict_from_params(
         sd[f"batch_norms.{i}.bias"] = np.asarray(norm["bias"])
         sd[f"batch_norms.{i}.running_mean"] = np.asarray(moments["mean"])
         sd[f"batch_norms.{i}.running_var"] = np.asarray(moments["var"])
+    head = params["head"]
+    if "kernel" in head:  # node models: one dense layer
+        sd["head.weight"] = np.asarray(head["kernel"]).T
+        if "bias" in head:
+            sd["head.bias"] = np.asarray(head["bias"])
+        return sd
     for idx, fc in (("0", "fc1"), ("3", "fc2")):
-        sd[f"classifier.{idx}.weight"] = np.asarray(params["head"][fc]["kernel"]).T
-        sd[f"classifier.{idx}.bias"] = np.asarray(params["head"][fc]["bias"])
+        sd[f"classifier.{idx}.weight"] = np.asarray(head[fc]["kernel"]).T
+        sd[f"classifier.{idx}.bias"] = np.asarray(head[fc]["bias"])
     return sd
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping, state: Mapping) -> None:
     """Copy JAX ``(params, state)`` pytrees (numpy leaves) into ``model``
     in place: kernels ``[in, out]`` become ``weight [out, in]`` and the
-    BatchNorm moments become buffers.  Raises on any key or shape mismatch;
-    only ``num_batches_tracked``, which JAX does not keep, is left as is."""
+    BatchNorm moments become buffers.  Works for the connectome classifiers
+    and the node models.  Raises on any key or shape mismatch; only
+    ``num_batches_tracked``, which JAX does not keep, is left as is."""
     from connectome_gnn_tpu_torch.models.connectome import GraphSAGEConnectome
+    from connectome_gnn_tpu_torch.models.node_sage import BandedNodeSAGE
 
     sd = reference_state_dict_from_params(
-        params, state, sage=isinstance(model, GraphSAGEConnectome)
+        params, state, sage=isinstance(model, (GraphSAGEConnectome, BandedNodeSAGE))
     )
     result = model.load_state_dict(
         {k: torch.tensor(v) for k, v in sd.items()},

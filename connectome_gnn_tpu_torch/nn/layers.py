@@ -70,6 +70,14 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
+    def forward_eval_fm(self, xT: torch.Tensor) -> torch.Tensor:
+        """Eval-mode normalization of FEATURE-MAJOR activations ``xT [F, N]``
+        (the quantized-band serving layout): the running moments broadcast
+        along the node axis, whatever the module's mode.  Same arithmetic
+        as ``batch_norm_eval_fm`` (``nn/layers.py:221`` of the JAX package)."""
+        y = (xT - self.running_mean[:, None]) * torch.rsqrt(self.running_var + self.eps)[:, None]
+        return y * self.weight[:, None] + self.bias[:, None]
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if not self.training:
             y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)

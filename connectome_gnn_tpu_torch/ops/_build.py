@@ -1,11 +1,12 @@
 """Builds the CUDA kernels at first use and binds them with ``ctypes``.
 
-``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, written to ``connectome_gnn_tpu_torch/
-_build/`` under a name keyed by a hash of the sources.  A build writes a
-temporary file and renames it into place, so concurrent builds race
-safely.  Nothing is built at import: the first CUDA call does it.  A failed
-build raises; there is no fallback.
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all of
+them at once, and the objects are linked into one shared library with a
+plain C interface, written to ``connectome_gnn_tpu_torch/_build/`` under a
+name keyed by a hash of the sources.  A build writes temporary files and
+renames the library into place, so concurrent builds race safely.  Nothing
+is built at import: the first CUDA call does it.  A failed build raises;
+there is no fallback.
 
 ``nvcc`` is taken from ``$CUDA_HOME/bin``, else from ``PATH``, else from
 the toolkit's default location ``/usr/local/cuda/bin``.
@@ -24,10 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 
 
 def sources() -> list[str]:
@@ -57,18 +56,40 @@ def build() -> str:
     for path in sources():
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + f.read())
-    lib_path = os.path.join(BUILD_DIR, f"fused_forward_{digest.hexdigest()[:12]}.so")
+    stem = f"cgt_kernels_{digest.hexdigest()[:12]}"
+    lib_path = os.path.join(BUILD_DIR, f"{stem}.so")
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.tmp{os.getpid()}"
-    cu = [p for p in sources() if p.endswith(".cu")]
-    proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    nvcc, tag = find_nvcc(), f"tmp{os.getpid()}"
+    objects, procs = [], []
+    for src in (p for p in sources() if p.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, f"{stem}.{os.path.basename(src)}.{tag}.o")
+        objects.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    failures = []
+    for proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(proc.args)} ({proc.returncode}):\n{err}")
+    try:
+        if failures:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+        tmp = f"{lib_path}.{tag}"
+        proc = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objects],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
     return lib_path
 
 
@@ -76,11 +97,17 @@ def build() -> str:
 def library() -> ctypes.CDLL:
     """The built kernel library with every entry point's signature set."""
     lib = ctypes.CDLL(build())
-    ptr, i32, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    ptr, i32, i64, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_size_t
     lib.cgt_fused_gcn_forward.argtypes = [ptr] * 12 + [i32] * 7 + [size, ptr]
-    lib.cgt_fused_gcn_forward.restype = i32
     lib.cgt_fused_sage_forward.argtypes = [ptr] * 15 + [i32] * 7 + [size, ptr]
-    lib.cgt_fused_sage_forward.restype = i32
+    lib.cgt_banded_spmm_quant.argtypes = [ptr] * 4 + [i32] * 5 + [i64, ptr]
+    lib.cgt_banded_spmm_quant_fm.argtypes = [ptr] * 4 + [i32] * 5 + [i64, ptr]
+    lib.cgt_banded_spmm_quant_fm_w8a8.argtypes = [ptr] * 5 + [i32] * 5 + [i64, ptr]
+    for entry in (
+        "cgt_fused_gcn_forward", "cgt_fused_sage_forward", "cgt_banded_spmm_quant",
+        "cgt_banded_spmm_quant_fm", "cgt_banded_spmm_quant_fm_w8a8",
+    ):
+        getattr(lib, entry).restype = i32
     lib.cgt_error_string.argtypes = [i32]
     lib.cgt_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,424 @@
+"""Int8-quantized banded SpMM: the serving kernels K3, K4 and K5.
+
+The port of the serving half of ``connectome_gnn_tpu/ops/banded_quant.py``.
+The band is stored as int8 with one float32 scale per (row block,
+diagonal) tile, ``band ≈ band_q · scales[..., None, None]``: four times
+fewer band bytes than float32.  Three hand-written CUDA kernels
+(``csrc/banded_spmm.cu``) contract it with the activations:
+
+=====  ==============================  ===========================================
+K3     :func:`banded_spmm_quant`       ``A_q·x``, row-major ``x [N, F]``
+K4     :func:`banded_spmm_quant_fm`    ``(A_q·x)ᵀ``, feature-major ``xT [F, N]``
+K5     :func:`banded_spmm_quant_fm_w8a8`  K4 on int8 activations
+=====  ==============================  ===========================================
+
+The arithmetic is the JAX package's (``tests/test_banded_quant.py``,
+``_emulate``): int8 tile values are exact in float32; K3 and K4 round x to
+bfloat16 (round to nearest even), so every product is exact in float32;
+each tile's dot is summed in float32, multiplied by its scale, and the
+tiles are summed in float32.  K5 quantizes the padded activations per
+column block (:func:`quantize_activations_fm`), takes each tile's dot
+exactly in int32, and applies ``(scale[rb, d] · xscale[rb + d]) ·
+float(dot)``; its activation scale is indexed in the W-shifted padded
+frame.
+
+Beside each kernel sits its plain PyTorch version (``*_reference``, the
+oracle of the tests and of ``chip_smoke.py``) and a launch counter
+(``banded_spmm_quant_kernel.launches`` and its siblings, plain integers
+that grow by one per launch).  The entry points take the plain version for
+CPU tensors only; for a CUDA tensor they launch the kernel or raise.
+
+The TPU kernels' ``interpret`` and ``rows_per_step`` arguments are gone:
+they switch Pallas emulation and TPU panel tiling, and the result depends
+on them only through the order of a float32 sum.
+
+Waiting for the training slice: ``transpose_quantized``,
+``quantize_transposed_fm``, the trainable feature-major and blocked
+wrappers, ``to_blocked`` / ``from_blocked`` and K6.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from connectome_gnn_tpu_torch.ops.banded import (
+    BandedMatrix,
+    HybridMatrix,
+    banded_spmm,
+    pad_blocks,
+    remainder_spmm,
+)
+
+#: largest block for which K5's plain version is exact: its float32 dot of
+#: int8 values stays below 2^24 while 127² · block < 2^24
+MAX_EXACT_W8A8_BLOCK = 1040
+#: grid limits of the launch: x is one block per (row block, 64-receiver
+#: tile), y one per 64-feature slice (see csrc/banded_spmm.cu)
+TILE_M = TILE_N = 64
+MAX_GRID_X = 2**31 - 1
+MAX_GRID_Y = 65535
+
+
+class QuantizedBandedMatrix(NamedTuple):
+    """Per-tile symmetric int8 quantization of a :class:`BandedMatrix`:
+    ``band_q [NB, 2W+1, block, block]`` int8 (receiver-major tiles) and
+    ``scales [NB, 2W+1]`` float32."""
+
+    band_q: torch.Tensor
+    scales: torch.Tensor
+    num_nodes: int
+    bandwidth: int
+
+    @property
+    def block(self) -> int:
+        return int(self.band_q.shape[2])
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.band_q.shape[0])
+
+
+class QuantizedBandedMatrixFM(NamedTuple):
+    """Feature-major (serving-layout) form: ``band_qT`` holds each tile
+    transposed, ``[NB, 2W+1, block(sender), block(receiver)]``, so the SpMM
+    runs as ``outT = xT_window @ tileT`` on activations ``[F, N]``."""
+
+    band_qT: torch.Tensor
+    scales: torch.Tensor
+    num_nodes: int
+    bandwidth: int
+
+    @property
+    def block(self) -> int:
+        return int(self.band_qT.shape[2])
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.band_qT.shape[0])
+
+
+class QuantizedHybridMatrix(NamedTuple):
+    """Hybrid form with an int8 band; the small remainder stays float32."""
+
+    band: QuantizedBandedMatrix
+    remainder_senders: torch.Tensor
+    remainder_receivers: torch.Tensor
+    remainder_weights: torch.Tensor
+
+    @property
+    def num_nodes(self) -> int:
+        return self.band.num_nodes
+
+
+# ---------------------------------------------------------------------------
+# Quantization and layouts
+# ---------------------------------------------------------------------------
+
+
+def _symmetric_int8(x: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
+    """``clip(round(x / scale), ±127)`` as int8, ``scale`` broadcast to ``x``
+    as ``shape``."""
+    return torch.div(x, scale.view(shape)).round_().clamp_(-127, 127).to(torch.int8)
+
+
+def quantize_band(a: BandedMatrix) -> QuantizedBandedMatrix:
+    """Symmetric per-tile int8 quantization, bitwise equal to the JAX
+    package's: the entry error is at most ``scales / 2``; all-zero tiles get
+    scale 1.  One diagonal at a time, so the float32 temporary is a fifth
+    of the band at W = 2."""
+    band = a.band
+    band_q = torch.empty(band.shape, dtype=torch.int8, device=band.device)
+    scales = torch.empty(band.shape[:2], dtype=torch.float32, device=band.device)
+    # XLA compiles the JAX package's jitted ``maxabs / 127`` into a multiply
+    # by the float32 reciprocal; the eager activation quantizer divides
+    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=band.device)
+    for d in range(band.shape[1]):
+        tiles = band[:, d]
+        maxabs = torch.maximum(tiles.amax(dim=(1, 2)), -tiles.amin(dim=(1, 2)))
+        scales[:, d] = torch.where(maxabs > 0, maxabs * inv127, torch.ones_like(maxabs))
+        band_q[:, d] = _symmetric_int8(tiles, scales[:, d], (-1, 1, 1))
+    return QuantizedBandedMatrix(band_q, scales, a.num_nodes, a.bandwidth)
+
+
+def dequantize_band(q: QuantizedBandedMatrix) -> BandedMatrix:
+    """float32 band reconstruction."""
+    band = q.band_q.to(torch.float32) * q.scales[:, :, None, None]
+    return BandedMatrix(band, q.num_nodes, q.bandwidth)
+
+
+def banded_spmm_quant_xla(q: QuantizedBandedMatrix, x: torch.Tensor) -> torch.Tensor:
+    """``A_q @ x`` by dequantizing, then the float32 band SpMM: float32
+    activations, where K3 rounds them to bfloat16.  (The JAX package's
+    XLA baseline, under its name there.)"""
+    return banded_spmm(dequantize_band(q), x)
+
+
+def quantize_hybrid(h: HybridMatrix) -> QuantizedHybridMatrix:
+    """Quantize a hybrid matrix's band; the remainder stays float32."""
+    return QuantizedHybridMatrix(
+        quantize_band(h.band), h.remainder_senders, h.remainder_receivers,
+        h.remainder_weights,
+    )
+
+
+def to_feature_major(q: QuantizedBandedMatrix) -> QuantizedBandedMatrixFM:
+    """One-time serving prep: transpose each int8 tile (sender-major)."""
+    return QuantizedBandedMatrixFM(
+        q.band_q.transpose(2, 3).contiguous(), q.scales, q.num_nodes, q.bandwidth
+    )
+
+
+def quantize_activations_fm(xT_pad: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-column-block symmetric int8 quantization of padded feature-major
+    activations, bitwise equal to the JAX package's: ``[F, NBwin·block]`` →
+    int8 of the same shape, and one float32 scale per column block
+    (max-abs / 127; all-zero blocks get scale 1)."""
+    F, total = xT_pad.shape
+    xb = xT_pad.to(torch.float32).reshape(F, total // block, block)
+    maxabs = xb.abs().amax(dim=(0, 2))
+    scale = torch.where(maxabs > 0, maxabs / 127.0, torch.ones_like(maxabs))
+    return _symmetric_int8(xb, scale, (1, -1, 1)).reshape(F, total), scale
+
+
+def _pad_fm(xT: torch.Tensor, num_blocks: int, bandwidth: int, block: int, dtype) -> torch.Tensor:
+    """``xT[:, :n]`` cast to ``dtype`` in the W-shifted padded frame,
+    ``[F, (NB + 2W)·block]``."""
+    n = xT.shape[1]
+    xT_pad = torch.zeros(
+        (xT.shape[0], (num_blocks + 2 * bandwidth) * block), dtype=dtype, device=xT.device
+    )
+    xT_pad[:, bandwidth * block : bandwidth * block + n] = xT
+    return xT_pad
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the oracle; TF32 must be off on the card)
+# ---------------------------------------------------------------------------
+
+
+def banded_spmm_quant_reference(q: QuantizedBandedMatrix, x: torch.Tensor) -> torch.Tensor:
+    """K3's arithmetic in plain torch: ``A_q @ x``, ``[num_nodes, F]`` f32."""
+    nb, W, block, n = q.num_blocks, q.bandwidth, q.block, q.num_nodes
+    # bf16 rounding first, then float32: bf16 × int8 products are exact
+    xb = pad_blocks(x[:n].to(torch.bfloat16).to(torch.float32), nb, W, block)
+    out = xb.new_zeros((nb, block, xb.shape[2]))
+    for d in range(2 * W + 1):
+        dots = torch.bmm(q.band_q[:, d].to(torch.float32), xb[d : d + nb])
+        out += q.scales[:, d, None, None] * dots
+    return out.reshape(nb * block, -1)[:n]
+
+
+def _fm_windows(x_pad: torch.Tensor, num_blocks: int, bandwidth: int, block: int) -> torch.Tensor:
+    """``[F, (NB + 2W)·block]`` → float32 blocks ``[NB + 2W, F, block]``."""
+    F = x_pad.shape[0]
+    blocks = x_pad.to(torch.float32).view(F, num_blocks + 2 * bandwidth, block)
+    return blocks.permute(1, 0, 2).contiguous()
+
+
+def _fm_output(out: torch.Tensor, n: int) -> torch.Tensor:
+    """``[NB, F, block]`` → ``[F, n]``."""
+    nb, F, block = out.shape
+    return out.permute(1, 0, 2).reshape(F, nb * block)[:, :n]
+
+
+def banded_spmm_quant_fm_reference(q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
+    """K4's arithmetic in plain torch: ``(A_q @ x)ᵀ``, ``[F, num_nodes]`` f32."""
+    nb, W, block, n = q.num_blocks, q.bandwidth, q.block, q.num_nodes
+    xw = _fm_windows(_pad_fm(xT[:, :n], nb, W, block, torch.bfloat16), nb, W, block)
+    out = xw.new_zeros((nb, xw.shape[1], block))
+    for d in range(2 * W + 1):
+        dots = torch.bmm(xw[d : d + nb], q.band_qT[:, d].to(torch.float32))
+        out += q.scales[:, d, None, None] * dots
+    return _fm_output(out, n)
+
+
+def quantize_activations_padded(q: QuantizedBandedMatrixFM, xT: torch.Tensor):
+    """K5's activation operands: ``xT[:, :n]`` in the W-shifted padded frame,
+    quantized per column block; ``(xq [F, (NB+2W)·block] int8,
+    xscales [NB+2W])``.  The halo blocks are zero and get scale 1."""
+    nb, W, block, n = q.num_blocks, q.bandwidth, q.block, q.num_nodes
+    return quantize_activations_fm(_pad_fm(xT[:, :n], nb, W, block, torch.float32), block)
+
+
+def banded_spmm_quant_fm_w8a8_reference(q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
+    """K5's arithmetic in plain torch: ``(A_q @ x_q)ᵀ``, ``[F, num_nodes]``.
+
+    The int8 dots run as float32 products of int8 values, exact while
+    ``127² · block < 2^24``; larger blocks raise ``ValueError``."""
+    nb, W, block, n = q.num_blocks, q.bandwidth, q.block, q.num_nodes
+    if block > MAX_EXACT_W8A8_BLOCK:
+        raise ValueError(
+            f"block {block} > {MAX_EXACT_W8A8_BLOCK}: the float32 int8 dot is no longer exact"
+        )
+    xq, xscales = quantize_activations_padded(q, xT)
+    xw = _fm_windows(xq, nb, W, block)
+    out = xw.new_zeros((nb, xw.shape[1], block))
+    for d in range(2 * W + 1):
+        dots = torch.bmm(xw[d : d + nb], q.band_qT[:, d].to(torch.float32))
+        s = q.scales[:, d] * xscales[d : d + nb]
+        out += s[:, None, None] * dots
+    return _fm_output(out, n)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers (CUDA tensors only)
+# ---------------------------------------------------------------------------
+
+
+def _check_band(kind: str, band: torch.Tensor, scales: torch.Tensor, device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"the {kind} kernel needs CUDA tensors, got {device}")
+    nb, D, b, b2 = band.shape
+    if band.dtype != torch.int8 or b != b2 or D % 2 != 1 or not band.is_contiguous():
+        raise ValueError(f"{kind}: band must be contiguous int8 [NB, 2W+1, b, b], got "
+                         f"{band.dtype} {tuple(band.shape)}")
+    if scales.dtype != torch.float32 or tuple(scales.shape) != (nb, D) or not scales.is_contiguous():
+        raise ValueError(f"{kind}: scales must be contiguous float32 [{nb}, {D}]")
+    if band.device != device or scales.device != device:
+        raise ValueError(f"{kind}: band, scales and activations must share {device}")
+    if nb * -(-b // TILE_M) > MAX_GRID_X:
+        raise ValueError(f"{kind}: {nb} row blocks of {b} exceed the launch grid")
+
+
+def _check_activations(kind: str, x: torch.Tensor, rows: int, cols: int, dtype) -> None:
+    if x.dtype != dtype or x.dim() != 2 or x.stride(1) != 1:
+        raise ValueError(f"{kind}: activations must be {dtype} [*, *] with unit inner stride, "
+                         f"got {x.dtype} {tuple(x.shape)} strides {x.stride()}")
+    if x.shape[0] < rows or x.shape[1] < cols:
+        raise ValueError(f"{kind}: activations {tuple(x.shape)} smaller than [{rows}, {cols}]")
+
+
+def _launch(kind: str, entry: str, *args) -> None:
+    from connectome_gnn_tpu_torch.ops._build import library
+
+    lib = library()
+    err = getattr(lib, entry)(*args)
+    if err != 0:
+        raise RuntimeError(f"{kind} kernel launch failed: {lib.cgt_error_string(err).decode()}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def banded_spmm_quant_kernel(q: QuantizedBandedMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Launch K3 on CUDA tensors: ``A_q @ x`` for ``x [≥num_nodes, F]``
+    float32; returns ``[num_nodes, F]`` float32."""
+    kind, n, F = "K3 banded_spmm_quant", q.num_nodes, x.shape[-1]
+    _check_band(kind, q.band_q, q.scales, x.device)
+    _check_activations(kind, x, n, F, torch.float32)
+    if -(-F // TILE_N) > MAX_GRID_Y:
+        raise ValueError(f"{kind}: F={F} exceeds the launch grid")
+    out = torch.empty((n, F), dtype=torch.float32, device=x.device)
+    if n == 0 or F == 0:
+        return out
+    with torch.cuda.device(x.device):
+        _launch(kind, "cgt_banded_spmm_quant", q.band_q.data_ptr(), q.scales.data_ptr(),
+                x.data_ptr(), out.data_ptr(), q.num_blocks, q.bandwidth, q.block, F, n,
+                x.stride(0), _stream(x.device))
+    banded_spmm_quant_kernel.launches += 1
+    return out
+
+
+def banded_spmm_quant_fm_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
+    """Launch K4 on CUDA tensors: ``(A_q @ x)ᵀ`` for ``xT [F, ≥num_nodes]``
+    float32; returns ``[F, num_nodes]`` float32."""
+    kind, n, F = "K4 banded_spmm_quant_fm", q.num_nodes, xT.shape[0]
+    _check_band(kind, q.band_qT, q.scales, xT.device)
+    _check_activations(kind, xT, F, n, torch.float32)
+    if -(-F // TILE_N) > MAX_GRID_Y:
+        raise ValueError(f"{kind}: F={F} exceeds the launch grid")
+    out = torch.empty((F, n), dtype=torch.float32, device=xT.device)
+    if n == 0 or F == 0:
+        return out
+    with torch.cuda.device(xT.device):
+        _launch(kind, "cgt_banded_spmm_quant_fm", q.band_qT.data_ptr(), q.scales.data_ptr(),
+                xT.data_ptr(), out.data_ptr(), q.num_blocks, q.bandwidth, q.block, F, n,
+                xT.stride(0), _stream(xT.device))
+    banded_spmm_quant_fm_kernel.launches += 1
+    return out
+
+
+def banded_spmm_quant_fm_w8a8_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
+    """Quantize ``xT [F, ≥num_nodes]`` per column block in torch, then launch
+    K5 on CUDA tensors; returns ``[F, num_nodes]`` float32."""
+    kind, n, F = "K5 banded_spmm_quant_fm_w8a8", q.num_nodes, xT.shape[0]
+    _check_band(kind, q.band_qT, q.scales, xT.device)
+    if xT.dim() != 2 or xT.shape[1] < n:
+        raise ValueError(f"{kind}: activations {tuple(xT.shape)} are not [F, ≥{n}]")
+    if -(-F // TILE_N) > MAX_GRID_Y:
+        raise ValueError(f"{kind}: F={F} exceeds the launch grid")
+    out = torch.empty((F, n), dtype=torch.float32, device=xT.device)
+    if n == 0 or F == 0:
+        return out
+    xq, xscales = quantize_activations_padded(q, xT)
+    with torch.cuda.device(xT.device):
+        _launch(kind, "cgt_banded_spmm_quant_fm_w8a8", q.band_qT.data_ptr(),
+                q.scales.data_ptr(), xq.data_ptr(), xscales.data_ptr(), out.data_ptr(),
+                q.num_blocks, q.bandwidth, q.block, F, n, xq.stride(0), _stream(xT.device))
+    banded_spmm_quant_fm_w8a8_kernel.launches += 1
+    return out
+
+
+banded_spmm_quant_kernel.launches = 0
+banded_spmm_quant_fm_kernel.launches = 0
+banded_spmm_quant_fm_w8a8_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Entry points: the kernel on CUDA tensors, the plain version on CPU tensors
+# ---------------------------------------------------------------------------
+
+
+def banded_spmm_quant(q: QuantizedBandedMatrix, x: torch.Tensor) -> torch.Tensor:
+    """``A_q @ x``, ``[num_nodes, F]`` float32 (int8 band, bf16 x, f32 sums)."""
+    if x.device.type == "cpu":
+        return banded_spmm_quant_reference(q, x)
+    return banded_spmm_quant_kernel(q, x)
+
+
+def banded_spmm_quant_fm(q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
+    """``(A_q @ x)ᵀ`` on feature-major activations ``xT [F, num_nodes]``;
+    returns ``[F, num_nodes]`` float32."""
+    if xT.device.type == "cpu":
+        return banded_spmm_quant_fm_reference(q, xT)
+    return banded_spmm_quant_fm_kernel(q, xT)
+
+
+def banded_spmm_quant_fm_w8a8(q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
+    """:func:`banded_spmm_quant_fm` with int8 activations, quantized here per
+    column block; returns ``[F, num_nodes]`` float32."""
+    if xT.device.type == "cpu":
+        return banded_spmm_quant_fm_w8a8_reference(q, xT)
+    return banded_spmm_quant_fm_w8a8_kernel(q, xT)
+
+
+def hybrid_spmm_quant(a: QuantizedHybridMatrix, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """``A @ x`` for the quantized hybrid form: the int8 band through K3
+    (its plain version with ``plain=True``), plus the float32 remainder."""
+    band = banded_spmm_quant_reference if plain else banded_spmm_quant
+    return band(a.band, x) + remainder_spmm(a, x)
+
+
+def serving_spmm(adj_q, *, w8a8: bool = False, plain: bool = False):
+    """The band SpMM that serves a prepared adjacency: K4 (K5 with ``w8a8``)
+    for a :class:`QuantizedBandedMatrixFM`, K3 for a
+    :class:`QuantizedBandedMatrix`, K3 plus the remainder for a
+    :class:`QuantizedHybridMatrix`.  ``plain=True`` takes the plain
+    versions on any device (the oracle of the kernels on the card).
+    ``w8a8`` needs a feature-major adjacency and raises ``ValueError``
+    otherwise."""
+    if isinstance(adj_q, QuantizedBandedMatrixFM):
+        if w8a8:
+            return banded_spmm_quant_fm_w8a8_reference if plain else banded_spmm_quant_fm_w8a8
+        return banded_spmm_quant_fm_reference if plain else banded_spmm_quant_fm
+    if w8a8:
+        raise ValueError(
+            "w8a8 serving requires a feature-major adjacency "
+            "(prepare_quantized(..., feature_major=True))"
+        )
+    if isinstance(adj_q, QuantizedHybridMatrix):
+        return lambda a, x: hybrid_spmm_quant(a, x, plain=plain)
+    return banded_spmm_quant_reference if plain else banded_spmm_quant

@@ -114,7 +114,9 @@ def test_trainer_moves_the_model_and_batches_to_its_device(graphs):
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, connectome_gnn_tpu_torch, connectome_gnn_tpu_torch.ops.fused, "
-        "connectome_gnn_tpu_torch.ops._build\n"
+        "connectome_gnn_tpu_torch.ops._build, connectome_gnn_tpu_torch.ops.banded, "
+        "connectome_gnn_tpu_torch.ops.banded_quant, connectome_gnn_tpu_torch.data.reorder, "
+        "connectome_gnn_tpu_torch.models.node_gcn, connectome_gnn_tpu_torch.models.node_sage\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'connectome_gnn_tpu' or m.startswith('connectome_gnn_tpu.')]\n"
         "assert not bad, bad"
