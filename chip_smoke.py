@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths once on one NVIDIA card.
+"""Drive the PyTorch port's serving and giant-graph training paths once on
+one NVIDIA card.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -49,8 +50,40 @@ random weights from seed 0 and non-trivial BatchNorm state):
    ``apply_quantized`` ms per forward and edge-messages/s for
    feature-major and w8a8 serving, with a device-time breakdown by kernel.
 
-It prints the kernels' JSON line (K1 to K5), then ``{"ok": true,
-"device": ...}`` as the last line.  Any failure raises and exits non-zero;
+Then the giant-graph int8 training path, at the 5tq / 5tqb configuration
+of ``benchmarks/suite.py:986-1171`` (the same graph and widths, 2 classes,
+``torch.optim.Adam(lr=1e-3)`` on the mean cross-entropy over all nodes,
+dropout 0; fresh weights from seed 0):
+
+11. set-up: the band rebuilt on the card, ``prepare`` (the normalized
+    float32 band, the oracle's operand) and ``prepare_quant_trainable``
+    (the int8 band and its transpose); times and the memory peak;
+12. K6 and K4 over the transposed band (K4's backward launch) against
+    their plain versions, rtol 1e-5 / atol 1e-5: K6 on the random
+    non-symmetric small bands, both on the prepared 1M-node bands;
+13. the gradient of each trainable op at a small shape, kernels against
+    ``plain=True`` at 1e-5, and blocked against feature-major;
+14. the main path: one Adam step through ``apply_quant_trainable`` (K4
+    2L times, L of them over the transpose) and one through
+    ``apply_quant_trainable_blocked`` (K6 2L times, K4 none), with the
+    launch counts; loss and every parameter gradient against the
+    ``plain=True`` path (rtol 1e-4 / atol 1e-5) and against the float32
+    ``apply_normalized`` step with the JAX package's gates (loss within
+    2e-2 relative, gradients within 5e-2 relative Frobenius,
+    ``tests/test_banded_quant.py:525-533``); the running moments moved
+    and finite;
+15. a short run: 8 Adam steps on learnable labels (the sign of the
+    aggregated first feature against its median): the int8 loss falls
+    and ends within 0.05 of the float32 path's, for both layouts;
+16. times: ms per train step (host clock ending in a synchronize, median,
+    in turns) for feature-major, blocked, the plain path and float32, and
+    edge-messages/s (L × E / step time, ``benchmarks/suite.py:1075``); K6
+    and K4 over the transpose per call against their plain versions (CUDA
+    events); a ``torch.profiler`` device-time breakdown of one step; the
+    memory peak of training.
+
+It prints the kernels' JSON line (K1 to K6 and K4's backward), then
+``{"ok": true, "device": ...}`` as the last line.  Any failure raises and exits non-zero;
 without CUDA it fails at once.  JAX is not imported: the machine with the
 card has none.
 """
@@ -65,6 +98,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from connectome_gnn_tpu_torch import (
@@ -80,7 +114,7 @@ from connectome_gnn_tpu_torch import (
 from connectome_gnn_tpu_torch.data import apply_ordering, bandwidth, reverse_cuthill_mckee
 from connectome_gnn_tpu_torch.ops import _build
 from connectome_gnn_tpu_torch.ops import banded_quant as bq
-from connectome_gnn_tpu_torch.ops.banded import to_banded, to_hybrid
+from connectome_gnn_tpu_torch.ops.banded import banded_spmm, to_banded, to_hybrid
 from connectome_gnn_tpu_torch.ops.fused import (
     fused_gcn_forward_reference,
     fused_gcn_kernel,
@@ -134,6 +168,25 @@ BAND_KERNELS = {
                replaces="connectome_gnn_tpu/ops/banded_quant.py:434"),
 }
 BAND_SOURCE = "connectome_gnn_tpu_torch/csrc/banded_spmm.cu"
+#: a train step against its plain path on the card: the f32 gate
+STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
+#: int8 against float32 training, tests/test_banded_quant.py:525-533:
+#: (loss relative difference, gradient relative Frobenius error)
+TRAIN_GATES = (2e-2, 5e-2)
+#: the training kernels, each with its plain version
+TRAIN_KERNELS = {
+    "K4 backward": dict(name="banded_spmm_quant_fm_grad", kernel=bq.banded_spmm_quant_fm_grad_kernel,
+                        plain=bq.banded_spmm_quant_fm_reference,
+                        replaces="connectome_gnn_tpu/ops/banded_quant.py:743"),
+    "K6": dict(name="banded_spmm_quant_blocked", kernel=bq.banded_spmm_quant_blocked_kernel,
+               plain=bq.banded_spmm_quant_blocked_reference,
+               replaces="connectome_gnn_tpu/ops/banded_quant.py:564"),
+}
+#: every band kernel's launch counter
+COUNTERS = {"K3": bq.banded_spmm_quant_kernel, "K4": bq.banded_spmm_quant_fm_kernel,
+            "K5": bq.banded_spmm_quant_fm_w8a8_kernel,
+            "K4 backward": bq.banded_spmm_quant_fm_grad_kernel,
+            "K6": bq.banded_spmm_quant_blocked_kernel}
 
 
 def check(ok: bool, what) -> None:
@@ -257,9 +310,9 @@ def random_quantized_band(nb, W, block, n, seed, device):
 
 
 def check_band_kernel(kid, q, x) -> float:
-    """One band kernel against its plain version on the same operands;
-    returns max |kernel - plain|."""
-    k = BAND_KERNELS[kid]
+    """One band kernel (K3-K6, K4's backward) against its plain version on
+    the same operands; returns max |kernel - plain|."""
+    k = {**BAND_KERNELS, **TRAIN_KERNELS}[kid]
     got = k["kernel"](q, x)
     torch.cuda.synchronize()
     want = k["plain"](q, x)
@@ -269,8 +322,13 @@ def check_band_kernel(kid, q, x) -> float:
     return float((got - want).abs().max())
 
 
-def band_launches() -> dict:
-    return {kid: k["kernel"].launches for kid, k in BAND_KERNELS.items()}
+def reset_counters() -> None:
+    for k in COUNTERS.values():
+        k.launches = 0
+
+
+def counts() -> dict:
+    return {kid: k.launches for kid, k in COUNTERS.items()}
 
 
 def quant_gate(got, want, gate):
@@ -293,8 +351,9 @@ def make_node_model(cls, device, seed=0):
 
 
 @torch.no_grad()
-def giant_graph_phases(dev, card) -> list[dict]:
-    """Phases 6-10; returns the band kernels' entries of the JSON line."""
+def giant_graph_phases(dev, card):
+    """Phases 6-10; returns the band kernels' entries of the JSON line and
+    the host graph."""
     L, block = GIANT["layers"], GIANT["block"]
 
     # 6. the band, built on the card
@@ -378,16 +437,15 @@ def giant_graph_phases(dev, card) -> list[dict]:
         ("SAGE feature-major", sage, sage_q, w_sum, x, {}, "K4", "sage", "bf16"),
     ]
     torch.cuda.synchronize()
-    for k in BAND_KERNELS.values():
-        k["kernel"].launches = 0
+    reset_counters()
     logits = {}
     for label, model, adj_q, norm, inputs, kw, kid, ref, gate in runs:
-        before = band_launches()
+        before = counts()
         logits[label] = model.apply_quantized(adj_q, norm, inputs, **kw)
         torch.cuda.synchronize()
-        delta = {k: c - before[k] for k, c in band_launches().items()}
-        check(delta == {k: L if k == kid else 0 for k in BAND_KERNELS}, (label, delta))
-    launches = band_launches()
+        delta = {k: c - before[k] for k, c in counts().items()}
+        check(delta == {k: L if k == kid else 0 for k in COUNTERS}, (label, delta))
+    launches = counts()
     for label, model, adj_q, norm, inputs, kw, kid, ref, gate in runs:
         out = logits[label]
         check(out.shape == (n, 2) and bool(torch.isfinite(out).all()), (label, tuple(out.shape)))
@@ -465,6 +523,237 @@ def giant_graph_phases(dev, card) -> list[dict]:
             "ms": times[kid][0], "plain_ms": times[kid][1],
         }
         for kid, k in BAND_KERNELS.items()
+    ], graph
+
+
+def grad_step(model, forward, labels):
+    """One forward and backward; returns (loss, {name: gradient})."""
+    model.zero_grad(set_to_none=True)
+    loss = F.cross_entropy(forward(model), labels)
+    loss.backward()
+    return loss.detach(), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def flat(grads) -> torch.Tensor:
+    return torch.cat([g.reshape(-1) for _, g in sorted(grads.items())])
+
+
+def giant_training_phases(dev, card, graph) -> list[dict]:
+    """Phases 11-16; returns the training kernels' entries of the JSON line."""
+    L, block, n, E = GIANT["layers"], GIANT["block"], graph.num_nodes, graph.num_edges
+
+    # 11. set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        a = to_banded(graph.edge_index[0], graph.edge_index[1], graph.edge_weight, n, block=block,
+                      device=dev)
+    torch.cuda.synchronize()
+    t_band = time.perf_counter() - t0
+    model0 = BandedNodeGCN(
+        in_channels=GIANT["in_channels"], hidden_dim=GIANT["hidden"], num_classes=2,
+        num_layers=L, generator=torch.Generator().manual_seed(0),
+    ).to(dev).train()
+    t0 = time.perf_counter()
+    adj_norm, dinv = model0.prepare(a)
+    torch.cuda.synchronize()
+    t_norm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q, qT, dinv_q = model0.prepare_quant_trainable(a)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    check(torch.equal(dinv, dinv_q), "prepare and prepare_quant_trainable disagree on dinv")
+    del a, dinv_q
+    setup_peak = torch.cuda.max_memory_allocated()
+    print(f"[11 train set-up] {n:,} nodes, {E:,} edges: to_banded {t_band:.2f} s (card), prepare "
+          f"(f32 normalized band, {adj_norm.band.numel() * 4:,} B) {t_norm:.3f} s, "
+          f"prepare_quant_trainable (int8 band and its transpose, 2 x {q.band_qT.numel():,} B) "
+          f"{t_prep:.3f} s; max_memory_allocated {setup_peak:,} B; raw band freed, "
+          f"{torch.cuda.memory_allocated():,} B now allocated", flush=True)
+
+    x = torch.from_numpy(graph.node_features).to(dev)
+    xT = x.T.contiguous()
+    nb, W = q.num_blocks, q.bandwidth
+
+    # 12. K6 and K4 over the transposed band against their plain versions
+    max_err = dict.fromkeys(TRAIN_KERNELS, 0.0)
+    with torch.no_grad():
+        for shape in BAND_SHAPES:
+            snb, sW, sb, snodes, sF = shape
+            q_row = random_quantized_band(snb, sW, sb, snodes, seed=sum(shape), device=dev)
+            xb_pad = torch.from_numpy(np.random.default_rng(snodes + sF).standard_normal(
+                (snb + 2 * sW, sF, sb)).astype(np.float32)).to(dev)
+            err = check_band_kernel("K6", bq.to_feature_major(q_row), xb_pad)
+            max_err["K6"] = max(max_err["K6"], err)
+            print(f"[12 train kernel] NB={snb} W={sW} b={sb} n={snodes} F={sF}, random non-symmetric "
+                  f"band, the whole padded frame random: K6 max|kernel-plain| = {err:.3e}", flush=True)
+        xb_full = bq._pad_blocked(bq.to_blocked(torch.nn.functional.pad(xT, (0, nb * block - n)),
+                                                block), W)
+        full = {"K6": (q, xb_full), "K4 backward": (qT, xT)}
+        for kid, operands in full.items():
+            err = check_band_kernel(kid, *operands)
+            max_err[kid] = max(max_err[kid], err)
+            print(f"[12 train kernel] {kid} at {n:,} nodes, F={xT.shape[0]}, the prepared "
+                  f"{'transposed ' if kid == 'K4 backward' else ''}band: max|kernel-plain| = "
+                  f"{err:.3e}", flush=True)
+
+    # 13. the gradient of each trainable op at a small shape
+    snb, sW, sb, snodes, sF = BAND_SHAPES[-1]
+    q_row = random_quantized_band(snb, sW, sb, snodes, seed=11, device=dev)
+    sq, sqT = bq.to_feature_major(q_row), bq.transposed_feature_major(q_row)
+    rng = np.random.default_rng(12)
+    xs, cot = (torch.from_numpy(rng.standard_normal((sF, snodes)).astype(np.float32)).to(dev)
+               for _ in range(2))
+    grads = {}
+    for label, op, arg, c in (
+        ("feature-major", bq.banded_spmm_quant_fm_grad, xs, cot),
+        ("blocked", bq.banded_spmm_quant_blocked_grad,
+         bq.to_blocked(torch.nn.functional.pad(xs, (0, snb * sb - snodes)), sb),
+         bq.to_blocked(torch.nn.functional.pad(cot, (0, snb * sb - snodes)), sb)),
+    ):
+        outs = []
+        for plain in (False, True):
+            v = arg.clone().requires_grad_()
+            out = op(sq, sqT, v, plain=plain)
+            (out * c).sum().backward()
+            torch.cuda.synchronize()
+            outs.append((out.detach(), v.grad))
+        for got, want in zip(*outs):
+            torch.testing.assert_close(got, want, rtol=BAND_RTOL, atol=BAND_ATOL)
+        grads[label] = outs[0][1]
+        print(f"[13 train op] {label} at NB={snb} W={sW} b={sb} n={snodes} F={sF}: forward and "
+              f"activation gradient, kernels against plain=True: max|diff| = "
+              f"{max(float((g - w).abs().max()) for g, w in zip(*outs)):.3e}", flush=True)
+    g_blocked = bq.from_blocked(grads["blocked"])[:, :snodes]
+    torch.testing.assert_close(g_blocked, grads["feature-major"], rtol=BAND_RTOL, atol=BAND_ATOL)
+    print(f"[13 train op] blocked against feature-major activation gradient: max|diff| = "
+          f"{float((g_blocked - grads['feature-major']).abs().max()):.3e}", flush=True)
+
+    # 14. the main path: one Adam step each way
+    labels = torch.from_numpy(np.random.default_rng(2).integers(0, 2, n)).to(dev)
+    paths = {
+        "feature-major": lambda m, plain=False: m.apply_quant_trainable(q, qT, dinv, x, plain=plain),
+        "blocked": lambda m, plain=False: m.apply_quant_trainable_blocked(q, qT, dinv, x, plain=plain),
+    }
+    expected = {"feature-major": {"K4": 2 * L, "K4 backward": L},
+                "blocked": {"K6": 2 * L}}
+    f32_loss, f32_grads = grad_step(copy.deepcopy(model0),
+                                    lambda m: m.apply_normalized(adj_norm, dinv, x), labels)
+    launched = {}
+    for label, forward in paths.items():
+        model = copy.deepcopy(model0)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        torch.cuda.synchronize()
+        reset_counters()
+        loss, step_grads = grad_step(model, forward, labels)
+        opt.step()
+        torch.cuda.synchronize()
+        launched[label] = counts()
+        check(launched[label] == {kid: expected[label].get(kid, 0) for kid in COUNTERS},
+              (label, launched[label]))
+        check(bool(torch.isfinite(loss)), (label, "loss", float(loss)))
+        plain_loss, plain_grads = grad_step(copy.deepcopy(model0),
+                                            lambda m: forward(m, plain=True), labels)
+        torch.testing.assert_close(loss, plain_loss, rtol=STEP_RTOL, atol=STEP_ATOL)
+        for name, g in step_grads.items():
+            torch.testing.assert_close(g, plain_grads[name], rtol=STEP_RTOL, atol=STEP_ATOL,
+                                       msg=f"{label} {name}")
+        loss_rel = float((loss - f32_loss).abs() / f32_loss.abs())
+        grad_rel = float(torch.linalg.norm(flat(step_grads) - flat(f32_grads))
+                         / torch.linalg.norm(flat(f32_grads)))
+        check(loss_rel < TRAIN_GATES[0] and grad_rel < TRAIN_GATES[1], (label, loss_rel, grad_rel))
+        moved = []
+        for bn, bn0 in zip(model.batch_norms, model0.batch_norms):
+            for buf in ("running_mean", "running_var"):
+                new, old = getattr(bn, buf), getattr(bn0, buf)
+                check(bool(torch.isfinite(new).all()) and not torch.equal(new, old), (label, buf))
+                moved.append(float((new - old).abs().max()))
+        print(
+            f"[14 giant training] {label}: one Adam step, loss {float(loss):.6f}, launches "
+            f"{ {k: v for k, v in launched[label].items() if v} }; against plain=True: |loss diff| "
+            f"{float((loss - plain_loss).abs()):.3e}, max|grad diff| "
+            f"{max(float((g - plain_grads[k]).abs().max()) for k, g in step_grads.items()):.3e}; "
+            f"against float32 (loss {float(f32_loss):.6f}): loss relative difference "
+            f"{loss_rel:.3e}, gradient relative Frobenius error {grad_rel:.3e}; running moments "
+            f"finite, moved by up to {max(moved):.3e}",
+            flush=True,
+        )
+
+    # 15. a short run on learnable labels
+    with torch.no_grad():
+        agg = banded_spmm(adj_norm, x[:, :1])[:, 0]
+    learnable = (agg > agg.median()).long()
+    runs = {**{label: (lambda m, f=f: f(m)) for label, f in paths.items()},
+            "float32": lambda m: m.apply_normalized(adj_norm, dinv, x)}
+    losses = {}
+    for label, forward in runs.items():
+        model = copy.deepcopy(model0)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        losses[label] = []
+        for _ in range(8):
+            opt.zero_grad(set_to_none=True)
+            loss = F.cross_entropy(forward(model), learnable)
+            loss.backward()
+            opt.step()
+            losses[label].append(loss.item())
+    for label in paths:
+        lq, lf = losses[label], losses["float32"]
+        check(lq[-1] < lq[0] and abs(lq[-1] - lf[-1]) < 0.05, (label, lq, lf))
+        print(f"[15 short run] {label}, 8 Adam steps (lr 1e-3) on learnable labels: loss "
+              f"{lq[0]:.5f} -> {lq[-1]:.5f}; float32 {lf[0]:.5f} -> {lf[-1]:.5f}; final "
+              f"|int8 - f32| = {abs(lq[-1] - lf[-1]):.3e}", flush=True)
+
+    # 16. times (nothing asserted)
+    steppers = {}
+    for label, forward in {**{k: f for k, f in paths.items()},
+                           "plain path (feature-major)": lambda m: paths["feature-major"](m, True),
+                           "float32": runs["float32"]}.items():
+        model = copy.deepcopy(model0)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+        def step(model=model, opt=opt, forward=forward):
+            opt.zero_grad(set_to_none=True)
+            F.cross_entropy(forward(model), labels).backward()
+            opt.step()
+
+        steppers[label] = step
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = dict(zip(steppers, host_ms(list(steppers.values()), iters=10)))
+    train_peak = torch.cuda.max_memory_allocated()
+    for label, ms in step_ms.items():
+        print(f"[16 times] {card} | train step {label}, {n:,} nodes, L={L}: {ms:.3f} ms/step "
+              f"({L * E / ms * 1e3:.4g} edge-messages/s) (host clock, median of 10, in turns)",
+              flush=True)
+    print(f"[16 times] max_memory_allocated over the four timed steppers {train_peak:,} B "
+          f"(set-up peak {setup_peak:,} B)", flush=True)
+    times = {}
+    with torch.no_grad():
+        for kid, (qq, xin) in full.items():
+            k = TRAIN_KERNELS[kid]
+            run_kernel = lambda k=k, qq=qq, xin=xin: k["kernel"](qq, xin)  # noqa: E731
+            run_plain = lambda k=k, qq=qq, xin=xin: k["plain"](qq, xin)  # noqa: E731
+            times[kid] = cuda_ms([run_kernel, run_plain], iters=20, warmup=3)
+            print(f"[16 times] {card} | {kid} {k['name']} at {n:,} nodes, F={GIANT['hidden']}: "
+                  f"kernel {times[kid][0]:.4f} ms, plain {times[kid][1]:.4f} ms per call (CUDA "
+                  f"events, median of 20, in turns); kernel {E / times[kid][0] / 1e6:.4g} G edges/s",
+                  flush=True)
+    for label in paths:
+        rows = device_breakdown(steppers[label], iters=3)
+        busy = sum(ms for _, ms in rows)
+        print(f"[16 times] {card} | train step {label}: device busy {busy:.3f} ms/step "
+              f"({busy / step_ms[label]:.1%} of the unprofiled step time; torch.profiler, mean of 3)",
+              flush=True)
+        for name, ms in rows[:12]:
+            print(f"[16 times]     {ms:9.4f} ms/step  {name[:200]}", flush=True)
+
+    return [
+        {
+            "name": k["name"], "route": "cuda", "source": BAND_SOURCE, "replaces": k["replaces"],
+            "launches": launched["feature-major" if kid == "K4 backward" else "blocked"][kid],
+            "max_abs_err": max_err[kid], "ms": times[kid][0], "plain_ms": times[kid][1],
+        }
+        for kid, k in TRAIN_KERNELS.items()
     ]
 
 
@@ -563,7 +852,10 @@ def main() -> None:
         )
 
     # 6-10. the giant-graph serving path
-    band_entries = giant_graph_phases(dev, card)
+    band_entries, graph = giant_graph_phases(dev, card)
+
+    # 11-16. the giant-graph training path
+    band_entries += giant_training_phases(dev, card, graph)
 
     print(json.dumps({"kernels": [
         {

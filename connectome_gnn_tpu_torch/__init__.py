@@ -5,7 +5,7 @@ as the reference.  This package imports torch and numpy, never JAX and
 never the JAX package.  Module names follow the JAX package, so each
 counterpart sits at the same relative path.
 
-Ported so far, both serving paths:
+Ported so far, both serving paths and giant-graph int8 training:
 
 * graph classification: synthetic connectomes, COO and dense batches, the
   loader, ``GCNConnectome`` and ``GraphSAGEConnectome``, and
@@ -14,7 +14,10 @@ Ported so far, both serving paths:
 * giant-graph node classification: ``generate_spatial_graph``, RCM
   reordering, the block band (``ops.banded``) and its int8 form, and
   ``BandedNodeGCN`` / ``BandedNodeSAGE``, which serve through hand-written
-  int8 band SpMM kernels (``prepare_quantized`` / ``apply_quantized``).
+  int8 band SpMM kernels (``prepare_quantized`` / ``apply_quantized``);
+  ``BandedNodeGCN`` also trains on the int8 band
+  (``prepare_quant_trainable`` / ``apply_quant_trainable`` and its blocked
+  variant), with the kernels in both directions.
 
 The kernels are CUDA C++ in ``csrc/``, built by ``nvcc`` at first use.
 
@@ -41,6 +44,15 @@ Giant graph, int8 serving:
     adj_q, dinv = model.prepare_quantized(a)
     logits = model.apply_quantized(adj_q, dinv,
                                    torch.from_numpy(g.node_features).cuda())
+
+Giant graph, one int8 training step:
+
+    model.train()
+    adj_q, adj_qT, dinv = model.prepare_quant_trainable(a)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    logits = model.apply_quant_trainable(adj_q, adj_qT, dinv, x)
+    torch.nn.functional.cross_entropy(logits, labels).backward()
+    opt.step()
 """
 
 from connectome_gnn_tpu_torch.data import (

@@ -1,9 +1,14 @@
-// Int8 band SpMM kernels K3, K4 and K5 for NVIDIA Hopper (built for sm_90a).
+// Int8 band SpMM kernels K3, K4, K5 and K6 for NVIDIA Hopper (built for sm_90a).
 //
 // Replaces the Pallas TPU kernels in connectome_gnn_tpu/ops/banded_quant.py:
 //   K3  banded_spmm_quant          (pallas_call at :820)  row-major x [N, F]
-//   K4  banded_spmm_quant_fm       (pallas_call at :284)  feature-major xT [F, N]
+//   K4  banded_spmm_quant_fm       (pallas_call at :284)  feature-major xT [F, N];
+//       also the backward of banded_spmm_quant_fm_grad (:743), launched over
+//       the transposed band
 //   K5  banded_spmm_quant_fm_w8a8  (pallas_call at :434)  K4 on int8 activations
+//   K6  banded_spmm_quant_blocked  (def at :480, pallas_call at :564)  K4 on
+//       blocked activations [NB + 2W, F, b]; forward and backward of
+//       banded_spmm_quant_blocked_grad (:639)
 //
 // Math.  The band holds, for row block rb and diagonal d in [0, 2W], one
 // b x b int8 tile and one f32 scale.  With A[r, s] the tile's weight of the
@@ -13,11 +18,14 @@
 //   out[rb*b + r, f] = sum_d scale[rb, d] * sum_s A[r, s] * X[s, f]
 //
 // K3 reads receiver-major tiles (A[r, s] at tile[r*b + s]) and node-major
-// x; K4 and K5 read transposed tiles (A[r, s] at tile[s*b + r]) and
-// feature-major activations, and write feature-major output.  K3 and K4
-// round x to bf16 (round to nearest even) and multiply in f32, where every
-// int8 x bf16 product is exact, so the only difference from the plain
-// version is the order of the f32 sums.  K5 reads activations already
+// x; K4, K5 and K6 read transposed tiles (A[r, s] at tile[s*b + r]).  K4
+// and K5 read feature-major activations and write feature-major output.
+// K6 reads blocked activations in the W-shifted padded frame,
+// x[((rb + d) * F + f) * b + s], and writes out[(rb * F + f) * b + r]; it
+// reads the whole frame, senders past num_nodes included, as the TPU
+// kernel does.  K3, K4 and K6 round x to bf16 (round to nearest even) and
+// multiply in f32, where every int8 x bf16 product is exact, so the only
+// difference from the plain version is the order of the f32 sums.  K5 reads activations already
 // quantized per column block in the W-shifted padded frame (block rb + d
 // is sender block rb + d - W; the halo blocks are zero), takes each tile's
 // dot exactly in int32 with __dp4a, and applies
@@ -29,7 +37,12 @@
 // f32) that is compute-bound at about 2.6 ms at best, far above the
 // 0.4 ms the band's bytes take at 3.35 TB/s; the int8 path does four
 // multiply-adds per __dp4a.  Tensor cores (mma / wgmma on bf16 or int8)
-// would move the bound back to memory; they are later work.
+// would move the bound back to memory; they are later work.  K6 does K4's
+// arithmetic with other addresses, and is bound the same way: on the TPU
+// the blocked layout turned strided DMA into contiguous slabs, but here
+// both layouts already stage rows of 32 contiguous senders (128 bytes) and
+// store rows of 64 contiguous receivers, so K6 is one more instantiation
+// of the same body, not a new one.
 //
 // What the design does about it.
 //   * One thread block per (row block, 64-receiver tile, 64-feature slice),
@@ -74,14 +87,18 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// kRowMajor: K3's layouts.  Otherwise K4's, and K5's with kInt8Act.
-template <bool kRowMajor, bool kInt8Act>
+// K3: kRowMajor.  K4: kFeatureMajor; K5 with kInt8Act.  K6: kBlocked.
+enum class Layout { kRowMajor, kFeatureMajor, kBlocked };
+
+template <Layout kLayout, bool kInt8Act>
 __global__ void __launch_bounds__(kThreads) band_spmm_kernel(
     const int8_t* __restrict__ band, const float* __restrict__ scales,
     const float* __restrict__ x, const int8_t* __restrict__ xq,
     const float* __restrict__ xscales, float* __restrict__ out, int W, int b,
     int F, int n, long long ldx) {
-  static_assert(!(kRowMajor && kInt8Act), "int8 activations are feature-major");
+  static_assert(!kInt8Act || kLayout == Layout::kFeatureMajor,
+                "int8 activations are feature-major");
+  constexpr bool kRowMajor = kLayout == Layout::kRowMajor;
   using Elem = std::conditional_t<kInt8Act, int, float>;
   constexpr int kRows = kInt8Act ? kTileK / 4 : kTileK;  // K5 packs 4 senders a word
   __shared__ __align__(16) Elem As[kRows][kTileM + kPad];  // As[k][m] = A[m0+m, s0+k]
@@ -94,7 +111,7 @@ __global__ void __launch_bounds__(kThreads) band_spmm_kernel(
   const int f0 = blockIdx.y * kTileN;
   const int tid = threadIdx.x;
   // neighbouring threads take neighbouring output addresses: features in
-  // the node-major output, receivers in the feature-major one
+  // the node-major output, receivers in the feature-major and blocked ones
   const int tm = kRowMajor ? tid / kGroups : tid % kGroups;
   const int tn = kRowMajor ? tid % kGroups : tid / kGroups;
 
@@ -141,8 +158,13 @@ __global__ void __launch_bounds__(kThreads) band_spmm_kernel(
           const int k = kRowMajor ? idx / kTileN : idx % kTileK;
           const long long node = first + s0 + k;
           float v = 0.f;
-          if (f0 + f < F && s0 + k < b && node >= 0 && node < n)
+          if constexpr (kLayout == Layout::kBlocked) {
+            // window block rb + d of the padded frame; no sender mask
+            if (f0 + f < F && s0 + k < b)
+              v = x[((size_t)(rb + d) * F + f0 + f) * b + s0 + k];
+          } else if (f0 + f < F && s0 + k < b && node >= 0 && node < n) {
             v = kRowMajor ? x[node * ldx + f0 + f] : x[(long long)(f0 + f) * ldx + node];
+          }
           Xs[k][f] = round_bf16(v);
         }
       }
@@ -187,6 +209,8 @@ __global__ void __launch_bounds__(kThreads) band_spmm_kernel(
       if (f >= F) continue;
       if constexpr (kRowMajor) {
         out[node * F + f] = acc[i][j];
+      } else if constexpr (kLayout == Layout::kBlocked) {
+        out[((size_t)rb * F + f) * b + r] = acc[i][j];
       } else {
         out[(long long)f * n + node] = acc[i][j];
       }
@@ -194,7 +218,7 @@ __global__ void __launch_bounds__(kThreads) band_spmm_kernel(
   }
 }
 
-template <bool kRowMajor, bool kInt8Act>
+template <Layout kLayout, bool kInt8Act>
 int launch(const int8_t* band, const float* scales, const float* x, const int8_t* xq,
            const float* xscales, float* out, int nb, int W, int b, int F, int n,
            long long ldx, void* stream) {
@@ -202,7 +226,7 @@ int launch(const int8_t* band, const float* scales, const float* x, const int8_t
     return (int)cudaErrorInvalidValue;
   const long long mtiles = (b + kTileM - 1) / kTileM;
   const dim3 grid((unsigned)(nb * mtiles), (unsigned)((F + kTileN - 1) / kTileN));
-  band_spmm_kernel<kRowMajor, kInt8Act><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  band_spmm_kernel<kLayout, kInt8Act><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       band, scales, x, xq, xscales, out, W, b, F, n, ldx);
   return (int)cudaGetLastError();
 }
@@ -214,23 +238,34 @@ extern "C" {
 int cgt_banded_spmm_quant(const int8_t* band_q, const float* scales, const float* x,
                           float* out, int nb, int W, int block, int F, int num_nodes,
                           long long ldx, void* stream) {
-  return launch<true, false>(band_q, scales, x, nullptr, nullptr, out, nb, W, block, F,
-                             num_nodes, ldx, stream);
+  return launch<Layout::kRowMajor, false>(band_q, scales, x, nullptr, nullptr, out, nb, W,
+                                          block, F, num_nodes, ldx, stream);
 }
 
 int cgt_banded_spmm_quant_fm(const int8_t* band_qT, const float* scales, const float* xT,
                              float* outT, int nb, int W, int block, int F, int num_nodes,
                              long long ldx, void* stream) {
-  return launch<false, false>(band_qT, scales, xT, nullptr, nullptr, outT, nb, W, block, F,
-                              num_nodes, ldx, stream);
+  return launch<Layout::kFeatureMajor, false>(band_qT, scales, xT, nullptr, nullptr, outT, nb,
+                                              W, block, F, num_nodes, ldx, stream);
 }
 
 int cgt_banded_spmm_quant_fm_w8a8(const int8_t* band_qT, const float* scales,
                                   const int8_t* xq, const float* xscales, float* outT,
                                   int nb, int W, int block, int F, int num_nodes,
                                   long long ldx, void* stream) {
-  return launch<false, true>(band_qT, scales, nullptr, xq, xscales, outT, nb, W, block, F,
-                             num_nodes, ldx, stream);
+  return launch<Layout::kFeatureMajor, true>(band_qT, scales, nullptr, xq, xscales, outT, nb,
+                                             W, block, F, num_nodes, ldx, stream);
+}
+
+// xb_pad [nb + 2W, F, block] float32, out [nb, F, block]; every receiver of
+// the frame is written, so num_nodes is the whole frame.
+int cgt_banded_spmm_quant_blocked(const int8_t* band_qT, const float* scales,
+                                  const float* xb_pad, float* out, int nb, int W, int block,
+                                  int F, void* stream) {
+  if (nb <= 0 || block <= 0 || (long long)nb * block > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  return launch<Layout::kBlocked, false>(band_qT, scales, xb_pad, nullptr, nullptr, out, nb, W,
+                                         block, F, nb * block, F, stream);
 }
 
 }  // extern "C"

@@ -8,12 +8,14 @@ ReLU and dropout per layer, and a per-node linear head.
 Serving runs on an int8 band (:meth:`BandedNodeGCN.prepare_quantized`,
 :meth:`BandedNodeGCN.apply_quantized`) through the hand-written kernels of
 :mod:`connectome_gnn_tpu_torch.ops.banded_quant`: K4 by default, K5 with
-``w8a8``, K3 for row-major and hybrid adjacencies.  Parameter names follow
-the port's convention: ``convs.{i}.linear.weight``, ``convs.{i}.bias``,
+``w8a8``, K3 for row-major and hybrid adjacencies.  Training runs on it too
+(:meth:`BandedNodeGCN.prepare_quant_trainable`, then
+:meth:`BandedNodeGCN.apply_quant_trainable` through K4 both ways, or
+:meth:`BandedNodeGCN.apply_quant_trainable_blocked` through K6 both ways);
+float32 training runs through :meth:`BandedNodeGCN.forward` or
+:meth:`BandedNodeGCN.apply_normalized`.  Parameter names follow the port's
+convention: ``convs.{i}.linear.weight``, ``convs.{i}.bias``,
 ``batch_norms.{i}.*``, ``head.weight``, ``head.bias``.
-
-Waiting for the training slice: ``prepare_quant_trainable``,
-``apply_quant_trainable`` and its blocked variant.
 """
 
 from __future__ import annotations
@@ -34,10 +36,13 @@ from connectome_gnn_tpu_torch.ops.banded import (
 )
 from connectome_gnn_tpu_torch.ops.banded_quant import (
     QuantizedBandedMatrixFM,
+    banded_spmm_quant_blocked_grad,
+    banded_spmm_quant_fm_grad,
     quantize_band,
     quantize_hybrid,
     serving_spmm,
     to_feature_major,
+    transposed_feature_major,
 )
 
 
@@ -143,16 +148,82 @@ class BandedNodeGCN(nn.Module):
             return self._forward_quant_fm(spmm, adj_q, dinv, x)
         return self._forward(spmm, adj_q, dinv, x, node_mask)
 
-    def _forward_quant_fm(self, spmm, adj_q, dinv, x) -> torch.Tensor:
-        """Layout-persistent serving: activations stay feature-major across
-        layers; only the input and the logits transpose."""
+    @torch.no_grad()
+    def prepare_quant_trainable(self, adjacency):
+        """One-time setup for int8-band training: GCN-normalize, quantize
+        the band once, and lay it out feature-major twice: as the forward
+        operand and, transposed, as the backward one (``x̄ = Aᵀ·ȳ``).
+        Returns ``(adj_q, adj_qT, dinv)`` for :meth:`apply_quant_trainable`
+        and :meth:`apply_quant_trainable_blocked`.  Pure bands only: a
+        :class:`HybridMatrix` raises ``ValueError``."""
+        if isinstance(adjacency, HybridMatrix):
+            raise ValueError(
+                "quantized training supports pure bands; hybrid graphs train through "
+                "forward/apply_normalized (f32)"
+            )
+        adj_norm, dinv = gcn_normalize_banded(adjacency)
+        q_row = quantize_band(adj_norm)
+        del adj_norm
+        return to_feature_major(q_row), transposed_feature_major(q_row), dinv
+
+    def apply_quant_trainable(
+        self, adj_q, adj_qT, dinv, x, *, node_mask=None, plain: bool = False
+    ) -> torch.Tensor:
+        """Differentiable int8-band forward, feature-major end to end:
+        logits ``[num_nodes, C]`` over a :meth:`prepare_quant_trainable`
+        adjacency, in the module's mode (train-mode BatchNorm updates its
+        running moments in place).  The band SpMM runs K4 forward and K4
+        over ``adj_qT`` backward; ``plain=True`` runs their plain versions
+        on any device.  In eval mode it equals :meth:`apply_quantized`."""
+        spmm = lambda q, hT: banded_spmm_quant_fm_grad(q, adj_qT, hT, plain=plain)  # noqa: E731
+        return self._forward_quant_fm(spmm, adj_q, dinv, x, node_mask)
+
+    def apply_quant_trainable_blocked(
+        self, adj_q, adj_qT, dinv, x, *, node_mask=None, plain: bool = False
+    ) -> torch.Tensor:
+        """:meth:`apply_quant_trainable` with blocked activations
+        ``[NB, F, block]`` kept between layers; every band pass, forward
+        and backward, runs K6.  ``x`` is node-major ``[N, F]`` or
+        pre-blocked ``[NB, F, block]``; ``node_mask`` is ``[num_nodes]``
+        or ``[NB·block]`` (default: the real nodes).  Logits
+        ``[num_nodes, C]``; the same numbers as the feature-major path up
+        to the order of float32 sums."""
+        n, block, nb = adj_q.num_nodes, adj_q.block, adj_q.num_blocks
+        padded = nb * block
+        if x.dim() == 2:
+            xp = x.new_zeros((padded, x.shape[1]), dtype=torch.float32)
+            xp[:n] = x[:n]
+            hb = xp.view(nb, block, -1).transpose(1, 2)
+        else:
+            hb = x
+        self_norm_b = (dinv * dinv)[:padded].view(nb, 1, block)
+        mask = torch.zeros(padded, dtype=torch.bool, device=dinv.device)
+        if node_mask is None:
+            mask[:n] = True
+        else:
+            mask[: node_mask.shape[0]] = node_mask[:padded]
+        mask_b = mask.view(nb, block)
+        for conv, norm in zip(self.convs, self.batch_norms):
+            hwb = conv.linear.weight @ hb
+            hb = (banded_spmm_quant_blocked_grad(adj_q, adj_qT, hwb, plain=plain)
+                  + self_norm_b * hwb + conv.bias[None, :, None])
+            hb = self.dropout(torch.relu(norm.forward_blocked(hb, mask_b)))
+        logits_b = self.head.weight @ hb
+        if self.head.bias is not None:
+            logits_b = logits_b + self.head.bias[None, :, None]
+        return logits_b.transpose(1, 2).reshape(padded, -1)[:n]
+
+    def _forward_quant_fm(self, spmm, adj_q, dinv, x, node_mask=None) -> torch.Tensor:
+        """Layout-persistent int8-band forward, shared by serving and
+        training: activations stay feature-major across layers; only the
+        input and the logits transpose."""
         n = adj_q.num_nodes
         self_normT = (dinv * dinv)[None, :n]
         hT = x[:n].T
         for conv, norm in zip(self.convs, self.batch_norms):
             hwT = conv.linear.weight @ hT
             hT = spmm(adj_q, hwT) + self_normT * hwT + conv.bias[:, None]
-            hT = torch.relu(norm.forward_eval_fm(hT))
+            hT = self.dropout(torch.relu(norm.forward_fm(hT, node_mask)))
         logitsT = self.head.weight @ hT
         if self.head.bias is not None:
             logitsT = logitsT + self.head.bias[:, None]

@@ -11,6 +11,8 @@ reference checkpoint loads with ``load_state_dict``.  Dropout is
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -48,14 +50,17 @@ class Dense(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Batch normalization over rows of ``x [N, F]``, ignoring the rows
-    where ``mask`` is False.
+    """Batch normalization ignoring masked-out nodes, in three layouts:
+    node-major ``x [N, F]`` (:meth:`forward`), feature-major ``xT [F, N]``
+    (:meth:`forward_fm`) and blocked ``xb [NB, F, block]``
+    (:meth:`forward_blocked`), the layouts of the int8-band training paths.
 
-    Train mode normalizes with the *biased* variance of the unmasked rows
-    and updates the running moments with the *unbiased* one (torch
+    Train mode normalizes with the *biased* variance of the unmasked nodes
+    and updates the running moments in place with the *unbiased* one (torch
     semantics).  Eval mode normalizes with the running moments.  Same
-    arithmetic as ``connectome_gnn_tpu.nn.layers.batch_norm_apply``
-    (``nn/layers.py:95-142`` of the JAX package).
+    arithmetic as ``batch_norm_apply``, ``batch_norm_apply_fm`` and
+    ``batch_norm_apply_blocked`` of the JAX package
+    (``connectome_gnn_tpu/nn/layers.py:95-218``).
     """
 
     eps = 1e-5
@@ -70,27 +75,49 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def forward_eval_fm(self, xT: torch.Tensor) -> torch.Tensor:
-        """Eval-mode normalization of FEATURE-MAJOR activations ``xT [F, N]``
-        (the quantized-band serving layout): the running moments broadcast
-        along the node axis, whatever the module's mode.  Same arithmetic
-        as ``batch_norm_eval_fm`` (``nn/layers.py:221`` of the JAX package)."""
-        y = (xT - self.running_mean[:, None]) * torch.rsqrt(self.running_var + self.eps)[:, None]
-        return y * self.weight[:, None] + self.bias[:, None]
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Node-major ``x [N, F]``; ``mask [N]`` or None (every row real)."""
+        m = None if mask is None else mask.to(x.dtype)[:, None]
+        return self._normalize(x, m, dims=(0,), shape=(-1,))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward_fm(self, xT: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Feature-major ``xT [F, N]``; ``mask [N]`` or None."""
+        m = None if mask is None else mask.to(xT.dtype)[None, :]
+        return self._normalize(xT, m, dims=(1,), shape=(-1, 1))
+
+    def forward_blocked(self, xb: torch.Tensor, mask_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Blocked ``xb [NB, F, block]``; ``mask_b [NB, block]`` or None."""
+        m = None if mask_b is None else mask_b.to(xb.dtype)[:, None, :]
+        return self._normalize(xb, m, dims=(0, 2), shape=(1, -1, 1))
+
+    def forward_eval_fm(self, xT: torch.Tensor) -> torch.Tensor:
+        """Eval-mode normalization of feature-major ``xT [F, N]`` whatever
+        the module's mode (``batch_norm_eval_fm``, ``nn/layers.py:221`` of
+        the JAX package)."""
+        return self._eval(xT, (-1, 1))
+
+    def _eval(self, x: torch.Tensor, shape) -> torch.Tensor:
+        y = (x - self.running_mean.view(shape)) * torch.rsqrt(self.running_var + self.eps).view(shape)
+        return y * self.weight.view(shape) + self.bias.view(shape)
+
+    def _normalize(self, x: torch.Tensor, m: Optional[torch.Tensor], dims, shape) -> torch.Tensor:
+        """``m`` is the float mask broadcast against ``x``; ``dims`` the node
+        axes; ``shape`` views a per-feature vector against ``x``."""
         if not self.training:
-            y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-            return y * self.weight + self.bias
-        m = mask.to(x.dtype)[:, None]
-        n = m.sum()
-        mean = (x * m).sum(dim=0) / n
-        var = torch.clamp((x * x * m).sum(dim=0) / n - mean * mean, min=0.0)  # biased
-        y = (x - mean) * torch.rsqrt(var + self.eps)
+            return self._eval(x, shape)
+        if m is None:
+            n = x.new_tensor(float(x.numel() // self.num_features))
+            sum_x, sum_x2 = x.sum(dim=dims), (x * x).sum(dim=dims)
+        else:
+            n = m.sum()
+            sum_x, sum_x2 = (x * m).sum(dim=dims), (x * x * m).sum(dim=dims)
+        mean = sum_x / n
+        var = torch.clamp(sum_x2 / n - mean * mean, min=0.0)  # biased
+        y = (x - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
         with torch.no_grad():
             # Bessel's correction only in the running update (torch semantics)
             var_unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var_unbiased)
             self.num_batches_tracked.add_(1)
-        return y * self.weight + self.bias
+        return y * self.weight.view(shape) + self.bias.view(shape)

@@ -103,9 +103,11 @@ def library() -> ctypes.CDLL:
     lib.cgt_banded_spmm_quant.argtypes = [ptr] * 4 + [i32] * 5 + [i64, ptr]
     lib.cgt_banded_spmm_quant_fm.argtypes = [ptr] * 4 + [i32] * 5 + [i64, ptr]
     lib.cgt_banded_spmm_quant_fm_w8a8.argtypes = [ptr] * 5 + [i32] * 5 + [i64, ptr]
+    lib.cgt_banded_spmm_quant_blocked.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     for entry in (
         "cgt_fused_gcn_forward", "cgt_fused_sage_forward", "cgt_banded_spmm_quant",
         "cgt_banded_spmm_quant_fm", "cgt_banded_spmm_quant_fm_w8a8",
+        "cgt_banded_spmm_quant_blocked",
     ):
         getattr(lib, entry).restype = i32
     lib.cgt_error_string.argtypes = [i32]

@@ -14,12 +14,12 @@ receiver-major: ``band[rb, d, i, j]`` is the weight of edge ``(sender =
 
 The JAX package leaves the f32 band SpMM to XLA's einsum, so here it is
 plain torch (:func:`banded_spmm`, also the oracle of the int8 kernels in
-:mod:`connectome_gnn_tpu_torch.ops.banded_quant`).  The hybrid form routes
-the out-of-band shortcuts of small-world graphs through the COO scatter
-path (:func:`hybrid_spmm`).
+:mod:`connectome_gnn_tpu_torch.ops.banded_quant`), with the JAX package's
+custom backward ``x̄ = Aᵀ·ȳ`` one diagonal at a time.  The hybrid form
+routes the out-of-band shortcuts of small-world graphs through the COO
+scatter path (:func:`hybrid_spmm`).
 
-Waiting for the training and parallel slices: ``banded_spmm``'s custom
-backward, ``transpose_banded``, ``banded_block_diag`` and
+Waiting for the parallel slice: ``banded_block_diag`` and
 ``hybrid_block_diag``.
 """
 
@@ -121,21 +121,79 @@ def pad_blocks(x: torch.Tensor, num_blocks: int, bandwidth: int, block: int) -> 
     return x_pad.view(num_blocks + 2 * bandwidth, block, F)
 
 
+class _BandedSpmm(torch.autograd.Function):
+    """``A @ x`` with the JAX package's custom backward
+    (``connectome_gnn_tpu/ops/banded.py:164-208``): it saves only the band
+    and computes ``x̄ = Aᵀ·ȳ`` one diagonal at a time, one batched matmul
+    and one static slice-add each.  The band, training data and not a
+    parameter, gets no gradient; rows of ``x`` past ``num_nodes`` get
+    zeros."""
+
+    @staticmethod
+    def forward(ctx, band: torch.Tensor, x: torch.Tensor, num_nodes: int) -> torch.Tensor:
+        nb, D, block, _ = band.shape
+        W = (D - 1) // 2
+        xb = pad_blocks(x[:num_nodes].to(torch.float32), nb, W, block)
+        out = xb.new_zeros((nb, block, xb.shape[2]))
+        for d in range(D):
+            out += torch.bmm(band[:, d].to(torch.float32), xb[d : d + nb])
+        ctx.save_for_backward(band)
+        ctx.num_nodes, ctx.x_rows = num_nodes, x.shape[0]
+        return out.reshape(nb * block, -1)[:num_nodes]
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (band,) = ctx.saved_tensors
+        nb, D, block, _ = band.shape
+        W, n, F = (D - 1) // 2, ctx.num_nodes, g.shape[1]
+        g_blocks = g.new_zeros((nb * block, F), dtype=torch.float32)
+        g_blocks[:n] = g
+        g_blocks = g_blocks.view(nb, block, F)
+        # x̄ block rb + d - W collects band[rb, d]ᵀ @ ȳ[rb]
+        xbar = g_blocks.new_zeros((nb + 2 * W, block, F))
+        for d in range(D):
+            xbar[d : d + nb] += torch.bmm(band[:, d].to(torch.float32).transpose(1, 2), g_blocks)
+        xbar = xbar[W : W + nb].reshape(nb * block, F)[:n]
+        if ctx.x_rows > n:
+            xbar = torch.cat([xbar, xbar.new_zeros((ctx.x_rows - n, F))])
+        return None, xbar, None
+
+
 def banded_spmm(a: BandedMatrix, x: torch.Tensor) -> torch.Tensor:
     """``out = A @ x`` over the block band in float32; ``[num_nodes, F]``.
 
     One batched matmul per diagonal over the shifted block windows.  A band
     stored bfloat16 (:meth:`BandedNodeGCN.prepare`) is widened one diagonal
     at a time, with float32 accumulation, as the JAX einsum does.
+    Differentiable in ``x`` through the JAX package's custom backward
+    (:class:`_BandedSpmm`), which holds only the band.
     """
-    nb, D, block, _ = a.band.shape
+    return _BandedSpmm.apply(a.band, x, a.num_nodes)
+
+
+def transpose_banded(a: BandedMatrix) -> BandedMatrix:
+    """``Aᵀ`` in banded form (same block size and bandwidth), bitwise equal
+    to the JAX package's: ``bandT[cb, d] = band[cb + d - W, 2W - d]ᵀ``,
+    and zero where ``cb + d - W`` falls off either edge."""
+    return BandedMatrix(_shift_diagonals(a.band, transpose_tiles=True), a.num_nodes, a.bandwidth)
+
+
+def _shift_diagonals(t: torch.Tensor, *, fill=0, transpose_tiles: bool = False) -> torch.Tensor:
+    """The diagonal geometry of ``Aᵀ`` for any per-(row block, diagonal)
+    array ``t [NB, 2W+1, ...]``: ``out[cb, d] = t[cb + d - W, 2W - d]``
+    (each tile transposed with ``transpose_tiles``), and ``fill`` where the
+    source row block is off the band."""
+    nb, D = t.shape[:2]
     W = (D - 1) // 2
-    n = a.num_nodes
-    xb = pad_blocks(x[:n].to(torch.float32), nb, W, block)
-    out = xb.new_zeros((nb, block, xb.shape[2]))
+    out = torch.full_like(t, fill)
     for d in range(D):
-        out += torch.bmm(a.band[:, d].to(torch.float32), xb[d : d + nb])
-    return out.reshape(nb * block, -1)[:n]
+        shift = d - W  # source row block = cb + shift
+        rows = nb - abs(shift)
+        if rows <= 0:
+            continue
+        src = t[max(shift, 0) : max(shift, 0) + rows, 2 * W - d]
+        out[max(-shift, 0) : max(-shift, 0) + rows, d] = src.transpose(1, 2) if transpose_tiles else src
+    return out
 
 
 def banded_row_sum(a: BandedMatrix) -> torch.Tensor:

@@ -1,16 +1,24 @@
-"""Int8-quantized banded SpMM: the serving kernels K3, K4 and K5.
+"""Int8-quantized banded SpMM: the kernels K3, K4, K5 and K6.
 
-The port of the serving half of ``connectome_gnn_tpu/ops/banded_quant.py``.
-The band is stored as int8 with one float32 scale per (row block,
-diagonal) tile, ``band ≈ band_q · scales[..., None, None]``: four times
-fewer band bytes than float32.  Three hand-written CUDA kernels
-(``csrc/banded_spmm.cu``) contract it with the activations:
+The port of ``connectome_gnn_tpu/ops/banded_quant.py``.  The band is
+stored as int8 with one float32 scale per (row block, diagonal) tile,
+``band ≈ band_q · scales[..., None, None]``: four times fewer band bytes
+than float32.  Four hand-written CUDA kernels (``csrc/banded_spmm.cu``)
+contract it with the activations:
 
-=====  ==============================  ===========================================
-K3     :func:`banded_spmm_quant`       ``A_q·x``, row-major ``x [N, F]``
-K4     :func:`banded_spmm_quant_fm`    ``(A_q·x)ᵀ``, feature-major ``xT [F, N]``
-K5     :func:`banded_spmm_quant_fm_w8a8`  K4 on int8 activations
-=====  ==============================  ===========================================
+=====  ==================================  =======================================
+K3     :func:`banded_spmm_quant`           ``A_q·x``, row-major ``x [N, F]``
+K4     :func:`banded_spmm_quant_fm`        ``(A_q·x)ᵀ``, feature-major ``xT [F, N]``
+K5     :func:`banded_spmm_quant_fm_w8a8`   K4 on int8 activations
+K6     :func:`banded_spmm_quant_blocked`   K4 on blocked ``xb [NB + 2W, F, block]``
+=====  ==================================  =======================================
+
+Training differentiates through the band with two autograd Functions, the
+port of the JAX package's ``custom_vjp``s: :func:`banded_spmm_quant_fm_grad`
+runs K4 forward and K4 over the transposed band backward (``x̄ = Aᵀ·ȳ``),
+:func:`banded_spmm_quant_blocked_grad` runs K6 both ways.  The transposed
+band comes from :func:`transposed_feature_major` at prepare time; the band
+gets no gradient.
 
 The arithmetic is the JAX package's (``tests/test_banded_quant.py``,
 ``_emulate``): int8 tile values are exact in float32; K3 and K4 round x to
@@ -22,19 +30,21 @@ exactly in int32, and applies ``(scale[rb, d] · xscale[rb + d]) ·
 float(dot)``; its activation scale is indexed in the W-shifted padded
 frame.
 
+K6 reads the whole padded block frame, the tail past ``num_nodes``
+included, as the TPU kernel does: its senders are not masked by
+``num_nodes`` (K3-K5 mask them).
+
 Beside each kernel sits its plain PyTorch version (``*_reference``, the
 oracle of the tests and of ``chip_smoke.py``) and a launch counter
 (``banded_spmm_quant_kernel.launches`` and its siblings, plain integers
-that grow by one per launch).  The entry points take the plain version for
-CPU tensors only; for a CUDA tensor they launch the kernel or raise.
+that grow by one per launch; ``banded_spmm_quant_fm_grad_kernel.launches``
+counts K4's backward launches, which K4's own count includes).  The entry
+points take the plain version for CPU tensors only; for a CUDA tensor they
+launch the kernel or raise.
 
-The TPU kernels' ``interpret`` and ``rows_per_step`` arguments are gone:
-they switch Pallas emulation and TPU panel tiling, and the result depends
-on them only through the order of a float32 sum.
-
-Waiting for the training slice: ``transpose_quantized``,
-``quantize_transposed_fm``, the trainable feature-major and blocked
-wrappers, ``to_blocked`` / ``from_blocked`` and K6.
+The TPU kernels' ``interpret``, ``rows_per_step`` and ``depth`` arguments
+are gone: they switch Pallas emulation and TPU panel tiling, and the
+result depends on them only through the order of a float32 sum.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ import torch
 from connectome_gnn_tpu_torch.ops.banded import (
     BandedMatrix,
     HybridMatrix,
+    _shift_diagonals,
     banded_spmm,
     pad_blocks,
     remainder_spmm,
@@ -170,6 +181,56 @@ def to_feature_major(q: QuantizedBandedMatrix) -> QuantizedBandedMatrixFM:
     )
 
 
+def transpose_quantized(q: QuantizedBandedMatrix) -> QuantizedBandedMatrix:
+    """``Aᵀ`` of an int8 band, bitwise equal to the JAX package's: the tile
+    geometry of :func:`~connectome_gnn_tpu_torch.ops.banded.
+    transpose_banded`, the scales travelling with their tiles (per-tile
+    max-abs is transpose-invariant, so this equals quantizing the float32
+    transpose), scale 1 on the shifted-in zero tiles."""
+    return QuantizedBandedMatrix(
+        _shift_diagonals(q.band_q, transpose_tiles=True), _shift_diagonals(q.scales, fill=1.0),
+        q.num_nodes, q.bandwidth,
+    )
+
+
+def transposed_feature_major(q: QuantizedBandedMatrix) -> QuantizedBandedMatrixFM:
+    """``to_feature_major(transpose_quantized(q))``, the backward operand of
+    training, without transposing a tile: the two tile transposes cancel,
+    so ``band_qT[cb, d]`` is ``q.band_q[cb + d - W, 2W - d]`` as stored.
+    One int8 band-sized copy, where the two-step route copies twice and
+    transposes 1.34 GB of tiles at a million nodes."""
+    return QuantizedBandedMatrixFM(
+        _shift_diagonals(q.band_q), _shift_diagonals(q.scales, fill=1.0), q.num_nodes, q.bandwidth
+    )
+
+
+def quantize_transposed_fm(band_norm: BandedMatrix) -> QuantizedBandedMatrixFM:
+    """Feature-major quantization of ``Aᵀ``, the backward operand of the
+    trainable quantized SpMM; bitwise equal to the JAX package's."""
+    return transposed_feature_major(quantize_band(band_norm))
+
+
+def to_blocked(xT_pad: torch.Tensor, block: int) -> torch.Tensor:
+    """``[F, NB·block]`` feature-major → ``[NB, F, block]`` blocked, the
+    layout of K6 (contiguous)."""
+    F, total = xT_pad.shape
+    return xT_pad.reshape(F, total // block, block).transpose(0, 1).contiguous()
+
+
+def from_blocked(xb: torch.Tensor) -> torch.Tensor:
+    """``[NB, F, block]`` blocked → ``[F, NB·block]`` feature-major."""
+    nb, F, block = xb.shape
+    return xb.transpose(0, 1).reshape(F, nb * block)
+
+
+def _pad_blocked(xb: torch.Tensor, W: int) -> torch.Tensor:
+    """``W`` zero blocks on each side of the node-block axis: the W-shifted
+    padded frame that K6 reads."""
+    if W == 0:
+        return xb
+    return torch.nn.functional.pad(xb, (0, 0, 0, 0, W, W))
+
+
 def quantize_activations_fm(xT_pad: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-column-block symmetric int8 quantization of padded feature-major
     activations, bitwise equal to the JAX package's: ``[F, NBwin·block]`` →
@@ -223,15 +284,38 @@ def _fm_output(out: torch.Tensor, n: int) -> torch.Tensor:
     return out.permute(1, 0, 2).reshape(F, nb * block)[:, :n]
 
 
+def _windows_times_band(q: QuantizedBandedMatrixFM, xw: torch.Tensor) -> torch.Tensor:
+    """``Σ_d scale[:, d] · (xw[d : d + NB] @ tileT[:, d])`` over float32
+    windows ``xw [NB + 2W, F, block]``: ``[NB, F, block]`` float32."""
+    nb = q.num_blocks
+    out = xw.new_zeros((nb, xw.shape[1], q.block))
+    for d in range(2 * q.bandwidth + 1):
+        dots = torch.bmm(xw[d : d + nb], q.band_qT[:, d].to(torch.float32))
+        out += q.scales[:, d, None, None] * dots
+    return out
+
+
 def banded_spmm_quant_fm_reference(q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
     """K4's arithmetic in plain torch: ``(A_q @ x)ᵀ``, ``[F, num_nodes]`` f32."""
     nb, W, block, n = q.num_blocks, q.bandwidth, q.block, q.num_nodes
     xw = _fm_windows(_pad_fm(xT[:, :n], nb, W, block, torch.bfloat16), nb, W, block)
-    out = xw.new_zeros((nb, xw.shape[1], block))
-    for d in range(2 * W + 1):
-        dots = torch.bmm(xw[d : d + nb], q.band_qT[:, d].to(torch.float32))
-        out += q.scales[:, d, None, None] * dots
-    return _fm_output(out, n)
+    return _fm_output(_windows_times_band(q, xw), n)
+
+
+def _check_blocked(kind: str, q: QuantizedBandedMatrixFM, xb_pad: torch.Tensor) -> None:
+    want = (q.num_blocks + 2 * q.bandwidth, q.block)
+    if xb_pad.dim() != 3 or (xb_pad.shape[0], xb_pad.shape[2]) != want:
+        raise ValueError(f"{kind}: activations must be [{want[0]}, F, {want[1]}], "
+                         f"got {tuple(xb_pad.shape)}")
+
+
+def banded_spmm_quant_blocked_reference(q: QuantizedBandedMatrixFM, xb_pad: torch.Tensor) -> torch.Tensor:
+    """K6's arithmetic in plain torch: ``A_q @ x`` on blocked activations
+    ``xb_pad [NB + 2W, F, block]`` in the W-shifted padded frame, rounded
+    to bf16; returns ``[NB, F, block]`` f32.  The whole frame is read, the
+    tail past ``num_nodes`` included, as the TPU kernel reads it."""
+    _check_blocked("K6 banded_spmm_quant_blocked", q, xb_pad)
+    return _windows_times_band(q, xb_pad.to(torch.bfloat16).to(torch.float32))
 
 
 def quantize_activations_padded(q: QuantizedBandedMatrixFM, xT: torch.Tensor):
@@ -362,9 +446,44 @@ def banded_spmm_quant_fm_w8a8_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tenso
     return out
 
 
+def banded_spmm_quant_fm_grad_kernel(qT: QuantizedBandedMatrixFM, gT: torch.Tensor) -> torch.Tensor:
+    """K4's backward launch: K4 over the transposed band, ``x̄ᵀ = (Aᵀ·ȳ)ᵀ``
+    for the cotangent ``gT [F, ≥num_nodes]`` float32.  Counted here and,
+    being K4, in K4's count too."""
+    before = banded_spmm_quant_fm_kernel.launches
+    out = banded_spmm_quant_fm_kernel(qT, gT)
+    banded_spmm_quant_fm_grad_kernel.launches += banded_spmm_quant_fm_kernel.launches - before
+    return out
+
+
+def banded_spmm_quant_blocked_kernel(q: QuantizedBandedMatrixFM, xb_pad: torch.Tensor) -> torch.Tensor:
+    """Launch K6 on CUDA tensors: ``A_q @ x`` for contiguous float32
+    ``xb_pad [NB + 2W, F, block]``; returns ``[NB, F, block]`` float32."""
+    kind = "K6 banded_spmm_quant_blocked"
+    _check_band(kind, q.band_qT, q.scales, xb_pad.device)
+    _check_blocked(kind, q, xb_pad)
+    F = xb_pad.shape[1]
+    if xb_pad.dtype != torch.float32 or not xb_pad.is_contiguous():
+        raise ValueError(f"{kind}: activations must be contiguous float32, got {xb_pad.dtype} "
+                         f"strides {xb_pad.stride()}")
+    if -(-F // TILE_N) > MAX_GRID_Y:
+        raise ValueError(f"{kind}: F={F} exceeds the launch grid")
+    out = torch.empty((q.num_blocks, F, q.block), dtype=torch.float32, device=xb_pad.device)
+    if F == 0:
+        return out
+    with torch.cuda.device(xb_pad.device):
+        _launch(kind, "cgt_banded_spmm_quant_blocked", q.band_qT.data_ptr(), q.scales.data_ptr(),
+                xb_pad.data_ptr(), out.data_ptr(), q.num_blocks, q.bandwidth, q.block, F,
+                _stream(xb_pad.device))
+    banded_spmm_quant_blocked_kernel.launches += 1
+    return out
+
+
 banded_spmm_quant_kernel.launches = 0
 banded_spmm_quant_fm_kernel.launches = 0
 banded_spmm_quant_fm_w8a8_kernel.launches = 0
+banded_spmm_quant_fm_grad_kernel.launches = 0
+banded_spmm_quant_blocked_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -395,6 +514,21 @@ def banded_spmm_quant_fm_w8a8(q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> t
     return banded_spmm_quant_fm_w8a8_kernel(q, xT)
 
 
+def _fm_backward(qT: QuantizedBandedMatrixFM, gT: torch.Tensor) -> torch.Tensor:
+    """K4's backward launch on CUDA tensors, its plain version on CPU ones."""
+    if gT.device.type == "cpu":
+        return banded_spmm_quant_fm_reference(qT, gT)
+    return banded_spmm_quant_fm_grad_kernel(qT, gT)
+
+
+def banded_spmm_quant_blocked(q: QuantizedBandedMatrixFM, xb_pad: torch.Tensor) -> torch.Tensor:
+    """``A_q @ x`` on blocked activations ``xb_pad [NB + 2W, F, block]``;
+    returns ``[NB, F, block]`` float32."""
+    if xb_pad.device.type == "cpu":
+        return banded_spmm_quant_blocked_reference(q, xb_pad)
+    return banded_spmm_quant_blocked_kernel(q, xb_pad)
+
+
 def hybrid_spmm_quant(a: QuantizedHybridMatrix, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
     """``A @ x`` for the quantized hybrid form: the int8 band through K3
     (its plain version with ``plain=True``), plus the float32 remainder."""
@@ -422,3 +556,70 @@ def serving_spmm(adj_q, *, w8a8: bool = False, plain: bool = False):
     if isinstance(adj_q, QuantizedHybridMatrix):
         return lambda a, x: hybrid_spmm_quant(a, x, plain=plain)
     return banded_spmm_quant_reference if plain else banded_spmm_quant
+
+
+# ---------------------------------------------------------------------------
+# Trainable wrappers: the JAX package's custom VJPs as autograd Functions
+# ---------------------------------------------------------------------------
+
+
+class _FmTrainable(torch.autograd.Function):
+    """``(A_q @ x)ᵀ`` by K4; backward ``x̄ᵀ = (Aᵀ·ȳ)ᵀ`` by K4 over ``qT``."""
+
+    @staticmethod
+    def forward(ctx, xT, q, qT, plain):
+        ctx.qT, ctx.plain, ctx.cols = qT, plain, xT.shape[1]
+        return (banded_spmm_quant_fm_reference if plain else banded_spmm_quant_fm)(q, xT)
+
+    @staticmethod
+    def backward(ctx, gT):
+        # K4 takes activations with unit inner stride
+        spmm = banded_spmm_quant_fm_reference if ctx.plain else _fm_backward
+        dxT = spmm(ctx.qT, gT.contiguous())
+        if ctx.cols > dxT.shape[1]:  # columns past num_nodes never entered the forward
+            dxT = torch.cat([dxT, dxT.new_zeros((dxT.shape[0], ctx.cols - dxT.shape[1]))], dim=1)
+        return dxT, None, None, None
+
+
+class _BlockedTrainable(torch.autograd.Function):
+    """``A_q @ x`` on blocked activations by K6; backward by K6 over ``qT``."""
+
+    @staticmethod
+    def forward(ctx, xb, q, qT, plain):
+        ctx.qT, ctx.plain = qT, plain
+        spmm = banded_spmm_quant_blocked_reference if plain else banded_spmm_quant_blocked
+        return spmm(q, _pad_blocked(xb, q.bandwidth))
+
+    @staticmethod
+    def backward(ctx, gb):
+        qT = ctx.qT
+        spmm = banded_spmm_quant_blocked_reference if ctx.plain else banded_spmm_quant_blocked
+        return spmm(qT, _pad_blocked(gb.contiguous(), qT.bandwidth)), None, None, None
+
+
+def _check_pair(q: QuantizedBandedMatrixFM, qT: QuantizedBandedMatrixFM) -> None:
+    if q.num_nodes != qT.num_nodes or q.bandwidth != qT.bandwidth:
+        raise ValueError("q and qT disagree on geometry")
+
+
+def banded_spmm_quant_fm_grad(
+    q: QuantizedBandedMatrixFM, qT: QuantizedBandedMatrixFM, xT: torch.Tensor, *, plain: bool = False
+) -> torch.Tensor:
+    """Trainable :func:`banded_spmm_quant_fm`: ``(A_q @ x)ᵀ``, ``[F,
+    num_nodes]``, differentiable in ``xT``.  Forward K4 on ``q``, backward
+    K4 on ``qT`` (from :func:`transposed_feature_major`) over the
+    cotangent; ``q`` and ``qT`` get no gradient.  ``plain=True`` runs the
+    plain versions both ways on any device."""
+    _check_pair(q, qT)
+    return _FmTrainable.apply(xT, q, qT, plain)
+
+
+def banded_spmm_quant_blocked_grad(
+    q: QuantizedBandedMatrixFM, qT: QuantizedBandedMatrixFM, xb: torch.Tensor, *, plain: bool = False
+) -> torch.Tensor:
+    """Trainable K6 on unpadded blocked activations ``xb [NB, F, block]``:
+    ``A_q @ x`` as ``[NB, F, block]``, differentiable in ``xb``; the
+    backward runs K6 on ``qT`` over the padded cotangent.  ``plain=True``
+    runs the plain versions both ways on any device."""
+    _check_pair(q, qT)
+    return _BlockedTrainable.apply(xb, q, qT, plain)
