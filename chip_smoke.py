@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and giant-graph training paths once on
-one NVIDIA card.
+"""Drive the PyTorch port's serving and giant-graph training paths, and its
+band-SpMM variants, once on one NVIDIA card.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -21,7 +21,8 @@ Phases, one line each:
    the CPU, with each kernel's launch count; then ``Trainer.evaluate``;
 5. times: each kernel and its plain version per call by CUDA events (median
    of 100 after warm-up) and as device time by ``torch.profiler``, at batch
-   16 and 512, and ``predict`` over the 64 graphs by the host clock.
+   16 and 512, beside the kernel's bound, and ``predict`` over the 64
+   graphs by the host clock.
 
 Then the giant-graph node-classification serving path, at the 5qs
 configuration of ``benchmarks/suite.py:676-737`` (1,048,576 nodes, degree
@@ -44,9 +45,12 @@ random weights from seed 0 and non-trivial BatchNorm state):
    argmax agreement, the gates of ``tests/test_banded_quant.py``);
 9. RCM at the demo size (20,000 nodes, degree 12, band 256): scramble,
    recover, bandwidth before and after;
-10. times: each band kernel and its plain version per call at full size
-   (CUDA events, median, in turns and back to back, then the card's SM
-   clock and power; device time from ``torch.profiler``), and
+10. times: each band kernel, its plain version and its library call (one
+   ``torch.bmm`` over a strided window view of the padded frame and the
+   dequantized band, checked for hidden copies; K5 has none) per call at
+   full size (CUDA events, median, in turns and back to back, then the
+   card's SM clock and power; device time from ``torch.profiler``), beside
+   the kernel's bound, and
    ``apply_quantized`` ms per forward and edge-messages/s for
    feature-major and w8a8 serving, with a device-time breakdown by kernel.
 
@@ -78,14 +82,42 @@ dropout 0; fresh weights from seed 0):
 16. times: ms per train step (host clock ending in a synchronize, median,
     in turns) for feature-major, blocked, the plain path and float32, and
     edge-messages/s (L × E / step time, ``benchmarks/suite.py:1075``); K6
-    and K4 over the transpose per call against their plain versions (CUDA
-    events); a ``torch.profiler`` device-time breakdown of one step; the
-    memory peak of training.
+    and K4 over the transpose per call against their plain versions and
+    their library call (CUDA events), beside their bound; a
+    ``torch.profiler`` device-time breakdown of one step; the memory peak
+    of training.
 
-It prints the kernels' JSON line (K1 to K6 and K4's backward), then
-``{"ok": true, "device": ...}`` as the last line.  Any failure raises and exits non-zero;
-without CUDA it fails at once.  JAX is not imported: the machine with the
-card has none.
+Then the band-SpMM variants at the 5d geometry of
+``benchmarks/quant_kernel_diag.py`` (the same graph: 1M nodes, band ±512,
+block 256, F = 64), whose path is their entry points:
+
+17. set-up: the float32 band rebuilt on the card, its bfloat16 copy and
+    its int8 quantization; bytes and the memory peak;
+18. K7 (``banded_spmm_direct`` over the float32 and the bfloat16 band),
+    B2a (``banded_spmm_bf16``), B2b (``banded_spmm_w8a8``) and B2c
+    (``banded_spmm_quant_fused_dot``, with ``wrow_bf16`` False and True)
+    against their plain versions, rtol 1e-5 / atol 1e-5, on the random
+    non-symmetric small bands; then the main path, each entry point once
+    at 1M nodes with one launch each, its output against its plain
+    version at 1e-5 and against the float32 ``banded_spmm`` under the
+    checks phase's gate (relative Frobenius error < 3e-2,
+    ``quant_kernel_diag.py:327``);
+19. times: each variant's kernel, plain version and library call per call
+    (CUDA events, median of 10, in turns; B2b has no library call),
+    G edge-messages/s and the kernel's share of its bound; the memory
+    peak.
+
+It prints the card's name and power limit, the kernels' JSON line (K1 to
+K7, K4's backward and B2a-B2c, each with its launches on the main path,
+its largest error against its plain version, its time, its plain
+version's, its bound and what bounds it, and its library call's time or
+null), then ``{"ok": true, "device": ...}`` as the last line.  The bound
+is the larger of the bytes the call must move (each input read once,
+each output written once) over 3.35 TB/s and the operations its inputs
+need (a multiply-add per nonzero band or adjacency entry) over the card's
+published peak for their type (``PEAK_OPS``).  Any failure raises
+and exits non-zero; without CUDA it fails at once.  JAX is not imported:
+the machine with the card has none.
 """
 
 from __future__ import annotations
@@ -113,8 +145,10 @@ from connectome_gnn_tpu_torch import (
 )
 from connectome_gnn_tpu_torch.data import apply_ordering, bandwidth, reverse_cuthill_mckee
 from connectome_gnn_tpu_torch.ops import _build
+from connectome_gnn_tpu_torch.ops import band_variants as bv
+from connectome_gnn_tpu_torch.ops import banded_direct as bd
 from connectome_gnn_tpu_torch.ops import banded_quant as bq
-from connectome_gnn_tpu_torch.ops.banded import banded_spmm, to_banded, to_hybrid
+from connectome_gnn_tpu_torch.ops.banded import BandedMatrix, banded_spmm, pad_blocks, to_banded, to_hybrid
 from connectome_gnn_tpu_torch.ops.fused import (
     fused_gcn_forward_reference,
     fused_gcn_kernel,
@@ -182,11 +216,52 @@ TRAIN_KERNELS = {
                plain=bq.banded_spmm_quant_blocked_reference,
                replaces="connectome_gnn_tpu/ops/banded_quant.py:564"),
 }
+#: the band variants of phases 17-19 (K7 over each band dtype, B2a-B2c):
+#: kernel wrapper, entry point, plain version, launch counter, band operand
+#: (``raw``: passed as the band tensor, num_nodes and W), the operand type
+#: of the products (for the bound), keyword arguments
+VARIANTS = {
+    "K7-f32": dict(name="banded_spmm_direct (float32 band)", kernel=bd.banded_spmm_direct_kernel,
+                   entry=bd.banded_spmm_direct, plain=bd.banded_spmm_direct_reference,
+                   counter="K7", band="f32", ops="f32",
+                   replaces="connectome_gnn_tpu/ops/banded_pallas.py:66"),
+    "K7-bf16": dict(name="banded_spmm_direct (bfloat16 band)", kernel=bd.banded_spmm_direct_kernel,
+                    entry=bd.banded_spmm_direct, plain=bd.banded_spmm_direct_reference,
+                    counter="K7", band="bf16", ops="bf16",
+                    replaces="connectome_gnn_tpu/ops/banded_pallas.py:66"),
+    "B2a": dict(name="banded_spmm_bf16", kernel=bv.banded_spmm_bf16_kernel, entry=bv.banded_spmm_bf16,
+                plain=bv.banded_spmm_bf16_reference, counter="B2a", band="bf16", raw=True, ops="bf16",
+                replaces="benchmarks/quant_kernel_diag.py:92"),
+    "B2b": dict(name="banded_spmm_w8a8", kernel=bv.banded_spmm_w8a8_kernel, entry=bv.banded_spmm_w8a8,
+                plain=bv.banded_spmm_w8a8_reference, counter="B2b", band="int8", ops="int8",
+                replaces="benchmarks/quant_kernel_diag.py:173"),
+    "B2c": dict(name="banded_spmm_quant_fused_dot", kernel=bv.banded_spmm_quant_fused_dot_kernel,
+                entry=bv.banded_spmm_quant_fused_dot, plain=bv.banded_spmm_quant_fused_dot_reference,
+                counter="B2c", band="int8", ops="bf16", replaces="benchmarks/quant_kernel_diag.py:250"),
+    "B2c wrow_bf16": dict(name="banded_spmm_quant_fused_dot (wrow_bf16)",
+                          kernel=bv.banded_spmm_quant_fused_dot_kernel,
+                          entry=bv.banded_spmm_quant_fused_dot,
+                          plain=bv.banded_spmm_quant_fused_dot_reference, counter="B2c",
+                          band="int8", ops="bf16", kw={"wrow_bf16": True},
+                          replaces="benchmarks/quant_kernel_diag.py:250"),
+}
+#: the checks phase's gate against the float32 band SpMM
+#: (benchmarks/quant_kernel_diag.py:327)
+CHECK_GATE = 3e-2
 #: every band kernel's launch counter
 COUNTERS = {"K3": bq.banded_spmm_quant_kernel, "K4": bq.banded_spmm_quant_fm_kernel,
             "K5": bq.banded_spmm_quant_fm_w8a8_kernel,
             "K4 backward": bq.banded_spmm_quant_fm_grad_kernel,
-            "K6": bq.banded_spmm_quant_blocked_kernel}
+            "K6": bq.banded_spmm_quant_blocked_kernel, "K7": bd.banded_spmm_direct_kernel,
+            "B2a": bv.banded_spmm_bf16_kernel, "B2b": bv.banded_spmm_w8a8_kernel,
+            "B2c": bv.banded_spmm_quant_fused_dot_kernel}
+#: the card's published peaks (H100 SXM at 700 W, dense): HBM bytes/s, and
+#: operations/s by the products' operand type (tensor cores for bf16 and
+#: int8, whose products are exact for int8 x bf16 too; the CUDA cores for
+#: exact float32)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+NO_LIBRARY = "none (no single PyTorch call; no batched int8 matmul)"
 
 
 def check(ok: bool, what) -> None:
@@ -294,6 +369,100 @@ def device_breakdown(fn, iters=5):
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
     return sorted(rows, key=lambda r: -r[1])
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(moved_bytes: int, ops: int, kind: str):
+    """The least time (ms) the card could take: the larger of the bytes
+    over HBM's rate and the operations over the peak for their type; and
+    which of the two it is."""
+    t_bytes, t_ops = moved_bytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def band_bound(band, scales, x_in, out_numel: int, F: int, kind: str):
+    """A band SpMM's bound: the band (every tile entry, zeros included),
+    its scales and the activations read once, the float32 output written
+    once; a multiply-add per nonzero band entry and feature, the products
+    this band's data needs (counted in slices, so the count adds no
+    band-sized temporary to the memory peak)."""
+    ops = 2 * F * sum(int(torch.count_nonzero(s)) for s in band.reshape(-1).split(1 << 26))
+    return bound(nbytes(band, scales, x_in) + 4 * out_numel, ops, kind)
+
+
+def fused_bound(kind, inputs, w):
+    """K1's or K2's bound: inputs and weights read once, the logits written
+    once; the multiply-adds of the matrix products that this batch's data
+    needs (one per nonzero adjacency entry, the weight products on the real
+    nodes only; the elementwise work left out, so the bound stays a lower
+    bound), on the CUDA cores."""
+    x, adj, mask = inputs
+    B, F = x.shape[0], x.shape[2]
+    nodes, edges = int(mask.sum()), int(torch.count_nonzero(adj))
+    L, H = w.scale.shape
+    H2, C = w.w2.shape
+    widths = [F] + [H] * (L - 1)
+    if kind == "gcn":  # h @ W, then adj_n @ hw
+        macs = sum(nodes * fin * H + edges * H for fin in widths)
+    else:  # adj @ h, then h @ W_self and agg @ W_agg
+        macs = sum(edges * fin + 2 * nodes * fin * H for fin in widths)
+    macs += B * (H * H2 + H2 * C)
+    return bound(nbytes(*inputs, *w) + 4 * B * C, 2 * macs, "f32")
+
+
+def rowmajor_library(rows, x_pad, block):
+    """One torch.bmm over strided windows: ``rows [NB, b, D·b]`` (the band
+    arranged once, receiver-major) times the view ``[NB, D·b, F]`` of the
+    padded node-major frame ``x_pad [(NB + 2W)·b, F]`` that starts each
+    window at its row block; no copy of x.  A bfloat16 band multiplies
+    bfloat16 windows into float32."""
+    nb, Db, F = rows.shape[0], rows.shape[2], x_pad.shape[1]
+    windows = x_pad.as_strided((nb, Db, F), (block * F, F, 1))
+    if rows.dtype == torch.bfloat16:
+        return lambda: torch.bmm(rows, windows, out_dtype=torch.float32)
+    return lambda: torch.bmm(rows, windows)
+
+
+def fm_library(rowsT, xT_pad, block):
+    """The feature-major form: the view ``[NB, F, D·b]`` of ``xT_pad [F,
+    (NB + 2W)·b]`` times the transposed tiles ``[NB, D·b, b]``."""
+    nb, Db = rowsT.shape[:2]
+    F, ldx = xT_pad.shape
+    windows = xT_pad.as_strided((nb, F, Db), (block, ldx, 1))
+    return lambda: torch.bmm(windows, rowsT)
+
+
+def dequantized(band_q, scales):
+    """The int8 band with its scales folded in, float32."""
+    return band_q.to(torch.float32) * scales[:, :, None, None]
+
+
+def band_rows(band):
+    """Receiver-major tiles ``[NB, D, b, b]`` as one row per receiver,
+    ``[NB, b, D·b]`` (a copy): the left operand of :func:`rowmajor_library`."""
+    nb, D, b, _ = band.shape
+    return band.permute(0, 2, 1, 3).reshape(nb, b, D * b)
+
+
+def library_kernels(fn) -> str:
+    """Whether one library call copies its operands: a hidden copy of the
+    window view would allocate beyond the output, and would run a copy or
+    elementwise kernel among those torch.profiler sees.  Resets the
+    memory peak."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - nbytes(out)
+    del out
+    names = [name for name, _ in device_breakdown(fn, iters=2)]
+    copies = [nm for nm in names if any(w in nm.lower() for w in ("copy", "memcpy", "elementwise"))]
+    seen = f"kernels {[nm[:60] for nm in names]}" if names else "no kernel seen by torch.profiler"
+    return f"{seen}; copy kernels: {copies or 'none'}; allocated beyond the output: {extra:,} B"
 
 
 def random_quantized_band(nb, W, block, n, seed, device):
@@ -476,12 +645,31 @@ def giant_graph_phases(dev, card):
           f"W={banded.bandwidth}, {banded.num_blocks} row blocks", flush=True)
 
     # 10. times (nothing asserted)
-    times = {}
+    times, bounds, lib_ms = {}, {}, {}
     for kid, (q, xin) in full.items():
         k = BAND_KERNELS[kid]
         run_kernel = lambda k=k, q=q, xin=xin: k["kernel"](q, xin)  # noqa: E731
         run_plain = lambda k=k, q=q, xin=xin: k["plain"](q, xin)  # noqa: E731
-        times[kid] = cuda_ms([run_kernel, run_plain], iters=20, warmup=3)
+        band = q.band_qT if k["feature_major"] else q.band_q
+        xread = xin[:, :n] if k["feature_major"] else xin[:n]
+        bounds[kid] = band_bound(band, q.scales, xread, n * x.shape[1], x.shape[1],
+                                 "int8" if kid == "K5" else "bf16")
+        fns, lib_note = [run_kernel, run_plain], NO_LIBRARY
+        if kid == "K3":  # receiver-major rows against node-major windows
+            rows = band_rows(dequantized(q.band_q, q.scales))
+            xpad = pad_blocks(x.to(torch.bfloat16).to(torch.float32), q.num_blocks, q.bandwidth,
+                              block).reshape(-1, x.shape[1])
+            fns.append(rowmajor_library(rows, xpad, block))
+        elif kid == "K4":  # feature-major windows against the transposed tiles
+            rows = dequantized(q.band_qT, q.scales).reshape(q.num_blocks, -1, block)
+            xpad = bq._pad_fm(xT, q.num_blocks, q.bandwidth, block, torch.bfloat16).to(torch.float32)
+            fns.append(fm_library(rows, xpad, block))
+        ms = cuda_ms(fns, iters=20, warmup=3)
+        times[kid], lib_ms[kid] = ms[:2], (ms[2] if len(ms) > 2 else None)
+        if lib_ms[kid] is not None:
+            lib_note = (f"{lib_ms[kid]:.4f} ms, one torch.bmm over the dequantized band and x rounded "
+                        f"to bf16 ({library_kernels(fns[2])})")
+            del rows, xpad, fns
         (alone,) = cuda_ms([run_kernel], iters=20, warmup=3)
         clocks = subprocess.run(
             ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
@@ -494,7 +682,8 @@ def giant_graph_phases(dev, card):
             f"median of 20, in turns; kernel back to back {alone:.4f} ms; then SM clock, max "
             f"clock, power, temperature: {clocks}); "
             f"device time kernel {dev_kernel:.4f} ms, plain {dev_plain:.4f} ms (torch.profiler, "
-            f"mean of 5); kernel {E / times[kid][0] / 1e6:.4g} G edges/s",
+            f"mean of 5); kernel {E / times[kid][0] / 1e6:.4g} G edges/s; bound {bounds[kid][0]:.4f} ms "
+            f"({bounds[kid][1]}), {bounds[kid][0] / times[kid][0]:.1%} of it; library call {lib_note}",
             flush=True,
         )
     for label, kw in (("feature-major", {}), ("w8a8", {"w8a8": True})):
@@ -520,7 +709,8 @@ def giant_graph_phases(dev, card):
         {
             "name": k["name"], "route": "cuda", "source": BAND_SOURCE, "replaces": k["replaces"],
             "launches": launches[kid], "max_abs_err": max_err[kid],
-            "ms": times[kid][0], "plain_ms": times[kid][1],
+            "ms": times[kid][0], "plain_ms": times[kid][1], "bound_ms": bounds[kid][0],
+            "bound_by": bounds[kid][1], "library_ms": lib_ms[kid],
         }
         for kid, k in BAND_KERNELS.items()
     ], graph
@@ -727,17 +917,33 @@ def giant_training_phases(dev, card, graph) -> list[dict]:
               flush=True)
     print(f"[16 times] max_memory_allocated over the four timed steppers {train_peak:,} B "
           f"(set-up peak {setup_peak:,} B)", flush=True)
-    times = {}
+    times, bounds, lib_ms, Fx = {}, {}, {}, x.shape[1]
     with torch.no_grad():
         for kid, (qq, xin) in full.items():
             k = TRAIN_KERNELS[kid]
             run_kernel = lambda k=k, qq=qq, xin=xin: k["kernel"](qq, xin)  # noqa: E731
             run_plain = lambda k=k, qq=qq, xin=xin: k["plain"](qq, xin)  # noqa: E731
-            times[kid] = cuda_ms([run_kernel, run_plain], iters=20, warmup=3)
+            # the same function in the feature-major layout: K6's padded
+            # blocked frame is the padded feature-major frame, reordered
+            if kid == "K6":
+                xread, out_numel = xin, nb * Fx * block
+                xpad = bq.from_blocked(xin).to(torch.bfloat16).to(torch.float32)
+            else:
+                xread, out_numel = xin[:, :n], Fx * n
+                xpad = bq._pad_fm(xin, nb, W, block, torch.bfloat16).to(torch.float32)
+            bounds[kid] = band_bound(qq.band_qT, qq.scales, xread, out_numel, Fx, "bf16")
+            rows = dequantized(qq.band_qT, qq.scales).reshape(nb, -1, block)
+            run_lib = fm_library(rows, xpad, block)
+            times[kid] = cuda_ms([run_kernel, run_plain, run_lib], iters=20, warmup=3)
+            lib_ms[kid] = times[kid][2]
             print(f"[16 times] {card} | {kid} {k['name']} at {n:,} nodes, F={GIANT['hidden']}: "
-                  f"kernel {times[kid][0]:.4f} ms, plain {times[kid][1]:.4f} ms per call (CUDA "
-                  f"events, median of 20, in turns); kernel {E / times[kid][0] / 1e6:.4g} G edges/s",
-                  flush=True)
+                  f"kernel {times[kid][0]:.4f} ms, plain {times[kid][1]:.4f} ms, library call "
+                  f"{lib_ms[kid]:.4f} ms per call (CUDA events, median of 20, in turns; the library "
+                  f"call is one torch.bmm of feature-major windows by the dequantized transposed tiles, "
+                  f"{library_kernels(run_lib)}); kernel {E / times[kid][0] / 1e6:.4g} G edges/s; bound "
+                  f"{bounds[kid][0]:.4f} ms ({bounds[kid][1]}), {bounds[kid][0] / times[kid][0]:.1%} "
+                  f"of it", flush=True)
+            del rows, xpad, run_lib
     for label in paths:
         rows = device_breakdown(steppers[label], iters=3)
         busy = sum(ms for _, ms in rows)
@@ -752,9 +958,175 @@ def giant_training_phases(dev, card, graph) -> list[dict]:
             "name": k["name"], "route": "cuda", "source": BAND_SOURCE, "replaces": k["replaces"],
             "launches": launched["feature-major" if kid == "K4 backward" else "blocked"][kid],
             "max_abs_err": max_err[kid], "ms": times[kid][0], "plain_ms": times[kid][1],
+            "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1], "library_ms": lib_ms[kid],
         }
         for kid, k in TRAIN_KERNELS.items()
     ]
+
+
+def random_float_band(nb, W, block, n, seed, device):
+    """A random NON-symmetric float32 band (70 % zeros; tile (0, 0) all
+    zero), so a swapped tile axis cannot go unseen."""
+    rng = np.random.default_rng(seed)
+    shape = (nb, 2 * W + 1, block, block)
+    band = (rng.standard_normal(shape) * (rng.random(shape) < 0.3)).astype(np.float32)
+    band[0, 0] = 0
+    return BandedMatrix(torch.from_numpy(band).to(device), n, W)
+
+
+def variant_operands(a: BandedMatrix) -> dict:
+    """The band operands of the variants, from one float32 band: itself,
+    its bfloat16 copy and its int8 quantization."""
+    return {"f32": a, "bf16": a._replace(band=a.band.to(torch.bfloat16)), "int8": bq.quantize_band(a)}
+
+
+def variant_call(kid, fn, ops, x):
+    """``fn`` (the kernel, entry point or plain version of variant ``kid``)
+    on ``x`` and the band operand the variant takes from ``ops``."""
+    v = VARIANTS[kid]
+    band = ops[v["band"]]
+    if v.get("raw"):
+        return fn(band.band, band.num_nodes, band.bandwidth, x)
+    return fn(band, x, **v.get("kw", {}))
+
+
+def check_variant(kid, ops, x) -> float:
+    """One variant's kernel against its plain version on the same operands;
+    returns max |kernel - plain|."""
+    v = VARIANTS[kid]
+    got = variant_call(kid, v["kernel"], ops, x)
+    torch.cuda.synchronize()
+    want = variant_call(kid, v["plain"], ops, x)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()), (kid, tuple(got.shape)))
+    torch.testing.assert_close(got, want, rtol=BAND_RTOL, atol=BAND_ATOL)
+    return float((got - want).abs().max())
+
+
+def variant_library(kid, ops, x_pad, block):
+    """Variant ``kid``'s library call, or None (B2b: no batched int8
+    matmul): one torch.bmm of the band arranged as rows (built here, outside
+    the timing) by windows of the padded frame ``x_pad``, x rounded to
+    bfloat16 where the variant rounds it."""
+    v = VARIANTS[kid]
+    if kid == "B2b":
+        return None
+    if v["band"] == "int8":
+        q = ops["int8"]
+        band = dequantized(q.band_q, q.scales)
+        if v.get("kw", {}).get("wrow_bf16"):
+            band = band.to(torch.bfloat16).to(torch.float32)
+    else:
+        band = ops[v["band"]].band
+    rows = band_rows(band)
+    if kid != "K7-f32":
+        x_pad = x_pad.to(torch.bfloat16)
+        if rows.dtype == torch.float32:
+            x_pad = x_pad.to(torch.float32)
+    return rowmajor_library(rows, x_pad, block)
+
+
+def band_variant_phases(dev, card, graph) -> list[dict]:
+    """Phases 17-19; returns the variants' entries of the JSON line."""
+    block, n, E = GIANT["block"], graph.num_nodes, graph.num_edges
+
+    # 17. set-up: the band, its bfloat16 copy and its int8 quantization
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        a = to_banded(graph.edge_index[0], graph.edge_index[1], graph.edge_weight, n, block=block,
+                      device=dev)
+        full = variant_operands(a)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    x = torch.from_numpy(graph.node_features).to(dev)
+    F_ = x.shape[1]
+    q = full["int8"]
+    print(f"[17 variants set-up] {n:,} nodes, {E:,} edges, W={a.bandwidth}, block {block}, F={F_}: "
+          f"f32 band {nbytes(a.band):,} B, bf16 band {nbytes(full['bf16'].band):,} B, int8 band and "
+          f"scales {nbytes(q.band_q, q.scales):,} B; to_banded, the bf16 copy and quantize_band "
+          f"{t_setup:.2f} s (card); max_memory_allocated {torch.cuda.max_memory_allocated():,} B",
+          flush=True)
+
+    # 18. each variant against its plain version, then the main path
+    max_err = dict.fromkeys(VARIANTS, 0.0)
+    with torch.no_grad():
+        for shape in BAND_SHAPES:
+            snb, sW, sb, snodes, sF = shape
+            ops = variant_operands(random_float_band(snb, sW, sb, snodes, seed=sum(shape), device=dev))
+            xs = torch.from_numpy(
+                np.random.default_rng(snodes + sF).standard_normal((snodes, sF)).astype(np.float32)
+            ).to(dev)
+            errs = {kid: check_variant(kid, ops, xs) for kid in VARIANTS}
+            for kid, err in errs.items():
+                max_err[kid] = max(max_err[kid], err)
+            print(f"[18 variant kernel] NB={snb} W={sW} b={sb} n={snodes} F={sF}, random non-symmetric "
+                  f"band, max|kernel-plain|: " + ", ".join(f"{kid} {e:.3e}" for kid, e in errs.items()),
+                  flush=True)
+        del ops, xs
+        # the main path: each entry point once at the 1M-node shape
+        torch.cuda.synchronize()
+        reset_counters()
+        outs, launched = {}, {}
+        for kid, v in VARIANTS.items():
+            before = counts()
+            outs[kid] = variant_call(kid, v["entry"], full, x)
+            torch.cuda.synchronize()
+            delta = {k: c - before[k] for k, c in counts().items()}
+            check(delta == {k: 1 if k == v["counter"] else 0 for k in COUNTERS}, (kid, delta))
+            launched[kid] = delta[v["counter"]]
+        print(f"[18 variant main path] launches: { {k: c for k, c in counts().items() if c} }", flush=True)
+        ref = banded_spmm(a, x)
+        ref_norm = torch.linalg.norm(ref)
+        for kid, v in VARIANTS.items():
+            out = outs[kid]
+            want = variant_call(kid, v["plain"], full, x)
+            check(out.shape == (n, F_) and bool(torch.isfinite(out).all()), (kid, tuple(out.shape)))
+            torch.testing.assert_close(out, want, rtol=BAND_RTOL, atol=BAND_ATOL)
+            err = float((out - want).abs().max())
+            max_err[kid] = max(max_err[kid], err)
+            rel = float(torch.linalg.norm(out - ref) / ref_norm)
+            check(rel < CHECK_GATE, (kid, "against the float32 banded_spmm", rel))
+            print(f"[18 variant main path] {kid} {v['name']} at {n:,} nodes, F={F_}: output "
+                  f"{tuple(out.shape)} finite, {launched[kid]} launch; max|kernel-plain| = {err:.3e}; "
+                  f"against the float32 banded_spmm: relative Frobenius error {rel:.4e} "
+                  f"(gate {CHECK_GATE})", flush=True)
+            del want
+        del ref
+
+    # 19. times (nothing asserted)
+    entries, peak = [], torch.cuda.max_memory_allocated()
+    x_pad = pad_blocks(x, a.num_blocks, a.bandwidth, block).reshape(-1, F_)
+    with torch.no_grad():
+        for kid, v in VARIANTS.items():
+            run_kernel = lambda kid=kid, v=v: variant_call(kid, v["kernel"], full, x)  # noqa: E731
+            run_plain = lambda kid=kid, v=v: variant_call(kid, v["plain"], full, x)  # noqa: E731
+            run_lib = variant_library(kid, full, x_pad, block)
+            fns = [run_kernel, run_plain] + ([run_lib] if run_lib else [])
+            ms = cuda_ms(fns, iters=10, warmup=2)
+            band = full[v["band"]]
+            b_ms, b_by = (band_bound(q.band_q, q.scales, x, n * F_, F_, v["ops"]) if v["band"] == "int8"
+                          else band_bound(band.band, None, x, n * F_, F_, v["ops"]))
+            lib_ms, lib_note = None, NO_LIBRARY
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            if run_lib:
+                lib_ms = ms[2]
+                lib_diff = float((run_lib().reshape(-1, F_)[:n] - outs[kid]).abs().max())
+                lib_note = (f"{lib_ms:.4f} ms, one torch.bmm over strided windows, max|library-kernel| "
+                            f"{lib_diff:.3e} ({library_kernels(run_lib)})")
+            print(f"[19 times] {card} | {kid} {v['name']} at {n:,} nodes, F={F_}: kernel {ms[0]:.4f} ms, "
+                  f"plain {ms[1]:.4f} ms per call (CUDA events, median of 10, in turns); kernel "
+                  f"{E / ms[0] / 1e6:.4g} G edge-messages/s; bound {b_ms:.4f} ms ({b_by}), the kernel at "
+                  f"{b_ms / ms[0]:.1%} of it; library call {lib_note}", flush=True)
+            entries.append({
+                "name": v["name"], "route": "cuda", "source": BAND_SOURCE, "replaces": v["replaces"],
+                "launches": launched[kid], "max_abs_err": max_err[kid], "ms": ms[0],
+                "plain_ms": ms[1], "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            })
+            del run_lib, fns
+    print(f"[19 times] max_memory_allocated over phases 18-19 {peak:,} B", flush=True)
+    return entries
 
 
 def main() -> None:
@@ -833,10 +1205,12 @@ def main() -> None:
         run_plain = lambda: k["plain"](*inputs, w)  # noqa: E731
         times[kind, B] = cuda_ms([run_kernel, run_plain])
         dev_kernel, dev_plain = device_ms(run_kernel), device_ms(run_plain)
+        b_ms, b_by = fused_bound(kind, inputs, w)
         print(
             f"[5 times] {card} | {kind} B={B} n=88 H=64 L=3: kernel {times[kind, B][0]:.4f} ms, "
             f"plain {times[kind, B][1]:.4f} ms per call (CUDA events, median of 100); "
-            f"device time kernel {dev_kernel:.4f} ms, plain {dev_plain:.4f} ms (torch.profiler, mean of 20)",
+            f"device time kernel {dev_kernel:.4f} ms, plain {dev_plain:.4f} ms (torch.profiler, mean of 20); "
+            f"bound {b_ms:.5f} ms ({b_by}); library call none (no single PyTorch call)",
             flush=True,
         )
     edge_messages = 3 * sum(g.num_edges for g in graphs)
@@ -857,14 +1231,20 @@ def main() -> None:
     # 11-16. the giant-graph training path
     band_entries += giant_training_phases(dev, card, graph)
 
-    print(json.dumps({"kernels": [
-        {
+    # 17-19. the band variants K7 and B2a-B2c
+    band_entries += band_variant_phases(dev, card, graph)
+
+    fused_entries = []
+    for kind, k in KERNELS.items():
+        b_ms, b_by = fused_bound(kind, *timing_inputs[kind, 16])
+        fused_entries.append({
             "name": k["name"], "route": "cuda", "source": SOURCE, "replaces": k["replaces"],
             "launches": launches[kind], "max_abs_err": max_err[kind],
-            "ms": times[kind, 16][0], "plain_ms": times[kind, 16][1],
-        }
-        for kind, k in KERNELS.items()
-    ] + band_entries}))
+            "ms": times[kind, 16][0], "plain_ms": times[kind, 16][1], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+        })
+    print(card)
+    print(json.dumps({"kernels": fused_entries + band_entries}))
     print(json.dumps({
         "ok": True,
         "device": {

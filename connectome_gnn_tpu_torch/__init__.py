@@ -5,7 +5,8 @@ as the reference.  This package imports torch and numpy, never JAX and
 never the JAX package.  Module names follow the JAX package, so each
 counterpart sits at the same relative path.
 
-Ported so far, both serving paths and giant-graph int8 training:
+Ported so far, both serving paths, giant-graph int8 training and the band
+variants:
 
 * graph classification: synthetic connectomes, COO and dense batches, the
   loader, ``GCNConnectome`` and ``GraphSAGEConnectome``, and
@@ -17,7 +18,13 @@ Ported so far, both serving paths and giant-graph int8 training:
   int8 band SpMM kernels (``prepare_quantized`` / ``apply_quantized``);
   ``BandedNodeGCN`` also trains on the int8 band
   (``prepare_quant_trainable`` / ``apply_quant_trainable`` and its blocked
-  variant), with the kernels in both directions.
+  variant), with the kernels in both directions;
+* the band-SpMM variants, which no model path calls: K7 over a float32 or
+  bfloat16 band (``ops.banded_direct``) and the bfloat16, w8a8 and
+  fused-dot band kernels B2a-B2c (``ops.band_variants``).
+
+``Trainer`` runs on ``cuda`` unless given ``device=``; without a card it
+raises rather than fall back to the CPU.
 
 The kernels are CUDA C++ in ``csrc/``, built by ``nvcc`` at first use.
 

@@ -1,6 +1,7 @@
 """Compute ops: segment reductions, COO SpMM, GCN normalization, and the
 banded giant-graph SpMMs (float32 in plain torch; int8 through the K3, K4,
-K5 and K6 kernels, and trainable through K4 and K6).
+K5 and K6 kernels, and trainable through K4 and K6; the float32 or
+bfloat16 band through K7, and the variants B2a-B2c).
 
 The fused whole-model forward kernels live in
 :mod:`connectome_gnn_tpu_torch.ops.fused`, which is not imported here:
@@ -22,6 +23,14 @@ from connectome_gnn_tpu_torch.ops.banded import (
     to_hybrid,
     transpose_banded,
 )
+from connectome_gnn_tpu_torch.ops.band_variants import (
+    banded_spmm_bf16,
+    banded_spmm_quant_fused_dot,
+    banded_spmm_quant_manual,
+    banded_spmm_w8a8,
+    quantize_x_blocks,
+)
+from connectome_gnn_tpu_torch.ops.banded_direct import banded_spmm_direct
 from connectome_gnn_tpu_torch.ops.banded_quant import (
     QuantizedBandedMatrix,
     QuantizedBandedMatrixFM,
@@ -63,13 +72,18 @@ __all__ = [
     "banded_row_sum",
     "banded_sender_degree",
     "banded_spmm",
+    "banded_spmm_bf16",
+    "banded_spmm_direct",
     "banded_spmm_quant",
     "banded_spmm_quant_blocked",
     "banded_spmm_quant_blocked_grad",
     "banded_spmm_quant_fm",
     "banded_spmm_quant_fm_grad",
     "banded_spmm_quant_fm_w8a8",
+    "banded_spmm_quant_fused_dot",
+    "banded_spmm_quant_manual",
     "banded_spmm_quant_xla",
+    "banded_spmm_w8a8",
     "coo_spmm",
     "dequantize_band",
     "from_blocked",
@@ -85,6 +99,7 @@ __all__ = [
     "quantize_band",
     "quantize_hybrid",
     "quantize_transposed_fm",
+    "quantize_x_blocks",
     "segment_mean",
     "segment_sum",
     "to_banded",

@@ -351,16 +351,22 @@ def banded_spmm_quant_fm_w8a8_reference(q: QuantizedBandedMatrixFM, xT: torch.Te
 # ---------------------------------------------------------------------------
 
 
-def _check_band(kind: str, band: torch.Tensor, scales: torch.Tensor, device) -> None:
+def _check_band(kind: str, band: torch.Tensor, scales: torch.Tensor | None, device,
+                dtypes=(torch.int8,)) -> None:
+    """Check a band ``[NB, 2W+1, b, b]`` of one of ``dtypes`` and its
+    scales ``[NB, 2W+1]`` (``None`` for a band without scales) for a launch
+    on ``device``."""
     if device.type != "cuda":
         raise ValueError(f"the {kind} kernel needs CUDA tensors, got {device}")
     nb, D, b, b2 = band.shape
-    if band.dtype != torch.int8 or b != b2 or D % 2 != 1 or not band.is_contiguous():
-        raise ValueError(f"{kind}: band must be contiguous int8 [NB, 2W+1, b, b], got "
+    if band.dtype not in dtypes or b != b2 or D % 2 != 1 or not band.is_contiguous():
+        names = " or ".join(str(t).removeprefix("torch.") for t in dtypes)
+        raise ValueError(f"{kind}: band must be contiguous {names} [NB, 2W+1, b, b], got "
                          f"{band.dtype} {tuple(band.shape)}")
-    if scales.dtype != torch.float32 or tuple(scales.shape) != (nb, D) or not scales.is_contiguous():
+    if scales is not None and (scales.dtype != torch.float32 or tuple(scales.shape) != (nb, D)
+                               or not scales.is_contiguous()):
         raise ValueError(f"{kind}: scales must be contiguous float32 [{nb}, {D}]")
-    if band.device != device or scales.device != device:
+    if band.device != device or (scales is not None and scales.device != device):
         raise ValueError(f"{kind}: band, scales and activations must share {device}")
     if nb * -(-b // TILE_M) > MAX_GRID_X:
         raise ValueError(f"{kind}: {nb} row blocks of {b} exceed the launch grid")

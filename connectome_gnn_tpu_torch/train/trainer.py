@@ -31,12 +31,20 @@ class Trainer:
     model
         The model; it is moved to ``device``.
     device
-        Where the model runs (default: the CPU).  Batches from a loader on
-        another device are moved here.
+        Where the model runs (default: ``cuda``; without a CUDA card that
+        raises ``RuntimeError``, and ``device="cpu"`` asks for the CPU).
+        Batches from a loader on another device are moved here.
     """
 
     def __init__(self, model: torch.nn.Module, device=None):
-        self.device = torch.device(device if device is not None else "cpu")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Trainer runs on the CUDA card by default and none is available; "
+                    'pass device="cpu" to run on the CPU'
+                )
+            device = "cuda"
+        self.device = torch.device(device)
         self.model = model.to(self.device)
         self._warned_unfusable = False
 

@@ -111,11 +111,22 @@ def test_trainer_moves_the_model_and_batches_to_its_device(graphs):
     assert out.shape == (10, 2) and np.isfinite(out).all()
 
 
+def test_trainer_defaults_to_the_card_and_refuses_to_fall_back(monkeypatch):
+    """``Trainer(model)`` runs on ``cuda``; without a card it raises and
+    names ``device="cpu"``, which still works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = tp.GCNConnectome(in_channels=5, hidden_dim=16)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tp.Trainer(model)
+    assert tp.Trainer(model, device="cpu").device == torch.device("cpu")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, connectome_gnn_tpu_torch, connectome_gnn_tpu_torch.ops.fused, "
         "connectome_gnn_tpu_torch.ops._build, connectome_gnn_tpu_torch.ops.banded, "
-        "connectome_gnn_tpu_torch.ops.banded_quant, connectome_gnn_tpu_torch.data.reorder, "
+        "connectome_gnn_tpu_torch.ops.banded_quant, connectome_gnn_tpu_torch.ops.banded_direct, "
+        "connectome_gnn_tpu_torch.ops.band_variants, connectome_gnn_tpu_torch.data.reorder, "
         "connectome_gnn_tpu_torch.models.node_gcn, connectome_gnn_tpu_torch.models.node_sage\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'connectome_gnn_tpu' or m.startswith('connectome_gnn_tpu.')]\n"
