@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and giant-graph training paths, and its
-band-SpMM variants, once on one NVIDIA card.
+"""Drive the PyTorch port's serving and giant-graph training paths, its
+band-SpMM variants and its band-pipeline probes, once on one NVIDIA card.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -107,8 +107,38 @@ block 256, F = 64), whose path is their entry points:
     G edge-messages/s and the kernel's share of its bound; the memory
     peak.
 
+Then the feature-major band-pipeline probes B3a-B3d of
+``benchmarks/fm_kernel_diag.py`` at its 5qm geometry (the same graph: 1M
+nodes, band ±512, block 256, F = 64), whose path is their entry points:
+
+20. set-up: the float32 band rebuilt on the card, the float32 product
+    the gate holds the variants to, then the feature-major int8 band, its
+    bfloat16 copy (``swapaxes(band / scales)``, the script's ``:603-606``),
+    the bfloat16 padded frame, its blocked form and its int8 quantization;
+    bytes and the memory peak;
+21. each B3 kernel (``fm_dma_only`` bitwise, the others at rtol 1e-5 /
+    atol 1e-5) against its plain version on random non-symmetric small
+    bands, ``fm_deep`` at each (R, S, K) and ``fm_blocked`` at each (R, S)
+    of the script's sweeps; then the main path, each entry point once at
+    1M nodes with one launch each, against its plain version and, for
+    ``fm_deep``, ``fm_blocked``, ``fm_bf16_band`` and ``fm_w8a8``, under
+    the 3e-2 gate against the float32 ``banded_spmm``; then both sweeps at
+    1M nodes against the plain version;
+22. times: each B3 kernel's wrapper, plain version, library call (the
+    feature-major ``torch.bmm`` for ``fm_deep`` and ``fm_blocked``, its
+    bfloat16 form for ``fm_bf16_band``; the others have none) and, where the
+    wrapper prepares its operands in torch first, the launch alone (CUDA
+    events, median of 10, in turns), G edge-messages/s and the share of the
+    bound (for the two probes, the bound of what their output needs: one
+    chunk for compute-only, diagonal 0's first F tile rows for dma-only);
+    the ``fm_deep`` sweep over (R, S, K), the ``fm_blocked`` sweep over
+    (R, S) and the dma-only body at each depth S with the rate at which it
+    stages the bytes it is built to stage, launches alone; staging
+    (dma-only) against arithmetic (compute-only) against both (deep); the
+    memory peak.
+
 It prints the card's name and power limit, the kernels' JSON line (K1 to
-K7, K4's backward and B2a-B2c, each with its launches on the main path,
+K7, K4's backward, B2a-B2c and B3a-B3d, each with its launches on the main path,
 its largest error against its plain version, its time, its plain
 version's, its bound and what bounds it, and its library call's time or
 null), then ``{"ok": true, "device": ...}`` as the last line.  The bound
@@ -148,6 +178,7 @@ from connectome_gnn_tpu_torch.ops import _build
 from connectome_gnn_tpu_torch.ops import band_variants as bv
 from connectome_gnn_tpu_torch.ops import banded_direct as bd
 from connectome_gnn_tpu_torch.ops import banded_quant as bq
+from connectome_gnn_tpu_torch.ops import fm_variants as fv
 from connectome_gnn_tpu_torch.ops.banded import BandedMatrix, banded_spmm, pad_blocks, to_banded, to_hybrid
 from connectome_gnn_tpu_torch.ops.fused import (
     fused_gcn_forward_reference,
@@ -248,13 +279,42 @@ VARIANTS = {
 #: the checks phase's gate against the float32 band SpMM
 #: (benchmarks/quant_kernel_diag.py:327)
 CHECK_GATE = 3e-2
+#: the feature-major band-pipeline probes of phases 20-22
+#: (benchmarks/fm_kernel_diag.py): kernel wrapper, entry point, plain version
+FM_KERNELS = {
+    "B3a dma_only": dict(name="fm_dma_only", kernel=fv.fm_dma_only_kernel, entry=fv.fm_dma_only,
+                         plain=fv.fm_dma_only_reference,
+                         replaces="benchmarks/fm_kernel_diag.py:130"),
+    "B3a bf16_band": dict(name="fm_bf16_band", kernel=fv.fm_bf16_band_kernel, entry=fv.fm_bf16_band,
+                          plain=fv.fm_bf16_band_reference,
+                          replaces="benchmarks/fm_kernel_diag.py:130"),
+    "B3a w8a8": dict(name="fm_w8a8", kernel=fv.fm_w8a8_kernel, entry=fv.fm_w8a8,
+                     plain=fv.fm_w8a8_reference, replaces="benchmarks/fm_kernel_diag.py:130"),
+    "B3b": dict(name="fm_compute_only", kernel=fv.fm_compute_only_kernel, entry=fv.fm_compute_only,
+                plain=fv.fm_compute_only_reference, replaces="benchmarks/fm_kernel_diag.py:242"),
+    "B3c": dict(name="fm_deep", kernel=fv.fm_deep_kernel, entry=fv.fm_deep,
+                plain=fv.fm_deep_reference, replaces="benchmarks/fm_kernel_diag.py:393"),
+    "B3d": dict(name="fm_blocked", kernel=fv.fm_blocked_kernel, entry=fv.fm_blocked,
+                plain=fv.fm_blocked_reference, replaces="benchmarks/fm_kernel_diag.py:495"),
+}
+FM_SOURCE = "connectome_gnn_tpu_torch/csrc/fm_pipeline.cu"
+#: the script's sweeps: fm_deep (R, S, K) at :654-657, fm_blocked (R, S) at :679
+DEEP_SWEEP = [(32, 2, 1), (32, 3, 1), (32, 4, 1), (32, 4, 4), (16, 6, 1), (16, 8, 2), (64, 3, 1)]
+BLOCKED_SWEEP = [(32, 2), (32, 4), (16, 4), (64, 2)]
+#: (num_blocks, W, block, num_nodes, F, R) of the random small bands: W = 0,
+#: 1, 2, F = 1, 5, 16, 64, ragged tails; NB = 12 at R = 2 and 4 puts chunk
+#: i* of fm_compute_only at 4 and 2
+FM_SHAPES = [(8, 1, 64, 512, 16, 4), (12, 0, 64, 700, 16, 2), (12, 2, 64, 768, 5, 4),
+             (8, 1, 64, 500, 1, 2), (8, 2, 64, 512, 64, 4)]
 #: every band kernel's launch counter
 COUNTERS = {"K3": bq.banded_spmm_quant_kernel, "K4": bq.banded_spmm_quant_fm_kernel,
             "K5": bq.banded_spmm_quant_fm_w8a8_kernel,
             "K4 backward": bq.banded_spmm_quant_fm_grad_kernel,
             "K6": bq.banded_spmm_quant_blocked_kernel, "K7": bd.banded_spmm_direct_kernel,
             "B2a": bv.banded_spmm_bf16_kernel, "B2b": bv.banded_spmm_w8a8_kernel,
-            "B2c": bv.banded_spmm_quant_fused_dot_kernel}
+            "B2c": bv.banded_spmm_quant_fused_dot_kernel, "B3a dma_only": fv.fm_dma_only_kernel,
+            "B3a bf16_band": fv.fm_bf16_band_kernel, "B3a w8a8": fv.fm_w8a8_kernel,
+            "B3b": fv.fm_compute_only_kernel, "B3c": fv.fm_deep_kernel, "B3d": fv.fm_blocked_kernel}
 #: the card's published peaks (H100 SXM at 700 W, dense): HBM bytes/s, and
 #: operations/s by the products' operand type (tensor cores for bf16 and
 #: int8, whose products are exact for int8 x bf16 too; the CUDA cores for
@@ -389,8 +449,12 @@ def band_bound(band, scales, x_in, out_numel: int, F: int, kind: str):
     once; a multiply-add per nonzero band entry and feature, the products
     this band's data needs (counted in slices, so the count adds no
     band-sized temporary to the memory peak)."""
-    ops = 2 * F * sum(int(torch.count_nonzero(s)) for s in band.reshape(-1).split(1 << 26))
-    return bound(nbytes(band, scales, x_in) + 4 * out_numel, ops, kind)
+    return bound(nbytes(band, scales, x_in) + 4 * out_numel, 2 * F * count_nonzero(band), kind)
+
+
+def count_nonzero(t) -> int:
+    """Nonzero entries, counted in slices (no band-sized temporary)."""
+    return sum(int(torch.count_nonzero(s)) for s in t.reshape(-1).split(1 << 26))
 
 
 def fused_bound(kind, inputs, w):
@@ -428,10 +492,13 @@ def rowmajor_library(rows, x_pad, block):
 
 def fm_library(rowsT, xT_pad, block):
     """The feature-major form: the view ``[NB, F, D·b]`` of ``xT_pad [F,
-    (NB + 2W)·b]`` times the transposed tiles ``[NB, D·b, b]``."""
+    (NB + 2W)·b]`` times the transposed tiles ``[NB, D·b, b]``; bfloat16
+    operands multiply into float32."""
     nb, Db = rowsT.shape[:2]
     F, ldx = xT_pad.shape
     windows = xT_pad.as_strided((nb, F, Db), (block, ldx, 1))
+    if rowsT.dtype == torch.bfloat16:
+        return lambda: torch.bmm(windows, rowsT, out_dtype=torch.float32)
     return lambda: torch.bmm(windows, rowsT)
 
 
@@ -1129,6 +1196,249 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
     return entries
 
 
+def fm_operands(q, band_bf16T, xT) -> dict:
+    """The B3 operands of one feature-major int8 band ``q``: the bfloat16
+    band, ``xT [F, n]``, its bfloat16 padded frame, the frame blocked and
+    quantized per block (the script's ``:603-606``, ``:678``, ``:734-735``)."""
+    x_pad = fv.pad_xT(xT, q.num_nodes, q.num_blocks, q.bandwidth, q.block)
+    xq, xs = fv.quantize_xT_blocks(x_pad, q.block)
+    return dict(q=q, band_bf16T=band_bf16T, xT=xT, x_pad=x_pad, xb=bq.to_blocked(x_pad, q.block),
+                xq=xq, xs=xs)
+
+
+def fm_call(kid, fn, ops, R=32, **kw):
+    """``fn`` (the kernel, entry point or plain version of B3 kernel
+    ``kid``) on its operands in ``ops``."""
+    q = ops["q"]
+    if kid == "B3a bf16_band":
+        return fn(ops["band_bf16T"], q.scales, q.num_nodes, q.bandwidth, ops["xT"], R)
+    if kid == "B3a w8a8":
+        return fn(q, ops["xq"], ops["xs"], R)
+    return fn(q, ops["xb"] if kid == "B3d" else ops["xT"], R, **kw)
+
+
+def fm_tolerance(kid) -> dict:
+    """``fm_dma_only`` (one float32 add) bitwise, the others at the band
+    kernels' 1e-5."""
+    exact = kid == "B3a dma_only"
+    return {"rtol": 0.0 if exact else BAND_RTOL, "atol": 0.0 if exact else BAND_ATOL}
+
+
+def check_fm(kid, ops, R=32, **kw) -> float:
+    """One B3 kernel against its plain version on the same operands
+    (``fm_dma_only`` bitwise); returns max |kernel - plain|."""
+    k = FM_KERNELS[kid]
+    got = fm_call(kid, k["kernel"], ops, R, **kw)
+    torch.cuda.synchronize()
+    want = fm_call(kid, k["plain"], ops, R, **kw)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()), (kid, R, kw, tuple(got.shape)))
+    torch.testing.assert_close(got, want, **fm_tolerance(kid), msg=f"{kid} R={R} {kw}")
+    return float((got - want).abs().max())
+
+
+def fm_pipeline_phases(dev, card, graph) -> list[dict]:
+    """Phases 20-22; returns the B3 kernels' entries of the JSON line."""
+    block, n, E = GIANT["block"], graph.num_nodes, graph.num_edges
+
+    # 20. set-up: the int8 band in the feature-major form, its bf16 copy, x
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        a = to_banded(graph.edge_index[0], graph.edge_index[1], graph.edge_weight, n, block=block,
+                      device=dev)
+        x = torch.from_numpy(graph.node_features).to(dev)
+        ref = banded_spmm(a, x)  # the float32 product the gate holds each variant to
+        q = bq.to_feature_major(bq.quantize_band(a))
+        # the script's bf16 band, one diagonal at a time: the int8 kernel's
+        # scale structure, a bf16 payload, tiles transposed
+        inv = 1.0 / torch.clamp_min(q.scales, 1e-30)
+        band_bf16T = torch.empty(q.band_qT.shape, dtype=torch.bfloat16, device=dev)
+        for d in range(band_bf16T.shape[1]):
+            band_bf16T[:, d] = (a.band[:, d] * inv[:, d, None, None]).to(torch.bfloat16).transpose(1, 2)
+        f32_bytes = nbytes(a.band)
+        del a, inv
+        full = fm_operands(q, band_bf16T, x.T.contiguous())
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    nb, W, F_ = q.num_blocks, q.bandwidth, x.shape[1]
+    print(f"[20 fm set-up] {n:,} nodes, {E:,} edges, W={W}, block {block}, F={F_}: f32 band "
+          f"{f32_bytes:,} B (freed), int8 transposed band and scales {nbytes(q.band_qT, q.scales):,} B, "
+          f"bf16 transposed band {nbytes(band_bf16T):,} B, bf16 padded frame "
+          f"{nbytes(full['x_pad']):,} B, blocked {nbytes(full['xb']):,} B, int8 frame and scales "
+          f"{nbytes(full['xq'], full['xs']):,} B; {t_setup:.2f} s (card); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated():,} B, {torch.cuda.memory_allocated():,} B now allocated",
+          flush=True)
+
+    # 21. each kernel against its plain version, then the main path
+    max_err = dict.fromkeys(FM_KERNELS, 0.0)
+    with torch.no_grad():
+        for shape in FM_SHAPES:
+            snb, sW, sb, snodes, sF, sR = shape
+            sq = bq.to_feature_major(random_quantized_band(snb, sW, sb, snodes, seed=sum(shape), device=dev))
+            sxT = torch.from_numpy(np.random.default_rng(snodes + sF).standard_normal(
+                (sF, snodes)).astype(np.float32)).to(dev)
+            ops = fm_operands(sq, (sq.band_qT.float() * 1.37).to(torch.bfloat16), sxT)
+            errs = {kid: check_fm(kid, ops, sR) for kid in FM_KERNELS}
+            for R, S, K in DEEP_SWEEP:
+                errs["B3c"] = max(errs["B3c"], check_fm("B3c", ops, R, depth=S, band_splits=K))
+            for R, S in BLOCKED_SWEEP:
+                errs["B3d"] = max(errs["B3d"], check_fm("B3d", ops, R, depth=S))
+            for kid, err in errs.items():
+                max_err[kid] = max(max_err[kid], err)
+            print(f"[21 fm kernel] NB={snb} W={sW} b={sb} n={snodes} F={sF} R={sR}, random non-symmetric "
+                  f"band, fm_deep at every (R, S, K) and fm_blocked at every (R, S) of the script's "
+                  f"sweeps, max|kernel-plain|: " + ", ".join(f"{kid} {e:.3e}" for kid, e in errs.items()),
+                  flush=True)
+        del ops, sq, sxT
+        # the main path: each entry point once at the 1M-node shape
+        torch.cuda.synchronize()
+        reset_counters()
+        outs = {}
+        for kid, k in FM_KERNELS.items():
+            before = counts()
+            outs[kid] = fm_call(kid, k["entry"], full)
+            torch.cuda.synchronize()
+            delta = {c: v - before[c] for c, v in counts().items()}
+            check(delta == {c: 1 if c == kid else 0 for c in COUNTERS}, (kid, delta))
+        launched = {kid: COUNTERS[kid].launches for kid in FM_KERNELS}
+        print(f"[21 fm main path] launches: { {c: v for c, v in counts().items() if v} }", flush=True)
+        ref_norm = torch.linalg.norm(ref)
+        plain_out = {}
+        for kid, k in FM_KERNELS.items():
+            out = outs[kid]
+            want = fm_call(kid, k["plain"], full)
+            check(bool(torch.isfinite(out).all()) and out.shape == want.shape, (kid, tuple(out.shape)))
+            torch.testing.assert_close(out, want, **fm_tolerance(kid), msg=kid)
+            err = float((out - want).abs().max())
+            max_err[kid] = max(max_err[kid], err)
+            gate = ""
+            if kid not in ("B3a dma_only", "B3b"):
+                nodes = bq.from_blocked(out)[:, :n] if kid == "B3d" else out
+                rel = float(torch.linalg.norm(nodes.T - ref) / ref_norm)
+                check(rel < CHECK_GATE, (kid, "against the float32 banded_spmm", rel))
+                gate = f"; against the float32 banded_spmm: relative Frobenius error {rel:.4e} (gate {CHECK_GATE})"
+            print(f"[21 fm main path] {kid} {k['name']} at {n:,} nodes, F={F_}: output {tuple(out.shape)} "
+                  f"finite, 1 launch; max|kernel-plain| = {err:.3e}{gate}", flush=True)
+            if kid in ("B3c", "B3d"):
+                plain_out[kid] = want
+        sweeps = [("B3c", (R, S, K), fv.fm_deep_kernel(q, full["xT"], R, S, K)) for R, S, K in DEEP_SWEEP]
+        sweeps += [("B3d", (R, S), fv.fm_blocked_kernel(q, full["xb"], R, S)) for R, S in BLOCKED_SWEEP]
+        for kid, config, got in sweeps:
+            torch.testing.assert_close(got, plain_out[kid], rtol=BAND_RTOL, atol=BAND_ATOL,
+                                       msg=f"{kid} {config}")
+            max_err[kid] = max(max_err[kid], float((got - plain_out[kid]).abs().max()))
+        del sweeps
+        print(f"[21 fm main path] fm_deep at each (R, S, K) of {DEEP_SWEEP} and fm_blocked at each "
+              f"(R, S) of {BLOCKED_SWEEP} at {n:,} nodes against the plain version: max|kernel-plain| "
+              f"{max_err['B3c']:.3e} and {max_err['B3d']:.3e}", flush=True)
+        del outs, plain_out, ref
+
+    # 22. times (nothing asserted)
+    R = 32
+    qb = bq.QuantizedBandedMatrixFM(band_bf16T, q.scales, n, W)
+    x_pad, xT = full["x_pad"], full["xT"]
+    x_win = fv._window0(q, xT, R)
+    nnz8, nnz16, nnz_panel = count_nonzero(q.band_qT), count_nonzero(band_bf16T), count_nonzero(q.band_qT[:R])
+    out_bytes = 4 * F_ * n
+    i_star = (nb // R - 1) // 2 * 2
+    # the two probes' bounds count what their output needs: diagonal 0's
+    # first F tile rows (dma-only), and one chunk's dots (compute-only)
+    bounds = {
+        "B3a dma_only": bound(nbytes(q.band_qT[:, 0, :F_], xT) + out_bytes, F_ * n, "f32"),
+        "B3a bf16_band": bound(nbytes(band_bf16T, q.scales, xT) + out_bytes, 2 * F_ * nnz16, "bf16"),
+        "B3a w8a8": bound(nbytes(q.band_qT, q.scales, full["xq"], full["xs"]) + out_bytes,
+                          2 * F_ * nnz8, "int8"),
+        "B3b": bound(nbytes(q.band_qT[:R], q.scales[i_star * R : (i_star + 1) * R])
+                     + 4 * F_ * (min(n, (R + W) * block) + R * block), 2 * F_ * nnz_panel, "bf16"),
+        "B3c": bound(nbytes(q.band_qT, q.scales, xT) + out_bytes, 2 * F_ * nnz8, "bf16"),
+        "B3d": bound(nbytes(q.band_qT, q.scales, full["xb"]) + out_bytes, 2 * F_ * nnz8, "bf16"),
+    }
+    # the launch alone, on operands the wrapper would build first in torch
+    alone = {
+        "B3a dma_only": lambda: fv._launch_dma_only(q, x_pad, R),
+        "B3a bf16_band": lambda: fv._launch_bf16_band(qb, x_pad, R),
+        "B3b": lambda: fv._launch_compute_only(q, x_win, R),
+        "B3c": lambda: fv._launch_deep(q, x_pad, R, 4, 1),
+    }
+    frame_bound = bound(nbytes(q.band_qT, q.scales, x_pad) + 4 * F_ * nb * block, 2 * F_ * nnz8, "bf16")
+    entries, peak, alone_ms = [], torch.cuda.max_memory_allocated(), {}
+    with torch.no_grad():
+        rows = dequantized(q.band_qT, q.scales).reshape(nb, -1, block)
+        x_pad32 = x_pad.to(torch.float32)
+        rows16 = torch.empty_like(band_bf16T)
+        for d in range(rows16.shape[1]):
+            rows16[:, d] = (band_bf16T[:, d].float() * q.scales[:, d, None, None]).to(torch.bfloat16)
+        library = {"B3c": fm_library(rows, x_pad32, block), "B3d": fm_library(rows, x_pad32, block),
+                   "B3a bf16_band": fm_library(rows16.reshape(nb, -1, block), x_pad, block)}
+        for kid, k in FM_KERNELS.items():
+            fns = [lambda kid=kid, k=k: fm_call(kid, k["kernel"], full),
+                   lambda kid=kid, k=k: fm_call(kid, k["plain"], full)]
+            run_lib = library.get(kid)
+            fns += [f for f in (run_lib, alone.get(kid)) if f is not None]
+            ms = cuda_ms(fns, iters=10, warmup=2)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            b_ms, b_by = bounds[kid]
+            lib_ms, lib_note = None, "none (no single PyTorch call computes it)"
+            if run_lib is not None:
+                lib_ms = ms[2]
+                got = fm_call(kid, k["kernel"], full)
+                lib_out = run_lib().permute(1, 0, 2).reshape(F_, nb * block)[:, :n]
+                nodes = bq.from_blocked(got)[:, :n] if kid == "B3d" else got
+                lib_note = (f"{lib_ms:.4f} ms, one torch.bmm of strided feature-major windows by the "
+                            f"{'bf16 band with its scales folded in' if kid == 'B3a bf16_band' else 'dequantized band'}, "
+                            f"max|library-kernel| {float((lib_out - nodes).abs().max()):.3e} "
+                            f"({library_kernels(run_lib)})")
+                del got, lib_out, nodes
+            if kid in alone:
+                alone_ms[kid] = ms[-1]
+            note = (f"; the launch alone on the prepared bf16 frame {alone_ms[kid]:.4f} ms" if kid in alone
+                    else "; the wrapper is the launch alone")
+            print(f"[22 times] {card} | {kid} {k['name']} at {n:,} nodes, F={F_}, R={R}: kernel {ms[0]:.4f} ms, "
+                  f"plain {ms[1]:.4f} ms per call (CUDA events, median of 10, in turns){note}; kernel "
+                  f"{E / ms[0] / 1e6:.4g} G edge-messages/s; bound {b_ms:.4f} ms ({b_by}), the kernel at "
+                  f"{b_ms / ms[0]:.1%} of it; library call {lib_note}", flush=True)
+            entries.append({
+                "name": k["name"], "route": "cuda", "source": FM_SOURCE, "replaces": k["replaces"],
+                "launches": launched[kid], "max_abs_err": max_err[kid], "ms": ms[0], "plain_ms": ms[1],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            })
+        del rows, rows16, x_pad32, library
+        # the new finding: whether pipeline depth S or band splits K move anything
+        deep = cuda_ms([lambda R=R, S=S, K=K: fv._launch_deep(q, x_pad, R, S, K) for R, S, K in DEEP_SWEEP],
+                       iters=10, warmup=2)
+        for (r, s, k), ms in zip(DEEP_SWEEP, deep):
+            print(f"[22 fm_deep sweep] {card} | R={r} S={s} K={k}: {ms:.4f} ms (launch alone, CUDA events, "
+                  f"median of 10, the seven in turns), {E / ms / 1e6:.4g} G edge-messages/s, "
+                  f"{frame_bound[0] / ms:.1%} of the bound on the bf16 frame ({frame_bound[0]:.4f} ms)",
+                  flush=True)
+        # what the dma-only ring stages by design (its output needs far less):
+        # the band once per 64-feature slice, each bf16 x block once per
+        # diagonal and 64-receiver tile (csrc/fm_pipeline.cu)
+        staged = (nbytes(q.band_qT) * -(-F_ // 64)
+                  + 2 * F_ * block * nb * (2 * W + 1) * -(-block // 64))
+        dma = cuda_ms([lambda S=S: fv._launch_dma_only(q, x_pad, R, S) for S in fv.DEPTHS],
+                      iters=10, warmup=2)
+        for S, ms in zip(fv.DEPTHS, dma):
+            print(f"[22 fm_dma_only depth] {card} | R={R} S={S}: {ms:.4f} ms (launch alone, CUDA events, "
+                  f"median of 10, the five in turns), staging {staged:,} B at {staged / ms / 1e9:.4g} TB/s",
+                  flush=True)
+        blocked = cuda_ms([lambda R=R, S=S: fv.fm_blocked_kernel(q, full["xb"], R, S) for R, S in BLOCKED_SWEEP],
+                          iters=10, warmup=2)
+        for (r, s), ms in zip(BLOCKED_SWEEP, blocked):
+            print(f"[22 fm_blocked sweep] {card} | R={r} S={s}: {ms:.4f} ms (CUDA events, median of 10, "
+                  f"the four in turns), {E / ms / 1e6:.4g} G edge-messages/s", flush=True)
+        print(f"[22 times] staging against arithmetic, launches alone: fm_dma_only "
+              f"{alone_ms['B3a dma_only']:.4f} ms, fm_compute_only {alone_ms['B3b']:.4f} ms, fm_deep "
+              f"(S=4) {alone_ms['B3c']:.4f} ms; compute-only / deep = "
+              f"{alone_ms['B3b'] / alone_ms['B3c']:.3f}, dma-only / deep = "
+              f"{alone_ms['B3a dma_only'] / alone_ms['B3c']:.3f}; dma-only stages {staged:,} B at "
+              f"{staged / alone_ms['B3a dma_only'] / 1e9:.4g} TB/s", flush=True)
+    print(f"[22 times] max_memory_allocated over phases 20-22 {peak:,} B", flush=True)
+    return entries
+
+
 def main() -> None:
     # 1. the card
     if not torch.cuda.is_available():
@@ -1233,6 +1543,9 @@ def main() -> None:
 
     # 17-19. the band variants K7 and B2a-B2c
     band_entries += band_variant_phases(dev, card, graph)
+
+    # 20-22. the feature-major band-pipeline probes B3a-B3d
+    band_entries += fm_pipeline_phases(dev, card, graph)
 
     fused_entries = []
     for kind, k in KERNELS.items():

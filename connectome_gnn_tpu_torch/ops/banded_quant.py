@@ -336,7 +336,15 @@ def banded_spmm_quant_fm_w8a8_reference(q: QuantizedBandedMatrixFM, xT: torch.Te
         raise ValueError(
             f"block {block} > {MAX_EXACT_W8A8_BLOCK}: the float32 int8 dot is no longer exact"
         )
-    xq, xscales = quantize_activations_padded(q, xT)
+    return w8a8_windows_times_band(q, *quantize_activations_padded(q, xT))
+
+
+def w8a8_windows_times_band(q: QuantizedBandedMatrixFM, xq: torch.Tensor,
+                            xscales: torch.Tensor) -> torch.Tensor:
+    """K5's arithmetic on given operands: int8 ``xq [F, (NB + 2W)·block]``
+    in the W-shifted padded frame and its block scales ``[NB + 2W]``;
+    ``Σ_d (scale[rb, d] · xscale[rb + d]) · dot`` as ``[F, num_nodes]``."""
+    nb, W, block, n = q.num_blocks, q.bandwidth, q.block, q.num_nodes
     xw = _fm_windows(xq, nb, W, block)
     out = xw.new_zeros((nb, xw.shape[1], block))
     for d in range(2 * W + 1):
