@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and giant-graph training paths, its
-band-SpMM variants and its band-pipeline probes, once on one NVIDIA card.
+band-SpMM variants, its band-pipeline probes, graph-classification
+training and the random-row gather, once on one NVIDIA card.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -137,9 +138,42 @@ nodes, band ±512, block 256, F = 64), whose path is their entry points:
     (dma-only) against arithmetic (compute-only) against both (deep); the
     memory peak.
 
+Then graph-classification training (``Trainer.fit``, which runs no
+hand-written kernel) and the random-row gather B1 of
+``benchmarks/gather_dma_experiments.py``:
+
+23. training on the card: ``examples/demo.py``'s flow (``generate_dataset(300,
+    seed=42)``, its 70/15/15 split, COO batches of 16) through ``Trainer.fit``
+    for GCN and SAGE at hidden 64, 3 layers, dropout 0.3, 30 epochs with
+    patience 8: the history is finite, the train loss falls, no step is
+    skipped; then three Adam steps with dropout 0 on the card against the
+    port on the CPU (dense and COO; loss at 1e-5, gradients and parameters
+    at rtol 1e-4 / atol 1e-5, the GCN conv biases and running means looser
+    for the reason ``step_tolerance`` gives); a batch with NaN features is
+    skipped and leaves parameters, buffers and Adam's state (its step count
+    on the card) bitwise unchanged; a fit preempted by SIGTERM and resumed
+    from its checkpoint equals an uninterrupted one bitwise (dense layout,
+    dropout 0.3); and the steps of an epoch, fed batches already on the
+    card, run under ``torch.cuda.set_sync_debug_mode("error")``;
+24. B1 (``ops.gather_dma.dma_gather``) against ``table[idx]``, bitwise: small
+    cases at every K in (4, 8, 16, 32) and C in (256, 1024), ragged L, L < C,
+    rows of 1, 2, 3, 64 and 65 elements in float32, int32 and bfloat16; an
+    index outside the table raises; then the script's three cases at full
+    size (``:245-252``), one launch each;
+25. times: ms per train step with and without the guard (host clock ending
+    in a synchronize, median, in turns), the device's busy share and a
+    ``torch.profiler`` breakdown of one step, and a GCN epoch of 256 graphs at
+    batch 16 beside ``BASELINE.md``'s torch-CPU row; for B1, the wrapper
+    (with its index check), the launch alone, the plain version and
+    ``torch.index_select`` per call (CUDA events, median, in turns) and the
+    launch and ``index_select`` by device time, with ns/row, GB/s, the bound
+    and where the table stands against the 50 MB L2, and the launch alone at
+    every (K, C).
+
 It prints the card's name and power limit, the kernels' JSON line (K1 to
-K7, K4's backward, B2a-B2c and B3a-B3d, each with its launches on the main path,
-its largest error against its plain version, its time, its plain
+K7, K4's backward, B2a-B2c, B3a-B3d and B1 at the script's three cases,
+each with its launches on the main path, its largest error against its
+plain version, its time, its plain
 version's, its bound and what bounds it, and its library call's time or
 null), then ``{"ok": true, "device": ...}`` as the last line.  The bound
 is the larger of the bytes the call must move (each input read once,
@@ -154,8 +188,10 @@ from __future__ import annotations
 
 import copy
 import json
+import signal
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -179,6 +215,7 @@ from connectome_gnn_tpu_torch.ops import band_variants as bv
 from connectome_gnn_tpu_torch.ops import banded_direct as bd
 from connectome_gnn_tpu_torch.ops import banded_quant as bq
 from connectome_gnn_tpu_torch.ops import fm_variants as fv
+from connectome_gnn_tpu_torch.ops import gather_dma as gd
 from connectome_gnn_tpu_torch.ops.banded import BandedMatrix, banded_spmm, pad_blocks, to_banded, to_hybrid
 from connectome_gnn_tpu_torch.ops.fused import (
     fused_gcn_forward_reference,
@@ -188,6 +225,7 @@ from connectome_gnn_tpu_torch.ops.fused import (
     gcn_weights,
     sage_weights,
 )
+from connectome_gnn_tpu_torch.train import reference_adam
 
 RTOL, ATOL = 1e-4, 1e-5
 #: (B, n, F, H, L): flagship batch 16 and 512, the largest fused shape, a small one
@@ -314,7 +352,8 @@ COUNTERS = {"K3": bq.banded_spmm_quant_kernel, "K4": bq.banded_spmm_quant_fm_ker
             "B2a": bv.banded_spmm_bf16_kernel, "B2b": bv.banded_spmm_w8a8_kernel,
             "B2c": bv.banded_spmm_quant_fused_dot_kernel, "B3a dma_only": fv.fm_dma_only_kernel,
             "B3a bf16_band": fv.fm_bf16_band_kernel, "B3a w8a8": fv.fm_w8a8_kernel,
-            "B3b": fv.fm_compute_only_kernel, "B3c": fv.fm_deep_kernel, "B3d": fv.fm_blocked_kernel}
+            "B3b": fv.fm_compute_only_kernel, "B3c": fv.fm_deep_kernel, "B3d": fv.fm_blocked_kernel,
+            "B1": gd.dma_gather}
 #: the card's published peaks (H100 SXM at 700 W, dense): HBM bytes/s, and
 #: operations/s by the products' operand type (tensor cores for bf16 and
 #: int8, whose products are exact for int8 x bf16 too; the CUDA cores for
@@ -322,6 +361,30 @@ COUNTERS = {"K3": bq.banded_spmm_quant_kernel, "K4": bq.banded_spmm_quant_fm_ker
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 NO_LIBRARY = "none (no single PyTorch call; no batched int8 matmul)"
+#: the demo's training flow (examples/demo.py): 300 subjects split 70/15/15,
+#: batches of 16, hidden 64, 3 layers, dropout 0.3, Adam lr 1e-3 with L2
+#: 1e-4, seed 42, 30 epochs with patience 8
+DEMO = dict(subjects=300, batch=16, hidden=64, layers=3, dropout=0.3, epochs=30, patience=8, seed=42)
+TRAIN_CLASSES = {"gcn": GCNConnectome, "sage": GraphSAGEConnectome}
+#: train steps on the card against the port on the CPU, and their
+#: tolerances (tests/test_torch_train_fit.py): the loss, then the f32 gate;
+#: a GCN conv's bias and the running means it feeds at 2·k·lr and
+#: momentum·lr·k·(k - 1) (noise gradients, ``step_tolerance``)
+TRAIN_STEPS, LOSS_ATOL = 3, 1e-5
+GCN_BIAS_ATOL = 2 * TRAIN_STEPS * 1e-3
+GCN_RUNNING_MEAN_ATOL = 0.1 * 1e-3 * TRAIN_STEPS * (TRAIN_STEPS - 1)
+#: BASELINE.md's reference row: a GCN train epoch, 256 graphs, batch 16, on 1 CPU
+BASELINE_EPOCH = dict(graphs=256, batch=16, cpu_s=0.395)
+#: B1's cases, the script's three (gather_dma_experiments.py:245-252): name, N, F, L, dtype
+GATHER_CASES = [("spmm_feature_gather", 262_144, 64, 1 << 22, "f32"),
+                ("sampler_pair_gather", 4_194_304, 2, 1 << 17, "int32"),
+                ("sampler_feature_gather", 262_144, 64, 1 << 17, "f32")]
+#: (N, F, L) of the small checks: ragged L, L < C, L = 1, rows of 1, 2, 3, 64, 65
+GATHER_SMALL = [(4096, 64, 5000), (4096, 65, 3000), (1000, 3, 1025), (16384, 2, 700), (500, 1, 257),
+                (300, 64, 1)]
+GATHER_SOURCE = "connectome_gnn_tpu_torch/csrc/row_gather.cu"
+GATHER_REPLACES = "benchmarks/gather_dma_experiments.py:91"
+L2_BYTES = 50e6
 
 
 def check(ok: bool, what) -> None:
@@ -394,10 +457,9 @@ def host_ms(fns, iters=20):
     return [statistics.median(ts) for ts in times]
 
 
-def device_ms(fn, iters=20):
-    """Device time (ms) per call: the kernels and copies it puts on the
-    card, from torch.profiler (CUDA-typed events only; a CPU op's device
-    time repeats its kernels')."""
+def profiled(fn, iters):
+    """A torch.profiler profile of ``iters`` calls of ``fn`` (after one
+    unprofiled call)."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -406,29 +468,33 @@ def device_ms(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    busy_us = sum(
-        e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-    )
-    return busy_us / 1e3 / iters
+    return prof
+
+
+def device_rows(prof, iters):
+    """Device time (ms) per call by kernel name, largest first: CUDA-typed
+    events only (a CPU op's device time repeats its kernels'), without the
+    device-side ranges of user annotations such as
+    ``Optimizer.step#Adam.step``, which span kernels already counted."""
+    annotations = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
+    rows = [
+        (e.key, e.self_device_time_total / 1e3 / iters)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 and e.key not in annotations
+    ]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def device_ms(fn, iters=20):
+    """Device time (ms) per call: the kernels and copies it puts on the
+    card, from torch.profiler (:func:`device_rows`)."""
+    return sum(ms for _, ms in device_rows(profiled(fn, iters), iters))
 
 
 def device_breakdown(fn, iters=5):
     """Device time (ms) per call by kernel name, largest first, from
-    torch.profiler (CUDA-typed events only)."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [
-        (e.key, e.self_device_time_total / 1e3 / iters)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    return sorted(rows, key=lambda r: -r[1])
+    torch.profiler (:func:`device_rows`)."""
+    return device_rows(profiled(fn, iters), iters)
 
 
 def nbytes(*tensors) -> int:
@@ -1439,6 +1505,323 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
     return entries
 
 
+def demo_split(graphs):
+    """``examples/demo.py``'s 70 / 15 / 15 split."""
+    n_train, n_val = int(0.7 * len(graphs)), int(0.15 * len(graphs))
+    return graphs[:n_train], graphs[n_train : n_train + n_val], graphs[n_train + n_val :]
+
+
+def train_model(kind, dropout, seed=0):
+    """A classifier at the demo's width (hidden 64, 3 layers), weights from ``seed``."""
+    return TRAIN_CLASSES[kind](in_channels=5, hidden_dim=DEMO["hidden"], num_classes=2,
+                               num_layers=DEMO["layers"], dropout=dropout,
+                               generator=torch.Generator().manual_seed(seed))
+
+
+def training_state(trainer) -> dict:
+    """Parameters, buffers and optimizer state (Adam's step count
+    included), cloned, by name."""
+    out = {f"model/{k}": v.clone() for k, v in trainer.model.state_dict().items()}
+    for i, state in trainer.optimizer.state_dict()["state"].items():
+        out.update({f"opt/{i}/{k}": v.clone() for k, v in state.items()})
+    return out
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def step_tolerance(kind, name) -> dict:
+    """A GCN conv's bias is followed directly by masked BatchNorm, so the
+    loss does not depend on it: its gradient is float32 noise, different on
+    the card and the CPU, which Adam turns into steps of up to lr either
+    way (``tests/test_torch_train_fit.py``)."""
+    if kind == "gcn" and name.startswith("convs.") and name.endswith(".bias"):
+        return dict(rtol=0.0, atol=GCN_BIAS_ATOL)
+    if kind == "gcn" and name.endswith("running_mean"):
+        return dict(rtol=0.0, atol=GCN_RUNNING_MEAN_ATOL)
+    return dict(rtol=RTOL, atol=ATOL)
+
+
+class PreemptingLoader:
+    """Delegates to a loader and raises SIGTERM as epoch ``fire_at``
+    (0-based) begins: a preemption arriving mid-epoch."""
+
+    def __init__(self, inner, fire_at):
+        self.inner, self.fire_at, self.epoch = inner, fire_at, 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+        self.inner.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __iter__(self):
+        for i, batch in enumerate(self.inner):
+            if i == 0 and self.epoch == self.fire_at:
+                signal.raise_signal(signal.SIGTERM)
+            yield batch
+
+
+def graph_training_phases(dev, card) -> None:
+    """Phase 23 and the training half of phase 25."""
+    t_start = time.perf_counter()
+    # 23. training on the card: the demo's flow
+    graphs = generate_dataset(num_subjects=DEMO["subjects"], seed=DEMO["seed"])
+    train_g, val_g, test_g = demo_split(graphs)
+    for kind in TRAIN_CLASSES:
+        train = ConnectomeDataLoader(train_g, batch_size=DEMO["batch"], shuffle=True, seed=DEMO["seed"])
+        val = ConnectomeDataLoader(val_g, batch_size=DEMO["batch"], shuffle=False)
+        test = ConnectomeDataLoader(test_g, batch_size=DEMO["batch"], shuffle=False)
+        trainer = Trainer(train_model(kind, DEMO["dropout"]), optimizer=reference_adam(1e-3, 1e-4),
+                          seed=DEMO["seed"], device=dev)
+        t0 = time.perf_counter()
+        hist = trainer.fit(train, val, num_epochs=DEMO["epochs"], patience=DEMO["patience"], verbose=False)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        ev = trainer.evaluate(test)
+        losses = hist["train_loss"]
+        check(np.isfinite(losses + hist["val_loss"]).all(), (kind, hist))
+        check(min(losses[1:]) < losses[0], (kind, "train loss did not fall", losses))
+        check(set(hist["skipped_steps"]) == {0}, (kind, hist["skipped_steps"]))
+        print(f"[23 training] {kind} fit on the card, demo flow ({len(train_g)}/{len(val_g)}/{len(test_g)} "
+              f"graphs, COO batches of {DEMO['batch']}, hidden {DEMO['hidden']}, L={DEMO['layers']}, dropout "
+              f"{DEMO['dropout']}): {len(losses)} epochs in {t_fit:.2f} s, train loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} (least {min(losses):.4f}), best val loss {min(hist['val_loss']):.4f}, "
+              f"skipped steps 0; test accuracy {ev['accuracy']:.3f} ({ev['correct']}/{ev['total']})",
+              flush=True)
+
+    # three steps with dropout 0 on the card against the port on the CPU
+    data = graphs[: TRAIN_STEPS * DEMO["batch"]]
+    for kind in TRAIN_CLASSES:
+        for layout in ("dense", "coo"):
+            model = train_model(kind, 0.0)
+            on_cpu = Trainer(copy.deepcopy(model), device="cpu", prefetch_depth=0)
+            on_card = Trainer(model, device=dev, prefetch_depth=0)
+            worst_loss, worst_grad = 0.0, 0.0
+            for batch in ConnectomeDataLoader(data, batch_size=DEMO["batch"], shuffle=False, layout=layout):
+                want, got = on_cpu.train_epoch([batch]), on_card.train_epoch([batch])
+                worst_loss = max(worst_loss, abs(got - want))
+                check(abs(got - want) <= LOSS_ATOL, (kind, layout, "loss", got, want))
+                for (name, pc), pg in zip(on_cpu.model.named_parameters(), on_card.model.parameters()):
+                    torch.testing.assert_close(pg.grad.cpu(), pc.grad, rtol=RTOL, atol=ATOL,
+                                               msg=f"{kind} {layout} gradient {name}")
+                    worst_grad = max(worst_grad, float((pg.grad.cpu() - pc.grad).abs().max()))
+            card_state = on_card.model.state_dict()
+            worst_param = 0.0
+            for name, value in on_cpu.model.state_dict().items():
+                torch.testing.assert_close(card_state[name].cpu(), value, **step_tolerance(kind, name),
+                                           msg=f"{kind} {layout} {name} after {TRAIN_STEPS} steps")
+                if step_tolerance(kind, name)["rtol"]:
+                    worst_param = max(worst_param, float((card_state[name].cpu() - value).abs().max()))
+            step = on_card.optimizer.state[next(on_card.model.parameters())]["step"]
+            check(step.device.type == dev.type and float(step) == TRAIN_STEPS, (kind, layout, step))
+            print(f"[23 training] {kind} {layout}: {TRAIN_STEPS} Adam steps on the card against the port on "
+                  f"the CPU (dropout 0, TF32 off): max|loss| {worst_loss:.3e} (atol {LOSS_ATOL}), "
+                  f"max|gradient| {worst_grad:.3e} (rtol {RTOL} / atol {ATOL}), max|parameter or moment| "
+                  f"{worst_param:.3e} apart from the GCN conv biases and running means (atol "
+                  f"{GCN_BIAS_ATOL} / {GCN_RUNNING_MEAN_ATOL}, noise gradients); Adam's step on the card",
+                  flush=True)
+
+    # a poisoned batch is skipped: a bitwise no-op, Adam's step count included
+    poisoned = copy.deepcopy(graphs[: 2 * DEMO["batch"]])
+    poisoned[DEMO["batch"] + 3].node_features[:] = np.nan
+    clean, bad = ConnectomeDataLoader(poisoned, batch_size=DEMO["batch"], shuffle=False, layout="dense",
+                                      device=dev)
+    trainer = Trainer(train_model("gcn", DEMO["dropout"]), device=dev, prefetch_depth=0)
+    trainer.train_epoch([clean])
+    before = training_state(trainer)
+    loss, n, ok = trainer._train_step(bad)
+    check((float(loss), float(n), float(ok)) == (0.0, 0.0, 0.0), ("rejected step", loss, n, ok))
+    check(same_bits(before, training_state(trainer)), "a rejected step changed the training state")
+    check(trainer.train_epoch([bad]) == 0.0 and trainer.last_skipped_steps == 1, "skip count")
+    check(same_bits(before, training_state(trainer)), "a skipped epoch changed the training state")
+    step = trainer.optimizer.state[next(trainer.model.parameters())]["step"]
+    print(f"[23 training] poisoned batch (NaN features): step rejected, loss 0, n 0, skipped 1; parameters, "
+          f"buffers and Adam state bitwise unchanged ({len(before)} tensors; Adam's step {float(step):.0f}, "
+          f"on {step.device})", flush=True)
+
+    # preempted, then resumed: bitwise equal to an uninterrupted run (dense)
+    data = graphs[: 6 * DEMO["batch"]]
+
+    def loaders():
+        kw = dict(batch_size=DEMO["batch"], layout="dense", device=dev)
+        return (ConnectomeDataLoader(data[: 4 * DEMO["batch"]], shuffle=True, seed=0, **kw),
+                ConnectomeDataLoader(data[4 * DEMO["batch"] :], shuffle=False, **kw))
+
+    def make_trainer():
+        return Trainer(train_model("gcn", DEMO["dropout"]), seed=3, device=dev)
+
+    ref = make_trainer()
+    h_ref = ref.fit(*loaders(), num_epochs=4, patience=10, verbose=False)
+    with tempfile.TemporaryDirectory() as ckpt:
+        train, val = loaders()
+        h_first = make_trainer().fit(PreemptingLoader(train, fire_at=1), val, num_epochs=4, patience=10,
+                                     verbose=False, checkpoint_dir=ckpt)
+        check(len(h_first["train_loss"]) == 2, ("preempted run", h_first))
+        resumed = make_trainer()
+        h_resumed = resumed.fit(*loaders(), num_epochs=4, patience=10, verbose=False, checkpoint_dir=ckpt,
+                                resume=True)
+    check(h_resumed == h_ref, ("resumed history", h_resumed, h_ref))
+    check(same_bits(training_state(resumed), training_state(ref)), "resumed state differs")
+    check(torch.equal(resumed.generator.get_state(), ref.generator.get_state()), "generator state")
+    print(f"[23 training] preempted at epoch 2 (SIGTERM), checkpointed, resumed by a new Trainer: history and "
+          f"every parameter, buffer, Adam state and the dropout generator bitwise equal to an uninterrupted "
+          f"4-epoch run (dense layout, dropout {DEMO['dropout']})", flush=True)
+
+    # the steps of an epoch make no host sync (batches already on the card)
+    batches = list(ConnectomeDataLoader(train_g, batch_size=DEMO["batch"], shuffle=False, layout="dense",
+                                        device=dev))
+    trainer = Trainer(train_model("gcn", DEMO["dropout"]), device=dev, prefetch_depth=0)
+    trainer.train_epoch(batches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sums, steps = trainer._train_steps(batches)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    total, count, oks = sums.tolist()
+    check(steps == len(batches) and oks == steps and count == len(train_g), (steps, count, oks))
+    print(f"[23 training] {steps} steps of one epoch under torch.cuda.set_sync_debug_mode('error'): no host "
+          f"sync; one at the epoch's end reads loss per graph {total / count:.4f}", flush=True)
+
+    # 25. times (nothing asserted)
+    for kind in TRAIN_CLASSES:
+        for layout in ("dense", "coo"):
+            batch = next(iter(ConnectomeDataLoader(train_g, batch_size=DEMO["batch"], shuffle=False,
+                                                   layout=layout, device=dev)))
+            guarded = Trainer(train_model(kind, DEMO["dropout"]), device=dev, prefetch_depth=0)
+            unguarded = Trainer(train_model(kind, DEMO["dropout"]), device=dev, prefetch_depth=0,
+                                skip_nonfinite=False)
+            on_ms, off_ms = host_ms([lambda: guarded._train_step(batch), lambda: unguarded._train_step(batch)],
+                                    iters=20)
+            rows = device_breakdown(lambda: guarded._train_step(batch), iters=10)
+            busy = sum(ms for _, ms in rows)
+            print(f"[25 train times] {card} | {kind} {layout}, batch {DEMO['batch']}, hidden {DEMO['hidden']}, "
+                  f"L={DEMO['layers']}: {on_ms:.3f} ms per train step with the guard, {off_ms:.3f} ms without "
+                  f"(host clock ending in a synchronize, median of 20, in turns); device busy {busy:.3f} "
+                  f"ms per step ({busy / on_ms:.1%} of the step; torch.profiler, mean of 10), in "
+                  f"{len(rows)} kernels", flush=True)
+            if (kind, layout) == ("gcn", "dense"):
+                for name, ms in rows[:10]:
+                    print(f"[25 train times]     {ms:9.4f} ms/step  {name[:160]}", flush=True)
+    epoch_graphs = graphs[: BASELINE_EPOCH["graphs"]]
+    for label, kw in (("COO, host loader, prefetch 2", dict(layout="coo")),
+                      ("dense, host loader, prefetch 2", dict(layout="dense")),
+                      ("dense, loader on the card, prefetch 2", dict(layout="dense", device=dev))):
+        loader = ConnectomeDataLoader(epoch_graphs, batch_size=BASELINE_EPOCH["batch"], shuffle=True,
+                                      seed=0, **kw)
+        trainer = Trainer(train_model("gcn", DEMO["dropout"]), device=dev)
+        (epoch_ms,) = host_ms([lambda: trainer.train_epoch(loader)], iters=3)
+        print(f"[25 train times] {card} | GCN train epoch, {BASELINE_EPOCH['graphs']} graphs, batch "
+              f"{BASELINE_EPOCH['batch']} ({label}): {epoch_ms / 1e3:.4f} s "
+              f"({BASELINE_EPOCH['graphs'] / epoch_ms * 1e3:.1f} graphs/s; host clock, median of 3); "
+              f"BASELINE.md's reference torch on 1 CPU: {BASELINE_EPOCH['cpu_s']} s (~648 graphs/s)",
+              flush=True)
+    print(f"[25 train times] phases 23 and 25 (training) took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def gather_operands(N, F, L, dtype, device, seed=0):
+    """The script's inputs (``gather_dma_experiments.py:157-165``), bf16 by
+    rounding the float32 table."""
+    rng = np.random.default_rng(seed)
+    if dtype == "int32":
+        table = torch.from_numpy(rng.integers(0, 2**30, (N, F)).astype(np.int32))
+    else:
+        table = torch.from_numpy(rng.standard_normal((N, F)).astype(np.float32))
+        table = table.to(torch.bfloat16) if dtype == "bf16" else table
+    idx = torch.from_numpy(rng.integers(0, N, L).astype(np.int32))
+    return table.to(device), idx.to(device)
+
+
+def bits(t):
+    """The raw bits of a 2- or 4-byte tensor, for a bitwise comparison."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def gather_phases(dev, card) -> list[dict]:
+    """Phases 24 and the B1 half of 25; returns B1's entries of the JSON line."""
+    t_start = time.perf_counter()
+    # 24. B1 against its plain version, bitwise
+    checked = 0
+    for N, F_, L in GATHER_SMALL:
+        for dtype in ("f32", "int32", "bf16"):
+            table, idx = gather_operands(N, F_, L, dtype, dev, seed=N + L)
+            want = gd.dma_gather_reference(table, idx)
+            for K in gd.K_OUTSTANDING:
+                for C in (256, 1024):
+                    got = gd.dma_gather(table, idx, k_outstanding=K, chunk=C)
+                    check(got.shape == want.shape and torch.equal(bits(got), bits(want)),
+                          ("B1", N, F_, L, dtype, K, C))
+                    checked += 1
+    for bad in (-1, 300):
+        table, idx = gather_operands(300, 64, 1000, "f32", dev)
+        idx[517] = bad
+        try:
+            gd.dma_gather(table, idx)
+        except ValueError:
+            continue
+        raise RuntimeError(f"chip_smoke check failed: B1 took index {bad} of a 300-row table")
+    print(f"[24 gather] dma_gather against table[idx] on the card: {checked} calls bitwise equal (every K in "
+          f"{gd.K_OUTSTANDING} and C in (256, 1024); (N, F, L) in {GATHER_SMALL}; f32, int32, bf16); "
+          f"indices -1 and N raise ValueError", flush=True)
+    cases = {name: gather_operands(N, F_, L, dtype, dev) for name, N, F_, L, dtype in GATHER_CASES}
+    torch.cuda.synchronize()
+    reset_counters()
+    outs, launches = {}, {}
+    for name, (table, idx) in cases.items():
+        before = counts()
+        outs[name] = gd.dma_gather(table, idx)
+        torch.cuda.synchronize()
+        delta = {c: v - before[c] for c, v in counts().items()}
+        check(delta == {c: 1 if c == "B1" else 0 for c in COUNTERS}, (name, delta))
+        launches[name] = delta["B1"]
+    for name, (table, idx) in cases.items():
+        want = gd.dma_gather_reference(table, idx)
+        check(torch.equal(bits(outs[name]), bits(want)), (name, "not bitwise equal"))
+        print(f"[24 gather main path] {name}: table {tuple(table.shape)} {table.dtype}, {idx.numel():,} "
+              f"indices: output {tuple(outs[name].shape)}, 1 launch, bitwise equal to table[idx]", flush=True)
+    del outs
+
+    # 25. times (nothing asserted)
+    entries = []
+    for name, (table, idx) in cases.items():
+        L, row_bytes = idx.numel(), table.shape[1] * table.element_size()
+        distinct = int(torch.unique(idx).numel())
+        b_ms, b_by = bound(distinct * row_bytes + nbytes(idx) + L * row_bytes, 0, "f32")
+        fns = [lambda: gd.dma_gather(table, idx), lambda: gd._launch_gather(table, idx),
+               lambda: gd.dma_gather_reference(table, idx), lambda: torch.index_select(table, 0, idx)]
+        ms = cuda_ms(fns, iters=20, warmup=3)
+        dev_alone, dev_lib = device_ms(fns[1]), device_ms(fns[3])
+        sweep = cuda_ms([lambda K=K, C=C: gd._launch_gather(table, idx, K, C)
+                         for K in gd.K_OUTSTANDING for C in (256, 1024)], iters=20, warmup=3)
+        gbytes = L * row_bytes / 1e9
+        table_mb, touched_mb = nbytes(table) / 1e6, distinct * -(-row_bytes // 32) * 32 / 1e6
+        print(f"[25 gather times] {card} | {name}: table {tuple(table.shape)} {table.dtype} ({table_mb:.1f} MB; "
+              f"{'fits' if table_mb < L2_BYTES / 1e6 else 'exceeds'} the 50 MB L2; its {distinct:,} touched rows "
+              f"span {touched_mb:.1f} MB of 32-B sectors), {L:,} indices: dma_gather (K=8, C=1024, with its "
+              f"index check) {ms[0]:.4f} ms, launch alone {ms[1]:.4f} ms, plain table[idx] {ms[2]:.4f} ms, "
+              f"torch.index_select {ms[3]:.4f} ms per call (CUDA events, median of 20, in turns); launch "
+              f"alone {ms[1] * 1e6 / L:.3f} ns/row, {gbytes / ms[1] * 1e3:.4g} GB/s of rows; device time (torch."
+              f"profiler, mean of 20) launch alone {dev_alone:.4f} ms, index_select {dev_lib:.4f} ms; bound "
+              f"{b_ms:.5f} ms ({b_by}: {distinct:,} distinct rows read, the indices and the output), the "
+              f"launch at {b_ms / ms[1]:.1%} of it by events, "
+              f"{f'{b_ms / dev_alone:.1%}' if dev_alone else 'not seen'} by device time", flush=True)
+        for (K, C), t in zip([(K, C) for K in gd.K_OUTSTANDING for C in (256, 1024)], sweep):
+            print(f"[25 gather sweep] {card} | {name} K={K} C={C}: {t:.4f} ms (launch alone, the eight in "
+                  f"turns), {t * 1e6 / L:.3f} ns/row, {gbytes / t * 1e3:.4g} GB/s", flush=True)
+        entries.append({
+            "name": f"dma_gather ({name})", "route": "cuda", "source": GATHER_SOURCE,
+            "replaces": GATHER_REPLACES, "launches": launches[name],
+            "max_abs_err": 0.0, "ms": ms[0], "plain_ms": ms[2], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": ms[3],
+        })
+    del cases
+    print(f"[25 gather times] phases 24 and 25 (B1) took {time.perf_counter() - t_start:.1f} s", flush=True)
+    return entries
+
+
 def main() -> None:
     # 1. the card
     if not torch.cuda.is_available():
@@ -1546,6 +1929,13 @@ def main() -> None:
 
     # 20-22. the feature-major band-pipeline probes B3a-B3d
     band_entries += fm_pipeline_phases(dev, card, graph)
+    del graph
+
+    # 23 and 25. graph-classification training on the card
+    graph_training_phases(dev, card)
+
+    # 24 and 25. the random-row gather B1
+    band_entries += gather_phases(dev, card)
 
     fused_entries = []
     for kind, k in KERNELS.items():

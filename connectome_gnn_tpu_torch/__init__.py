@@ -5,13 +5,15 @@ as the reference.  This package imports torch and numpy, never JAX and
 never the JAX package.  Module names follow the JAX package, so each
 counterpart sits at the same relative path.
 
-Ported so far, both serving paths, giant-graph int8 training and the band
-variants:
+Ported so far, graph-classification training and serving, giant-graph
+int8 serving and training, and every TPU kernel of the JAX package:
 
 * graph classification: synthetic connectomes, COO and dense batches, the
-  loader, ``GCNConnectome`` and ``GraphSAGEConnectome``, and
-  ``Trainer.evaluate`` / ``Trainer.predict``, which serves dense batches on
-  CUDA through hand-written fused forward kernels;
+  loader and its prefetch thread, ``GCNConnectome`` and
+  ``GraphSAGEConnectome``, and ``Trainer``: ``fit`` (early stopping, the
+  non-finite step guard, preemption-safe checkpoints that resume bitwise),
+  ``evaluate`` and ``predict``, which serves dense batches on CUDA through
+  hand-written fused forward kernels;
 * giant-graph node classification: ``generate_spatial_graph``, RCM
   reordering, the block band (``ops.banded``) and its int8 form, and
   ``BandedNodeGCN`` / ``BandedNodeSAGE``, which serve through hand-written
@@ -19,9 +21,10 @@ variants:
   ``BandedNodeGCN`` also trains on the int8 band
   (``prepare_quant_trainable`` / ``apply_quant_trainable`` and its blocked
   variant), with the kernels in both directions;
-* the band-SpMM variants, which no model path calls: K7 over a float32 or
-  bfloat16 band (``ops.banded_direct``) and the bfloat16, w8a8 and
-  fused-dot band kernels B2a-B2c (``ops.band_variants``).
+* the kernels no model path calls: K7 over a float32 or bfloat16 band
+  (``ops.banded_direct``), the bfloat16, w8a8 and fused-dot band kernels
+  B2a-B2c (``ops.band_variants``), the band-pipeline probes B3a-B3d
+  (``ops.fm_variants``) and the random-row gather B1 (``ops.gather_dma``).
 
 ``Trainer`` runs on ``cuda`` unless given ``device=``; without a card it
 raises rather than fall back to the CPU.
@@ -38,6 +41,14 @@ Quickstart
                                   layout="dense", device="cuda")
     model = GCNConnectome(in_channels=5, hidden_dim=64, num_classes=2)
     logits = Trainer(model, device="cuda").predict(loader)
+
+Training (on ``cuda`` unless ``device=`` says otherwise):
+
+    train = ConnectomeDataLoader(graphs[:48], batch_size=16, shuffle=True)
+    val = ConnectomeDataLoader(graphs[48:], batch_size=16, shuffle=False)
+    trainer = Trainer(GCNConnectome(in_channels=5, hidden_dim=64))
+    history = trainer.fit(train, val, num_epochs=30, patience=8,
+                          checkpoint_dir="runs/gcn", resume=True)
 
 Giant graph, int8 serving:
 

@@ -1,11 +1,12 @@
 """Data layer: atlas, synthetic connectomes and giant spatial graphs, graph
-containers, padded batches (COO and dense), loader, RCM reordering."""
+containers, padded batches (COO and dense), loader, prefetching, RCM reordering."""
 
 from connectome_gnn_tpu_torch.data.atlas import NUM_REGIONS, REGION_NAMES
 from connectome_gnn_tpu_torch.data.batch import ConnectomeBatch, collate_graphs, round_up
 from connectome_gnn_tpu_torch.data.dense import DenseConnectomeBatch, collate_dense
 from connectome_gnn_tpu_torch.data.graph import ConnectomeGraph
 from connectome_gnn_tpu_torch.data.loader import ConnectomeDataLoader
+from connectome_gnn_tpu_torch.data.prefetch import PrefetchIterator, PrefetchLoader
 from connectome_gnn_tpu_torch.data.reorder import (
     apply_ordering,
     bandwidth,
@@ -27,6 +28,8 @@ __all__ = [
     "ConnectomeDataLoader",
     "ConnectomeGraph",
     "DenseConnectomeBatch",
+    "PrefetchIterator",
+    "PrefetchLoader",
     "apply_ordering",
     "bandwidth",
     "collate_dense",

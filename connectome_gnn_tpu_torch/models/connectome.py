@@ -24,7 +24,7 @@ from torch import nn
 from connectome_gnn_tpu_torch.data.batch import ConnectomeBatch
 from connectome_gnn_tpu_torch.data.dense import DenseConnectomeBatch
 from connectome_gnn_tpu_torch.models.layers import GCNConv, SAGEConv
-from connectome_gnn_tpu_torch.nn.layers import Dense, MaskedBatchNorm
+from connectome_gnn_tpu_torch.nn.layers import Dense, Dropout, MaskedBatchNorm
 from connectome_gnn_tpu_torch.ops.segment import graph_mean_pool
 
 Batch = Union[ConnectomeBatch, DenseConnectomeBatch]
@@ -65,11 +65,11 @@ class _ConnectomeModel(nn.Module):
         self.batch_norms = nn.ModuleList(
             MaskedBatchNorm(self.hidden_dim) for _ in range(self.num_layers)
         )
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.classifier = nn.Sequential(
             Dense(self.hidden_dim, self.hidden_dim // 2, generator=generator),
             nn.ReLU(),
-            nn.Dropout(dropout),
+            Dropout(dropout),
             Dense(self.hidden_dim // 2, self.num_classes, generator=generator),
         )
 

@@ -1,12 +1,13 @@
-"""Core building blocks: dense layer and masked BatchNorm.
+"""Core building blocks: dense layer, masked BatchNorm and dropout.
 
 Masked BatchNorm is why ``nn.BatchNorm1d`` cannot be used: batches are
 padded to static shapes, and padded rows must stay out of the batch
 moments or the statistics drift from the reference's unpadded ones.  The
 module keeps ``nn.BatchNorm1d``'s parameter and buffer names (``weight``,
 ``bias``, ``running_mean``, ``running_var``, ``num_batches_tracked``), so a
-reference checkpoint loads with ``load_state_dict``.  Dropout is
-``nn.Dropout``, the identity in eval mode.
+reference checkpoint loads with ``load_state_dict``.  :class:`Dropout`
+draws from a generator it is handed (the trainer's), not the global one,
+so a resumed run replays it.
 """
 
 from __future__ import annotations
@@ -47,6 +48,36 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout, ``where(keep, x / (1 - p), 0)`` with ``keep`` drawn
+    from :attr:`generator` (``dropout``, ``connectome_gnn_tpu/nn/layers.py:
+    238`` of the JAX package, which takes an explicit key).
+
+    The identity in eval mode and at ``p = 0``.  ``generator`` is ``None``
+    (the global generator) until an owner such as the ``Trainer`` hands one
+    over; it must live on the input's device.  The module has no parameters
+    or buffers, so a model's ``state_dict`` keys are those it had with
+    ``nn.Dropout``.
+    """
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {p}")
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
 
 
 class MaskedBatchNorm(nn.Module):

@@ -114,13 +114,14 @@ def library() -> ctypes.CDLL:
     lib.cgt_fm_w8a8.argtypes = [ptr] * 5 + [i32] * 5 + [i64, ptr]
     lib.cgt_fm_dma_only.argtypes = [ptr] * 3 + [i32] * 6 + [i64, ptr]
     lib.cgt_fm_compute_only.argtypes = [ptr] * 5 + [i32] * 5 + [i64, ptr]
+    lib.cgt_row_gather.argtypes = [ptr] * 3 + [i64] + [i32] * 4 + [ptr]
     for entry in (
         "cgt_fused_gcn_forward", "cgt_fused_sage_forward", "cgt_banded_spmm_quant",
         "cgt_banded_spmm_quant_fm", "cgt_banded_spmm_quant_fm_w8a8",
         "cgt_banded_spmm_quant_blocked", "cgt_banded_spmm_direct_f32",
         "cgt_banded_spmm_direct_bf16", "cgt_banded_spmm_w8a8_rowmajor",
         "cgt_banded_spmm_quant_fused_dot", "cgt_fm_deep", "cgt_fm_blocked", "cgt_fm_bf16_band",
-        "cgt_fm_w8a8", "cgt_fm_dma_only", "cgt_fm_compute_only",
+        "cgt_fm_w8a8", "cgt_fm_dma_only", "cgt_fm_compute_only", "cgt_row_gather",
     ):
         getattr(lib, entry).restype = i32
     lib.cgt_error_string.argtypes = [i32]

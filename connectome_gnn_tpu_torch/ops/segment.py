@@ -62,6 +62,11 @@ def coo_spmm(
     Padded edges must carry ``values == 0``.  Their sender id ``P`` is
     clamped to a real row for the gather (as JAX clamps it) and their
     receiver id is dropped by :func:`segment_sum`.
+
+    The gather is ``index_select``, not ``features[idx]``: on the CPU the
+    backward of advanced indexing accumulates in a thread-dependent order,
+    and that of ``index_select`` (an ``index_add_``) does not, so a COO
+    training run on the CPU replays bitwise.
     """
-    messages = features[senders.clamp(0, num_nodes - 1)] * values[:, None]
+    messages = features.index_select(0, senders.clamp(0, num_nodes - 1)) * values[:, None]
     return segment_sum(messages, receivers, num_nodes)

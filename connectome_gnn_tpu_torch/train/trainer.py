@@ -1,42 +1,118 @@
-"""Serving and evaluation loop for connectome GNN classifiers.
+"""Training, evaluation and serving loop for connectome GNN classifiers.
 
-The port of ``connectome_gnn_tpu.train.trainer.Trainer``'s single-device
-serving half: :meth:`Trainer.evaluate` (masked cross-entropy and accuracy,
-reference ``connectome_gnn/train.py:56-74``) and :meth:`Trainer.predict`
-(per-graph logits through :func:`~connectome_gnn_tpu_torch.ops.fused.
-forward_auto`).  Padded graph slots are excluded from loss and metrics via
-``label_mask`` and from predictions via ``graph_mask``.
+The port of ``connectome_gnn_tpu.train.trainer.Trainer`` in single-device
+mode (``trainer.py:36-456`` and ``:572-923``): masked cross-entropy, L2-Adam
+(:func:`reference_adam`), per-epoch train and validation with the loss
+weighted by the real graph count, early stopping on validation loss with
+patience, a best-weights snapshot restored at the end, the non-finite step
+guard, preemption handling and atomic fit checkpoints that resume bitwise.
+Padded graph slots are excluded from loss and metrics by ``label_mask`` and
+from predictions by ``graph_mask``.
 
-Training (``fit``, ``train_epoch``, the optimizer, fault handling and
-checkpoints) and mesh mode are not ported yet.
+:meth:`Trainer.predict` serves per-graph logits through :func:`~
+connectome_gnn_tpu_torch.ops.fused.forward_auto` (the fused kernels K1/K2 on
+CUDA).  Training runs no hand-written kernel: the JAX train step is
+``model.apply`` under ``value_and_grad`` plus optax, here autograd plus
+``torch.optim.Adam``.
+
+Not ported here (they belong to later slices of the port): the JAX
+Trainer's ``mesh`` / ``axis_name`` data-parallel mode (slice E), its
+device-sampled and graph-sharded steps, and ``scan_epochs`` (slices D and
+E).  The JAX Trainer's ``params`` / ``state`` arguments have no counterpart:
+the port's model carries its weights (``models.compat.load_jax_params``
+loads JAX ones).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import warnings
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from connectome_gnn_tpu_torch.data.prefetch import PrefetchIterator
+from connectome_gnn_tpu_torch.nn.layers import Dropout
 from connectome_gnn_tpu_torch.ops.fused import forward_auto
+from connectome_gnn_tpu_torch.train.checkpoint import load_arrays, restore_checkpoint, save_checkpoint
+from connectome_gnn_tpu_torch.train.fault import (
+    PreemptionGuard,
+    all_finite,
+    guard_step_outputs,
+    snapshot,
+)
+
+#: builds the optimizer over the model's parameters (after they are moved)
+OptimizerFactory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
+
+
+def reference_adam(learning_rate: float = 1e-3, weight_decay: float = 1e-4) -> OptimizerFactory:
+    """The reference recipe ``torch.optim.Adam(lr, weight_decay)``: L2
+    weight decay added to the gradient before the moments (not AdamW),
+    which the JAX package writes ``optax.chain(add_decayed_weights(wd),
+    adam(lr))`` (``trainer.py:36-45``).
+
+    Returns a factory over the parameters.  On CUDA parameters the Adam is
+    ``capturable``, which keeps its step count on the card: the non-finite
+    guard can then roll the count back without a host sync."""
+
+    def make(params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+        params = list(params)
+        on_card = bool(params) and params[0].device.type == "cuda"
+        return torch.optim.Adam(params, lr=learning_rate, weight_decay=weight_decay,
+                                capturable=on_card)
+
+    return make
 
 
 class Trainer:
-    """Drives a :class:`GCNConnectome` / :class:`GraphSAGEConnectome` on one
-    device.
+    """Trains, evaluates and serves a :class:`GCNConnectome` /
+    :class:`GraphSAGEConnectome` on one device.
 
     Parameters
     ----------
     model
-        The model; it is moved to ``device``.
+        The model with its weights; it is moved to ``device``.
+    optimizer
+        A factory ``params -> torch.optim.Optimizer``; default
+        :func:`reference_adam` (Adam lr 1e-3 with L2 weight decay 1e-4).
+    seed
+        Seeds the trainer's generator, from which every :class:`~
+        connectome_gnn_tpu_torch.nn.layers.Dropout` of the model draws (the
+        model's weights come from its own constructor).  The generator's
+        state is part of the fit checkpoint, so a resumed run replays the
+        dropout masks.
     device
         Where the model runs (default: ``cuda``; without a CUDA card that
         raises ``RuntimeError``, and ``device="cpu"`` asks for the CPU).
         Batches from a loader on another device are moved here.
+    skip_nonfinite
+        The non-finite step guard (on by default, ``train/fault.py``): a
+        step whose loss, gradients or BatchNorm update hold a non-finite
+        value keeps the old parameters, buffers and optimizer state
+        (Adam's step count included), adds nothing to the epoch's loss and
+        counts in ``last_skipped_steps`` (``fit``'s history
+        ``skipped_steps``).  When every value is finite it is the identity,
+        bitwise.  It reads nothing back from the device, so a step needs no
+        host sync when the optimizer keeps its state on the device, as
+        :func:`reference_adam` does.
+    prefetch_depth
+        Batches a background thread collates and copies ahead of the device
+        (default 2; 0 iterates the loader in line).  Reorders nothing.
     """
 
-    def __init__(self, model: torch.nn.Module, device=None):
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        optimizer: Optional[OptimizerFactory] = None,
+        seed: int = 0,
+        device=None,
+        skip_nonfinite: bool = True,
+        prefetch_depth: int = 2,
+    ):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -46,25 +122,211 @@ class Trainer:
             device = "cuda"
         self.device = torch.device(device)
         self.model = model.to(self.device)
+        self.optimizer = (optimizer or reference_adam())(self.model.parameters())
+        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        for module in self.model.modules():
+            if isinstance(module, Dropout):
+                module.generator = self.generator
+        self.skip_nonfinite = bool(skip_nonfinite)
+        self.prefetch_depth = int(prefetch_depth)
+        self.last_skipped_steps = 0
         self._warned_unfusable = False
+
+    def _iterate(self, loader):
+        """Iterate ``loader``, ``prefetch_depth`` batches ahead in a
+        background thread, each batch on the trainer's device."""
+        if self.prefetch_depth <= 0:
+            for batch in loader:
+                yield batch.to(self.device)
+            return
+        it = PrefetchIterator(loader, depth=self.prefetch_depth)
+        try:
+            for batch in it:
+                yield batch.to(self.device)
+        finally:
+            it.close()
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+
+    def _optimizer_tensors(self, params) -> list:
+        """``(param, key, tensor)`` of the optimizer's state, in parameter order."""
+        return [(p, k, v) for p in params for k, v in self.optimizer.state.get(p, {}).items()
+                if torch.is_tensor(v)]
+
+    def _train_step(self, batch):
+        """One optimization step; returns ``(loss, n, ok)`` as device
+        scalars (a rejected step gives 0, 0, 0)."""
+        model = self.model
+        params, buffers = list(model.parameters()), list(model.buffers())
+        if self.skip_nonfinite:
+            opt_before = self._optimizer_tensors(params)
+            old = snapshot([p.detach() for p in params] + buffers + [v for _, _, v in opt_before])
+        self.optimizer.zero_grad(set_to_none=True)
+        logits = model(batch)
+        ce = F.cross_entropy(logits, batch.labels, reduction="none")
+        mask = batch.label_mask.to(logits.dtype)
+        n = mask.sum()
+        loss = (ce * mask).sum() / torch.clamp(n, min=1.0)
+        loss.backward()
+        if not self.skip_nonfinite:
+            self.optimizer.step()
+            return loss.detach(), n, torch.ones((), device=n.device)
+        ok = all_finite(loss, *(p.grad for p in params if p.grad is not None), *buffers)
+        self.optimizer.step()
+        # the snapshot's tensors in its order, then state the step created
+        # lazily (restored to its zeros)
+        seen = {(p, k) for p, k, _ in opt_before}
+        state = [self.optimizer.state[p][k] for p, k, _ in opt_before]
+        state += [v for p, k, v in self._optimizer_tensors(params) if (p, k) not in seen]
+        with torch.no_grad():
+            return guard_step_outputs(ok, [p.detach() for p in params] + buffers + state, old,
+                                      loss.detach(), n)
+
+    def _train_steps(self, loader):
+        """Every step of one pass over ``loader``; returns the device sums
+        ``[Σ loss·n, Σ n, Σ ok]`` (None for an empty loader) and the number
+        of steps.  Nothing is read back from the device."""
+        self.model.train()
+        sums, steps = None, 0
+        for batch in self._iterate(loader):
+            loss, n, ok = self._train_step(batch)
+            step = torch.stack([loss * n, n, ok])
+            sums = step if sums is None else sums + step
+            steps += 1
+        return sums, steps
+
+    def train_epoch(self, loader) -> float:
+        """One optimization pass over ``loader``; returns the mean loss per
+        graph, ``Σ loss·n / Σ n`` (``trainer.py:452-456``).
+
+        Loss, counts and the guard's flags stay on the device until the
+        epoch ends: one host sync per epoch.
+        """
+        sums, steps = self._train_steps(loader)
+        if sums is None:
+            self.last_skipped_steps = 0
+            return 0.0
+        total, graphs, oks = sums.tolist()
+        self.last_skipped_steps = steps - int(round(oks))
+        return total / max(graphs, 1.0)
+
+    def fit(
+        self,
+        train_loader,
+        val_loader,
+        num_epochs: int = 50,
+        patience: int = 10,
+        verbose: bool = True,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 1,
+        resume: bool = False,
+    ) -> dict:
+        """Train with early stopping on validation loss (``trainer.py:
+        714-844``, reference ``train.py:76-127``).
+
+        Snapshots the weights (cloned tensors) whenever the validation loss
+        improves, stops after ``patience`` epochs without improvement and
+        restores the best snapshot at the end.  Returns the history:
+        ``train_loss``, ``val_loss``, ``val_acc`` and ``skipped_steps``.
+
+        With ``checkpoint_dir``, one atomic file holds the whole training
+        state (parameters, BatchNorm buffers, optimizer state, the
+        generator's state, the best snapshot and the bookkeeping), written
+        every ``checkpoint_every`` epochs and at stop, preemption and the
+        last epoch.  ``resume=True`` restores it and continues; loaders'
+        ``set_epoch`` pins each epoch's shuffle, so the resumed run replays
+        the uninterrupted one bitwise.  A run that had already stopped
+        early returns at once.
+        """
+        history: dict = {"train_loss": [], "val_loss": [], "val_acc": [], "skipped_steps": []}
+        best_val_loss = float("inf")
+        best_epoch = 0
+        best = None
+        start_epoch = 1
+
+        if checkpoint_dir and resume:
+            meta = self._restore_fit_checkpoint(checkpoint_dir)
+            if meta is not None:
+                history = meta["history"]
+                best_val_loss = meta["best_val_loss"]
+                best_epoch = meta["best_epoch"]
+                best = self._best
+                if meta["stopped_early"]:
+                    # the run already finished: re-running the same job
+                    # script must not train extra epochs
+                    if verbose:
+                        print(f"Run in {checkpoint_dir} already early-stopped at epoch "
+                              f"{meta['epoch']} (best={best_epoch})")
+                    self.model.load_state_dict(best)
+                    return history
+                start_epoch = meta["epoch"] + 1
+                if verbose:
+                    print(f"Resumed from {checkpoint_dir} at epoch {meta['epoch']} (best={best_epoch})")
+
+        with PreemptionGuard() as preemption:
+            for epoch in range(start_epoch, num_epochs + 1):
+                for loader in (train_loader, val_loader):
+                    # the validation stream is pinned too, so a resumed run
+                    # replays validation exactly
+                    if hasattr(loader, "set_epoch"):
+                        loader.set_epoch(epoch - 1)
+                train_loss = self.train_epoch(train_loader)
+                val = self.evaluate(val_loader)
+                history["train_loss"].append(train_loss)
+                history["val_loss"].append(val["loss"])
+                history["val_acc"].append(val["accuracy"])
+                history["skipped_steps"].append(self.last_skipped_steps)
+                if verbose:
+                    skipped = self.last_skipped_steps
+                    print(f"Epoch {epoch:3d} | train_loss={train_loss:.4f} | "
+                          f"val_loss={val['loss']:.4f} | val_acc={val['accuracy']:.3f}"
+                          + (f" | skipped={skipped}" if skipped else ""))
+
+                if val["loss"] < best_val_loss:
+                    best_val_loss, best_epoch = val["loss"], epoch
+                    best = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+                stop = epoch - best_epoch >= patience
+                preempted = preemption.triggered
+                if checkpoint_dir and (stop or preempted or epoch == num_epochs
+                                       or epoch % checkpoint_every == 0):
+                    self._save_fit_checkpoint(checkpoint_dir, epoch, best_epoch, best_val_loss,
+                                              best, history, stop)
+                if stop:
+                    if verbose:
+                        print(f"Early stop at epoch {epoch} (best={best_epoch})")
+                    break
+                if preempted:
+                    # SIGTERM/SIGINT arrived: the state is saved (when
+                    # checkpointing); resume=True continues from here
+                    if verbose:
+                        print(f"Preempted at epoch {epoch}; checkpoint "
+                              + ("written" if checkpoint_dir else "NOT enabled"))
+                    break
+
+        if best is not None:
+            self.model.load_state_dict(best)
+        return history
+
+    # ------------------------------------------------------------------
+    # Evaluation and serving
+    # ------------------------------------------------------------------
 
     @torch.inference_mode()
     def evaluate(self, loader) -> dict:
         """Masked accuracy and mean loss over ``loader`` (eval mode)."""
         self.model.eval()
-        total_loss = torch.zeros((), device=self.device)
-        correct = torch.zeros((), dtype=torch.long, device=self.device)
-        total = torch.zeros((), device=self.device)
-        for batch in loader:
-            batch = batch.to(self.device)
+        sums = torch.zeros(3, device=self.device)  # loss, correct, total
+        for batch in self._iterate(loader):
             logits = self.model(batch)
             ce = F.cross_entropy(logits, batch.labels, reduction="none")
             mask = batch.label_mask.to(logits.dtype)
-            total_loss += (ce * mask).sum()
-            correct += ((logits.argmax(dim=1) == batch.labels) & batch.label_mask).sum()
-            total += mask.sum()
-        # one host sync for the whole pass
-        total_loss, correct, total = float(total_loss), int(correct), int(total)
+            correct = ((logits.argmax(dim=1) == batch.labels) & batch.label_mask).sum()
+            sums += torch.stack([(ce * mask).sum(), correct.to(sums.dtype), mask.sum()])
+        total_loss, correct, total = sums.tolist()  # one host sync for the whole pass
+        correct, total = int(correct), int(total)
         return {
             "accuracy": correct / max(total, 1),
             "loss": total_loss / max(total, 1),
@@ -84,8 +346,7 @@ class Trainer:
         """
         self.model.eval()
         chunks = []
-        for batch in loader:
-            batch = batch.to(self.device)
+        for batch in self._iterate(loader):
             if prefer_fused:
                 if not hasattr(batch, "adj") and not self._warned_unfusable:
                     warnings.warn(
@@ -103,3 +364,57 @@ class Trainer:
             # predictions
             chunks.append(logits[batch.graph_mask])
         return torch.cat(chunks).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Preemption-safe fit checkpoints
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _fit_ckpt_path(directory: str) -> str:
+        return os.path.join(directory, "fit_state.npz")
+
+    def _save_fit_checkpoint(self, directory, epoch, best_epoch, best_val_loss, best, history,
+                             stopped_early) -> None:
+        """One atomic file: tensors AND bookkeeping, so state and meta can
+        never come from different epochs."""
+        opt = self.optimizer.state_dict()
+        meta = {
+            "epoch": epoch,
+            "best_epoch": best_epoch,
+            "best_val_loss": best_val_loss,
+            "history": history,
+            "stopped_early": stopped_early,
+            "param_groups": opt["param_groups"],
+        }
+        save_checkpoint(self._fit_ckpt_path(directory), {
+            "model": self.model.state_dict(),
+            "best": best if best is not None else self.model.state_dict(),
+            "optimizer": opt["state"],
+            "generator": self.generator.get_state(),
+            "meta": np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+        })
+
+    def _restore_fit_checkpoint(self, directory) -> Optional[dict]:
+        """Restore the fit state from ``directory``; returns the meta dict,
+        or ``None`` when there is no checkpoint (a fresh start)."""
+        path = self._fit_ckpt_path(directory)
+        if not os.path.exists(path):
+            return None
+        weights = self.model.state_dict()
+        tree = restore_checkpoint(path, {
+            "model": weights, "best": weights, "generator": self.generator.get_state(),
+            "meta": 0,  # shape-free leaf: restored as stored
+        })
+        meta = json.loads(np.asarray(tree["meta"]).tobytes().decode())
+        # the optimizer's state appears at its first step, so its structure
+        # is read from the file rather than from a template
+        state: dict = {}
+        for key, value in load_arrays(path).items():
+            if key.startswith("optimizer/"):
+                _, index, name = key.split("/")
+                state.setdefault(int(index), {})[name] = torch.from_numpy(value)
+        self.optimizer.load_state_dict({"state": state, "param_groups": meta.pop("param_groups")})
+        self.model.load_state_dict(tree["model"])
+        self.generator.set_state(tree["generator"].cpu())
+        self._best = tree["best"]
+        return meta

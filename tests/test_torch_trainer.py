@@ -127,7 +127,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "connectome_gnn_tpu_torch.ops._build, connectome_gnn_tpu_torch.ops.banded, "
         "connectome_gnn_tpu_torch.ops.banded_quant, connectome_gnn_tpu_torch.ops.banded_direct, "
         "connectome_gnn_tpu_torch.ops.band_variants, connectome_gnn_tpu_torch.ops.fm_variants, "
-        "connectome_gnn_tpu_torch.data.reorder, "
+        "connectome_gnn_tpu_torch.ops.gather_dma, connectome_gnn_tpu_torch.data.reorder, "
+        "connectome_gnn_tpu_torch.data.prefetch, connectome_gnn_tpu_torch.train.fault, "
+        "connectome_gnn_tpu_torch.train.checkpoint, connectome_gnn_tpu_torch.train.trainer, "
         "connectome_gnn_tpu_torch.models.node_gcn, connectome_gnn_tpu_torch.models.node_sage\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'connectome_gnn_tpu' or m.startswith('connectome_gnn_tpu.')]\n"
