@@ -11,7 +11,9 @@ Phases, one line each:
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
    TF32 is switched off for every f32 product;
-2. the build: ``nvcc`` compiles ``connectome_gnn_tpu_torch/csrc`` for sm_90a;
+2. the build: ``nvcc`` compiles ``connectome_gnn_tpu_torch/csrc`` for sm_90a,
+   and what ``ptxas -v`` says of the tensor-core body's kernels
+   (registers, spills, shared memory);
 3. each fused kernel (K1 GCN, K2 SAGE) against its plain PyTorch version on
    the card at four (B, n, F, H, L) shapes, rtol 1e-4 / atol 1e-5 (the
    repository's f32 gate);
@@ -104,9 +106,10 @@ block 256, F = 64), whose path is their entry points:
     checks phase's gate (relative Frobenius error < 3e-2,
     ``quant_kernel_diag.py:327``);
 19. times: each variant's kernel, plain version and library call per call
-    (CUDA events, median of 10, in turns; B2b has no library call),
-    G edge-messages/s and the kernel's share of its bound; the memory
-    peak.
+    (CUDA events, median of 10, in turns; B2b has no library call) and,
+    over the bfloat16 band, the launch alone on the frame its wrapper
+    prepares, G edge-messages/s and the kernel's share of its bound; the
+    memory peak.
 
 Then the feature-major band-pipeline probes B3a-B3d of
 ``benchmarks/fm_kernel_diag.py`` at its 5qm geometry (the same graph: 1M
@@ -211,6 +214,7 @@ from connectome_gnn_tpu_torch import (
 )
 from connectome_gnn_tpu_torch.data import apply_ordering, bandwidth, reverse_cuthill_mckee
 from connectome_gnn_tpu_torch.ops import _build
+from connectome_gnn_tpu_torch.ops import band_mma
 from connectome_gnn_tpu_torch.ops import band_variants as bv
 from connectome_gnn_tpu_torch.ops import banded_direct as bd
 from connectome_gnn_tpu_torch.ops import banded_quant as bq
@@ -271,6 +275,8 @@ BAND_KERNELS = {
                replaces="connectome_gnn_tpu/ops/banded_quant.py:434"),
 }
 BAND_SOURCE = "connectome_gnn_tpu_torch/csrc/banded_spmm.cu"
+#: the tensor-core body of the bf16 band kernels (K7-bf16, B2a, B3a bf16_band)
+MMA_SOURCE = "connectome_gnn_tpu_torch/csrc/band_mma.cu"
 #: a train step against its plain path on the card: the f32 gate
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
 #: int8 against float32 training, tests/test_banded_quant.py:525-533:
@@ -288,7 +294,8 @@ TRAIN_KERNELS = {
 #: the band variants of phases 17-19 (K7 over each band dtype, B2a-B2c):
 #: kernel wrapper, entry point, plain version, launch counter, band operand
 #: (``raw``: passed as the band tensor, num_nodes and W), the operand type
-#: of the products (for the bound), keyword arguments
+#: of the products (for the bound), keyword arguments, the source where it
+#: is not ``BAND_SOURCE``
 VARIANTS = {
     "K7-f32": dict(name="banded_spmm_direct (float32 band)", kernel=bd.banded_spmm_direct_kernel,
                    entry=bd.banded_spmm_direct, plain=bd.banded_spmm_direct_reference,
@@ -296,11 +303,11 @@ VARIANTS = {
                    replaces="connectome_gnn_tpu/ops/banded_pallas.py:66"),
     "K7-bf16": dict(name="banded_spmm_direct (bfloat16 band)", kernel=bd.banded_spmm_direct_kernel,
                     entry=bd.banded_spmm_direct, plain=bd.banded_spmm_direct_reference,
-                    counter="K7", band="bf16", ops="bf16",
+                    counter="K7", band="bf16", ops="bf16", source=MMA_SOURCE,
                     replaces="connectome_gnn_tpu/ops/banded_pallas.py:66"),
     "B2a": dict(name="banded_spmm_bf16", kernel=bv.banded_spmm_bf16_kernel, entry=bv.banded_spmm_bf16,
                 plain=bv.banded_spmm_bf16_reference, counter="B2a", band="bf16", raw=True, ops="bf16",
-                replaces="benchmarks/quant_kernel_diag.py:92"),
+                source=MMA_SOURCE, replaces="benchmarks/quant_kernel_diag.py:92"),
     "B2b": dict(name="banded_spmm_w8a8", kernel=bv.banded_spmm_w8a8_kernel, entry=bv.banded_spmm_w8a8,
                 plain=bv.banded_spmm_w8a8_reference, counter="B2b", band="int8", ops="int8",
                 replaces="benchmarks/quant_kernel_diag.py:173"),
@@ -324,7 +331,7 @@ FM_KERNELS = {
                          plain=fv.fm_dma_only_reference,
                          replaces="benchmarks/fm_kernel_diag.py:130"),
     "B3a bf16_band": dict(name="fm_bf16_band", kernel=fv.fm_bf16_band_kernel, entry=fv.fm_bf16_band,
-                          plain=fv.fm_bf16_band_reference,
+                          plain=fv.fm_bf16_band_reference, source=MMA_SOURCE,
                           replaces="benchmarks/fm_kernel_diag.py:130"),
     "B3a w8a8": dict(name="fm_w8a8", kernel=fv.fm_w8a8_kernel, entry=fv.fm_w8a8,
                      plain=fv.fm_w8a8_reference, replaces="benchmarks/fm_kernel_diag.py:130"),
@@ -689,7 +696,7 @@ def giant_graph_phases(dev, card):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     print(
-        f"[6 band] {n:,} nodes, {E:,} edges, W={q_fm.bandwidth}, block {block}: "
+        f"[6 band] {card} | {n:,} nodes, {E:,} edges, W={q_fm.bandwidth}, block {block}: "
         f"f32 band {f32_bytes:,} B, int8 band {q_fm.band_qT.numel():,} B; "
         f"generate {t_gen:.2f} s (host), to_banded {t_band:.2f} s (card), "
         f"GCN prepare_quantized {t_prep:.3f} s; max_memory_allocated {peak:,} B; "
@@ -836,7 +843,7 @@ def giant_graph_phases(dev, card):
             flush=True,
         )
         for name, ms in rows[:10]:
-            print(f"[10 times]     {ms:9.4f} ms/forward  {name[:200]}", flush=True)
+            print(f"[10 times] {card} |     {ms:9.4f} ms/forward  {name[:200]}", flush=True)
 
     return [
         {
@@ -889,7 +896,7 @@ def giant_training_phases(dev, card, graph) -> list[dict]:
     check(torch.equal(dinv, dinv_q), "prepare and prepare_quant_trainable disagree on dinv")
     del a, dinv_q
     setup_peak = torch.cuda.max_memory_allocated()
-    print(f"[11 train set-up] {n:,} nodes, {E:,} edges: to_banded {t_band:.2f} s (card), prepare "
+    print(f"[11 train set-up] {card} | {n:,} nodes, {E:,} edges: to_banded {t_band:.2f} s (card), prepare "
           f"(f32 normalized band, {adj_norm.band.numel() * 4:,} B) {t_norm:.3f} s, "
           f"prepare_quant_trainable (int8 band and its transpose, 2 x {q.band_qT.numel():,} B) "
           f"{t_prep:.3f} s; max_memory_allocated {setup_peak:,} B; raw band freed, "
@@ -1084,7 +1091,7 @@ def giant_training_phases(dev, card, graph) -> list[dict]:
               f"({busy / step_ms[label]:.1%} of the unprofiled step time; torch.profiler, mean of 3)",
               flush=True)
         for name, ms in rows[:12]:
-            print(f"[16 times]     {ms:9.4f} ms/step  {name[:200]}", flush=True)
+            print(f"[16 times] {card} |     {ms:9.4f} ms/step  {name[:200]}", flush=True)
 
     return [
         {
@@ -1176,7 +1183,7 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
     x = torch.from_numpy(graph.node_features).to(dev)
     F_ = x.shape[1]
     q = full["int8"]
-    print(f"[17 variants set-up] {n:,} nodes, {E:,} edges, W={a.bandwidth}, block {block}, F={F_}: "
+    print(f"[17 variants set-up] {card} | {n:,} nodes, {E:,} edges, W={a.bandwidth}, block {block}, F={F_}: "
           f"f32 band {nbytes(a.band):,} B, bf16 band {nbytes(full['bf16'].band):,} B, int8 band and "
           f"scales {nbytes(q.band_q, q.scales):,} B; to_banded, the bf16 copy and quantize_band "
           f"{t_setup:.2f} s (card); max_memory_allocated {torch.cuda.max_memory_allocated():,} B",
@@ -1232,11 +1239,17 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
     entries, peak = [], torch.cuda.max_memory_allocated()
     x_pad = pad_blocks(x, a.num_blocks, a.bandwidth, block).reshape(-1, F_)
     with torch.no_grad():
+        # the bf16 band's launch alone, on the operands its wrapper prepares
+        # first in torch (x rounded to bf16 in the padded frame)
+        band_p, frame = band_mma.rowmajor_operands(full["bf16"], x)
         for kid, v in VARIANTS.items():
             run_kernel = lambda kid=kid, v=v: variant_call(kid, v["kernel"], full, x)  # noqa: E731
             run_plain = lambda kid=kid, v=v: variant_call(kid, v["plain"], full, x)  # noqa: E731
             run_lib = variant_library(kid, full, x_pad, block)
             fns = [run_kernel, run_plain] + ([run_lib] if run_lib else [])
+            if v["band"] == "bf16":
+                fns.append(lambda kid=kid: band_mma.launch_rowmajor(kid, band_p, frame, n, a.bandwidth,
+                                                                    block, F_))
             ms = cuda_ms(fns, iters=10, warmup=2)
             band = full[v["band"]]
             b_ms, b_by = (band_bound(q.band_q, q.scales, x, n * F_, F_, v["ops"]) if v["band"] == "int8"
@@ -1248,16 +1261,20 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
                 lib_diff = float((run_lib().reshape(-1, F_)[:n] - outs[kid]).abs().max())
                 lib_note = (f"{lib_ms:.4f} ms, one torch.bmm over strided windows, max|library-kernel| "
                             f"{lib_diff:.3e} ({library_kernels(run_lib)})")
+            alone = (f"; the launch alone on the prepared bf16 frame {ms[-1]:.4f} ms" if v["band"] == "bf16"
+                     else "")
             print(f"[19 times] {card} | {kid} {v['name']} at {n:,} nodes, F={F_}: kernel {ms[0]:.4f} ms, "
-                  f"plain {ms[1]:.4f} ms per call (CUDA events, median of 10, in turns); kernel "
+                  f"plain {ms[1]:.4f} ms per call (CUDA events, median of 10, in turns){alone}; kernel "
                   f"{E / ms[0] / 1e6:.4g} G edge-messages/s; bound {b_ms:.4f} ms ({b_by}), the kernel at "
                   f"{b_ms / ms[0]:.1%} of it; library call {lib_note}", flush=True)
             entries.append({
-                "name": v["name"], "route": "cuda", "source": BAND_SOURCE, "replaces": v["replaces"],
+                "name": v["name"], "route": "cuda", "source": v.get("source", BAND_SOURCE),
+                "replaces": v["replaces"],
                 "launches": launched[kid], "max_abs_err": max_err[kid], "ms": ms[0],
                 "plain_ms": ms[1], "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             })
             del run_lib, fns
+        del band_p, frame
     print(f"[19 times] max_memory_allocated over phases 18-19 {peak:,} B", flush=True)
     return entries
 
@@ -1329,7 +1346,7 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     nb, W, F_ = q.num_blocks, q.bandwidth, x.shape[1]
-    print(f"[20 fm set-up] {n:,} nodes, {E:,} edges, W={W}, block {block}, F={F_}: f32 band "
+    print(f"[20 fm set-up] {card} | {n:,} nodes, {E:,} edges, W={W}, block {block}, F={F_}: f32 band "
           f"{f32_bytes:,} B (freed), int8 transposed band and scales {nbytes(q.band_qT, q.scales):,} B, "
           f"bf16 transposed band {nbytes(band_bf16T):,} B, bf16 padded frame "
           f"{nbytes(full['x_pad']):,} B, blocked {nbytes(full['xb']):,} B, int8 frame and scales "
@@ -1424,7 +1441,7 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
     # the launch alone, on operands the wrapper would build first in torch
     alone = {
         "B3a dma_only": lambda: fv._launch_dma_only(q, x_pad, R),
-        "B3a bf16_band": lambda: fv._launch_bf16_band(qb, x_pad, R),
+        "B3a bf16_band": lambda: fv._launch_bf16_band(qb, x_pad),
         "B3b": lambda: fv._launch_compute_only(q, x_win, R),
         "B3c": lambda: fv._launch_deep(q, x_pad, R, 4, 1),
     }
@@ -1466,7 +1483,8 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
                   f"{E / ms[0] / 1e6:.4g} G edge-messages/s; bound {b_ms:.4f} ms ({b_by}), the kernel at "
                   f"{b_ms / ms[0]:.1%} of it; library call {lib_note}", flush=True)
             entries.append({
-                "name": k["name"], "route": "cuda", "source": FM_SOURCE, "replaces": k["replaces"],
+                "name": k["name"], "route": "cuda", "source": k.get("source", FM_SOURCE),
+                "replaces": k["replaces"],
                 "launches": launched[kid], "max_abs_err": max_err[kid], "ms": ms[0], "plain_ms": ms[1],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             })
@@ -1495,7 +1513,7 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
         for (r, s), ms in zip(BLOCKED_SWEEP, blocked):
             print(f"[22 fm_blocked sweep] {card} | R={r} S={s}: {ms:.4f} ms (CUDA events, median of 10, "
                   f"the four in turns), {E / ms / 1e6:.4g} G edge-messages/s", flush=True)
-        print(f"[22 times] staging against arithmetic, launches alone: fm_dma_only "
+        print(f"[22 times] {card} | staging against arithmetic, launches alone: fm_dma_only "
               f"{alone_ms['B3a dma_only']:.4f} ms, fm_compute_only {alone_ms['B3b']:.4f} ms, fm_deep "
               f"(S=4) {alone_ms['B3c']:.4f} ms; compute-only / deep = "
               f"{alone_ms['B3b'] / alone_ms['B3c']:.3f}, dma-only / deep = "
@@ -1585,7 +1603,7 @@ def graph_training_phases(dev, card) -> None:
         check(np.isfinite(losses + hist["val_loss"]).all(), (kind, hist))
         check(min(losses[1:]) < losses[0], (kind, "train loss did not fall", losses))
         check(set(hist["skipped_steps"]) == {0}, (kind, hist["skipped_steps"]))
-        print(f"[23 training] {kind} fit on the card, demo flow ({len(train_g)}/{len(val_g)}/{len(test_g)} "
+        print(f"[23 training] {card} | {kind} fit on the card, demo flow ({len(train_g)}/{len(val_g)}/{len(test_g)} "
               f"graphs, COO batches of {DEMO['batch']}, hidden {DEMO['hidden']}, L={DEMO['layers']}, dropout "
               f"{DEMO['dropout']}): {len(losses)} epochs in {t_fit:.2f} s, train loss {losses[0]:.4f} -> "
               f"{losses[-1]:.4f} (least {min(losses):.4f}), best val loss {min(hist['val_loss']):.4f}, "
@@ -1705,7 +1723,7 @@ def graph_training_phases(dev, card) -> None:
                   f"{len(rows)} kernels", flush=True)
             if (kind, layout) == ("gcn", "dense"):
                 for name, ms in rows[:10]:
-                    print(f"[25 train times]     {ms:9.4f} ms/step  {name[:160]}", flush=True)
+                    print(f"[25 train times] {card} |     {ms:9.4f} ms/step  {name[:160]}", flush=True)
     epoch_graphs = graphs[: BASELINE_EPOCH["graphs"]]
     for label, kw in (("COO, host loader, prefetch 2", dict(layout="coo")),
                       ("dense, host loader, prefetch 2", dict(layout="dense")),
@@ -1719,7 +1737,7 @@ def graph_training_phases(dev, card) -> None:
               f"({BASELINE_EPOCH['graphs'] / epoch_ms * 1e3:.1f} graphs/s; host clock, median of 3); "
               f"BASELINE.md's reference torch on 1 CPU: {BASELINE_EPOCH['cpu_s']} s (~648 graphs/s)",
               flush=True)
-    print(f"[25 train times] phases 23 and 25 (training) took {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[25 train times] {card} | phases 23 and 25 (training) took {time.perf_counter() - t_start:.1f} s", flush=True)
 
 
 def gather_operands(N, F, L, dtype, device, seed=0):
@@ -1818,7 +1836,7 @@ def gather_phases(dev, card) -> list[dict]:
             "library_ms": ms[3],
         })
     del cases
-    print(f"[25 gather times] phases 24 and 25 (B1) took {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[25 gather times] {card} | phases 24 and 25 (B1) took {time.perf_counter() - t_start:.1f} s", flush=True)
     return entries
 
 
@@ -1838,7 +1856,13 @@ def main() -> None:
     # 2. the build
     t0 = time.perf_counter()
     _build.library()
-    print(f"[2 build] nvcc {' '.join(_build.NVCC_FLAGS)}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[2 build] {card} | nvcc {' '.join(_build.NVCC_FLAGS)}: {time.perf_counter() - t0:.1f} s", flush=True)
+    ptxas = _build.ptxas_report().splitlines()
+    for i, line in enumerate(ptxas):
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+            usage = " ".join(s.strip().removeprefix("ptxas info    : ") for s in ptxas[i + 2 : i + 4])
+            print(f"[2 build] ptxas -v, {', '.join(_build.PTXAS_VERBOSE)}: {kernel}: {usage}", flush=True)
 
     # 3. each kernel against its plain version on the card
     max_err = {kind: 0.0 for kind in KERNELS}

@@ -1,5 +1,7 @@
-// Band SpMM kernels K3-K7 and B2a-B2c for NVIDIA Hopper (built for sm_90a):
-// one kernel body, instantiated per layout, band type and scale placement.
+// Band SpMM kernels K3-K6, K7 over a float32 band, B2b and B2c for NVIDIA
+// Hopper (built for sm_90a): one kernel body, instantiated per layout, band
+// type and scale placement.  K7 over a bfloat16 band and B2a are role A of
+// the tensor-core body in band_mma.cu.
 //
 // Replaces the Pallas TPU kernels
 //   in connectome_gnn_tpu/ops/banded_quant.py:
@@ -12,32 +14,31 @@
 //       blocked activations [NB + 2W, F, b]; forward and backward of
 //       banded_spmm_quant_blocked_grad (:639)
 //   in connectome_gnn_tpu/ops/banded_pallas.py:
-//   K7  banded_spmm_pallas         (pallas_call at :66)   f32 or bf16 band, no
-//       scales, row-major x cast to the band's type
+//   K7  banded_spmm_pallas         (pallas_call at :66)   over a f32 band, no
+//       scales, row-major x as given
 //   in benchmarks/quant_kernel_diag.py:
-//   B2a banded_spmm_bf16_pallas      (pallas_call at :92)   K7 with a bf16 band
 //   B2b banded_spmm_w8a8             (pallas_call at :173)  K5's math on
 //       row-major int8 activations and receiver-major tiles
 //   B2c banded_spmm_quant_fused_dot  (pallas_call at :250)  K3 with each
 //       tile's scale folded into the tile, optionally rounded to bf16
 //
 // Math.  The band holds, for row block rb and diagonal d in [0, 2W], one
-// b x b tile: int8 with one f32 scale (K3-K6, B2b, B2c), or f32 or bf16
-// with none (K7, B2a).  With A[r, s] the tile's weight of the edge from
+// b x b tile: int8 with one f32 scale (K3-K6, B2b, B2c), or f32 with none
+// (K7).  With A[r, s] the tile's weight of the edge from
 // sender s of block rb + d - W to receiver r of block rb, and X[s, f] that
 // sender's activation:
 //
 //   out[rb*b + r, f] = sum_d scale[rb, d] * sum_s A[r, s] * X[s, f]
 //
-// K3, K7, B2a-B2c read receiver-major tiles (A[r, s] at tile[r*b + s]) and
+// K3, K7, B2b and B2c read receiver-major tiles (A[r, s] at tile[r*b + s]) and
 // node-major x; K4, K5 and K6 read transposed tiles (A[r, s] at
 // tile[s*b + r]).  K4 and K5 read feature-major activations and write
 // feature-major output.  K6 reads blocked activations in the W-shifted
 // padded frame, x[((rb + d) * F + f) * b + s], and writes
 // out[(rb * F + f) * b + r]; it reads the whole frame, senders past
-// num_nodes included, as the TPU kernel does.  K3, K4, K6, K7-bf16, B2a and
-// B2c round x to bf16 (round to nearest even) and multiply in f32, where
-// every int8 or bf16 by bf16 product is exact; K7-f32 multiplies f32 by f32
+// num_nodes included, as the TPU kernel does.  K3, K4, K6 and B2c round x
+// to bf16 (round to nearest even) and multiply in f32, where
+// every int8 by bf16 product is exact; K7 multiplies f32 by f32
 // with fmaf, never TF32.  B2c applies the scale to each tile entry as it is
 // widened, scale * float(int8) in f32 (then rounded to bf16 with
 // wrow_bf16), and sums the D tiles' products unscaled, as the TPU kernel's
@@ -50,21 +51,20 @@
 //
 // What bounds it on this card.  At the 1M-node serving shape (NB = 4096,
 // b = 256, W = 2, F = 64) the kernel multiplies every entry of the dense
-// tiles, 86 G multiply-adds, against a band of 1.34 GB (int8), 2.68 GB
-// (bf16) or 5.37 GB (f32).  On the CUDA cores (67 TFLOP/s f32) that takes
-// about 2.6 ms at best, above the 0.4-1.6 ms the band's bytes take at
-// 3.35 TB/s; the int8 path does four multiply-adds per __dp4a.  Only 39.8M
-// of the 1.34G tile entries are nonzero (3.0 %), so the products the
-// function needs take about 0.08 ms even in exact f32, and its least time
-// is the bytes it moves (the band, x and out): about 0.56 ms (int8),
-// 0.96 ms (bf16) and 1.76 ms (f32).  Tensor cores (mma / wgmma on bf16 or
-// int8) would move the int8 and bf16 kernels towards that memory bound;
-// they are later work.  K6 does K4's arithmetic with
-// other addresses, and is bound the same way: on the TPU the blocked layout
+// tiles, 86 G multiply-adds, against a band of 1.34 GB (int8) or 5.37 GB
+// (f32).  On the CUDA cores (67 TFLOP/s f32) that takes about 2.6 ms at
+// best, above the 0.4-1.6 ms the band's bytes take at 3.35 TB/s; the int8
+// path does four multiply-adds per __dp4a.  Only 39.8M of the 1.34G tile
+// entries are nonzero (3.0 %), so the products the function needs take
+// about 0.08 ms even in exact f32, and its least time is the bytes it
+// moves (the band, x and out): about 0.56 ms (int8) and 1.76 ms (f32).
+// Tensor cores would move the int8 kernels towards that memory bound, as
+// band_mma.cu does for the bf16 band; they are later work.  K6 does K4's
+// arithmetic with other addresses, and is bound the same way: on the TPU the blocked layout
 // turned strided DMA into contiguous slabs, but here both layouts already
 // stage rows of 32 contiguous senders (128 bytes) and store rows of 64
 // contiguous receivers, so K6 is one more instantiation of the same body,
-// not a new one; so are K7 and B2.
+// not a new one; so are K7-f32, B2b and B2c.
 //
 // What the design does about it.
 //   * One thread block per (row block, 64-receiver tile, 64-feature slice),
@@ -112,9 +112,8 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 __device__ __forceinline__ float widen(int8_t v) { return (float)v; }
 __device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// K3, K7, B2a-B2c: kRowMajor.  K4, K5: kFeatureMajor.  K6: kBlocked.
+// K3, K7, B2b, B2c: kRowMajor.  K4, K5: kFeatureMajor.  K6: kBlocked.
 enum class Layout { kRowMajor, kFeatureMajor, kBlocked };
 // Where a tile's scale goes: none (float bands), on the tile's dot (K3-K6,
 // B2b), or folded into the staged tile, as f32 or rounded to bf16 (B2c).
@@ -332,14 +331,6 @@ int cgt_banded_spmm_quant_blocked(const int8_t* band_qT, const float* scales,
 int cgt_banded_spmm_direct_f32(const float* band, const float* x, float* out, int nb, int W,
                                int block, int F, int num_nodes, long long ldx, void* stream) {
   return launch<Layout::kRowMajor, float, Scale::kNone, Act::kF32>(
-      band, nullptr, x, nullptr, nullptr, out, nb, W, block, F, num_nodes, ldx, stream);
-}
-
-// K7 with a bfloat16 band, and B2a: x rounded to bf16.
-int cgt_banded_spmm_direct_bf16(const __nv_bfloat16* band, const float* x, float* out, int nb,
-                                int W, int block, int F, int num_nodes, long long ldx,
-                                void* stream) {
-  return launch<Layout::kRowMajor, __nv_bfloat16, Scale::kNone, Act::kBf16>(
       band, nullptr, x, nullptr, nullptr, out, nb, W, block, F, num_nodes, ldx, stream);
 }
 

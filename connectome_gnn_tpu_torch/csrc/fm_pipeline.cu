@@ -1,28 +1,28 @@
 // Feature-major band-pipeline probes B3 for NVIDIA Hopper (built for sm_90a):
-// one kernel body with an S-stage cp.async ring in shared memory,
-// instantiated per body, band type, activation type, layout and depth.
+// one kernel body over an int8 band with an S-stage cp.async ring in shared
+// memory, instantiated per body, activation type, layout and depth.
 //
 // Replaces the Pallas TPU kernels of benchmarks/fm_kernel_diag.py:
 //   B3a _fm_pipeline     (pallas_call at :130), reached by
-//       fm_dma_only  :157  copy-plus-add body           <kDmaOnly, int8, bf16, FM, 2>
+//       fm_dma_only  :157  copy-plus-add body           <kDmaOnly, bf16, FM, 2>
 //                          (and S > 2, a probe of the staging rate the TPU had not)
-//       fm_bf16_band :271  bf16 band dots               <kDots, bf16, bf16, FM, 2>
-//       fm_w8a8      :545  int8 band x int8 x dots      <kDots, int8, int8, FM, 2>
-//   B3b fm_compute_only  (pallas_call at :242)          <kComputeOnly, int8, bf16, FM, 2>
-//   B3c fm_deep          (pallas_call at :393)          <kDots, int8, bf16, FM, S>
-//   B3d fm_blocked       (pallas_call at :495)          <kDots, int8, bf16, Blocked, S>
+//       fm_w8a8      :545  int8 band x int8 x dots      <kDots, int8, FM, 2>
+//       (fm_bf16_band :271, the bf16 band's dots, is role B of band_mma.cu)
+//   B3b fm_compute_only  (pallas_call at :242)          <kComputeOnly, bf16, FM, 2>
+//   B3c fm_deep          (pallas_call at :393)          <kDots, bf16, FM, S>
+//   B3d fm_blocked       (pallas_call at :495)          <kDots, bf16, Blocked, S>
 // with S in {2, 3, 4, 6, 8}, the depths the script sweeps.
 //
 // Math.  The band holds, for row block rb and diagonal d in [0, 2W], one
-// transposed b x b tile, tileT[s, r] = A[r, s] (int8 or bf16), with one f32
-// scale.  The activations are the W-shifted padded frame: feature-major
+// transposed b x b int8 tile, tileT[s, r] = A[r, s], with one f32 scale.
+// The activations are the W-shifted padded frame: feature-major
 // x[f, blk*b + s] (ldx its row stride) or blocked x[(blk*F + f)*b + s], blk
 // in [0, nb + 2W), bf16 or int8 with one f32 scale per block.  kDots computes
 //
 //   out[f, rb*b + r] = sum_d scale(rb, d) * sum_s x[f, (rb + d)*b + s] * tileT[rb, d][s, r]
 //
 // with scale(rb, d) = scales[rb, d] (times xscales[rb + d] for int8 x).  Every
-// int8 or bf16 by bf16 product is exact in f32 and each tile's dot is summed
+// int8 by bf16 product is exact in f32 and each tile's dot is summed
 // in f32 (int8 x: exactly in int32 by __dp4a, as K5), so the only difference
 // from the plain version is the order of the f32 sums; fm_w8a8 is K5's
 // function bit for bit.  kDmaOnly writes out[f, rb*b + c] = x[f, rb*b + c] +
@@ -40,9 +40,9 @@
 // What bounds it on this card.  At the 1M-node shape (nb = 4096, b = 256,
 // W = 2, F = 64) the dots bodies multiply every entry of the dense tiles, 86 G
 // multiply-adds, on the CUDA cores (67 TFLOP/s f32; __dp4a does four int8
-// products an instruction): at best about 2.6 ms, above the 0.4-0.9 ms that
-// the band's 1.34 GB (int8) or 2.68 GB (bf16) take at 3.35 TB/s.  The
-// products the data needs (39.8M nonzeros) take far less, so the least time
+// products an instruction): at best about 2.6 ms, above the 0.4 ms that the
+// band's 1.34 GB take at 3.35 TB/s.  The products the data needs (39.8M
+// nonzeros) take far less, so the least time
 // of each function is its bytes.  The two probes do more work than their
 // output needs, by design, so their times are rates, not shares of a bound:
 //   * kDmaOnly's output needs only rows 0..F-1 of diagonal 0's tiles (67 MB
@@ -158,16 +158,10 @@ __device__ __forceinline__ void wait_stage(int K) {
 __device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
 
-// Four consecutive staged band entries (receivers c..c+3 of one sender row), widened.
-template <typename BandT>
+// Four consecutive staged int8 band entries (receivers c..c+3 of one sender row), widened.
 __device__ __forceinline__ void load4(const unsigned char* row, int c, float (&v)[kMicro]) {
-  if constexpr (std::is_same_v<BandT, int8_t>) {
-    const char4 w = *reinterpret_cast<const char4*>(row + c);
-    v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
-  } else {
-    const uint2 w = *reinterpret_cast<const uint2*>(row + 2 * c);
-    v[0] = bf16_lo(w.x), v[1] = bf16_hi(w.x), v[2] = bf16_lo(w.y), v[3] = bf16_hi(w.y);
-  }
+  const char4 w = *reinterpret_cast<const char4*>(row + c);
+  v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
 }
 
 template <typename T>
@@ -179,17 +173,16 @@ __device__ __forceinline__ float widen_at(const unsigned char* row, int i) {
   }
 }
 
-template <Body kBody, typename BandT, typename XT, Layout kLayout, int S>
+template <Body kBody, typename XT, Layout kLayout, int S>
 __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
   constexpr bool kInt8X = std::is_same_v<XT, int8_t>;
-  static_assert(!kInt8X || (kBody == Body::kDots && std::is_same_v<BandT, int8_t> &&
-                            kLayout == Layout::kFeatureMajor),
-                "int8 activations take the dots body, an int8 band, feature-major x");
-  constexpr int kBandRow = kTileM * (int)sizeof(BandT) + kRowPad;  // bytes
+  static_assert(!kInt8X || (kBody == Body::kDots && kLayout == Layout::kFeatureMajor),
+                "int8 activations take the dots body and feature-major x");
+  constexpr int kBandRow = kTileM + kRowPad;  // bytes of an int8 band row
   constexpr int kXRow = kTileK * (int)sizeof(XT) + kRowPad;
   constexpr int kBandStage = kTileK * kBandRow;
   constexpr int kStage = kBandStage + kTileN * kXRow;
-  constexpr int kBandChunks = kTileM * (int)sizeof(BandT) / 16;  // 16-byte copies a band row
+  constexpr int kBandChunks = kTileM / 16;  // 16-byte copies a band row
   constexpr int kXChunks = kTileK * (int)sizeof(XT) / 16;        // 16-byte copies an x row
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -205,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
   const int chunk = (int)(blockIdx.x / ftiles / mtiles);
   const int tid = threadIdx.x;
   const int tm = tid % kGroups, tn = tid / kGroups;
-  const BandT* band = static_cast<const BandT*>(p.band);
+  const int8_t* band = static_cast<const int8_t*>(p.band);
   const XT* x = static_cast<const XT*>(p.x);
 
   auto commit_empty = [&]() {
@@ -225,15 +218,15 @@ __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
       tile_id = rb * D + d;
       blk = rb + d;
     }
-    const BandT* tile = band + (size_t)tile_id * b * b;
+    const int8_t* tile = band + (size_t)tile_id * b * b;
     const int rows = kTileK / K;
     for (int g = 0; g < K; ++g) {
       for (int idx = tid; idx < rows * kBandChunks; idx += kThreads) {
         const int k = g * rows + idx / kBandChunks;
-        const int c = (idx % kBandChunks) * (16 / (int)sizeof(BandT));
+        const int c = (idx % kBandChunks) * 16;
         const bool ok = s0 + k < b && m0 + c < b;
-        const BandT* src = ok ? tile + (size_t)(s0 + k) * b + m0 + c : tile;
-        cp_async16(sb + k * kBandRow + c * (int)sizeof(BandT), src, ok);
+        const int8_t* src = ok ? tile + (size_t)(s0 + k) * b + m0 + c : tile;
+        cp_async16(sb + k * kBandRow + c, src, ok);
       }
       cp_async_commit();
     }
@@ -291,7 +284,7 @@ __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
             if (c >= s0 && c < s0 + kTileK)
               acc[i][j] += widen_at<XT>(sx + (tn * kMicro + j) * kXRow, c - s0);
             if (f >= s0 && f < s0 + kTileK)
-              acc[i][j] += widen_at<BandT>(sb + (f - s0) * kBandRow, tm * kMicro + i);
+              acc[i][j] += widen_at<int8_t>(sb + (f - s0) * kBandRow, tm * kMicro + i);
           }
         }
       }
@@ -330,7 +323,7 @@ __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
           float av[kMicro];
-          load4<BandT>(sb + (k0 + kk) * kBandRow, tm * kMicro, av);
+          load4(sb + (k0 + kk) * kBandRow, tm * kMicro, av);
 #pragma unroll
           for (int i = 0; i < kMicro; ++i)
 #pragma unroll
@@ -395,16 +388,16 @@ bool valid(int nb, int W, int b, int F, int R, int K) {
          (K == 1 || K == 2 || K == 4);
 }
 
-template <Body kBody, typename BandT, typename XT, Layout kLayout, int S>
+template <Body kBody, typename XT, Layout kLayout, int S>
 int launch(const Params& p, int chunks, void* stream) {
   static_assert(S >= 2, "a ring of at least two stages");
-  constexpr int kStage = kTileK * (kTileM * (int)sizeof(BandT) + kRowPad) +
+  constexpr int kStage = kTileK * (kTileM + kRowPad) +
                          kTileN * (kTileK * (int)sizeof(XT) + kRowPad);
   constexpr int kSmem = S * kStage;
   const long long blocks =
       (long long)chunks * ((p.b + kTileM - 1) / kTileM) * ((p.F + kTileN - 1) / kTileN);
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto kernel = fm_pipeline_kernel<kBody, BandT, XT, kLayout, S>;
+  auto kernel = fm_pipeline_kernel<kBody, XT, kLayout, S>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
@@ -416,11 +409,11 @@ int launch(const Params& p, int chunks, void* stream) {
 template <Body kBody, Layout kLayout>
 int launch_int8_depth(int S, const Params& p, int chunks, void* stream) {
   switch (S) {
-    case 2: return launch<kBody, int8_t, __nv_bfloat16, kLayout, 2>(p, chunks, stream);
-    case 3: return launch<kBody, int8_t, __nv_bfloat16, kLayout, 3>(p, chunks, stream);
-    case 4: return launch<kBody, int8_t, __nv_bfloat16, kLayout, 4>(p, chunks, stream);
-    case 6: return launch<kBody, int8_t, __nv_bfloat16, kLayout, 6>(p, chunks, stream);
-    case 8: return launch<kBody, int8_t, __nv_bfloat16, kLayout, 8>(p, chunks, stream);
+    case 2: return launch<kBody, __nv_bfloat16, kLayout, 2>(p, chunks, stream);
+    case 3: return launch<kBody, __nv_bfloat16, kLayout, 3>(p, chunks, stream);
+    case 4: return launch<kBody, __nv_bfloat16, kLayout, 4>(p, chunks, stream);
+    case 6: return launch<kBody, __nv_bfloat16, kLayout, 6>(p, chunks, stream);
+    case 8: return launch<kBody, __nv_bfloat16, kLayout, 8>(p, chunks, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -453,17 +446,6 @@ int cgt_fm_blocked(const int8_t* band_qT, const float* scales, const __nv_bfloat
   return launch_int8_depth<Body::kDots, Layout::kBlocked>(depth, p, nb / R, stream);
 }
 
-// B3a, fm_bf16_band: a bf16 band of transposed tiles with per-dot scales.
-int cgt_fm_bf16_band(const __nv_bfloat16* band_T, const float* scales,
-                     const __nv_bfloat16* x_pad, float* outT, int nb, int W, int block, int F,
-                     int R, long long ldx, void* stream) {
-  if (!valid(nb, W, block, F, R, 1)) return (int)cudaErrorInvalidValue;
-  const Params p = params(band_T, scales, x_pad, nullptr, outT, nullptr, W, block, F, R, 1, ldx,
-                          (long long)nb * block);
-  return launch<Body::kDots, __nv_bfloat16, __nv_bfloat16, Layout::kFeatureMajor, 2>(p, nb / R,
-                                                                                      stream);
-}
-
 // B3a, fm_w8a8: xq [F, (nb + 2W) * block] int8 with one scale per block.
 int cgt_fm_w8a8(const int8_t* band_qT, const float* scales, const int8_t* xq,
                 const float* xscales, float* outT, int nb, int W, int block, int F, int R,
@@ -471,7 +453,7 @@ int cgt_fm_w8a8(const int8_t* band_qT, const float* scales, const int8_t* xq,
   if (!valid(nb, W, block, F, R, 1)) return (int)cudaErrorInvalidValue;
   const Params p = params(band_qT, scales, xq, xscales, outT, nullptr, W, block, F, R, 1, ldx,
                           (long long)nb * block);
-  return launch<Body::kDots, int8_t, int8_t, Layout::kFeatureMajor, 2>(p, nb / R, stream);
+  return launch<Body::kDots, int8_t, Layout::kFeatureMajor, 2>(p, nb / R, stream);
 }
 
 // B3a, fm_dma_only: outT [F, nb * block] = x_pad + tile (rb, 0) rows 0..F-1.
@@ -493,7 +475,7 @@ int cgt_fm_compute_only(const int8_t* band_qT, const float* scales, const __nv_b
   Params p = params(band_qT, scales, x_win, nullptr, out, sink, W, block, F, R, 1, ldx,
                     (long long)R * block);
   p.i_star = (nb / R - 1) / 2 * 2;
-  return launch<Body::kComputeOnly, int8_t, __nv_bfloat16, Layout::kFeatureMajor, 2>(p, nb / R,
+  return launch<Body::kComputeOnly, __nv_bfloat16, Layout::kFeatureMajor, 2>(p, nb / R,
                                                                                      stream);
 }
 

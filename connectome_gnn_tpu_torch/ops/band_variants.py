@@ -23,10 +23,11 @@ B2c's tile is float32 unless ``wrow_bf16``: in the TPU kernel a float32
 scalar times a bfloat16 array promotes to float32.  Its rounding differs
 from K3's, which scales each diagonal's dot.
 
-Each kernel is an instantiation of the band body in
-``csrc/banded_spmm.cu``.  Beside each sit its plain PyTorch version
-(``*_reference``, the oracle of the tests and of ``chip_smoke.py``) and a
-launch counter (``*_kernel.launches``).  The entry points take the plain
+B2b and B2c are instantiations of the band body in
+``csrc/banded_spmm.cu``; B2a is K7's bfloat16 launch, role A of the
+tensor-core body ``csrc/band_mma.cu``.  Beside each sit its plain
+PyTorch version (``*_reference``, the oracle of the tests and of
+``chip_smoke.py``) and a launch counter (``*_kernel.launches``).  The entry points take the plain
 version for CPU tensors only; for a CUDA tensor they launch the kernel or
 raise.  The TPU kernels' ``rows_per_step`` is gone: the result depends on
 it only through the order of a float32 sum.

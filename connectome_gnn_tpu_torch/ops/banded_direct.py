@@ -8,8 +8,13 @@ bfloat16 band rounds ``x`` to bfloat16 (round to nearest even), so every
 product is exact in float32.  The ``2W + 1`` tile products of a row block
 are summed in float32, and the output is ``[num_nodes, F]`` float32.
 
-The kernel is an instantiation of the band body in ``csrc/banded_spmm.cu``
-(no scales, row-major ``x``).  Beside it sit its plain PyTorch version
+Over a float32 band the kernel is an instantiation of the CUDA-core band
+body in ``csrc/banded_spmm.cu`` (no scales, row-major ``x``).  Over a
+bfloat16 band it is role A of the tensor-core body ``csrc/band_mma.cu``:
+the wrapper rounds ``x`` to bfloat16 in the padded frame in torch first
+(:func:`~connectome_gnn_tpu_torch.ops.band_mma.rowmajor_frame`, as the
+JAX wrapper does outside its ``pallas_call``).  Beside it sit its plain
+PyTorch version
 (:func:`banded_spmm_direct_reference`, the oracle of the tests and of
 ``chip_smoke.py``) and a launch counter
 (``banded_spmm_direct_kernel.launches``).  :func:`banded_spmm_direct` takes
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from connectome_gnn_tpu_torch.ops import band_mma
 from connectome_gnn_tpu_torch.ops.banded import BandedMatrix, pad_blocks
 from connectome_gnn_tpu_torch.ops.banded_quant import (
     MAX_GRID_Y,
@@ -36,12 +42,12 @@ from connectome_gnn_tpu_torch.ops.banded_quant import (
     _stream,
 )
 
-#: the band dtypes K7 takes, and its entry point for each
-ENTRIES = {torch.float32: "cgt_banded_spmm_direct_f32", torch.bfloat16: "cgt_banded_spmm_direct_bf16"}
+#: the band dtypes K7 takes
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _band_dtype(kind: str, band: torch.Tensor) -> torch.dtype:
-    if band.dtype not in ENTRIES:
+    if band.dtype not in DTYPES:
         raise ValueError(f"{kind}: the band must be float32 or bfloat16, got {band.dtype}")
     return band.dtype
 
@@ -59,23 +65,28 @@ def banded_spmm_direct_reference(a: BandedMatrix, x: torch.Tensor) -> torch.Tens
 
 
 def launch_direct(kind: str, a: BandedMatrix, x: torch.Tensor, counter) -> torch.Tensor:
-    """Check the operands and launch the K7 instantiation for the band's
-    dtype on CUDA tensors: ``x [≥num_nodes, F]`` float32 with unit inner
+    """Check the operands and launch K7 for the band's dtype on CUDA
+    tensors (a float32 band on the CUDA-core body, a bfloat16 band on role A
+    of the tensor-core body): ``x [≥num_nodes, F]`` float32 with unit inner
     stride; returns ``[num_nodes, F]`` float32.  The launch adds one to
     ``counter.launches``."""
     band, n, F = a.band, a.num_nodes, x.shape[-1]
-    _check_band(kind, band, None, x.device, tuple(ENTRIES))
+    _check_band(kind, band, None, x.device, DTYPES)
     if band.shape[1] != 2 * a.bandwidth + 1:
         raise ValueError(f"{kind}: {band.shape[1]} diagonals for bandwidth {a.bandwidth}")
     _check_activations(kind, x, n, F, torch.float32)
     if -(-F // TILE_N) > MAX_GRID_Y:
         raise ValueError(f"{kind}: F={F} exceeds the launch grid")
-    out = torch.empty((n, F), dtype=torch.float32, device=x.device)
     if n == 0 or F == 0:
-        return out
+        return torch.empty((n, F), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        _launch(kind, ENTRIES[band.dtype], band.data_ptr(), x.data_ptr(), out.data_ptr(),
-                a.num_blocks, a.bandwidth, a.block, F, n, x.stride(0), _stream(x.device))
+        if band.dtype == torch.bfloat16:
+            band_p, frame = band_mma.rowmajor_operands(a, x)
+            out = band_mma.launch_rowmajor(kind, band_p, frame, n, a.bandwidth, a.block, F)
+        else:
+            out = torch.empty((n, F), dtype=torch.float32, device=x.device)
+            _launch(kind, "cgt_banded_spmm_direct_f32", band.data_ptr(), x.data_ptr(), out.data_ptr(),
+                    a.num_blocks, a.bandwidth, a.block, F, n, x.stride(0), _stream(x.device))
     counter.launches += 1
     return out
 

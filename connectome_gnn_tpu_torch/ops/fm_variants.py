@@ -42,19 +42,23 @@ not depend on R, the depth S or the band splits K.  Where JAX asserts
 :data:`DEPTHS`, a split outside :data:`BAND_SPLITS` and, for
 ``fm_dma_only``, ``F > block``.
 
-Every kernel is an instantiation of the pipelined body in
-``csrc/fm_pipeline.cu`` (an S-stage ``cp.async`` ring; ``fm_deep``'s
-``depth`` is its S).  Beside each sit its plain PyTorch version
-(``*_reference``, the oracle of the tests and of ``chip_smoke.py``) and a
-launch counter (``*_kernel.launches``).  The entry points take the plain
-version for CPU tensors only; for a CUDA tensor they launch the kernel or
-raise.  The kernels need a block that is a multiple of 16.
+Every kernel but ``fm_bf16_band`` is an instantiation of the pipelined
+body in ``csrc/fm_pipeline.cu`` (an S-stage ``cp.async`` ring; ``fm_deep``'s
+``depth`` is its S), and needs a block that is a multiple of 16.
+``fm_bf16_band`` is role B of the tensor-core body ``csrc/band_mma.cu``
+(``wgmma`` on tiles staged by TMA), which takes any block: its wrapper pads
+the band and the frame to a multiple of 16 with zeros (:mod:`band_mma`).
+Beside each kernel sit its plain PyTorch version (``*_reference``, the
+oracle of the tests and of ``chip_smoke.py``) and a launch counter
+(``*_kernel.launches``).  The entry points take the plain version for CPU
+tensors only; for a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
 
 import torch
 
+from connectome_gnn_tpu_torch.ops import band_mma
 from connectome_gnn_tpu_torch.ops.banded_quant import (
     MAX_EXACT_W8A8_BLOCK,
     QuantizedBandedMatrixFM,
@@ -231,8 +235,8 @@ def fm_blocked_reference(q: QuantizedBandedMatrixFM, xb: torch.Tensor, rows_per_
 # ---------------------------------------------------------------------------
 
 
-def _check_card(kind: str, band: torch.Tensor, scales, device, dtypes=(torch.int8,)) -> None:
-    _check_band(kind, band, scales, device, dtypes)
+def _check_card(kind: str, band: torch.Tensor, scales, device) -> None:
+    _check_band(kind, band, scales, device)
     if band.shape[2] % BLOCK_MULTIPLE:
         raise ValueError(f"{kind}: block {band.shape[2]} is not a multiple of {BLOCK_MULTIPLE} "
                          "(the kernel stages 16-byte rows)")
@@ -269,20 +273,20 @@ def _launch_deep(q: QuantizedBandedMatrixFM, x_pad: torch.Tensor, R: int, depth:
     return out
 
 
-def _launch_bf16_band(q: QuantizedBandedMatrixFM, x_pad: torch.Tensor, R: int) -> torch.Tensor:
-    """B3a's bfloat16-band dots on the padded frame; ``[F, NB·block]``.
-    Counted as a launch of :func:`fm_bf16_band_kernel`."""
+def _launch_bf16_band(q: QuantizedBandedMatrixFM, x_pad: torch.Tensor) -> torch.Tensor:
+    """B3a's bfloat16-band dots on the padded frame, on the tensor-core
+    body (band and frame padded to a block that is a multiple of 16 where
+    they are not); ``[F, NB·block]``.  Counted as a launch of
+    :func:`fm_bf16_band_kernel`."""
     kind, nb, W, b = "B3a fm_bf16_band", q.num_blocks, q.bandwidth, q.block
-    _check_card(kind, q.band_qT, q.scales, x_pad.device, (torch.bfloat16,))
+    _check_band(kind, q.band_qT, q.scales, x_pad.device, (torch.bfloat16,))
     F = x_pad.shape[0]
     _check_operand(kind, x_pad, torch.bfloat16, (F, (nb + 2 * W) * b))
-    out = torch.empty((F, nb * b), dtype=torch.float32, device=x_pad.device)
     if F == 0:
-        return out
+        return torch.empty((F, nb * b), dtype=torch.float32, device=x_pad.device)
     with torch.cuda.device(x_pad.device):
-        _launch(kind, "cgt_fm_bf16_band", q.band_qT.data_ptr(), q.scales.data_ptr(),
-                x_pad.data_ptr(), out.data_ptr(), nb, W, b, F, R, x_pad.stride(0),
-                _stream(x_pad.device))
+        out = band_mma.launch_fm(kind, band_mma.pad_band(q.band_qT), q.scales,
+                                 band_mma.fm_frame(x_pad, nb, W, b), W, b)
     fm_bf16_band_kernel.launches += 1
     return out
 
@@ -354,10 +358,10 @@ def fm_bf16_band_kernel(band_bf16T: torch.Tensor, scales: torch.Tensor, num_node
     tensors; returns ``[F, num_nodes]`` float32."""
     kind = "B3a fm_bf16_band"
     q = _bf16_fm(kind, band_bf16T, scales, num_nodes, W)
-    R = _whole_chunks(kind, q.num_blocks, rows_per_step)
+    _whole_chunks(kind, q.num_blocks, rows_per_step)
     _check_xT(kind, xT, q.num_nodes)
     x_pad = pad_xT(xT, q.num_nodes, q.num_blocks, q.bandwidth, q.block)
-    return _launch_bf16_band(q, x_pad, R)[:, : q.num_nodes]
+    return _launch_bf16_band(q, x_pad)[:, : q.num_nodes]
 
 
 def fm_w8a8_kernel(q: QuantizedBandedMatrixFM, xqT_pad: torch.Tensor, xscales: torch.Tensor,

@@ -145,5 +145,5 @@ def test_kernel_sources_ship_with_the_package():
     from connectome_gnn_tpu_torch.ops import _build
 
     assert [p.rsplit("/", 1)[-1] for p in _build.sources()] == [
-        "banded_spmm.cu", "fm_pipeline.cu", "fused_forward.cu", "row_gather.cu"]
+        "band_mma.cu", "banded_spmm.cu", "fm_pipeline.cu", "fused_forward.cu", "row_gather.cu"]
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
