@@ -13,7 +13,8 @@ Phases, one line each:
    TF32 is switched off for every f32 product;
 2. the build: ``nvcc`` compiles ``connectome_gnn_tpu_torch/csrc`` for sm_90a,
    and what ``ptxas -v`` says of the tensor-core body's kernels
-   (registers, spills, shared memory);
+   (registers, spills, shared memory; K3's int8 role A among them) and any
+   warning it gives;
 3. each fused kernel (K1 GCN, K2 SAGE) against its plain PyTorch version on
    the card at four (B, n, F, H, L) shapes, rtol 1e-4 / atol 1e-5 (the
    repository's f32 gate);
@@ -36,9 +37,10 @@ random weights from seed 0 and non-trivial BatchNorm state):
    card, the float32 logits of ``BandedNodeGCN`` / ``BandedNodeSAGE``, then
    ``prepare_quantized`` (feature-major and row-major) and the float32 band
    freed; bytes and the memory peak;
-7. each band kernel (K3, K4, K5) against its plain PyTorch version on the
-   card, rtol 1e-5 / atol 1e-5: on random non-symmetric int8 bands at small
-   shapes (the ragged tail, W = 0, F = 5, F = 1, a block of 100) and on the
+7. each band kernel (K3 on the tensor-core body, K4, K5) against its plain
+   PyTorch version on the card, rtol 1e-5 / atol 1e-5: on random
+   non-symmetric int8 bands at small shapes (the ragged tail, W = 0, F = 5,
+   F = 1, a block of 100; for K3 also a block of 16 and F = 130) and on the
    prepared 1M-node bands;
 8. the serving path: ``apply_quantized`` feature-major (K4), w8a8 (K5),
    row-major (K3), on a hybrid graph with 10 % shortcuts (K3 and the COO
@@ -53,9 +55,13 @@ random weights from seed 0 and non-trivial BatchNorm state):
    dequantized band, checked for hidden copies; K5 has none) per call at
    full size (CUDA events, median, in turns and back to back, then the
    card's SM clock and power; device time from ``torch.profiler``), beside
-   the kernel's bound, and
-   ``apply_quantized`` ms per forward and edge-messages/s for
-   feature-major and w8a8 serving, with a device-time breakdown by kernel.
+   the kernel's bound; K3's launch alone on the operands its wrapper
+   prepares (the padded band and the bf16 frame) and its share of the
+   bound; and ``apply_quantized`` ms per forward and edge-messages/s for
+   feature-major, w8a8, row-major and hybrid serving, with a device-time
+   breakdown by kernel (``--serving-forwards`` runs phase 6's build and
+   these forwards alone, so that another tree's package can be timed by
+   the same code).
 
 Then the giant-graph int8 training path, at the 5tq / 5tqb configuration
 of ``benchmarks/suite.py:986-1171`` (the same graph and widths, 2 classes,
@@ -161,17 +167,22 @@ hand-written kernel) and the random-row gather B1 of
 24. B1 (``ops.gather_dma.dma_gather``) against ``table[idx]``, bitwise: small
     cases at every K in (4, 8, 16, 32) and C in (256, 1024), ragged L, L < C,
     rows of 1, 2, 3, 64 and 65 elements in float32, int32 and bfloat16; an
-    index outside the table raises; then the script's three cases at full
-    size (``:245-252``), one launch each;
+    index outside the table (N, then -1) fails a child process with the
+    kernel's trap, by its synchronize at the latest, and this process still
+    gathers;
+    then the script's three cases at full size (``:245-252``), one launch
+    each;
 25. times: ms per train step with and without the guard (host clock ending
     in a synchronize, median, in turns), the device's busy share and a
     ``torch.profiler`` breakdown of one step, and a GCN epoch of 256 graphs at
-    batch 16 beside ``BASELINE.md``'s torch-CPU row; for B1, the wrapper
-    (with its index check), the launch alone, the plain version and
-    ``torch.index_select`` per call (CUDA events, median, in turns) and the
-    launch and ``index_select`` by device time, with ns/row, GB/s, the bound
-    and where the table stands against the 50 MB L2, and the launch alone at
-    every (K, C).
+    batch 16 beside ``BASELINE.md``'s torch-CPU row; for B1, the entry point
+    (no host sync: it runs under ``set_sync_debug_mode("error")``), the
+    launch alone (the C entry called with its arguments ready), the plain
+    version and ``torch.index_select`` per call (CUDA events, median, in
+    turns) and the launch and ``index_select`` by device time, with ns/row,
+    GB/s, the bound and where the table stands against the 50 MB L2, the
+    entry point at every (K, C), and where the entry point's host time goes
+    (host clock, mean over many calls, piece by piece).
 
 It prints the card's name and power limit, the kernels' JSON line (K1 to
 K7, K4's backward, B2a-B2c, B3a-B3d and B1 at the script's three cases,
@@ -191,9 +202,11 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import signal
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -266,6 +279,7 @@ BAND_SHAPES = [(10, 1, 64, 640, 16), (10, 1, 64, 600, 16), (10, 0, 64, 600, 16),
 BAND_KERNELS = {
     "K3": dict(name="banded_spmm_quant", kernel=bq.banded_spmm_quant_kernel,
                plain=bq.banded_spmm_quant_reference, feature_major=False,
+               source="connectome_gnn_tpu_torch/csrc/band_mma.cu",
                replaces="connectome_gnn_tpu/ops/banded_quant.py:820"),
     "K4": dict(name="banded_spmm_quant_fm", kernel=bq.banded_spmm_quant_fm_kernel,
                plain=bq.banded_spmm_quant_fm_reference, feature_major=True,
@@ -274,8 +288,11 @@ BAND_KERNELS = {
                plain=bq.banded_spmm_quant_fm_w8a8_reference, feature_major=True,
                replaces="connectome_gnn_tpu/ops/banded_quant.py:434"),
 }
+#: K3's further shapes on the tensor-core body: a block of 16, F = 130
+#: (three 64-feature units)
+K3_SHAPES = [(12, 1, 16, 180, 8), (6, 1, 64, 350, 130)]
 BAND_SOURCE = "connectome_gnn_tpu_torch/csrc/banded_spmm.cu"
-#: the tensor-core body of the bf16 band kernels (K7-bf16, B2a, B3a bf16_band)
+#: the tensor-core body of K3 and the bf16 band kernels (K7-bf16, B2a, B3a bf16_band)
 MMA_SOURCE = "connectome_gnn_tpu_torch/csrc/band_mma.cu"
 #: a train step against its plain path on the card: the f32 gate
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
@@ -390,6 +407,23 @@ GATHER_CASES = [("spmm_feature_gather", 262_144, 64, 1 << 22, "f32"),
 GATHER_SMALL = [(4096, 64, 5000), (4096, 65, 3000), (1000, 3, 1025), (16384, 2, 700), (500, 1, 257),
                 (300, 64, 1)]
 GATHER_SOURCE = "connectome_gnn_tpu_torch/csrc/row_gather.cu"
+#: a child process that gathers with one index (its argument) outside a
+#: 300-row table, then synchronizes
+OUT_OF_RANGE_CHILD = """
+import sys
+import numpy as np
+import torch
+from connectome_gnn_tpu_torch.ops import gather_dma as gd
+table = torch.randn(300, 64, device="cuda")
+idx = torch.from_numpy(np.random.default_rng(0).integers(0, 300, 1000).astype(np.int32)).cuda()
+idx[517] = int(sys.argv[1])
+gd.dma_gather(table, idx)
+torch.cuda.synchronize()
+print("synchronized")
+"""
+REPO = os.path.dirname(os.path.abspath(__file__))
+#: calls per host-time sample of B1's launch path
+HOST_CALLS = 2000
 GATHER_REPLACES = "benchmarks/gather_dma_experiments.py:91"
 L2_BYTES = 50e6
 
@@ -659,6 +693,68 @@ def make_node_model(cls, device, seed=0):
     return model.to(device).eval()
 
 
+def hybrid_operands(n: int, dev):
+    """The 5qs graph with 10 % shortcut edges as a hybrid matrix on the card
+    (band W = 2 plus the COO remainder), its node features, its edge count."""
+    g = generate_spatial_graph(
+        n, degree=GIANT["degree"], band=GIANT["band"], num_features=GIANT["in_channels"],
+        seed=3, shortcut_frac=0.1,
+    )
+    h = to_hybrid(g.edge_index[0], g.edge_index[1], g.edge_weight, n, block=GIANT["block"],
+                  bandwidth=2, device=dev)
+    return h, torch.from_numpy(g.node_features).to(dev), g.num_edges
+
+
+@torch.no_grad()
+def time_forwards(card, gcn, runs) -> None:
+    """``apply_quantized`` ms per forward against its plain path (host clock
+    ending in a synchronize, median of 10, in turns), edge-messages/s, the
+    memory peak and the device time by kernel, for each (label, prepared
+    adjacency, norm, x, edges, keywords)."""
+    L = GIANT["layers"]
+    for label, adj_q, norm, x, E, kw in runs:
+        forward = lambda: gcn.apply_quantized(adj_q, norm, x, **kw)  # noqa: E731
+        plain = lambda: gcn.apply_quantized(adj_q, norm, x, plain=True, **kw)  # noqa: E731
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms, plain_ms = host_ms([forward, plain], iters=10)
+        serve_peak = torch.cuda.max_memory_allocated()
+        rows = device_breakdown(forward)
+        busy = sum(ms for _, ms in rows)
+        print(
+            f"[10 times] {card} | GCN apply_quantized {label}, {x.shape[0]:,} nodes, L={L}: "
+            f"{fwd_ms:.3f} ms/forward ({L * E / fwd_ms * 1e3:.4g} edge-messages/s); plain path "
+            f"{plain_ms:.3f} ms/forward (host clock, median of 10, in turns); device busy "
+            f"{busy:.3f} ms/forward ({busy / fwd_ms:.1%} of its wall time); "
+            f"max_memory_allocated {serve_peak:,} B",
+            flush=True,
+        )
+        for name, ms in rows[:10]:
+            print(f"[10 times] {card} |     {ms:9.4f} ms/forward  {name[:200]}", flush=True)
+
+
+@torch.no_grad()
+def serving_forwards(dev, card) -> None:
+    """``--serving-forwards``: phase 6's band and phase 8's hybrid graph,
+    prepared for GCN serving, and phase 10's forwards alone, through the
+    public API only, so that the package of another tree (on ``sys.path``
+    first) is timed by the same code."""
+    n, block = GIANT["num_nodes"], GIANT["block"]
+    graph = generate_spatial_graph(n, degree=GIANT["degree"], band=GIANT["band"],
+                                   num_features=GIANT["in_channels"], seed=0)
+    a = to_banded(graph.edge_index[0], graph.edge_index[1], graph.edge_weight, n, block=block, device=dev)
+    x = torch.from_numpy(graph.node_features).to(dev)
+    gcn = make_node_model(BandedNodeGCN, dev)
+    q_fm, dinv = gcn.prepare_quantized(a)
+    q_rm, _ = gcn.prepare_quantized(a, feature_major=False)
+    del a
+    h, xh, E_h = hybrid_operands(n, dev)
+    hq, hdinv = gcn.prepare_quantized(h)
+    del h
+    E = graph.num_edges
+    time_forwards(card, gcn, [("feature-major", q_fm, dinv, x, E, {}), ("row-major", q_rm, dinv, x, E, {}),
+                              ("hybrid", hq, hdinv, xh, E_h, {})])
+
+
 @torch.no_grad()
 def giant_graph_phases(dev, card):
     """Phases 6-10; returns the band kernels' entries of the JSON line and
@@ -719,6 +815,16 @@ def giant_graph_phases(dev, card):
             max_err[kid] = max(max_err[kid], errs[kid])
         print(f"[7 band kernel] NB={nb} W={W} b={b} n={nodes} F={F}, random non-symmetric band: "
               + ", ".join(f"{kid} max|kernel-plain| = {e:.3e}" for kid, e in errs.items()), flush=True)
+    for shape in K3_SHAPES:
+        nb, W, b, nodes, F = shape
+        q = random_quantized_band(nb, W, b, nodes, seed=sum(shape), device=dev)
+        xs = torch.from_numpy(
+            np.random.default_rng(nodes + F).standard_normal((nodes, F)).astype(np.float32)
+        ).to(dev)
+        err = check_band_kernel("K3", q, xs)
+        max_err["K3"] = max(max_err["K3"], err)
+        print(f"[7 band kernel] NB={nb} W={W} b={b} n={nodes} F={F}, random non-symmetric band: "
+              f"K3 max|kernel-plain| = {err:.3e}", flush=True)
     full = {"K3": (q_rm, x), "K4": (q_fm, xT), "K5": (q_fm, xT)}
     for kid, operands in full.items():
         err = check_band_kernel(kid, *operands)
@@ -727,14 +833,8 @@ def giant_graph_phases(dev, card):
               f"max|kernel-plain| = {err:.3e}", flush=True)
 
     # 8. the giant serving path
-    hybrid_graph = generate_spatial_graph(
-        n, degree=GIANT["degree"], band=GIANT["band"], num_features=GIANT["in_channels"],
-        seed=3, shortcut_frac=0.1,
-    )
-    h = to_hybrid(hybrid_graph.edge_index[0], hybrid_graph.edge_index[1],
-                  hybrid_graph.edge_weight, n, block=block, bandwidth=2, device=dev)
+    h, xh, E_h = hybrid_operands(n, dev)
     remainder = int((h.remainder_weights > 0).sum())
-    xh = torch.from_numpy(hybrid_graph.node_features).to(dev)
     f32["hybrid"] = gcn(h, xh)
     hq, hdinv = gcn.prepare_quantized(h)
     del h
@@ -767,7 +867,7 @@ def giant_graph_phases(dev, card):
             f"relative error {rel:.4e}, argmax agreement {agree:.5f}",
             flush=True,
         )
-    del hq, hdinv, xh, f32, logits
+    del f32, logits
 
     # 9. RCM at the demo size
     demo_n = 20_000
@@ -804,8 +904,18 @@ def giant_graph_phases(dev, card):
             rows = dequantized(q.band_qT, q.scales).reshape(q.num_blocks, -1, block)
             xpad = bq._pad_fm(xT, q.num_blocks, q.bandwidth, block, torch.bfloat16).to(torch.float32)
             fns.append(fm_library(rows, xpad, block))
+        alone_note = ""
+        if kid == "K3":  # the launch alone, on the operands the wrapper prepares
+            band_p = band_mma.pad_band(q.band_q)
+            frame = band_mma.rowmajor_frame(x, n, q.num_blocks, q.bandwidth, block)
+            fns.append(lambda: band_mma.launch_rowmajor(kid, band_p, frame, n, q.bandwidth, block,
+                                                         x.shape[1], q.scales))
         ms = cuda_ms(fns, iters=20, warmup=3)
-        times[kid], lib_ms[kid] = ms[:2], (ms[2] if len(ms) > 2 else None)
+        times[kid], lib_ms[kid] = ms[:2], (ms[2] if kid != "K5" else None)
+        if kid == "K3":
+            alone_note = (f"; the launch alone on the padded band and the bf16 frame {ms[3]:.4f} ms, "
+                          f"{bounds[kid][0] / ms[3]:.1%} of the bound")
+            del band_p, frame
         if lib_ms[kid] is not None:
             lib_note = (f"{lib_ms[kid]:.4f} ms, one torch.bmm over the dequantized band and x rounded "
                         f"to bf16 ({library_kernels(fns[2])})")
@@ -823,31 +933,18 @@ def giant_graph_phases(dev, card):
             f"clock, power, temperature: {clocks}); "
             f"device time kernel {dev_kernel:.4f} ms, plain {dev_plain:.4f} ms (torch.profiler, "
             f"mean of 5); kernel {E / times[kid][0] / 1e6:.4g} G edges/s; bound {bounds[kid][0]:.4f} ms "
-            f"({bounds[kid][1]}), {bounds[kid][0] / times[kid][0]:.1%} of it; library call {lib_note}",
+            f"({bounds[kid][1]}), {bounds[kid][0] / times[kid][0]:.1%} of it{alone_note}; library call "
+            f"{lib_note}",
             flush=True,
         )
-    for label, kw in (("feature-major", {}), ("w8a8", {"w8a8": True})):
-        forward = lambda kw=kw: gcn.apply_quantized(q_fm, dinv, x, **kw)  # noqa: E731
-        plain = lambda kw=kw: gcn.apply_quantized(q_fm, dinv, x, plain=True, **kw)  # noqa: E731
-        torch.cuda.reset_peak_memory_stats()
-        fwd_ms, plain_ms = host_ms([forward, plain], iters=10)
-        serve_peak = torch.cuda.max_memory_allocated()
-        rows = device_breakdown(forward)
-        busy = sum(ms for _, ms in rows)
-        print(
-            f"[10 times] {card} | GCN apply_quantized {label}, {n:,} nodes, L={L}: "
-            f"{fwd_ms:.3f} ms/forward ({L * E / fwd_ms * 1e3:.4g} edge-messages/s); plain path "
-            f"{plain_ms:.3f} ms/forward (host clock, median of 10, in turns); device busy "
-            f"{busy:.3f} ms/forward ({busy / fwd_ms:.1%} of its wall time); "
-            f"max_memory_allocated {serve_peak:,} B",
-            flush=True,
-        )
-        for name, ms in rows[:10]:
-            print(f"[10 times] {card} |     {ms:9.4f} ms/forward  {name[:200]}", flush=True)
+    time_forwards(card, gcn, [("feature-major", q_fm, dinv, x, E, {}), ("w8a8", q_fm, dinv, x, E, {"w8a8": True}),
+                              ("row-major", q_rm, dinv, x, E, {}), ("hybrid", hq, hdinv, xh, E_h, {})])
+    del hq, hdinv, xh
 
     return [
         {
-            "name": k["name"], "route": "cuda", "source": BAND_SOURCE, "replaces": k["replaces"],
+            "name": k["name"], "route": "cuda", "source": k.get("source", BAND_SOURCE),
+            "replaces": k["replaces"],
             "launches": launches[kid], "max_abs_err": max_err[kid],
             "ms": times[kid][0], "plain_ms": times[kid][1], "bound_ms": bounds[kid][0],
             "bound_by": bounds[kid][1], "library_ms": lib_ms[kid],
@@ -1758,6 +1855,60 @@ def bits(t):
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
+def bare_gather_launch(table, idx):
+    """B1's C entry point with its arguments ready (K = 8, C = 1024): the
+    launch without the wrapper's Python.  Counts no launch."""
+    L, (N, F) = idx.numel(), table.shape
+    out = torch.empty((L, F), dtype=table.dtype, device=table.device)
+    args = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), L, N, F * table.element_size(),
+            gd.vector_bytes(table, out), 8, 1024, torch.cuda.current_stream(table.device).cuda_stream)
+    entry = _build.library().cgt_row_gather
+    return lambda: entry(*args)
+
+
+def host_us(fn, calls=HOST_CALLS) -> float:
+    """Host time (us) per call of ``fn``: the mean over ``calls`` calls
+    after one, with no sync among them (what the host spends issuing)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def gather_host_pieces(table, idx) -> list[tuple[str, float]]:
+    """Where B1's entry point spends its host time: the entry point, each
+    piece of its launch path alone, the bare C call, what a launch path
+    with a device context and a host-side index check (one reduction, one
+    host sync) would add, and ``torch.index_select``."""
+    dev = table.device
+    L, F = idx.numel(), table.shape[1]
+    out = torch.empty((L, F), dtype=table.dtype, device=dev)
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    pieces = [
+        ("dma_gather", lambda: gd.dma_gather(table, idx)),
+        ("operand checks", lambda: gd._check(table, idx, 8, 1024)),
+        ("torch.empty", lambda: torch.empty((L, F), dtype=table.dtype, device=dev)),
+        ("current_device", torch.cuda.current_device),
+        ("current stream as a torch.cuda.Stream", lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ("current stream's raw handle (_stream)", lambda: bq._stream(dev)),
+        ("vector_bytes", lambda: gd.vector_bytes(table, out)),
+        ("library() and getattr", lambda: getattr(_build.library(), "cgt_row_gather")),
+        ("the bare C call", bare_gather_launch(table, idx)),
+        ("torch.cuda.device context", device_context),
+        ("aminmax and tolist (a host sync)", lambda: torch.stack(torch.aminmax(idx)).tolist()),
+        ("torch.index_select", lambda: torch.index_select(table, 0, idx)),
+    ]
+    return [(piece, host_us(fn)) for piece, fn in pieces]
+
+
 def gather_phases(dev, card) -> list[dict]:
     """Phases 24 and the B1 half of 25; returns B1's entries of the JSON line."""
     t_start = time.perf_counter()
@@ -1773,17 +1924,23 @@ def gather_phases(dev, card) -> list[dict]:
                     check(got.shape == want.shape and torch.equal(bits(got), bits(want)),
                           ("B1", N, F_, L, dtype, K, C))
                     checked += 1
-    for bad in (-1, 300):
-        table, idx = gather_operands(300, 64, 1000, "f32", dev)
-        idx[517] = bad
-        try:
-            gd.dma_gather(table, idx)
-        except ValueError:
-            continue
-        raise RuntimeError(f"chip_smoke check failed: B1 took index {bad} of a 300-row table")
+    failures = {}
+    for bad in (300, -1):  # the kernel traps, which leaves a context unusable: one child each
+        child = subprocess.run([sys.executable, "-c", OUT_OF_RANGE_CHILD, str(bad)], cwd=REPO,
+                               capture_output=True, text=True, timeout=300)
+        # the trap surfaces at the synchronize (torch's "CUDA error"), or at the
+        # launch's own error check if the kernel has already stopped by then
+        errors = [ln for ln in child.stderr.splitlines() if "CUDA error" in ln or "kernel launch failed" in ln]
+        check(child.returncode != 0 and "synchronized" not in child.stdout and bool(errors),
+              ("B1 took index", bad, child.returncode, child.stdout[-500:], child.stderr[-2000:]))
+        failures[bad] = errors[0].strip()[:160]
+    table, idx = gather_operands(300, 64, 1000, "f32", dev)
+    check(torch.equal(bits(gd.dma_gather(table, idx)), bits(gd.dma_gather_reference(table, idx))),
+          "B1 after the children's traps")
     print(f"[24 gather] dma_gather against table[idx] on the card: {checked} calls bitwise equal (every K in "
           f"{gd.K_OUTSTANDING} and C in (256, 1024); (N, F, L) in {GATHER_SMALL}; f32, int32, bf16); "
-          f"indices -1 and N raise ValueError", flush=True)
+          f"an index N, then -1, of a 300-row table fails a child process with the kernel's trap: "
+          f"{failures}; this process still gathers", flush=True)
     cases = {name: gather_operands(N, F_, L, dtype, dev) for name, N, F_, L, dtype in GATHER_CASES}
     torch.cuda.synchronize()
     reset_counters()
@@ -1808,18 +1965,27 @@ def gather_phases(dev, card) -> list[dict]:
         L, row_bytes = idx.numel(), table.shape[1] * table.element_size()
         distinct = int(torch.unique(idx).numel())
         b_ms, b_by = bound(distinct * row_bytes + nbytes(idx) + L * row_bytes, 0, "f32")
-        fns = [lambda: gd.dma_gather(table, idx), lambda: gd._launch_gather(table, idx),
+        launch_alone = bare_gather_launch(table, idx)
+        fns = [lambda: gd.dma_gather(table, idx), launch_alone,
                lambda: gd.dma_gather_reference(table, idx), lambda: torch.index_select(table, 0, idx)]
         ms = cuda_ms(fns, iters=20, warmup=3)
         dev_alone, dev_lib = device_ms(fns[1]), device_ms(fns[3])
-        sweep = cuda_ms([lambda K=K, C=C: gd._launch_gather(table, idx, K, C)
+        torch.cuda.set_sync_debug_mode("error")  # any synchronizing call raises
+        try:
+            synced = [gd.dma_gather(table, idx) for _ in range(3)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(all(torch.equal(bits(out), bits(synced[0])) for out in synced), (name, "under sync debug"))
+        del synced
+        sweep = cuda_ms([lambda K=K, C=C: gd.dma_gather(table, idx, k_outstanding=K, chunk=C)
                          for K in gd.K_OUTSTANDING for C in (256, 1024)], iters=20, warmup=3)
         gbytes = L * row_bytes / 1e9
         table_mb, touched_mb = nbytes(table) / 1e6, distinct * -(-row_bytes // 32) * 32 / 1e6
         print(f"[25 gather times] {card} | {name}: table {tuple(table.shape)} {table.dtype} ({table_mb:.1f} MB; "
               f"{'fits' if table_mb < L2_BYTES / 1e6 else 'exceeds'} the 50 MB L2; its {distinct:,} touched rows "
-              f"span {touched_mb:.1f} MB of 32-B sectors), {L:,} indices: dma_gather (K=8, C=1024, with its "
-              f"index check) {ms[0]:.4f} ms, launch alone {ms[1]:.4f} ms, plain table[idx] {ms[2]:.4f} ms, "
+              f"span {touched_mb:.1f} MB of 32-B sectors), {L:,} indices: dma_gather (K=8, C=1024; no host "
+              f"sync: 3 calls under set_sync_debug_mode('error')) {ms[0]:.4f} ms, launch alone (the C entry "
+              f"with its arguments ready) {ms[1]:.4f} ms, plain table[idx] {ms[2]:.4f} ms, "
               f"torch.index_select {ms[3]:.4f} ms per call (CUDA events, median of 20, in turns); launch "
               f"alone {ms[1] * 1e6 / L:.3f} ns/row, {gbytes / ms[1] * 1e3:.4g} GB/s of rows; device time (torch."
               f"profiler, mean of 20) launch alone {dev_alone:.4f} ms, index_select {dev_lib:.4f} ms; bound "
@@ -1827,8 +1993,13 @@ def gather_phases(dev, card) -> list[dict]:
               f"launch at {b_ms / ms[1]:.1%} of it by events, "
               f"{f'{b_ms / dev_alone:.1%}' if dev_alone else 'not seen'} by device time", flush=True)
         for (K, C), t in zip([(K, C) for K in gd.K_OUTSTANDING for C in (256, 1024)], sweep):
-            print(f"[25 gather sweep] {card} | {name} K={K} C={C}: {t:.4f} ms (launch alone, the eight in "
-                  f"turns), {t * 1e6 / L:.3f} ns/row, {gbytes / t * 1e3:.4g} GB/s", flush=True)
+            print(f"[25 gather sweep] {card} | {name} K={K} C={C}: {t:.4f} ms (the entry point, the eight "
+                  f"in turns), {t * 1e6 / L:.3f} ns/row, {gbytes / t * 1e3:.4g} GB/s", flush=True)
+        if name == "sampler_pair_gather":
+            print(f"[25 gather host] {card} | {name}: host time per call (host clock, mean of "
+                  f"{HOST_CALLS} calls after one, no sync among them): "
+                  + "; ".join(f"{piece} {us:.2f} us" for piece, us in gather_host_pieces(table, idx)),
+                  flush=True)
         entries.append({
             "name": f"dma_gather ({name})", "route": "cuda", "source": GATHER_SOURCE,
             "replaces": GATHER_REPLACES, "launches": launches[name],
@@ -1838,6 +2009,14 @@ def gather_phases(dev, card) -> list[dict]:
     del cases
     print(f"[25 gather times] {card} | phases 24 and 25 (B1) took {time.perf_counter() - t_start:.1f} s", flush=True)
     return entries
+
+
+def demangled(name: str) -> str:
+    """A kernel's C++ name, through ``c++filt`` where the machine has it."""
+    try:
+        return subprocess.run(["c++filt", name], capture_output=True, text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return name
 
 
 def main() -> None:
@@ -1860,9 +2039,14 @@ def main() -> None:
     ptxas = _build.ptxas_report().splitlines()
     for i, line in enumerate(ptxas):
         if "Compiling entry function" in line:
-            kernel = line.split("'")[1]
+            kernel = demangled(line.split("'")[1])
             usage = " ".join(s.strip().removeprefix("ptxas info    : ") for s in ptxas[i + 2 : i + 4])
             print(f"[2 build] ptxas -v, {', '.join(_build.PTXAS_VERBOSE)}: {kernel}: {usage}", flush=True)
+        elif "warning" in line.lower():
+            print(f"[2 build] ptxas: {line.strip()}", flush=True)
+    if "--serving-forwards" in sys.argv[1:]:
+        serving_forwards(dev, card)
+        return
 
     # 3. each kernel against its plain version on the card
     max_err = {kind: 0.0 for kind in KERNELS}

@@ -1,11 +1,11 @@
-// Band SpMM kernels K3-K6, K7 over a float32 band, B2b and B2c for NVIDIA
-// Hopper (built for sm_90a): one kernel body, instantiated per layout, band
-// type and scale placement.  K7 over a bfloat16 band and B2a are role A of
-// the tensor-core body in band_mma.cu.
+// Band SpMM kernels K4-K6, K7 over a float32 band, B2b and B2c for NVIDIA
+// Hopper (built for sm_90a): one kernel body on the CUDA cores, instantiated
+// per layout, band type and scale placement.  K3 (the int8 band, row-major
+// x), K7 over a bfloat16 band and B2a are role A of the tensor-core body in
+// band_mma.cu.
 //
 // Replaces the Pallas TPU kernels
 //   in connectome_gnn_tpu/ops/banded_quant.py:
-//   K3  banded_spmm_quant          (pallas_call at :820)  row-major x [N, F]
 //   K4  banded_spmm_quant_fm       (pallas_call at :284)  feature-major xT [F, N];
 //       also the backward of banded_spmm_quant_fm_grad (:743), launched over
 //       the transposed band
@@ -19,24 +19,24 @@
 //   in benchmarks/quant_kernel_diag.py:
 //   B2b banded_spmm_w8a8             (pallas_call at :173)  K5's math on
 //       row-major int8 activations and receiver-major tiles
-//   B2c banded_spmm_quant_fused_dot  (pallas_call at :250)  K3 with each
-//       tile's scale folded into the tile, optionally rounded to bf16
+//   B2c banded_spmm_quant_fused_dot  (pallas_call at :250)  K3's function
+//       with each tile's scale folded into the tile, optionally rounded to bf16
 //
 // Math.  The band holds, for row block rb and diagonal d in [0, 2W], one
-// b x b tile: int8 with one f32 scale (K3-K6, B2b, B2c), or f32 with none
+// b x b tile: int8 with one f32 scale (K4-K6, B2b, B2c), or f32 with none
 // (K7).  With A[r, s] the tile's weight of the edge from
 // sender s of block rb + d - W to receiver r of block rb, and X[s, f] that
 // sender's activation:
 //
 //   out[rb*b + r, f] = sum_d scale[rb, d] * sum_s A[r, s] * X[s, f]
 //
-// K3, K7, B2b and B2c read receiver-major tiles (A[r, s] at tile[r*b + s]) and
+// K7, B2b and B2c read receiver-major tiles (A[r, s] at tile[r*b + s]) and
 // node-major x; K4, K5 and K6 read transposed tiles (A[r, s] at
 // tile[s*b + r]).  K4 and K5 read feature-major activations and write
 // feature-major output.  K6 reads blocked activations in the W-shifted
 // padded frame, x[((rb + d) * F + f) * b + s], and writes
 // out[(rb * F + f) * b + r]; it reads the whole frame, senders past
-// num_nodes included, as the TPU kernel does.  K3, K4, K6 and B2c round x
+// num_nodes included, as the TPU kernel does.  K4, K6 and B2c round x
 // to bf16 (round to nearest even) and multiply in f32, where
 // every int8 by bf16 product is exact; K7 multiplies f32 by f32
 // with fmaf, never TF32.  B2c applies the scale to each tile entry as it is
@@ -58,10 +58,11 @@
 // entries are nonzero (3.0 %), so the products the function needs take
 // about 0.08 ms even in exact f32, and its least time is the bytes it
 // moves (the band, x and out): about 0.56 ms (int8) and 1.76 ms (f32).
-// Tensor cores would move the int8 kernels towards that memory bound, as
-// band_mma.cu does for the bf16 band; they are later work.  K6 does K4's
-// arithmetic with other addresses, and is bound the same way: on the TPU the blocked layout
-// turned strided DMA into contiguous slabs, but here both layouts already
+// Tensor cores move a band kernel towards that memory bound, as band_mma.cu
+// does for the bf16 band and for K3; moving the kernels here is later work.
+// K6 does K4's arithmetic with other addresses, and is bound the same way:
+// on the TPU the blocked layout turned strided DMA into contiguous slabs,
+// but here both layouts already
 // stage rows of 32 contiguous senders (128 bytes) and store rows of 64
 // contiguous receivers, so K6 is one more instantiation of the same body,
 // not a new one; so are K7-f32, B2b and B2c.
@@ -113,9 +114,9 @@ __device__ __forceinline__ float round_bf16(float v) {
 __device__ __forceinline__ float widen(int8_t v) { return (float)v; }
 __device__ __forceinline__ float widen(float v) { return v; }
 
-// K3, K7, B2b, B2c: kRowMajor.  K4, K5: kFeatureMajor.  K6: kBlocked.
+// K7, B2b, B2c: kRowMajor.  K4, K5: kFeatureMajor.  K6: kBlocked.
 enum class Layout { kRowMajor, kFeatureMajor, kBlocked };
-// Where a tile's scale goes: none (float bands), on the tile's dot (K3-K6,
+// Where a tile's scale goes: none (float bands), on the tile's dot (K4-K6,
 // B2b), or folded into the staged tile, as f32 or rounded to bf16 (B2c).
 enum class Scale { kNone, kPerDot, kFolded, kFoldedBf16 };
 // The activations: float32 as given (K7-f32), rounded to bf16 in staging,
@@ -293,13 +294,6 @@ int launch(const BandT* band, const float* scales, const float* x, const int8_t*
 }  // namespace
 
 extern "C" {
-
-int cgt_banded_spmm_quant(const int8_t* band_q, const float* scales, const float* x,
-                          float* out, int nb, int W, int block, int F, int num_nodes,
-                          long long ldx, void* stream) {
-  return launch<Layout::kRowMajor, int8_t, Scale::kPerDot, Act::kBf16>(
-      band_q, scales, x, nullptr, nullptr, out, nb, W, block, F, num_nodes, ldx, stream);
-}
 
 int cgt_banded_spmm_quant_fm(const int8_t* band_qT, const float* scales, const float* xT,
                              float* outT, int nb, int W, int block, int F, int num_nodes,

@@ -1,6 +1,6 @@
 // Random-row gather B1 for NVIDIA Hopper (built for sm_90a):
 // out[i, :] = table[idx[i], :] for a table [N, F] of any element type and
-// int32 indices [L], a byte copy of each row.
+// int32 indices [L], a byte copy of each row; an index outside [0, N) traps.
 //
 // Replaces the Pallas TPU kernel dma_gather of
 // benchmarks/gather_dma_experiments.py:52-111 (pallas_call at :91), which
@@ -36,9 +36,15 @@
 //     warp has K load instructions in flight (K rows or more), in place of
 //     the TPU kernel's K outstanding DMAs.  K is 4, 8, 16 or 32, the values
 //     the script sweeps.
-//   * The kernel does not check the indices: the wrapper does (one device
-//     reduction) and raises for any index outside [0, N), where the TPU's
-//     DMA leaves the result undefined.  All offsets are 64-bit.
+//   * The kernel checks the indices itself, where they already are: each
+//     thread compares the indices it loads into shared memory with the
+//     table's row count N, and __syncthreads_or tells the whole block.  An
+//     index outside [0, N), where the TPU's DMA leaves the row undefined,
+//     stops the kernel with a trap before the block reads any table row; the
+//     launch returns at once, the error surfaces as a CUDA error at the
+//     caller's next synchronizing call, and the context is then unusable, as
+//     after torch's own device-side index checks.  So the wrapper checks
+//     nothing on the card and never waits for it.  All offsets are 64-bit.
 //
 // The C entry point returns cudaGetLastError() after its launch (or
 // cudaErrorInvalidValue for arguments it does not take), as an int; 0 is
@@ -55,12 +61,18 @@ constexpr int kThreads = 256;
 template <typename Word, int K>
 __global__ void __launch_bounds__(kThreads)
 row_gather_kernel(const Word* __restrict__ table, const int* __restrict__ idx,
-                  Word* __restrict__ out, long long L, int words, int chunk) {
+                  Word* __restrict__ out, long long L, long long N, int words, int chunk) {
   extern __shared__ int chunk_idx[];
   const long long row0 = (long long)blockIdx.x * chunk;
   const int rows = (int)min((long long)chunk, L - row0);
-  for (int r = threadIdx.x; r < rows; r += kThreads) chunk_idx[r] = __ldg(idx + row0 + r);
-  __syncthreads();
+  bool outside = false;
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    const int i = __ldg(idx + row0 + r);
+    outside |= i < 0 || i >= N;
+    chunk_idx[r] = i;
+  }
+  // an index outside the table stops the whole grid before this block reads a row
+  if (__syncthreads_or(outside)) __trap();
 
   const int items = rows * words;
   Word* const out_chunk = out + row0 * words;
@@ -83,24 +95,24 @@ row_gather_kernel(const Word* __restrict__ table, const int* __restrict__ idx,
 }
 
 template <typename Word, int K>
-int launch(const void* table, const int* idx, void* out, long long L, int words, int chunk,
-           void* stream) {
+int launch(const void* table, const int* idx, void* out, long long L, long long N, int words,
+           int chunk, void* stream) {
   const long long blocks = (L + chunk - 1) / chunk;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   row_gather_kernel<Word, K><<<(unsigned)blocks, kThreads, chunk * sizeof(int),
                                (cudaStream_t)stream>>>(
-      static_cast<const Word*>(table), idx, static_cast<Word*>(out), L, words, chunk);
+      static_cast<const Word*>(table), idx, static_cast<Word*>(out), L, N, words, chunk);
   return (int)cudaGetLastError();
 }
 
 template <typename Word>
-int launch_k(int K, const void* table, const int* idx, void* out, long long L, int words,
-             int chunk, void* stream) {
+int launch_k(int K, const void* table, const int* idx, void* out, long long L, long long N,
+             int words, int chunk, void* stream) {
   switch (K) {
-    case 4: return launch<Word, 4>(table, idx, out, L, words, chunk, stream);
-    case 8: return launch<Word, 8>(table, idx, out, L, words, chunk, stream);
-    case 16: return launch<Word, 16>(table, idx, out, L, words, chunk, stream);
-    case 32: return launch<Word, 32>(table, idx, out, L, words, chunk, stream);
+    case 4: return launch<Word, 4>(table, idx, out, L, N, words, chunk, stream);
+    case 8: return launch<Word, 8>(table, idx, out, L, N, words, chunk, stream);
+    case 16: return launch<Word, 16>(table, idx, out, L, N, words, chunk, stream);
+    case 32: return launch<Word, 32>(table, idx, out, L, N, words, chunk, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -112,20 +124,21 @@ extern "C" {
 // table [N, row_bytes / V words], idx [L] int32, out [L, row_bytes / V words];
 // V = vec_bytes in {1, 2, 4, 8, 16} divides row_bytes and both addresses;
 // chunk * 4 bytes of indices fit the default 48 KB of shared memory.
-int cgt_row_gather(const void* table, const int* idx, void* out, long long L, int row_bytes,
-                   int vec_bytes, int k_outstanding, int chunk, void* stream) {
-  if (L <= 0 || row_bytes <= 0 || vec_bytes <= 0 || row_bytes % vec_bytes || chunk <= 0 ||
-      chunk > 12288 || (long long)chunk * (row_bytes / vec_bytes) > 0x3fffffffLL)
+int cgt_row_gather(const void* table, const int* idx, void* out, long long L, long long N,
+                   int row_bytes, int vec_bytes, int k_outstanding, int chunk, void* stream) {
+  if (L <= 0 || N <= 0 || row_bytes <= 0 || vec_bytes <= 0 || row_bytes % vec_bytes ||
+      chunk <= 0 || chunk > 12288 || (long long)chunk * (row_bytes / vec_bytes) > 0x3fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int words = row_bytes / vec_bytes;
   switch (vec_bytes) {
-    case 16: return launch_k<uint4>(k_outstanding, table, idx, out, L, words, chunk, stream);
-    case 8: return launch_k<uint2>(k_outstanding, table, idx, out, L, words, chunk, stream);
-    case 4: return launch_k<unsigned int>(k_outstanding, table, idx, out, L, words, chunk, stream);
+    case 16: return launch_k<uint4>(k_outstanding, table, idx, out, L, N, words, chunk, stream);
+    case 8: return launch_k<uint2>(k_outstanding, table, idx, out, L, N, words, chunk, stream);
+    case 4:
+      return launch_k<unsigned int>(k_outstanding, table, idx, out, L, N, words, chunk, stream);
     case 2:
-      return launch_k<unsigned short>(k_outstanding, table, idx, out, L, words, chunk, stream);
+      return launch_k<unsigned short>(k_outstanding, table, idx, out, L, N, words, chunk, stream);
     case 1:
-      return launch_k<unsigned char>(k_outstanding, table, idx, out, L, words, chunk, stream);
+      return launch_k<unsigned char>(k_outstanding, table, idx, out, L, N, words, chunk, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,23 +1,26 @@
 """Operands and launches of the tensor-core band body, ``csrc/band_mma.cu``.
 
-That body serves the bfloat16 band kernels: K7 over a bfloat16 band and
-B2a (role A, row-major: ``out[rb·b + r] = Σ_d tile[rb, d] @ x̂[rb + d]``)
-and B3a's ``fm_bf16_band`` (role B, feature-major, with per-dot scales).
-Its products are ``wgmma`` on tiles staged by TMA, and TMA needs 16-byte
-global strides.  So the wrappers hand it the band and the frame padded with
-zeros where they are not: the block to ``b' = ⌈b/16⌉·16`` and, in role A,
-the features to ``F' = ⌈F/8⌉·8``.  Zero senders and receivers change no
-sum; the kernel stores only the caller's ``b`` receivers a block and ``F``
-features.  At the main shape (``b = 256``, ``F = 64``) nothing is padded.
+That body serves K3, the int8 band of the row-major serving path, and the
+bfloat16 band kernels.  Role A is row-major: ``out[rb·b + r] = Σ_d
+scale[rb, d] · (tile[rb, d] @ x̂[rb + d])`` for K3's int8 band with its
+per-tile scales (widened to bfloat16 in the kernel's registers, which is
+exact), and without scales for K7 over a bfloat16 band and B2a.  Role B is
+B3a's ``fm_bf16_band`` (feature-major, with per-dot scales).  Its products
+are ``wgmma`` on tiles staged by TMA, and TMA needs 16-byte global strides.
+So the wrappers hand it the band and the frame padded with zeros where they
+are not: the block to ``b' = ⌈b/16⌉·16`` and, in role A, the features to
+``F' = ⌈F/8⌉·8``.  Zero senders and receivers change no sum; the kernel
+stores only the caller's ``b`` receivers a block and ``F`` features.  At
+the main shape (``b = 256``, ``F = 64``) nothing is padded.
 
 ``x̂`` is ``x[:num_nodes]`` rounded to bfloat16 (round to nearest even) in
 the W-shifted padded frame, as ``connectome_gnn_tpu/ops/banded_pallas.py``
-hands it to its ``pallas_call``: :func:`rowmajor_frame` builds it in one
-pass over ``x`` at the main shape.  :func:`rowmajor_on_operands` and
-:func:`fm_on_operands` compute the kernel's function on the prepared
-operands in plain torch, so the tests can hold the padding against the
-plain versions on the original operands.  The launches here count nothing;
-their callers count.
+and ``banded_quant.py`` hand it to their ``pallas_call``s:
+:func:`rowmajor_frame` builds it in one pass over ``x`` at the main shape.
+:func:`rowmajor_on_operands` and :func:`fm_on_operands` compute the
+kernel's function on the prepared operands in plain torch, so the tests can
+hold the padding against the plain versions on the original operands.  The
+launches here count nothing; their callers count.
 """
 
 from __future__ import annotations
@@ -90,14 +93,16 @@ def fm_frame(x_pad: torch.Tensor, num_blocks: int, bandwidth: int, block: int) -
 
 
 def rowmajor_on_operands(band_p: torch.Tensor, frame: torch.Tensor, num_nodes: int, W: int,
-                         block: int, F: int) -> torch.Tensor:
-    """Role A's function on its prepared operands, in plain torch:
-    ``[num_nodes, F]`` float32."""
+                         block: int, F: int, scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Role A's function on its prepared operands, in plain torch, each
+    tile's dot times its scale where ``scales [NB, 2W+1]`` is given (the
+    int8 band): ``[num_nodes, F]`` float32."""
     nb = band_p.shape[0]
     xw = frame.to(torch.float32)
     out = xw.new_zeros((nb, band_p.shape[2], xw.shape[2]))
     for d in range(2 * W + 1):
-        out += torch.bmm(band_p[:, d].to(torch.float32), xw[d : d + nb])
+        dot = torch.bmm(band_p[:, d].to(torch.float32), xw[d : d + nb])
+        out += dot if scales is None else scales[:, d, None, None] * dot
     return out[:, :block, :F].reshape(nb * block, F)[:num_nodes]
 
 
@@ -113,11 +118,13 @@ def fm_on_operands(band_p: torch.Tensor, scales: torch.Tensor, x_pad_p: torch.Te
     return out[:, :, :block].permute(1, 0, 2).reshape(F, nb * block)
 
 
-def _check(kind: str, band_p: torch.Tensor, frame: torch.Tensor, frame_shape) -> None:
+def _check(kind: str, band_p: torch.Tensor, frame: torch.Tensor, frame_shape,
+           band_dtype=torch.bfloat16) -> None:
     bp = band_p.shape[2]
-    if band_p.dtype != torch.bfloat16 or not band_p.is_contiguous() or bp % BLOCK_MULTIPLE:
-        raise ValueError(f"{kind}: the padded band must be contiguous bfloat16 [NB, D, b', b'] with b' "
-                         f"a multiple of {BLOCK_MULTIPLE}, got {band_p.dtype} {tuple(band_p.shape)}")
+    if band_p.dtype != band_dtype or not band_p.is_contiguous() or bp % BLOCK_MULTIPLE:
+        raise ValueError(f"{kind}: the padded band must be contiguous {band_dtype} [NB, D, b', b'] "
+                         f"with b' a multiple of {BLOCK_MULTIPLE}, got {band_p.dtype} "
+                         f"{tuple(band_p.shape)}")
     if (frame.dtype != torch.bfloat16 or not frame.is_contiguous()
             or tuple(frame.shape) != tuple(frame_shape) or frame.device != band_p.device):
         raise ValueError(f"{kind}: the frame must be contiguous bfloat16 {list(frame_shape)} on "
@@ -125,14 +132,20 @@ def _check(kind: str, band_p: torch.Tensor, frame: torch.Tensor, frame_shape) ->
 
 
 def launch_rowmajor(kind: str, band_p: torch.Tensor, frame: torch.Tensor, num_nodes: int, W: int,
-                    block: int, F: int) -> torch.Tensor:
-    """Role A on CUDA operands from :func:`rowmajor_operands`; returns
-    ``[num_nodes, F]`` float32."""
+                    block: int, F: int, scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Role A on CUDA operands from :func:`rowmajor_operands` (a bfloat16
+    band), or on K3's padded int8 band with its ``scales [NB, 2W+1]`` and
+    :func:`rowmajor_frame`; returns ``[num_nodes, F]`` float32."""
     nb, bp, Fp = band_p.shape[0], band_p.shape[2], frame.shape[-1]
-    _check(kind, band_p, frame, (nb + 2 * W, bp, Fp))
     out = torch.empty((num_nodes, F), dtype=torch.float32, device=frame.device)
-    _launch(kind, "cgt_banded_spmm_direct_bf16", band_p.data_ptr(), frame.data_ptr(),
-            out.data_ptr(), nb, W, block, bp, F, Fp, num_nodes, _stream(frame.device))
+    if scales is None:
+        _check(kind, band_p, frame, (nb + 2 * W, bp, Fp))
+        _launch(kind, "cgt_banded_spmm_direct_bf16", band_p.data_ptr(), frame.data_ptr(),
+                out.data_ptr(), nb, W, block, bp, F, Fp, num_nodes, _stream(frame.device))
+    else:
+        _check(kind, band_p, frame, (nb + 2 * W, bp, Fp), torch.int8)
+        _launch(kind, "cgt_banded_spmm_quant", band_p.data_ptr(), scales.data_ptr(), frame.data_ptr(),
+                out.data_ptr(), nb, W, block, bp, F, Fp, num_nodes, _stream(frame.device))
     return out
 
 

@@ -3,8 +3,11 @@
 The port of ``connectome_gnn_tpu/ops/banded_quant.py``.  The band is
 stored as int8 with one float32 scale per (row block, diagonal) tile,
 ``band ≈ band_q · scales[..., None, None]``: four times fewer band bytes
-than float32.  Four hand-written CUDA kernels (``csrc/banded_spmm.cu``)
-contract it with the activations:
+than float32.  Four hand-written CUDA kernels contract it with the
+activations: K3 on the tensor cores (role A of ``csrc/band_mma.cu``, the
+int8 band widened to bfloat16 in registers, x rounded to bfloat16 in the
+padded frame by :func:`~connectome_gnn_tpu_torch.ops.band_mma.rowmajor_frame`
+first), K4-K6 on the CUDA cores (``csrc/banded_spmm.cu``):
 
 =====  ==================================  =======================================
 K3     :func:`banded_spmm_quant`           ``A_q·x``, row-major ``x [N, F]``
@@ -398,24 +401,31 @@ def _launch(kind: str, entry: str, *args) -> None:
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream, for a launch: the
+    handle alone, as Triton's launcher reads it, without building a
+    ``torch.cuda.Stream`` (0.26 against 5.7 us of host time a call on the
+    H100's host, ``chip_smoke.py`` phase 25)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def banded_spmm_quant_kernel(q: QuantizedBandedMatrix, x: torch.Tensor) -> torch.Tensor:
     """Launch K3 on CUDA tensors: ``A_q @ x`` for ``x [≥num_nodes, F]``
-    float32; returns ``[num_nodes, F]`` float32."""
+    float32; returns ``[num_nodes, F]`` float32.  ``x`` is rounded to
+    bfloat16 in the padded frame in torch first, and the band padded to a
+    block that is a multiple of 16 where it is not one."""
+    from connectome_gnn_tpu_torch.ops import band_mma  # it imports this module
+
     kind, n, F = "K3 banded_spmm_quant", q.num_nodes, x.shape[-1]
     _check_band(kind, q.band_q, q.scales, x.device)
     _check_activations(kind, x, n, F, torch.float32)
     if -(-F // TILE_N) > MAX_GRID_Y:
         raise ValueError(f"{kind}: F={F} exceeds the launch grid")
-    out = torch.empty((n, F), dtype=torch.float32, device=x.device)
     if n == 0 or F == 0:
-        return out
+        return torch.empty((n, F), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        _launch(kind, "cgt_banded_spmm_quant", q.band_q.data_ptr(), q.scales.data_ptr(),
-                x.data_ptr(), out.data_ptr(), q.num_blocks, q.bandwidth, q.block, F, n,
-                x.stride(0), _stream(x.device))
+        frame = band_mma.rowmajor_frame(x, n, q.num_blocks, q.bandwidth, q.block)
+        out = band_mma.launch_rowmajor(kind, band_mma.pad_band(q.band_q), frame, n, q.bandwidth,
+                                       q.block, F, q.scales)
     banded_spmm_quant_kernel.launches += 1
     return out
 

@@ -15,10 +15,14 @@ the indices a thread block walks) change no value; K is one of
 ``L`` (the TPU kernel cut C to a divisor of L; the kernel here masks the
 ragged last chunk).
 
-An index outside ``[0, N)`` raises ``ValueError``, checked by one device
-reduction before the launch: the TPU's DMA leaves that row undefined and
-XLA's ``t[i]`` clamps it.  :func:`_launch_gather`, the launch alone for
-timing, skips that check.
+An index outside ``[0, N)``, where the TPU's DMA leaves the row undefined
+and XLA's ``t[i]`` clamps it, is an error.  On CPU tensors it raises
+``ValueError``.  On the card the kernel checks each index as it loads it
+and traps before it reads a row, as ``torch.index_select`` and
+``table[idx]`` do there: the call itself returns, the error surfaces as a
+CUDA error (``RuntimeError``) at the caller's next synchronizing call, and
+the process's CUDA context is unusable after it.  So the entry point never
+waits for the card.
 
 The kernel is ``csrc/row_gather.cu``.  Beside it sit its plain PyTorch
 version (:func:`dma_gather_reference`, the oracle of the tests and of
@@ -54,7 +58,8 @@ def _check(table: torch.Tensor, idx: torch.Tensor, k_outstanding: int, chunk: in
 
 
 def _check_indices(table: torch.Tensor, idx: torch.Tensor) -> None:
-    """Raise for any index outside ``[0, N)``: one reduction, one sync."""
+    """Raise for any index outside ``[0, N)`` (the plain path's check; on
+    the card the kernel checks)."""
     if idx.numel() == 0:
         return
     lo, hi = torch.stack(torch.aminmax(idx)).tolist()
@@ -80,22 +85,27 @@ def vector_bytes(table: torch.Tensor, out: torch.Tensor) -> int:
 
 def _launch_gather(table: torch.Tensor, idx: torch.Tensor, k_outstanding: int = 8,
                    chunk: int = 1024) -> torch.Tensor:
-    """Launch B1 on CUDA tensors WITHOUT checking the indices' range (the
-    launch alone, for timing: an index outside ``[0, N)`` reads outside the
-    table).  Counted as a launch of :func:`dma_gather`."""
+    """Launch B1 on CUDA tensors: :func:`dma_gather`'s path on the card,
+    with no host sync (the kernel checks the indices).  Counted as a launch
+    of :func:`dma_gather`."""
     _check(table, idx, k_outstanding, chunk)
     if table.device.type != "cuda":
         raise ValueError(f"the B1 dma_gather kernel needs CUDA tensors, got {table.device}")
     if not table.is_contiguous() or not idx.is_contiguous():
         raise ValueError("B1 dma_gather: table and idx must be contiguous")
-    L, F = idx.shape[0], table.shape[1]
+    (N, F), L = table.shape, idx.shape[0]
     out = torch.empty((L, F), dtype=table.dtype, device=table.device)
     if L == 0 or F == 0:
         return out
-    with torch.cuda.device(table.device):
-        _launch("B1 dma_gather", "cgt_row_gather", table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                L, F * table.element_size(), vector_bytes(table, out), k_outstanding, chunk,
-                _stream(table.device))
+    if N == 0:
+        raise ValueError(f"B1 dma_gather: {L} indices into a table of 0 rows")
+    device = table.device
+    if device.index != torch.cuda.current_device():  # a launch goes to the current device
+        with torch.cuda.device(device):
+            return _launch_gather(table, idx, k_outstanding, chunk)
+    _launch("B1 dma_gather", "cgt_row_gather", table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            L, N, F * table.element_size(), vector_bytes(table, out), k_outstanding, chunk,
+            _stream(device))
     dma_gather.launches += 1
     return out
 
@@ -103,13 +113,15 @@ def _launch_gather(table: torch.Tensor, idx: torch.Tensor, k_outstanding: int = 
 def dma_gather(table: torch.Tensor, idx: torch.Tensor, *, k_outstanding: int = 8,
                chunk: int = 1024) -> torch.Tensor:
     """``table[idx]``: ``[L, F]`` in the table's type, for ``table [N, F]``
-    and ``idx [L]`` int32 with every index in ``[0, N)`` (else
-    ``ValueError``).  ``k_outstanding`` and ``chunk`` change no value."""
+    and ``idx [L]`` int32 with every index in ``[0, N)``.  An index outside
+    raises ``ValueError`` on CPU tensors; on CUDA tensors the kernel traps,
+    and the error surfaces at the next synchronizing call (see the module
+    docstring).  ``k_outstanding`` and ``chunk`` change no value."""
+    if table.device.type != "cpu":
+        return _launch_gather(table, idx, k_outstanding, chunk)
     _check(table, idx, k_outstanding, chunk)
     _check_indices(table, idx)
-    if table.device.type == "cpu":
-        return dma_gather_reference(table, idx)
-    return _launch_gather(table, idx, k_outstanding, chunk)
+    return dma_gather_reference(table, idx)
 
 
 dma_gather.launches = 0

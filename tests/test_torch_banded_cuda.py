@@ -1,5 +1,6 @@
 """The int8 band kernels K3, K4 and K5 against their plain PyTorch versions,
-on the card.
+on the card.  K3 runs on the tensor-core body (``csrc/band_mma.cu``, role A
+over the int8 band), K4 and K5 on the CUDA-core body.
 
 Every test here needs a CUDA card and skips without one.  The machine with
 the card has no JAX, and ``tests/conftest.py`` imports it, so run them
@@ -9,7 +10,13 @@ there without the conftest:
 
 This file imports no JAX.  Tolerances: kernel against plain version rtol
 1e-5 / atol 1e-5 (the same exact products, float32 sums in another order);
-quantized model against its plain path rtol 1e-4 / atol 1e-4.
+quantized model against its plain path rtol 1e-4 / atol 1e-4.  The shapes
+take each kernel through a ragged tail, W = 0, F = 5, F = 1 and F = 130
+(three of K3's 64-feature units), blocks of 100 and 16 (K3 pads them to
+112 and 16) and the main shape's 256-node block.  A band whose scales and
+activations span six decades each way shows whether K3's tensor-core
+accumulation differs from IEEE float32 sums in another order: each output
+is held to 1e-5 of the sum of its products' magnitudes.
 """
 
 import numpy as np
@@ -17,6 +24,7 @@ import pytest
 import torch
 
 import connectome_gnn_tpu_torch as tp
+from connectome_gnn_tpu_torch.ops import band_mma
 from connectome_gnn_tpu_torch.ops import banded as tb
 from connectome_gnn_tpu_torch.ops import banded_quant as bq
 
@@ -24,6 +32,8 @@ pytestmark = pytest.mark.requires_cuda
 
 RTOL, ATOL = 1e-5, 1e-5
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-4
+#: |kernel - plain| against the plain version over |A_q|, |scales| and |x|
+MAGNITUDE_RTOL = 1e-5
 KERNELS = {
     "K3": (bq.banded_spmm_quant_kernel, bq.banded_spmm_quant_reference, False),
     "K4": (bq.banded_spmm_quant_fm_kernel, bq.banded_spmm_quant_fm_reference, True),
@@ -60,7 +70,8 @@ def operands(kid, q, x):
 @pytest.mark.parametrize("kid", list(KERNELS))
 @pytest.mark.parametrize("shape", [(10, 1, 64, 640, 16), (10, 1, 64, 600, 16), (10, 0, 64, 600, 16),
                                    (10, 2, 64, 640, 5), (7, 1, 100, 650, 70),
-                                   (16, 2, 256, 4000, 64)])
+                                   (16, 2, 256, 4000, 64), (10, 2, 64, 640, 1),
+                                   (6, 1, 64, 350, 130), (12, 1, 16, 180, 8)])
 def test_kernel_matches_plain_version(cuda, kid, shape):
     nb, W, block, n, F = shape
     q = random_band(nb, W, block, n, seed=sum(shape), device=cuda)
@@ -71,6 +82,37 @@ def test_kernel_matches_plain_version(cuda, kid, shape):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     torch.testing.assert_close(got, plain(*operands(kid, q, x)), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", [(20, 2, 256, 5000, 64), (7, 1, 100, 650, 70)])
+def test_k3_accumulation_over_six_decades(cuda, shape):
+    """Scales and activations spread log-uniformly over three decades each
+    way: each output of K3 within 1e-5 of the sum of its products'
+    magnitudes."""
+    nb, W, block, n, F = shape
+    q = random_band(nb, W, block, n, seed=sum(shape), device=cuda)
+    rng = np.random.default_rng(n + F)
+    scales = 10.0 ** rng.uniform(-3, 3, q.scales.shape)
+    x = rng.standard_normal((n, F)) * 10.0 ** rng.uniform(-3, 3, (n, F))
+    q = q._replace(scales=torch.from_numpy(scales.astype(np.float32)).to(cuda))
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    got = bq.banded_spmm_quant_kernel(q, x)
+    want = bq.banded_spmm_quant_reference(q, x)
+    magnitude = bq.banded_spmm_quant_reference(q._replace(band_q=q.band_q.abs()), x.abs())
+    assert bool(((got - want).abs() <= MAGNITUDE_RTOL * magnitude).all())
+
+
+def test_k3_launch_alone_equals_the_wrapper(cuda):
+    """On the operands K3's wrapper prepares, role A's launch gives the
+    entry point's output bit for bit."""
+    nb, W, block, n, F = 7, 1, 100, 650, 70
+    q = random_band(nb, W, block, n, seed=5, device=cuda)
+    x = torch.randn(n, F, device=cuda)
+    frame = band_mma.rowmajor_frame(x, n, nb, W, block)
+    alone = band_mma.launch_rowmajor("K3", band_mma.pad_band(q.band_q), frame, n, W, block, F, q.scales)
+    assert torch.equal(alone, bq.banded_spmm_quant(q, x))
+    with pytest.raises(ValueError, match="padded band"):
+        band_mma.launch_rowmajor("K3", q.band_q, frame, n, W, block, F, q.scales)
 
 
 @pytest.mark.parametrize("kid", list(KERNELS))

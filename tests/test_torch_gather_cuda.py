@@ -10,8 +10,15 @@ there without the conftest:
 This file imports no JAX.  A gather is a copy, so the kernel must equal
 ``table[idx]`` bitwise at every K and C: ragged L (C not dividing it),
 L < C, rows of 1, 2, 3, 64 and 65 elements in float32, int32 and bfloat16
-(rows that are not 16-byte multiples take a narrower copy word).
+(rows that are not 16-byte multiples take a narrower copy word).  The
+kernel checks the indices itself: an index outside the table traps, which
+leaves the process's CUDA context unusable, so that case runs in a child
+process; and the entry point issues no host sync.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -77,14 +84,57 @@ def test_unaligned_table_view(cuda):
     assert torch.equal(bits(gd.dma_gather(table, idx)), bits(table[idx.long()]))
 
 
+#: a child that gathers with one index out of range, then synchronizes
+OUT_OF_RANGE_CHILD = """
+import sys
+import torch
+from connectome_gnn_tpu_torch.ops import gather_dma as gd
+table = torch.randn(4096, 64, device="cuda")
+idx = torch.randint(0, 4096, (2000,), dtype=torch.int32, device="cuda")
+idx[1234] = int(sys.argv[1])
+gd.dma_gather(table, idx)
+torch.cuda.synchronize()
+print("synchronized")
+"""
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
 @pytest.mark.parametrize("bad", [-1, 4096])
 def test_out_of_range_index_raises_before_any_launch(cuda, bad):
+    """The kernel traps on an index outside [0, N) before any row is read:
+    the child fails with a CUDA error by its synchronize, and this process's
+    context, which never saw the bad index, still gathers."""
     table, idx = operands(4096, 64, 2000, torch.float32, cuda)
-    idx[1234] = bad
-    before = gd.dma_gather.launches
-    with pytest.raises(ValueError, match="outside"):
-        gd.dma_gather(table, idx)
-    assert gd.dma_gather.launches == before
+    gd.dma_gather(table, idx)  # builds the library before the child loads it
+    torch.cuda.synchronize()
+    child = subprocess.run([sys.executable, "-c", OUT_OF_RANGE_CHILD, str(bad)], cwd=REPO,
+                           capture_output=True, text=True, timeout=600)
+    assert child.returncode != 0 and "synchronized" not in child.stdout
+    # the trap surfaces at the synchronize (torch's "CUDA error"), or at the
+    # launch's own error check if the kernel has already stopped by then
+    assert "CUDA error" in child.stderr or "kernel launch failed" in child.stderr, child.stderr[-2000:]
+    assert torch.equal(bits(gd.dma_gather(table, idx)), bits(gd.dma_gather_reference(table, idx)))
+
+
+def test_entry_point_issues_no_host_sync(cuda):
+    """The index check runs in the kernel: under set_sync_debug_mode("error")
+    any synchronizing call would raise."""
+    table, idx = operands(4096, 64, 5000, torch.float32, cuda)
+    want = gd.dma_gather_reference(table, idx)
+    gd.dma_gather(table, idx)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [gd.dma_gather(table, idx, k_outstanding=K) for K in gd.K_OUTSTANDING]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(bits(out), bits(want)) for out in outs)
+
+
+def test_empty_table_raises(cuda):
+    table = torch.zeros((0, 8), device=cuda)
+    with pytest.raises(ValueError, match="0 rows"):
+        gd.dma_gather(table, torch.zeros(3, dtype=torch.int32, device=cuda))
 
 
 def test_empty_index(cuda):
