@@ -13,8 +13,9 @@ Phases, one line each:
    TF32 is switched off for every f32 product;
 2. the build: ``nvcc`` compiles ``connectome_gnn_tpu_torch/csrc`` for sm_90a,
    and what ``ptxas -v`` says of the tensor-core body's kernels
-   (registers, spills, shared memory; K3's int8 role A among them) and any
-   warning it gives;
+   (registers, spills, shared memory; role A over the int8 band with the
+   scale on the dot (K3, B2c) or folded into the tile (B2c ``wrow_bf16``)
+   and over the float32 band (K7) among them) and any warning it gives;
 3. each fused kernel (K1 GCN, K2 SAGE) against its plain PyTorch version on
    the card at four (B, n, F, H, L) shapes, rtol 1e-4 / atol 1e-5 (the
    repository's f32 gate);
@@ -106,16 +107,21 @@ block 256, F = 64), whose path is their entry points:
     B2a (``banded_spmm_bf16``), B2b (``banded_spmm_w8a8``) and B2c
     (``banded_spmm_quant_fused_dot``, with ``wrow_bf16`` False and True)
     against their plain versions, rtol 1e-5 / atol 1e-5, on the random
-    non-symmetric small bands; then the main path, each entry point once
-    at 1M nodes with one launch each, its output against its plain
+    non-symmetric small bands (K7 over the float32 band and B2c without
+    ``wrow_bf16``, whose order of sums the plain version's float32 sums
+    cannot share, against their plain versions summed in float64 at 1e-5
+    and against the float32 plain versions within 1e-5 of the sum of the
+    products' magnitudes; the plain version's own distance from its
+    float64 sums is printed beside); then the main path, each entry point
+    once at 1M nodes with one launch each, its output against its plain
     version at 1e-5 and against the float32 ``banded_spmm`` under the
     checks phase's gate (relative Frobenius error < 3e-2,
     ``quant_kernel_diag.py:327``);
 19. times: each variant's kernel, plain version and library call per call
     (CUDA events, median of 10, in turns; B2b has no library call) and,
-    over the bfloat16 band, the launch alone on the frame its wrapper
-    prepares, G edge-messages/s and the kernel's share of its bound; the
-    memory peak.
+    for the variants on the tensor-core body (K7, B2a, B2c), the launch
+    alone on the operands its wrapper prepares, G edge-messages/s and the
+    kernel's and the launch's share of the bound; the memory peak.
 
 Then the feature-major band-pipeline probes B3a-B3d of
 ``benchmarks/fm_kernel_diag.py`` at its 5qm geometry (the same graph: 1M
@@ -292,7 +298,7 @@ BAND_KERNELS = {
 #: (three 64-feature units)
 K3_SHAPES = [(12, 1, 16, 180, 8), (6, 1, 64, 350, 130)]
 BAND_SOURCE = "connectome_gnn_tpu_torch/csrc/banded_spmm.cu"
-#: the tensor-core body of K3 and the bf16 band kernels (K7-bf16, B2a, B3a bf16_band)
+#: the tensor-core body of K3, K7, B2a, B2c and B3a bf16_band
 MMA_SOURCE = "connectome_gnn_tpu_torch/csrc/band_mma.cu"
 #: a train step against its plain path on the card: the f32 gate
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
@@ -316,7 +322,7 @@ TRAIN_KERNELS = {
 VARIANTS = {
     "K7-f32": dict(name="banded_spmm_direct (float32 band)", kernel=bd.banded_spmm_direct_kernel,
                    entry=bd.banded_spmm_direct, plain=bd.banded_spmm_direct_reference,
-                   counter="K7", band="f32", ops="f32",
+                   counter="K7", band="f32", ops="f32", source=MMA_SOURCE,
                    replaces="connectome_gnn_tpu/ops/banded_pallas.py:66"),
     "K7-bf16": dict(name="banded_spmm_direct (bfloat16 band)", kernel=bd.banded_spmm_direct_kernel,
                     entry=bd.banded_spmm_direct, plain=bd.banded_spmm_direct_reference,
@@ -330,14 +336,21 @@ VARIANTS = {
                 replaces="benchmarks/quant_kernel_diag.py:173"),
     "B2c": dict(name="banded_spmm_quant_fused_dot", kernel=bv.banded_spmm_quant_fused_dot_kernel,
                 entry=bv.banded_spmm_quant_fused_dot, plain=bv.banded_spmm_quant_fused_dot_reference,
-                counter="B2c", band="int8", ops="bf16", replaces="benchmarks/quant_kernel_diag.py:250"),
+                counter="B2c", band="int8", ops="bf16", source=MMA_SOURCE,
+                replaces="benchmarks/quant_kernel_diag.py:250"),
     "B2c wrow_bf16": dict(name="banded_spmm_quant_fused_dot (wrow_bf16)",
                           kernel=bv.banded_spmm_quant_fused_dot_kernel,
                           entry=bv.banded_spmm_quant_fused_dot,
                           plain=bv.banded_spmm_quant_fused_dot_reference, counter="B2c",
-                          band="int8", ops="bf16", kw={"wrow_bf16": True},
+                          band="int8", ops="bf16", kw={"wrow_bf16": True}, source=MMA_SOURCE,
                           replaces="benchmarks/quant_kernel_diag.py:250"),
 }
+#: the variants held at 1e-5 to their plain version summed in float64, and
+#: to the float32 plain version within 1e-5 of the sum of the products'
+#: magnitudes (the products carry more bits than a float32 sum keeps, and
+#: the kernel's order of sums is not the plain version's)
+FLOAT64_SUMS = ("K7-f32", "B2c")
+MAGNITUDE_RTOL = 1e-5
 #: the checks phase's gate against the float32 band SpMM
 #: (benchmarks/quant_kernel_diag.py:327)
 CHECK_GATE = 3e-2
@@ -1217,27 +1230,63 @@ def variant_operands(a: BandedMatrix) -> dict:
     return {"f32": a, "bf16": a._replace(band=a.band.to(torch.bfloat16)), "int8": bq.quantize_band(a)}
 
 
-def variant_call(kid, fn, ops, x):
+def variant_call(kid, fn, ops, x, **kw):
     """``fn`` (the kernel, entry point or plain version of variant ``kid``)
     on ``x`` and the band operand the variant takes from ``ops``."""
     v = VARIANTS[kid]
     band = ops[v["band"]]
     if v.get("raw"):
         return fn(band.band, band.num_nodes, band.bandwidth, x)
-    return fn(band, x, **v.get("kw", {}))
+    return fn(band, x, **v.get("kw", {}), **kw)
 
 
-def check_variant(kid, ops, x) -> float:
-    """One variant's kernel against its plain version on the same operands;
-    returns max |kernel - plain|."""
+def variant_launch(kid, ops, x):
+    """Variant ``kid``'s launch alone on the operands its wrapper prepares
+    (built here, outside the timing), or None (B2b: not on the tensor-core
+    body)."""
+    v, W, block, n, F = VARIANTS[kid], ops["f32"].bandwidth, ops["f32"].block, ops["f32"].num_nodes, x.shape[1]
+    if v["band"] != "int8":
+        band_p, frame = band_mma.rowmajor_operands(ops[v["band"]], x)
+        return lambda: band_mma.launch_rowmajor(kid, band_p, frame, n, W, block, F)
+    if kid == "B2b":
+        return None
+    q = ops["int8"]
+    band_p, frame = band_mma.pad_band(q.band_q), band_mma.rowmajor_frame(x, n, q.num_blocks, W, block)
+    wrow = v.get("kw", {}).get("wrow_bf16", False)
+    return lambda: band_mma.launch_rowmajor(kid, band_p, frame, n, W, block, F, q.scales, wrow_bf16=wrow)
+
+
+def tolerance_ratio(got, want) -> float:
+    """max |got - want| / (atol + rtol |want|) at the band gate: at most 1
+    where ``assert_close`` passes."""
+    return float(((got - want).abs() / (BAND_ATOL + BAND_RTOL * want.abs())).max())
+
+
+def check_variant(kid, ops, x) -> tuple[float, str]:
+    """One variant's kernel against its plain version on the same operands
+    (for :data:`FLOAT64_SUMS`, against its plain version summed in float64
+    at the gate and the float32 one within the magnitude gate); returns max
+    |kernel - plain| and, for those, how far kernel and plain version lie
+    from the float64 sums in units of the gate."""
     v = VARIANTS[kid]
     got = variant_call(kid, v["kernel"], ops, x)
     torch.cuda.synchronize()
     want = variant_call(kid, v["plain"], ops, x)
     torch.cuda.synchronize()
     check(got.shape == want.shape and bool(torch.isfinite(got).all()), (kid, tuple(got.shape)))
-    torch.testing.assert_close(got, want, rtol=BAND_RTOL, atol=BAND_ATOL)
-    return float((got - want).abs().max())
+    note = ""
+    if kid in FLOAT64_SUMS:
+        abs_ops = {"f32": ops["f32"]._replace(band=ops["f32"].band.abs()),
+                   "int8": ops["int8"]._replace(band_q=ops["int8"].band_q.abs())}
+        magnitude = variant_call(kid, v["plain"], abs_ops, x.abs())
+        check(bool(((got - want).abs() <= MAGNITUDE_RTOL * magnitude).all()), (kid, "magnitude gate"))
+        exact = variant_call(kid, v["plain"], ops, x, sum_dtype=torch.float64)
+        note = (f" [{kid} against the float64 sums, in units of the gate: kernel "
+                f"{tolerance_ratio(got, exact):.3f}, plain {tolerance_ratio(want, exact):.3f}]")
+        torch.testing.assert_close(got, exact, rtol=BAND_RTOL, atol=BAND_ATOL)
+    else:
+        torch.testing.assert_close(got, want, rtol=BAND_RTOL, atol=BAND_ATOL)
+    return float((got - want).abs().max()), note
 
 
 def variant_library(kid, ops, x_pad, block):
@@ -1296,11 +1345,11 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
                 np.random.default_rng(snodes + sF).standard_normal((snodes, sF)).astype(np.float32)
             ).to(dev)
             errs = {kid: check_variant(kid, ops, xs) for kid in VARIANTS}
-            for kid, err in errs.items():
+            for kid, (err, _) in errs.items():
                 max_err[kid] = max(max_err[kid], err)
             print(f"[18 variant kernel] NB={snb} W={sW} b={sb} n={snodes} F={sF}, random non-symmetric "
-                  f"band, max|kernel-plain|: " + ", ".join(f"{kid} {e:.3e}" for kid, e in errs.items()),
-                  flush=True)
+                  f"band, max|kernel-plain|: " + ", ".join(f"{kid} {e:.3e}" for kid, (e, _) in errs.items())
+                  + "".join(note for _, note in errs.values()), flush=True)
         del ops, xs
         # the main path: each entry point once at the 1M-node shape
         torch.cuda.synchronize()
@@ -1325,10 +1374,16 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
             max_err[kid] = max(max_err[kid], err)
             rel = float(torch.linalg.norm(out - ref) / ref_norm)
             check(rel < CHECK_GATE, (kid, "against the float32 banded_spmm", rel))
+            note = ""
+            if kid in FLOAT64_SUMS:
+                exact = variant_call(kid, v["plain"], full, x, sum_dtype=torch.float64)
+                note = (f"; against the float64 sums, in units of the gate: kernel "
+                        f"{tolerance_ratio(out, exact):.3f}, plain {tolerance_ratio(want, exact):.3f}")
+                del exact
             print(f"[18 variant main path] {kid} {v['name']} at {n:,} nodes, F={F_}: output "
-                  f"{tuple(out.shape)} finite, {launched[kid]} launch; max|kernel-plain| = {err:.3e}; "
-                  f"against the float32 banded_spmm: relative Frobenius error {rel:.4e} "
-                  f"(gate {CHECK_GATE})", flush=True)
+                  f"{tuple(out.shape)} finite, {launched[kid]} launch; max|kernel-plain| = {err:.3e} "
+                  f"({tolerance_ratio(out, want):.3f} of the gate){note}; against the float32 banded_spmm: "
+                  f"relative Frobenius error {rel:.4e} (gate {CHECK_GATE})", flush=True)
             del want
         del ref
 
@@ -1336,17 +1391,14 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
     entries, peak = [], torch.cuda.max_memory_allocated()
     x_pad = pad_blocks(x, a.num_blocks, a.bandwidth, block).reshape(-1, F_)
     with torch.no_grad():
-        # the bf16 band's launch alone, on the operands its wrapper prepares
-        # first in torch (x rounded to bf16 in the padded frame)
-        band_p, frame = band_mma.rowmajor_operands(full["bf16"], x)
         for kid, v in VARIANTS.items():
             run_kernel = lambda kid=kid, v=v: variant_call(kid, v["kernel"], full, x)  # noqa: E731
             run_plain = lambda kid=kid, v=v: variant_call(kid, v["plain"], full, x)  # noqa: E731
             run_lib = variant_library(kid, full, x_pad, block)
-            fns = [run_kernel, run_plain] + ([run_lib] if run_lib else [])
-            if v["band"] == "bf16":
-                fns.append(lambda kid=kid: band_mma.launch_rowmajor(kid, band_p, frame, n, a.bandwidth,
-                                                                    block, F_))
+            # the launch alone on the operands its wrapper prepares first in
+            # torch (x rounded to bf16, or split in three, in the padded frame)
+            run_alone = variant_launch(kid, full, x)
+            fns = [run_kernel, run_plain] + ([run_lib] if run_lib else []) + ([run_alone] if run_alone else [])
             ms = cuda_ms(fns, iters=10, warmup=2)
             band = full[v["band"]]
             b_ms, b_by = (band_bound(q.band_q, q.scales, x, n * F_, F_, v["ops"]) if v["band"] == "int8"
@@ -1358,8 +1410,8 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
                 lib_diff = float((run_lib().reshape(-1, F_)[:n] - outs[kid]).abs().max())
                 lib_note = (f"{lib_ms:.4f} ms, one torch.bmm over strided windows, max|library-kernel| "
                             f"{lib_diff:.3e} ({library_kernels(run_lib)})")
-            alone = (f"; the launch alone on the prepared bf16 frame {ms[-1]:.4f} ms" if v["band"] == "bf16"
-                     else "")
+            alone = (f"; the launch alone on its prepared operands {ms[-1]:.4f} ms, {b_ms / ms[-1]:.1%} of the "
+                     f"bound" if run_alone else "")
             print(f"[19 times] {card} | {kid} {v['name']} at {n:,} nodes, F={F_}: kernel {ms[0]:.4f} ms, "
                   f"plain {ms[1]:.4f} ms per call (CUDA events, median of 10, in turns){alone}; kernel "
                   f"{E / ms[0] / 1e6:.4g} G edge-messages/s; bound {b_ms:.4f} ms ({b_by}), the kernel at "
@@ -1370,8 +1422,7 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
                 "launches": launched[kid], "max_abs_err": max_err[kid], "ms": ms[0],
                 "plain_ms": ms[1], "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             })
-            del run_lib, fns
-        del band_p, frame
+            del run_lib, run_alone, fns
     print(f"[19 times] max_memory_allocated over phases 18-19 {peak:,} B", flush=True)
     return entries
 

@@ -1,24 +1,26 @@
 // The band SpMM body on Hopper's tensor cores (built for sm_90a): wgmma
 // products on tiles staged by TMA into an mbarrier ring, one kernel body with
-// two roles and two band types.
+// two roles and three band types.
 //
 // Replaces the Pallas TPU kernels
 //   in connectome_gnn_tpu/ops/banded_quant.py:
 //   K3  banded_spmm_quant over the int8 band (pallas_call at :820)    role A, int8
 //   in connectome_gnn_tpu/ops/banded_pallas.py:
-//   K7  banded_spmm_pallas over a bf16 band (pallas_call at :66)      role A, bf16
+//   K7  banded_spmm_pallas (pallas_call at :66)                       role A, bf16 or f32
 //   in benchmarks/quant_kernel_diag.py:
 //   B2a banded_spmm_bf16_pallas             (pallas_call at :92)      role A, bf16
+//   B2c banded_spmm_quant_fused_dot         (pallas_call at :250)     role A, int8
 //   in benchmarks/fm_kernel_diag.py:
 //   B3a _fm_pipeline (pallas_call at :130) reached by fm_bf16_band :271   role B, bf16
-// K4-K6, K7 over a float32 band, B2b and B2c stay on csrc/banded_spmm.cu,
-// and the probes on csrc/fm_pipeline.cu.
+// K4-K6 and B2b stay on csrc/banded_spmm.cu, and the probes on
+// csrc/fm_pipeline.cu.
 //
 // Math.  The band holds, for row block rb and diagonal d in [0, 2W], one
-// b x b tile: bf16, or int8 with one f32 scale.  x-hat is x rounded to bf16
-// (round to nearest even) in the W-shifted padded frame: frame block rb + d
-// holds the senders of node block rb + d - W, zeros outside [0, num_nodes).
-//   Role A (row-major: K3, K7 and B2a): receiver-major tiles T[rb, d][r, s],
+// b x b tile: bf16, f32, or int8 with one f32 scale.  x-hat is x in the
+// W-shifted padded frame: frame block rb + d holds the senders of node block
+// rb + d - W, zeros outside [0, num_nodes); rounded to bf16 (round to
+// nearest even), or for the f32 band split into three bf16 frames (below).
+//   Role A (row-major: K3, K7, B2a, B2c): receiver-major tiles T[rb, d][r, s],
 //   node-major frame x-hat[blk, s, f], the int8 band's tiles scaled:
 //     out[rb*b + r, f] = sum_d scale[rb, d] * sum_s T[rb, d][r, s] * x-hat[rb + d, s, f]
 //   Role B (feature-major, fm_bf16_band): transposed tiles tT[rb, d][s, r],
@@ -27,52 +29,89 @@
 // As GEMMs, role A has M = receivers, N = features, and role B M =
 // features, N = receivers; in both the K axis is the senders, A is K-major
 // and B is MN-major (wgmma's transposed-B form).  Products are
-// wgmma.mma_async.m64nNk16.f32.bf16.bf16: an int8 band is widened to bf16
-// first, which is exact (every int8 is a bf16); every bf16 x bf16 product
-// is exact in f32 and the sums are f32, so the kernel differs from the
-// plain version only in the order of its f32 sums.  Both roles take each
-// tile's dot in a fragment of its own (the tile's first k-step starts it
-// with scale-d 0) and then add it into the sum in f32, times the tile's
-// scale where the band has scales, as the TPU kernels do
-// (banded_quant.py:804-812, banded_pallas.py:53-57, fm_kernel_diag.py:284-287);
-// the sum over the diagonals then has the plain version's order.
+// wgmma.mma_async.m64nNk16.f32.bf16.bf16, never TF32; every bf16 x bf16
+// product is exact in f32.  Each tile's dot is taken in a fragment of its
+// own (the tile's first k-step starts it with scale-d 0) and then added into
+// the sum in f32, times the tile's scale where it has one, as the TPU
+// kernels do (banded_quant.py:804-812, banded_pallas.py:53-57,
+// fm_kernel_diag.py:284-287); the sum over the diagonals then has the plain
+// version's order.  By band type:
+//   * bf16 (K7, B2a, B3a): the staged tile is wgmma's A (role A) or B (role
+//     B) as it is.  The kernel differs from the plain version only in the
+//     order of its f32 sums.
+//   * int8 (K3, B2c): widened to bf16 in registers, exactly (every int8 is a
+//     bf16), the tile's scale on its dot: K3's order, which B2c takes too
+//     unless wrow_bf16.  B2c's plain version folds the scale into the tile
+//     first, fl(s * q), a product of up to 24 bits: K3's order differs from
+//     it by one f32 rounding a product, of the same size as the order of
+//     the sums.  With wrow_bf16 the fold is done here as the plain version
+//     does it: q widened to f32 exactly, times the scale in f32 (__fmul_rn),
+//     rounded to bf16 (cvt.rn.bf16x2.f32), the plain version's two
+//     roundings; every product is then exact, and the tile's dot is added
+//     with scale 1.
+//   * f32 (K7): wgmma has no f32 x f32 form and TF32 keeps 10 bits, so each
+//     f32 value a is split exactly into three bf16 terms, hi = rn(a), mid =
+//     rn(a - hi), lo = a - hi - mid (a - hi and lo are exact in f32, and lo
+//     has at most 8 significant bits), the band in registers and x by the
+//     wrapper into three frames.  Six products a k-step, lo*hi, mid*mid,
+//     hi*lo, mid*hi, hi*mid (into a fragment of the unit's own, `corr`) and
+//     hi*hi (into the tile's dot), leave out mid*lo, lo*mid and lo*lo, each
+//     under 2^-24 of the product.  The small products need a fragment of
+//     their own: the tensor cores round each accumulation at the magnitude
+//     of the fragment it goes into, and 80 further accumulations a tile at
+//     the dot's magnitude would break the 1e-5 gate against the exact
+//     product (tests/test_torch_band_mma.py emulates it); in `corr` they
+//     round 2^8 times finer, and `corr` joins the sum once a unit.
+//     Documented limits: a non-finite band or x entry gives NaN where the
+//     plain version may give +-Inf; entries beyond bf16's largest finite
+//     value (3.39e38) are out of range, and entries under about 2^-110 in
+//     magnitude (not zero) lose the bits that fall below bf16's normal
+//     range in lo.  The wrappers check neither.
 //
 // What bounds it on this card.  At the 1M-node shape (NB = 4096, b = 256,
 // W = 2, F = 64) the dense tiles need 172 GFLOP: about 0.17 ms on the
-// tensor cores (989 TFLOP/s bf16).  The band's bytes at 3.35 TB/s take 0.80
-// ms in bf16 (2.68 GB) and 0.40 ms in int8 (1.34 GB); with x and the f32
-// output the least time is 0.96 and 0.56 ms.  So the kernel is a streaming
-// problem: its time is set by how fully it keeps HBM busy.  The CUDA-core
-// bodies it replaces did 86 G f32 multiply-adds (8 ms) behind 2-6 KB stages.
+// tensor cores (989 TFLOP/s bf16), six times that (1.04 ms) for the f32
+// band's six products.  The band's bytes at 3.35 TB/s take 1.60 ms in f32
+// (5.37 GB), 0.80 ms in bf16 (2.68 GB) and 0.40 ms in int8 (1.34 GB); with
+// x and the f32 output the least time is 1.76, 0.96 and 0.56 ms.  So the
+// kernel is a streaming problem: its time is set by how fully it keeps HBM
+// busy.  The CUDA-core bodies it replaces did 86 G f32 multiply-adds (8 ms)
+// behind 2-17 KB stages; on the CUDA cores (67 TFLOP/s f32) those take 2.56
+// ms at best.
 //
 // What the design does about it.
 //   * Staging by TMA (cp.async.bulk.tensor.3d) with 128-byte swizzle into a
 //     ring of kStages = 6 stages, one full and one empty mbarrier a stage.
 //     A stage holds 16 KB of band, 128 receivers of one tile by 128 bytes of
-//     senders (64 bf16 or 128 int8 senders), and the frame's matching
-//     senders by 64 features (8 or 16 KB): 24 KB stages for a bf16 band, 32
-//     KB for an int8 one, up to 144 or 192 KB in flight per SM.  One
-//     producer thread issues the loads; two consumer warpgroups run wgmma
-//     on the staged tiles and release each stage when their products are
-//     done.  The band is loaded under an L2 evict_first policy and the
-//     frame under evict_last, so the band's stream does not push out the
-//     frame blocks that the neighbouring units read next.
-//   * An int8 band (K3) is widened in registers: wgmma takes a bf16 A
-//     operand from registers.  Each consumer thread reads the bytes of its
-//     A fragment (receivers 16 * warp + lane / 4 and + 8, senders 2 * (lane
-//     % 4) + {0, 1, 8, 9} of each 16-sender k-step) from the swizzled stage
-//     with 16-bit shared loads, conflict-free, and turns each pair into
-//     bf16x2 with four integer and bf16 instructions (widen2).  No bf16
-//     tile goes back to shared memory, so no proxy fence is needed, and the
-//     widening of k-step k + 1 runs while k-step k's wgmma is in flight.
+//     senders (32 f32, 64 bf16 or 128 int8 senders), and the frame's
+//     matching senders by 64 features (bf16; three frames for the f32 band):
+//     24 KB stages for a bf16 band, 28 KB for an f32 one, 32 KB for an int8
+//     one, up to 144, 168 or 192 KB in flight per SM.  One producer thread
+//     issues the loads; two consumer warpgroups run wgmma on the staged
+//     tiles and release each stage when their products are done.  The band
+//     is loaded under an L2 evict_first policy and the frame under
+//     evict_last, so the band's stream does not push out the frame blocks
+//     that the neighbouring units read next.
+//   * An int8 or f32 band becomes wgmma's A operand in registers.  Each
+//     consumer thread reads its A fragment (receivers 16 * warp + lane / 4
+//     and + 8 of its warpgroup's 64, senders 2 * (lane % 4) + {0, 1, 8, 9}
+//     of each 16-sender k-step) from the swizzled stage, where the 16-byte
+//     chunk c of row r sits at chunk c ^ (r % 8) and r % 8 is lane / 4 for
+//     both rows: int8 pairs by 16-bit loads, widened by widen2 (K3, B2c) or
+//     fold2 (B2c with wrow_bf16); f32 pairs by 64-bit loads, split by split3.
+//     A warp's loads cover each bank twice (64-bit) or once (16-bit): no
+//     conflicts.  No tile goes back to shared memory, so no proxy fence is
+//     needed, and the widening of k-step k + 1 runs while k-step k's wgmma
+//     is in flight.
 //   * The operands are 3-D tensor maps, [NB*D tiles, b, b] for the band and
-//     [blocks, b, F] (role A) or [F, blocks, b] (role B) for the frame, so
-//     every sender or receiver outside a tile or a frame block, and every
-//     feature past F, is the hardware's zero fill: no mask in the loop.  The
-//     maps are built on the host for every call and passed as
-//     __grid_constant__ parameters.  cuTensorMapEncodeTiled is a driver
-//     function; it is reached through the runtime's driver entry point, so
-//     the library links no libcuda.
+//     [blocks, b, F] (role A; [3 * blocks, b, F] for the f32 band's three
+//     frames, frame s at block s * blocks + blk) or [F, blocks, b] (role B)
+//     for the frame, so every sender or receiver outside a tile or a frame
+//     block, and every feature past F, is the hardware's zero fill: no mask
+//     in the loop.  The maps are built on the host for every call and
+//     passed as __grid_constant__ parameters.  cuTensorMapEncodeTiled is a
+//     driver function; it is reached through the runtime's driver entry
+//     point, so the library links no libcuda.
 //   * Persistent thread blocks, one per SM, each walking the work units
 //     (row block, 128-receiver tile, 64-feature tile) blockIdx.x,
 //     blockIdx.x + gridDim.x, ...: the ring never drains between units, the
@@ -81,11 +120,11 @@
 //     the 2W + 1 frame blocks of a unit mostly come from the 50 MB L2.  At
 //     the main shape that is 8,192 units, 62.06 a block, so the last round
 //     leaves little of the card idle.
-//   * Each consumer warpgroup owns 64 receivers of a unit and runs one
-//     m64n64 product a k-step: receivers x features in role A, features x
-//     receivers in role B; a tile's dot and the sum are 64 f32 registers a
-//     thread.  The sums are stored from registers, masked to b, num_nodes
-//     and F.
+//   * Each consumer warpgroup owns 64 receivers of a unit and runs m64n64
+//     products: receivers x features in role A, features x receivers in
+//     role B; the sum, a tile's dot (and the f32 band's `corr`) are 32 f32
+//     registers a thread each.  The sums are stored from registers, masked
+//     to b, num_nodes and F.
 //   * TMA needs 16-byte global strides, so the wrappers pad what this body
 //     cannot take with zeros: b to a multiple of 16 and role A's features
 //     to a multiple of 8.  The kernel reads the padded block b_pad and
@@ -96,7 +135,9 @@
 //     band 0.65 ms, 87 % of its 0.56 ms bound, where torch.bmm over the
 //     dequantized band takes 3.64 ms.  The first bf16 version, 128
 //     receivers a warpgroup (two m64n64 or one m64n128 products) in five 40
-//     KB stages over 4,096 units with no L2 policy, took 1.14-1.16 ms.
+//     KB stages over 4,096 units with no L2 policy, took 1.14-1.16 ms.  K7
+//     over the f32 band and B2c took 8.18 and 7.88-7.91 ms on the CUDA-core
+//     body of csrc/banded_spmm.cu; their times here are in PERF.md.
 //
 // Each C entry point returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for arguments it does not take (and for a tensor
@@ -113,6 +154,9 @@
 namespace {
 
 enum class Role { kRowMajor, kFeatureMajor };
+// Where an int8 band's scale goes: on the tile's dot (K3, B2c, role B), or
+// folded into the tile and rounded to bf16 as it is widened (B2c wrow_bf16).
+enum class Fold { kOnDot, kIntoTileBf16 };
 
 constexpr int kConsumerGroups = 2;                     // warpgroups running wgmma
 constexpr int kThreads = (kConsumerGroups + 1) * 128;  // + one producer warpgroup
@@ -127,19 +171,22 @@ constexpr int kBandBytes = kTileR * kRowBytes;         // 16 KB of band a stage
 constexpr int kSwizzleAtom = 1024;                     // 8 rows of 128 bytes
 
 // A stage of a band of type Band: 128 bytes of senders (kK of them) for each
-// of 128 receivers, and those senders' frame rows of 64 bf16 features.
+// of 128 receivers, and those senders' rows of 64 bf16 features in each of
+// the band's kFrames frames (three for the f32 band's split x).
 template <typename Band>
 struct Stage {
-  static constexpr int kK = kRowBytes / sizeof(Band);  // senders a stage: 64 bf16, 128 int8
+  static constexpr int kK = kRowBytes / sizeof(Band);  // senders a stage: 32 f32, 64 bf16, 128 int8
   static constexpr int kSteps = kK / 16;               // wgmma k-steps of 16 senders
-  static constexpr int kFrameBytes = kK * kTileF * 2;  // 8 or 16 KB
-  static constexpr int kBytes = kBandBytes + kFrameBytes;
+  static constexpr int kFrames = std::is_same_v<Band, float> ? 3 : 1;
+  static constexpr int kFrameBytes = kK * kTileF * 2;  // one frame's rows: 4, 8 or 16 KB
+  static constexpr int kBytes = kBandBytes + kFrames * kFrameBytes;
   static constexpr int kSmemBytes = kStages * kBytes + kSwizzleAtom;
-  static_assert(kBytes % kSwizzleAtom == 0, "stages keep the 1024-byte swizzle alignment");
+  static_assert(kBytes % kSwizzleAtom == 0 && kFrameBytes % kSwizzleAtom == 0,
+                "stages and frames keep the 1024-byte swizzle alignment");
 };
 
 struct Params {
-  const float* scales;  // [nb, D]: role B and the int8 band; null for role A's bf16 band
+  const float* scales;  // [nb, D]: role B and the int8 band; null for role A's bf16 and f32 bands
   float* out;
   int nb, W;
   int b;       // the output's block: receivers stored per row block
@@ -291,6 +338,39 @@ __device__ __forceinline__ uint32_t widen2(uint32_t v) {
   return out;
 }
 
+// Two f32 values rounded to bf16x2 (round to nearest even), lo in the low
+// half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t out;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(out) : "f"(hi), "f"(lo));
+  return out;
+}
+
+// Two int8 values, bits 0-7 and 8-15 of v, times scale, as bf16x2: each
+// byte, its sign bit flipped (q + 128), becomes the f32 2^23 + q + 128, from
+// which one subtraction gives q exactly; then fl(q * scale) in f32, rounded
+// to bf16 (B2c's fold with wrow_bf16: the plain version's two roundings).
+__device__ __forceinline__ uint32_t fold2(uint32_t v, float scale) {
+  const uint32_t u = v ^ 0x8080u;
+  const float q0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  const float q1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  return pack_bf16x2(__fmul_rn(q0, scale), __fmul_rn(q1, scale));
+}
+
+// Two f32 values (x first, in the low halves) split exactly into three
+// bf16x2: hi = rn(v), mid = rn(v - hi), lo = v - hi - mid.  Both
+// subtractions are exact in f32, and lo has at most 8 significant bits, so
+// its rounding is exact too.
+__device__ __forceinline__ void split3(float2 v, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  hi = pack_bf16x2(v.x, v.y);
+  float r0 = __fsub_rn(v.x, __uint_as_float(hi << 16));
+  float r1 = __fsub_rn(v.y, __uint_as_float(hi & 0xFFFF0000u));
+  mid = pack_bf16x2(r0, r1);
+  r0 = __fsub_rn(r0, __uint_as_float(mid << 16));
+  r1 = __fsub_rn(r1, __uint_as_float(mid & 0xFFFF0000u));
+  lo = pack_bf16x2(r0, r1);
+}
+
 // Two neighbouring outputs (v0 at out[i], v1 at out[i + 1]), each where it is
 // inside the output; one 8-byte store when both are and i is even.
 __device__ __forceinline__ void store2(float* out, long long i, bool ok0, bool ok1, float v0, float v1) {
@@ -302,15 +382,18 @@ __device__ __forceinline__ void store2(float* out, long long i, bool ok0, bool o
   }
 }
 
-template <Role kRole, typename Band>
+template <Role kRole, typename Band, Fold kFold>
 __global__ void __launch_bounds__(kThreads, 1)
     band_mma_kernel(__grid_constant__ const CUtensorMap band_map,
                     __grid_constant__ const CUtensorMap frame_map, const Params p) {
   using S = Stage<Band>;
   constexpr bool kRowMajor = kRole == Role::kRowMajor;
   constexpr bool kInt8 = std::is_same_v<Band, int8_t>;  // widened in registers
-  constexpr bool kScaled = kInt8 || !kRowMajor;
-  static_assert(kRowMajor || !kInt8, "role B takes a bf16 band");
+  constexpr bool kF32 = std::is_same_v<Band, float>;    // split in registers
+  constexpr bool kFoldBf16 = kFold == Fold::kIntoTileBf16;
+  constexpr bool kScaledDot = (kInt8 && !kFoldBf16) || !kRowMajor;
+  static_assert(kRowMajor || std::is_same_v<Band, __nv_bfloat16>, "role B takes a bf16 band");
+  static_assert(kInt8 || !kFoldBf16, "only an int8 band has a scale to fold");
   __shared__ __align__(8) uint64_t full_bar[kStages];
   __shared__ __align__(8) uint64_t empty_bar[kStages];
   extern __shared__ uint8_t smem_raw[];
@@ -335,6 +418,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // the producer: one thread keeps the ring full
     if (threadIdx.x != kConsumerGroups * 128) return;
     const uint64_t stream = l2_policy(false), keep = l2_policy(true);
+    const int blocks = p.nb + 2 * p.W;  // frame blocks of one frame
     int stage = 0;
     uint32_t phase = 0;
     for (long long u = blockIdx.x; u < units; u += gridDim.x) {
@@ -349,9 +433,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           const uint32_t band = ring + stage * S::kBytes, frame = band + kBandBytes;
           const int tile = rb * D + d, blk = rb + d, s0 = kc * S::kK, r0 = mt * kTileR, f0 = ft * kTileF;
           if constexpr (kRowMajor) {
-            // band box {kK senders, 128 receivers, 1 tile}; frame box {64 features, kK senders, 1 block}
+            // band box {kK senders, 128 receivers, 1 tile}; frame boxes {64
+            // features, kK senders, 1 block}, one from each frame
             tma_load(band, &band_map, full, s0, r0, tile, stream);
-            tma_load(frame, &frame_map, full, f0, s0, blk, keep);
+#pragma unroll
+            for (int f = 0; f < S::kFrames; ++f)
+              tma_load(frame + f * S::kFrameBytes, &frame_map, full, f0, s0, f * blocks + blk, keep);
           } else {
             // two band boxes {64 receivers, 64 senders, 1 tile}; frame box {64 senders, 1 block, 64 features}
 #pragma unroll
@@ -365,17 +452,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // the consumers: warpgroup `group` owns receivers [64 * group, 64 * group + 64)
-    // of a unit, one m64n64 product: receivers x features in role A, features
+    // of a unit, m64n64 products: receivers x features in role A, features
     // x receivers in role B
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int quad = lane / 4, pair = 2 * (lane % 4);
-    // an int8 band's A fragment: this thread's receivers 16 * warp + quad and
-    // + 8 of its warpgroup's 64, rows of the stage's band box read directly
+    // an int8 or f32 band's A fragment: this thread's receivers 16 * warp +
+    // quad and + 8 of its warpgroup's 64, rows of the stage's band box read
+    // directly
     const uint8_t* const ring_ptr = smem_raw + (ring - smem_u32(smem_raw));
     const int frag_row = (kGroupR * group + 16 * warp + quad) * kRowBytes;
     int stage = 0;
     uint32_t phase = 0;
-    float acc[32], dot[32];  // the sum, and the tile's dot
+    // the sum, the tile's dot, and (f32 band) the unit's five small products
+    float acc[32], dot[32], corr[kF32 ? 32 : 1];
     for (long long u = blockIdx.x; u < units; u += gridDim.x) {
       const int ft = (int)(u % p.ftiles);
       const int mt = (int)((u / p.ftiles) % p.mtiles);
@@ -383,16 +472,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[i] = 0.f;
       for (int d = 0; d < D; ++d) {
-        // the tile's scale, read while its products run (a bf16 band in role
-        // A has none: 1 * dot is exact)
-        const float scale = kScaled ? __ldg(p.scales + (size_t)rb * D + d) : 1.f;
+        // the tile's scale, read while its products run: on the dot, or
+        // folded into the tile (a bf16 or f32 band in role A has none)
+        const float scale = kInt8 || !kRowMajor ? __ldg(p.scales + (size_t)rb * D + d) : 1.f;
+        const float dot_scale = kScaledDot ? scale : 1.f;
         for (int kc = 0; kc < nk; ++kc) {
           mbar_wait(smem_u32(&full_bar[stage]), phase);
           const uint32_t band = ring + stage * S::kBytes, frame = band + kBandBytes;
           if constexpr (kInt8) {
-            // the fragment's bytes of all k-steps: in the 128-byte swizzle the
-            // 16-byte chunk k of row r sits at chunk k ^ (r % 8), and r % 8 is
-            // quad for both rows
+            // the fragment's bytes of all k-steps, 16-bit loads at chunk k ^ quad
             const uint8_t* const rows = ring_ptr + stage * S::kBytes + frag_row;
             uint32_t raw[S::kSteps][4], a[S::kSteps][4];
 #pragma unroll
@@ -408,7 +496,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int k = 0; k < S::kSteps; ++k) {
               // widened outside any wgmma group: each k-step is a group of its own
 #pragma unroll
-              for (int j = 0; j < 4; ++j) a[k][j] = widen2(raw[k][j]);
+              for (int j = 0; j < 4; ++j) a[k][j] = kFoldBf16 ? fold2(raw[k][j], scale) : widen2(raw[k][j]);
               wgmma_fence();  // orders the fragment's registers before the product reads them
               // B: frame rows (senders) of 64 features, MN-major, k-step 16 rows
               wgmma_m64n64_rs(dot, a[k], smem_desc(frame + k * 16 * kRowBytes, kBoxBytes, 1024),
@@ -417,6 +505,43 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
             wgmma_wait_all();
             fence_fragments(a);
+          } else if constexpr (kF32) {
+            // the fragment's f32 pairs, 64-bit loads: senders 16k + pair (+1)
+            // are at byte 64k + 4 * pair, chunk 4k + pair / 4, and + 8
+            // senders two chunks on; split into hi, mid and lo
+            const uint8_t* const rows = ring_ptr + stage * S::kBytes + frag_row;
+            uint32_t a[3 * S::kSteps][4];
+            fence_operands(dot);
+            fence_operands(corr);
+#pragma unroll
+            for (int k = 0; k < S::kSteps; ++k) {
+              const int c0 = (((4 * k + pair / 4) ^ quad) << 4) + 4 * (pair % 4);
+              const int c1 = (((4 * k + 2 + pair / 4) ^ quad) << 4) + 4 * (pair % 4);
+              const float2 v[4] = {*reinterpret_cast<const float2*>(rows + c0),
+                                   *reinterpret_cast<const float2*>(rows + 8 * kRowBytes + c0),
+                                   *reinterpret_cast<const float2*>(rows + c1),
+                                   *reinterpret_cast<const float2*>(rows + 8 * kRowBytes + c1)};
+#pragma unroll
+              for (int j = 0; j < 4; ++j) split3(v[j], a[3 * k][j], a[3 * k + 1][j], a[3 * k + 2][j]);
+              wgmma_fence();
+              // B: the three frames' rows of this k-step, hi, mid, lo
+              const uint32_t fk = frame + k * 16 * kRowBytes;
+              const uint64_t xhi = smem_desc(fk, kBoxBytes, 1024);
+              const uint64_t xmid = smem_desc(fk + S::kFrameBytes, kBoxBytes, 1024);
+              const uint64_t xlo = smem_desc(fk + 2 * S::kFrameBytes, kBoxBytes, 1024);
+              const uint32_t(&hi)[4] = a[3 * k], (&mid)[4] = a[3 * k + 1], (&lo)[4] = a[3 * k + 2];
+              // small terms first; the unit's first k-step starts `corr`
+              wgmma_m64n64_rs(corr, lo, xhi, (d | kc | k) != 0);
+              wgmma_m64n64_rs(corr, mid, xmid, 1);
+              wgmma_m64n64_rs(corr, hi, xlo, 1);
+              wgmma_m64n64_rs(corr, mid, xhi, 1);
+              wgmma_m64n64_rs(corr, hi, xmid, 1);
+              wgmma_m64n64_rs(dot, hi, xhi, (kc | k) != 0);  // the tile's first k-step starts its dot
+              wgmma_commit();
+            }
+            wgmma_wait_all();
+            fence_fragments(a);
+            fence_operands(corr);
           } else {
             fence_operands(dot);
             wgmma_fence();
@@ -446,7 +571,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         // the tile's dot into the sum
 #pragma unroll
-        for (int i = 0; i < 32; ++i) acc[i] += scale * dot[i];
+        for (int i = 0; i < 32; ++i) acc[i] += dot_scale * dot[i];
+      }
+      if constexpr (kF32) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] += corr[i];
       }
       // store: fragment entry i is row 16 * warp + quad (+ 8 for i % 4 >= 2),
       // column 8 * (i / 4) + pair (+ 1 for odd i); rows are receivers in
@@ -497,22 +626,25 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D tensor map of bf16 or int8 elements (the int8 band is mapped as
+// A 3-D tensor map of f32, bf16 or int8 elements (the int8 band is mapped as
 // bytes; the zero fill is int8 0): dims innermost first, strides of dims 1
 // and 2 in bytes, a box of box0 x box1 x box2 elements, 128-byte swizzle,
 // zero fill.
 template <typename T>
 bool tensor_map(CUtensorMap* map, const T* base, uint64_t d0, uint64_t d1, uint64_t d2,
                 uint32_t box0, uint32_t box1, uint32_t box2) {
-  static_assert(std::is_same_v<T, __nv_bfloat16> || std::is_same_v<T, int8_t>, "bf16 or int8");
+  static_assert(std::is_same_v<T, float> || std::is_same_v<T, __nv_bfloat16> ||
+                    std::is_same_v<T, int8_t>,
+                "f32, bf16 or int8");
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {d0 * sizeof(T), d0 * d1 * sizeof(T)};
   const cuuint32_t box[3] = {box0, box1, box2};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUtensorMapDataType type =
-      sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const CUtensorMapDataType type = sizeof(T) == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                    : CU_TENSOR_MAP_DATA_TYPE_UINT8;
   return encode(map, type, 3, const_cast<T*>(base), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -523,7 +655,7 @@ bool valid(int nb, int W, int b, int b_pad, int F) {
          (long long)nb * (2 * W + 1) < 0x7fffffffLL;
 }
 
-template <Role kRole, typename Band>
+template <Role kRole, typename Band, Fold kFold = Fold::kOnDot>
 int launch(const CUtensorMap& band_map, const CUtensorMap& frame_map, Params p, void* stream) {
   p.mtiles = (p.b_pad + kTileR - 1) / kTileR;
   const long long units = (long long)p.nb * p.mtiles * p.ftiles;
@@ -531,7 +663,7 @@ int launch(const CUtensorMap& band_map, const CUtensorMap& frame_map, Params p, 
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  auto kernel = band_mma_kernel<kRole, Band>;
+  auto kernel = band_mma_kernel<kRole, Band, kFold>;
   constexpr int smem = Stage<Band>::kSmemBytes;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -540,22 +672,23 @@ int launch(const CUtensorMap& band_map, const CUtensorMap& frame_map, Params p, 
   return (int)cudaGetLastError();
 }
 
-// Role A over a bf16 band (scales null) or an int8 band with its scales.
-template <typename Band>
+// Role A over a bf16 band (scales null), an f32 band (scales null; frame
+// holds its three frames) or an int8 band with its scales.
+template <typename Band, Fold kFold = Fold::kOnDot>
 int launch_rowmajor(const Band* band, const float* scales, const __nv_bfloat16* frame, float* out,
                     int nb, int W, int block, int block_pad, int F, int F_pad, int num_nodes,
                     void* stream) {
   if (!valid(nb, W, block, block_pad, F) || F_pad < F || F_pad % 8 != 0 || num_nodes <= 0 ||
       num_nodes > (long long)nb * block || (std::is_same_v<Band, int8_t> && scales == nullptr))
     return (int)cudaErrorInvalidValue;
-  const uint64_t bp = block_pad, D = 2 * W + 1;
+  using S = Stage<Band>;
+  const uint64_t bp = block_pad, D = 2 * W + 1, blocks = (uint64_t)nb + 2 * W;
   CUtensorMap band_map, frame_map;
-  if (!tensor_map(&band_map, band, bp, bp, (uint64_t)nb * D, Stage<Band>::kK, kTileR, 1) ||
-      !tensor_map(&frame_map, frame, (uint64_t)F_pad, bp, (uint64_t)nb + 2 * W, kTileF,
-                  Stage<Band>::kK, 1))
+  if (!tensor_map(&band_map, band, bp, bp, (uint64_t)nb * D, S::kK, kTileR, 1) ||
+      !tensor_map(&frame_map, frame, (uint64_t)F_pad, bp, S::kFrames * blocks, kTileF, S::kK, 1))
     return (int)cudaErrorInvalidValue;
   Params p{scales, out, nb, W, block, block_pad, F, 0, (F_pad + kTileF - 1) / kTileF, num_nodes, F};
-  return launch<Role::kRowMajor, Band>(band_map, frame_map, p, stream);
+  return launch<Role::kRowMajor, Band, kFold>(band_map, frame_map, p, stream);
 }
 
 }  // namespace
@@ -574,12 +707,37 @@ int cgt_banded_spmm_quant(const int8_t* band_q, const float* scales, const __nv_
                          stream);
 }
 
+// B2c banded_spmm_quant_fused_dot: operands as for K3.  With wrow_bf16 each
+// tile entry is folded to bf16(fl(q * scale)) as it is widened; without, the
+// scale goes on the tile's dot, K3's order.
+int cgt_banded_spmm_quant_fused_dot(const int8_t* band_q, const float* scales,
+                                    const __nv_bfloat16* frame, float* out, int nb, int W,
+                                    int block, int block_pad, int F, int F_pad, int num_nodes,
+                                    int wrow_bf16, void* stream) {
+  return wrow_bf16 ? launch_rowmajor<int8_t, Fold::kIntoTileBf16>(band_q, scales, frame, out, nb, W,
+                                                                  block, block_pad, F, F_pad,
+                                                                  num_nodes, stream)
+                   : launch_rowmajor(band_q, scales, frame, out, nb, W, block, block_pad, F, F_pad,
+                                     num_nodes, stream);
+}
+
 // K7 over a bf16 band, and B2a: band [nb, 2W+1, block_pad, block_pad] bf16
 // (receiver-major tiles, zero past block); frame and out as for K3.
 int cgt_banded_spmm_direct_bf16(const __nv_bfloat16* band, const __nv_bfloat16* frame, float* out,
                                 int nb, int W, int block, int block_pad, int F, int F_pad,
                                 int num_nodes, void* stream) {
   return launch_rowmajor(band, static_cast<const float*>(nullptr), frame, out, nb, W, block,
+                         block_pad, F, F_pad, num_nodes, stream);
+}
+
+// K7 over an f32 band: band [nb, 2W+1, block_pad, block_pad] float32
+// (receiver-major tiles, zero past block); frames [3, nb + 2W, block_pad,
+// F_pad] bf16, x split exactly into hi, mid and lo (x == hi + mid + lo) in
+// the W-shifted padded frame; out as for K3.
+int cgt_banded_spmm_direct_f32(const float* band, const __nv_bfloat16* frames, float* out, int nb,
+                               int W, int block, int block_pad, int F, int F_pad, int num_nodes,
+                               void* stream) {
+  return launch_rowmajor(band, static_cast<const float*>(nullptr), frames, out, nb, W, block,
                          block_pad, F, F_pad, num_nodes, stream);
 }
 

@@ -132,10 +132,10 @@ def library() -> ctypes.CDLL:
     lib.cgt_banded_spmm_quant_fm.argtypes = [ptr] * 4 + [i32] * 5 + [i64, ptr]
     lib.cgt_banded_spmm_quant_fm_w8a8.argtypes = [ptr] * 5 + [i32] * 5 + [i64, ptr]
     lib.cgt_banded_spmm_quant_blocked.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-    lib.cgt_banded_spmm_direct_f32.argtypes = [ptr] * 3 + [i32] * 5 + [i64, ptr]
+    lib.cgt_banded_spmm_direct_f32.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
     lib.cgt_banded_spmm_direct_bf16.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
     lib.cgt_banded_spmm_w8a8_rowmajor.argtypes = [ptr] * 5 + [i32] * 5 + [i64, ptr]
-    lib.cgt_banded_spmm_quant_fused_dot.argtypes = [ptr] * 4 + [i32] * 5 + [i64, i32, ptr]
+    lib.cgt_banded_spmm_quant_fused_dot.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.cgt_fm_deep.argtypes = [ptr] * 4 + [i32] * 7 + [i64, ptr]
     lib.cgt_fm_blocked.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
     lib.cgt_fm_bf16_band.argtypes = [ptr] * 4 + [i32] * 5 + [i64, i64, ptr]

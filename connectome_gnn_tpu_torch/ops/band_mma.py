@@ -1,26 +1,32 @@
 """Operands and launches of the tensor-core band body, ``csrc/band_mma.cu``.
 
-That body serves K3, the int8 band of the row-major serving path, and the
-bfloat16 band kernels.  Role A is row-major: ``out[rb·b + r] = Σ_d
-scale[rb, d] · (tile[rb, d] @ x̂[rb + d])`` for K3's int8 band with its
-per-tile scales (widened to bfloat16 in the kernel's registers, which is
-exact), and without scales for K7 over a bfloat16 band and B2a.  Role B is
-B3a's ``fm_bf16_band`` (feature-major, with per-dot scales).  Its products
-are ``wgmma`` on tiles staged by TMA, and TMA needs 16-byte global strides.
+That body serves K3 and B2c over the int8 band, K7 over a float32 or
+bfloat16 band, and B2a and B3a over a bfloat16 band.  Role A is row-major:
+``out[rb·b + r] = Σ_d scale[rb, d] · (tile[rb, d] @ x̂[rb + d])`` for the
+int8 band with its per-tile scales (widened to bfloat16 in the kernel's
+registers, which is exact; with B2c's ``wrow_bf16`` each scale is folded
+into its tile instead, rounded to bfloat16 as the plain version does), and
+without scales for a bfloat16 band (K7, B2a) and a float32 band (K7), whose
+every value the kernel splits exactly into three bfloat16 terms, as
+:func:`split_bf16x3` splits ``x`` into three frames.  Role B is B3a's
+``fm_bf16_band`` (feature-major, with per-dot scales).  Its products are
+``wgmma`` on tiles staged by TMA, and TMA needs 16-byte global strides.
 So the wrappers hand it the band and the frame padded with zeros where they
 are not: the block to ``b' = ⌈b/16⌉·16`` and, in role A, the features to
 ``F' = ⌈F/8⌉·8``.  Zero senders and receivers change no sum; the kernel
 stores only the caller's ``b`` receivers a block and ``F`` features.  At
 the main shape (``b = 256``, ``F = 64``) nothing is padded.
 
-``x̂`` is ``x[:num_nodes]`` rounded to bfloat16 (round to nearest even) in
-the W-shifted padded frame, as ``connectome_gnn_tpu/ops/banded_pallas.py``
-and ``banded_quant.py`` hand it to their ``pallas_call``s:
-:func:`rowmajor_frame` builds it in one pass over ``x`` at the main shape.
-:func:`rowmajor_on_operands` and :func:`fm_on_operands` compute the
-kernel's function on the prepared operands in plain torch, so the tests can
-hold the padding against the plain versions on the original operands.  The
-launches here count nothing; their callers count.
+``x̂`` is ``x[:num_nodes]`` in the W-shifted padded frame, rounded to
+bfloat16 (round to nearest even), as ``connectome_gnn_tpu/ops/banded_pallas.py``
+and ``banded_quant.py`` hand it to their ``pallas_call``s, or, for the
+float32 band, split into its three bfloat16 terms:
+:func:`rowmajor_frame` builds either at the main shape in one pass over
+``x`` (three for the split).  :func:`rowmajor_on_operands` and
+:func:`fm_on_operands` compute the kernel's function on the prepared
+operands in plain torch, so the tests can hold the padding against the
+plain versions on the original operands.  The launches here count
+nothing; their callers count.
 """
 
 from __future__ import annotations
@@ -52,32 +58,72 @@ def pad_band(band: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: the products of the float32 band's split a k-step, as (band term, x
+#: term) with 0 = hi, 1 = mid, 2 = lo, in the kernel's order: the five small
+#: ones (into a fragment of their own), then hi·hi (into the tile's dot).
+#: Left out: mid·lo, lo·mid and lo·lo, each under 2^-24 of the product.
+SPLIT_PRODUCTS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def split_bf16x3(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """A float32 ``x`` split exactly into three bfloat16 terms, ``[3, *x.shape]``:
+    ``hi = rn(x)``, ``mid = rn(x - hi)``, ``lo = x - hi - mid`` (round to
+    nearest even), so ``hi + mid + lo == x``; the kernel splits the float32
+    band in its registers the same way.  Both subtractions are exact in
+    float32 and ``lo`` has at most 8 significant bits, for every finite ``x``
+    up to bfloat16's largest finite value (3.39e38) and down to about
+    2^-110 in magnitude (and 0).  Written into ``out`` where given."""
+    if out is None:
+        out = torch.empty((3, *x.shape), dtype=torch.bfloat16, device=x.device)
+    out[0].copy_(x)
+    rest = x - out[0]
+    out[1].copy_(rest)
+    rest -= out[1]
+    out[2].copy_(rest)
+    return out
+
+
 def rowmajor_frame(x: torch.Tensor, num_nodes: int, num_blocks: int, bandwidth: int,
-                   block: int) -> torch.Tensor:
+                   block: int, split: bool = False) -> torch.Tensor:
     """``x[:num_nodes]`` rounded to bfloat16 in the W-shifted padded frame,
     ``[NB + 2W, b', F']``: frame block ``w`` holds nodes ``(w - W)·b ...``,
     zeros elsewhere.  Without padding it is ``banded_pallas.py:45-48``'s
-    ``x_pad``, built by one cast-and-copy and zeroing only the halo."""
+    ``x_pad``, built by one cast-and-copy and zeroing only the halo.  With
+    ``split``, the three frames of :func:`split_bf16x3`, ``[3, NB + 2W, b',
+    F']``, for the float32 band."""
     n, F = num_nodes, x.shape[1]
     bp, Fp = padded(block, BLOCK_MULTIPLE), padded(F, FEATURE_MULTIPLE)
-    blocks = num_blocks + 2 * bandwidth
+    blocks, parts = num_blocks + 2 * bandwidth, (3,) if split else ()
     if (bp, Fp) == (block, F):
-        frame = torch.empty((blocks * block, F), dtype=torch.bfloat16, device=x.device)
+        frame = torch.empty((*parts, blocks * block, F), dtype=torch.bfloat16, device=x.device)
         lo = bandwidth * block
-        frame[:lo].zero_()
-        frame[lo + n :].zero_()
-        frame[lo : lo + n] = x[:n]
-        return frame.view(blocks, block, F)
-    nodes = torch.zeros((num_blocks * block, F), dtype=torch.bfloat16, device=x.device)
+        frame[..., :lo, :].zero_()
+        frame[..., lo + n :, :].zero_()
+        if split:
+            split_bf16x3(x[:n], out=frame[:, lo : lo + n])
+        else:
+            frame[lo : lo + n] = x[:n]
+        return frame.view(*parts, blocks, block, F)
+    nodes = torch.zeros((num_blocks * block, F), dtype=x.dtype, device=x.device)
     nodes[:n] = x[:n]
-    frame = torch.zeros((blocks, bp, Fp), dtype=torch.bfloat16, device=x.device)
-    frame[bandwidth : bandwidth + num_blocks, :block, :F] = nodes.view(num_blocks, block, F)
+    nodes = split_bf16x3(nodes) if split else nodes.to(torch.bfloat16)
+    frame = torch.zeros((*parts, blocks, bp, Fp), dtype=torch.bfloat16, device=x.device)
+    frame[..., bandwidth : bandwidth + num_blocks, :block, :F] = nodes.view(*parts, num_blocks, block, F)
     return frame
 
 
 def rowmajor_operands(a: BandedMatrix, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Role A's operands of a bfloat16 band: the band and ``x̂``, padded."""
-    return pad_band(a.band), rowmajor_frame(x, a.num_nodes, a.num_blocks, a.bandwidth, a.block)
+    """Role A's operands of a bfloat16 or float32 band: the band and ``x̂``
+    (split into three frames for the float32 band), padded."""
+    split = a.band.dtype == torch.float32
+    return pad_band(a.band), rowmajor_frame(x, a.num_nodes, a.num_blocks, a.bandwidth, a.block, split)
+
+
+def fold_bf16(band_q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """B2c's tiles with ``wrow_bf16``: ``fl(scale · float(q))`` in float32,
+    rounded to bfloat16, as its plain version folds them and the kernel
+    folds each tile entry while it widens it."""
+    return (scales[:, :, None, None] * band_q.to(torch.float32)).to(torch.bfloat16)
 
 
 def fm_frame(x_pad: torch.Tensor, num_blocks: int, bandwidth: int, block: int) -> torch.Tensor:
@@ -93,11 +139,26 @@ def fm_frame(x_pad: torch.Tensor, num_blocks: int, bandwidth: int, block: int) -
 
 
 def rowmajor_on_operands(band_p: torch.Tensor, frame: torch.Tensor, num_nodes: int, W: int,
-                         block: int, F: int, scales: torch.Tensor | None = None) -> torch.Tensor:
-    """Role A's function on its prepared operands, in plain torch, each
-    tile's dot times its scale where ``scales [NB, 2W+1]`` is given (the
-    int8 band): ``[num_nodes, F]`` float32."""
+                         block: int, F: int, scales: torch.Tensor | None = None,
+                         wrow_bf16: bool = False) -> torch.Tensor:
+    """Role A's function on its prepared operands, in plain torch:
+    ``[num_nodes, F]`` float32.  Each tile's dot times its scale where
+    ``scales [NB, 2W+1]`` is given (the int8 band), or with the scales
+    folded into the tiles (:func:`fold_bf16`) with ``wrow_bf16``.  A float32
+    band and its three frames give the sum of the :data:`SPLIT_PRODUCTS`,
+    summed in float64 so that no float32 sum order enters, rounded to
+    float32 once."""
     nb = band_p.shape[0]
+    if band_p.dtype == torch.float32:
+        parts = split_bf16x3(band_p).to(torch.float64)
+        xw = frame.to(torch.float64)
+        out = xw.new_zeros((nb, band_p.shape[2], xw.shape[3]))
+        for d in range(2 * W + 1):
+            for i, j in SPLIT_PRODUCTS:
+                out += torch.bmm(parts[i][:, d], xw[j][d : d + nb])
+        return out[:, :block, :F].reshape(nb * block, F)[:num_nodes].to(torch.float32)
+    if wrow_bf16:
+        band_p, scales = fold_bf16(band_p, scales), None
     xw = frame.to(torch.float32)
     out = xw.new_zeros((nb, band_p.shape[2], xw.shape[2]))
     for d in range(2 * W + 1):
@@ -132,20 +193,32 @@ def _check(kind: str, band_p: torch.Tensor, frame: torch.Tensor, frame_shape,
 
 
 def launch_rowmajor(kind: str, band_p: torch.Tensor, frame: torch.Tensor, num_nodes: int, W: int,
-                    block: int, F: int, scales: torch.Tensor | None = None) -> torch.Tensor:
+                    block: int, F: int, scales: torch.Tensor | None = None,
+                    wrow_bf16: bool | None = None) -> torch.Tensor:
     """Role A on CUDA operands from :func:`rowmajor_operands` (a bfloat16
-    band), or on K3's padded int8 band with its ``scales [NB, 2W+1]`` and
-    :func:`rowmajor_frame`; returns ``[num_nodes, F]`` float32."""
+    band, or a float32 band and its three frames), or on the padded int8
+    band with its ``scales [NB, 2W+1]`` and :func:`rowmajor_frame`: K3's
+    entry point, or B2c's where ``wrow_bf16`` is given.  Returns
+    ``[num_nodes, F]`` float32."""
     nb, bp, Fp = band_p.shape[0], band_p.shape[2], frame.shape[-1]
     out = torch.empty((num_nodes, F), dtype=torch.float32, device=frame.device)
-    if scales is None:
-        _check(kind, band_p, frame, (nb + 2 * W, bp, Fp))
+    shape, tail = (nb + 2 * W, bp, Fp), (nb, W, block, bp, F, Fp, num_nodes)
+    if band_p.dtype == torch.float32:
+        _check(kind, band_p, frame, (3, *shape), torch.float32)
+        _launch(kind, "cgt_banded_spmm_direct_f32", band_p.data_ptr(), frame.data_ptr(),
+                out.data_ptr(), *tail, _stream(frame.device))
+    elif scales is None:
+        _check(kind, band_p, frame, shape)
         _launch(kind, "cgt_banded_spmm_direct_bf16", band_p.data_ptr(), frame.data_ptr(),
-                out.data_ptr(), nb, W, block, bp, F, Fp, num_nodes, _stream(frame.device))
+                out.data_ptr(), *tail, _stream(frame.device))
     else:
-        _check(kind, band_p, frame, (nb + 2 * W, bp, Fp), torch.int8)
-        _launch(kind, "cgt_banded_spmm_quant", band_p.data_ptr(), scales.data_ptr(), frame.data_ptr(),
-                out.data_ptr(), nb, W, block, bp, F, Fp, num_nodes, _stream(frame.device))
+        _check(kind, band_p, frame, shape, torch.int8)
+        ptrs = band_p.data_ptr(), scales.data_ptr(), frame.data_ptr(), out.data_ptr()
+        if wrow_bf16 is None:
+            _launch(kind, "cgt_banded_spmm_quant", *ptrs, *tail, _stream(frame.device))
+        else:
+            _launch(kind, "cgt_banded_spmm_quant_fused_dot", *ptrs, *tail, int(bool(wrow_bf16)),
+                    _stream(frame.device))
     return out
 
 

@@ -23,11 +23,24 @@ B2c's tile is float32 unless ``wrow_bf16``: in the TPU kernel a float32
 scalar times a bfloat16 array promotes to float32.  Its rounding differs
 from K3's, which scales each diagonal's dot.
 
-B2b and B2c are instantiations of the band body in
-``csrc/banded_spmm.cu``; B2a is K7's bfloat16 launch, role A of the
-tensor-core body ``csrc/band_mma.cu``.  Beside each sit its plain
-PyTorch version (``*_reference``, the oracle of the tests and of
-``chip_smoke.py``) and a launch counter (``*_kernel.launches``).  The entry points take the plain
+B2a and B2c are role A of the tensor-core body ``csrc/band_mma.cu`` (B2a
+is K7's bfloat16 launch; B2c has an entry point of its own over K3's
+operands, the int8 band and ``x`` rounded to bfloat16 in the padded frame).
+With ``wrow_bf16`` B2c's kernel folds each scale into its tile as it widens
+the int8 entries, ``bf16(fl(scale · q))``, the plain version's two
+roundings, so every product is exact and the kernel differs from the plain
+version only in the order of its float32 sums.  Without it the float32
+tile ``fl(scale · q)`` is no bfloat16 operand, so the kernel takes K3's
+order: each tile's exact dot ``q @ x̂``, then ``scale · dot``.  That
+differs from the plain fold by one float32 rounding of each product,
+``fl(scale · q) · x̂`` against ``scale · q · x̂``, an error of the same size
+as the order of the float32 sums.  The kernel holds 1e-5 of the fold
+summed in float64 (``sum_dtype=torch.float64``) at the card tests' data;
+there, with random signs and cancelling sums, the plain version's own
+float32 sums differ from it by more.  B2b is an instantiation of the CUDA-core band body in
+``csrc/banded_spmm.cu``.  Beside each sits its plain PyTorch version
+(``*_reference``, the oracle of the tests and of ``chip_smoke.py``) and a
+launch counter (``*_kernel.launches``).  The entry points take the plain
 version for CPU tensors only; for a CUDA tensor they launch the kernel or
 raise.  The TPU kernels' ``rows_per_step`` is gone: the result depends on
 it only through the order of a float32 sum.
@@ -41,6 +54,7 @@ from __future__ import annotations
 
 import torch
 
+from connectome_gnn_tpu_torch.ops import band_mma
 from connectome_gnn_tpu_torch.ops.banded import BandedMatrix, pad_blocks
 from connectome_gnn_tpu_torch.ops.banded_direct import banded_spmm_direct_reference, launch_direct
 from connectome_gnn_tpu_torch.ops.banded_quant import (
@@ -125,19 +139,22 @@ def banded_spmm_w8a8_reference(q: QuantizedBandedMatrix, x: torch.Tensor) -> tor
 
 
 def banded_spmm_quant_fused_dot_reference(q: QuantizedBandedMatrix, x: torch.Tensor,
-                                          wrow_bf16: bool = False) -> torch.Tensor:
+                                          wrow_bf16: bool = False,
+                                          sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """B2c's arithmetic in plain torch: tiles widened as ``scale ·
     float(int8)`` (rounded to bfloat16 with ``wrow_bf16``) times ``x``
-    rounded to bfloat16, float32 sums; ``[num_nodes, F]`` float32."""
+    rounded to bfloat16, float32 sums; ``[num_nodes, F]`` float32.
+    ``sum_dtype=torch.float64`` takes the products and sums of the same
+    tiles and ``x`` in float64 and rounds the result to float32 once."""
     nb, W, block, n = q.num_blocks, q.bandwidth, q.block, q.num_nodes
-    xb = pad_blocks(x[:n].to(torch.bfloat16).to(torch.float32), nb, W, block)
+    xb = pad_blocks(x[:n].to(torch.bfloat16).to(sum_dtype), nb, W, block)
     out = xb.new_zeros((nb, block, xb.shape[2]))
     for d in range(2 * W + 1):
         wrow = q.scales[:, d, None, None] * q.band_q[:, d].to(torch.float32)
         if wrow_bf16:
-            wrow = wrow.to(torch.bfloat16).to(torch.float32)
-        out += torch.bmm(wrow, xb[d : d + nb])
-    return out.reshape(nb * block, -1)[:n]
+            wrow = wrow.to(torch.bfloat16)
+        out += torch.bmm(wrow.to(sum_dtype), xb[d : d + nb])
+    return out.reshape(nb * block, -1)[:n].to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -175,17 +192,18 @@ def banded_spmm_w8a8_kernel(q: QuantizedBandedMatrix, x: torch.Tensor) -> torch.
 def banded_spmm_quant_fused_dot_kernel(q: QuantizedBandedMatrix, x: torch.Tensor,
                                        wrow_bf16: bool = False) -> torch.Tensor:
     """Launch B2c on CUDA tensors: ``x [≥num_nodes, F]`` float32 with unit
-    inner stride; returns ``[num_nodes, F]`` float32."""
+    inner stride, rounded to bfloat16 in the padded frame in torch first,
+    and the band padded to a block that is a multiple of 16 where it is not
+    one; returns ``[num_nodes, F]`` float32."""
     kind, n, F = "B2c banded_spmm_quant_fused_dot", q.num_nodes, x.shape[-1]
     _check_band(kind, q.band_q, q.scales, x.device)
     _check_x(kind, q, x, torch.float32)
-    out = torch.empty((n, F), dtype=torch.float32, device=x.device)
     if n == 0 or F == 0:
-        return out
+        return torch.empty((n, F), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        _launch(kind, "cgt_banded_spmm_quant_fused_dot", q.band_q.data_ptr(), q.scales.data_ptr(),
-                x.data_ptr(), out.data_ptr(), q.num_blocks, q.bandwidth, q.block, F, n,
-                x.stride(0), int(bool(wrow_bf16)), _stream(x.device))
+        frame = band_mma.rowmajor_frame(x, n, q.num_blocks, q.bandwidth, q.block)
+        out = band_mma.launch_rowmajor(kind, band_mma.pad_band(q.band_q), frame, n, q.bandwidth,
+                                       q.block, F, q.scales, wrow_bf16=bool(wrow_bf16))
     banded_spmm_quant_fused_dot_kernel.launches += 1
     return out
 

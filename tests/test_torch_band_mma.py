@@ -22,6 +22,30 @@ interpret mode, at rtol 1e-5 / atol 1e-5 (JAX's own kernel-versus-emulation
 gate: the same exact products, float32 sums in another order), at a block
 of 100 (padded to 112) and of 16, F = 5 and F = 1 (padded to 8), W = 0,
 ragged tails and F = 130 (three feature units of the kernel).
+
+K7 over a float32 band runs role A on bfloat16 products: the kernel splits
+each band value, and :func:`split_bf16x3` each ``x`` value, exactly into
+three bfloat16 terms, bitwise as the kernel's register code does (a numpy
+emulation by bit operations, over ±30 decades, zeros, signs and ties), and
+sums six of the nine products.  Summed in float64, so that no float32 sum
+order enters, the six stay within rtol / atol 1e-6 of the float64 product
+of the float32 operands at the (16, 2, 256, 4000, 64) shape; three (the
+products of hi and mid alone) break 1e-5 there, which is why six are
+taken.  Accumulated in float32 at each 16-sender k-step, as the tensor
+cores accumulate, the five small products keep that gate only in a
+fragment of their own: added into the tile's dot they round at its
+magnitude and break it.  The float32 band's prepared operands (the padded
+band and the three frames) give the float64 product at 1e-6 at every
+shape.
+
+B2c runs role A over K3's operands.  With ``wrow_bf16`` the kernel folds
+each scale into its tile as it widens the int8 entries; that fold,
+emulated by bit operations, is the plain version's ``bf16(fl(scale · q))``
+bit for bit.  Without it the kernel takes K3's order, which holds 1e-5 of
+the plain version's fold summed in float64 (``sum_dtype=torch.float64``);
+at the 4000-node shape the plain float32 versions of K7 over a float32
+band and of B2c do not, by their own rounding, which is why the card tests
+hold those two kernels to the float64 sums.
 """
 
 import jax.numpy as jnp
@@ -31,10 +55,11 @@ import torch
 
 import connectome_gnn_tpu.ops.banded_quant as jq
 from connectome_gnn_tpu_torch.ops import band_mma
+from connectome_gnn_tpu_torch.ops import band_variants as tv
 from connectome_gnn_tpu_torch.ops import banded_direct as tdir
 from connectome_gnn_tpu_torch.ops import banded_quant as tq
 from connectome_gnn_tpu_torch.ops import fm_variants as fv
-from connectome_gnn_tpu_torch.ops.banded import BandedMatrix
+from connectome_gnn_tpu_torch.ops.banded import BandedMatrix, pad_blocks
 
 RTOL, ATOL = 1e-6, 1e-6
 #: K3 against its plain version and JAX's kernel: JAX's own gate
@@ -171,3 +196,239 @@ def test_rowmajor_int8_band_with_scales_matches_jax_interpret(shape):
     want = np.asarray(jq.banded_spmm_quant(jqq, jnp.asarray(x), interpret=True))
     np.testing.assert_allclose(k3_on_operands(tqq, torch.from_numpy(x)).numpy(), want,
                                rtol=K3_RTOL, atol=K3_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# K7 over a float32 band: the exact three-way bfloat16 split
+# ---------------------------------------------------------------------------
+
+#: the card tests' largest shape, where the float32 sums cancel most
+BIG = (16, 2, 256, 4000, 64)
+#: the six products against the float64 product, and the gate three miss
+SPLIT_RTOL, SPLIT_ATOL = 1e-6, 1e-6
+GATE = 1e-5
+
+
+def bf16_bits(a: np.ndarray) -> np.ndarray:
+    """float32 → the nearest bfloat16 (ties to even) by bit operations, as
+    ``cvt.rn.bf16x2.f32`` rounds, returned as float32."""
+    u = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32).view(np.float32)
+
+
+def split_bits(a: np.ndarray):
+    """The kernel's register split (``split3``): rn, float32 subtraction,
+    rn, float32 subtraction, rn."""
+    hi = bf16_bits(a)
+    rest = (a - hi).astype(np.float32)
+    mid = bf16_bits(rest)
+    return hi, mid, bf16_bits((rest - mid).astype(np.float32))
+
+
+def split_cases(case: str, rng) -> np.ndarray:
+    if case == "decades":
+        mag = 10.0 ** rng.uniform(-30, 30, 20000)
+        return (rng.choice([-1.0, 1.0], 20000) * mag).astype(np.float32)
+    if case == "zeros-and-signs":
+        return np.array([0.0, -0.0, 1.0, -1.0, 3.3895314e38, -3.3895314e38, 1e-30, -1e-30,
+                         1.0 + 2.0 ** -23, -(1.0 + 2.0 ** -23), 2.0 ** -100, np.pi, -np.e],
+                        dtype=np.float32)
+    # ties: at hi (low 16 bits 0x8000), at mid (the rest one half-unit past
+    # 8 significant bits), and one past either, with even and odd mantissas;
+    # magnitudes from 2^-100 (the split is exact down to about 2^-110)
+    upper = rng.integers(27 << 7, 0x7F00, 4000, dtype=np.uint32) << 16
+    m = rng.integers(0, 128, 4000, dtype=np.uint32)
+    low = np.concatenate([np.full(4000, 0x8000), 0x4000 | (m << 7) | 0x40,
+                          0x4000 | (m << 7) | 0x41, np.full(4000, 0x8001)]).astype(np.uint32)
+    bits = np.tile(upper, 4) | low
+    bits[::2] |= np.uint32(0x80000000)
+    return bits.view(np.float32)
+
+
+@pytest.mark.parametrize("case", ["decades", "zeros-and-signs", "ties"])
+def test_split_bf16x3_is_exact_and_the_kernels_split(case):
+    x = split_cases(case, np.random.default_rng(7))
+    parts = band_mma.split_bf16x3(torch.from_numpy(x))
+    assert parts.dtype == torch.bfloat16 and parts.shape == (3, *x.shape)
+    got = [(p.view(torch.int16).numpy().view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+           for p in parts]
+    for g, want in zip(got, split_bits(x)):
+        np.testing.assert_array_equal(g.view(np.uint32), want.view(np.uint32))
+    total = sum(g.astype(np.float64) for g in got)
+    np.testing.assert_array_equal(total, x.astype(np.float64))
+
+
+def split_sum(band: torch.Tensor, x: torch.Tensor, W: int, products) -> torch.Tensor:
+    """``Σ_d Σ_(i, j) band_i @ x_j`` over the split terms in ``products``,
+    in float64, on the unpadded operands (``n`` = all rows of ``x``)."""
+    nb, block = band.shape[0], band.shape[2]
+    parts = band_mma.split_bf16x3(band).to(torch.float64)
+    xs = band_mma.split_bf16x3(x).to(torch.float64)
+    frames = torch.stack([pad_blocks(xs[j], nb, W, block) for j in range(3)])
+    out = torch.zeros((nb, block, x.shape[1]), dtype=torch.float64)
+    for d in range(2 * W + 1):
+        for i, j in products:
+            out += torch.bmm(parts[i][:, d], frames[j][d : d + nb])
+    return out.reshape(nb * block, -1)[: x.shape[0]]
+
+
+def float_band(shape, decades=0.0):
+    """A random non-symmetric float32 band (70 % zeros, tile (0, 0) all
+    zero) and activations, as the card tests draw them; with ``decades``
+    their magnitudes spread log-uniformly over that many decades each way."""
+    nb, W, block, n, F = shape
+    rng = np.random.default_rng(sum(shape))
+    dims = (nb, 2 * W + 1, block, block)
+    band = rng.standard_normal(dims) * (rng.random(dims) < 0.3)
+    band[0, 0] = 0
+    x = np.random.default_rng(n + F).standard_normal((n, F))
+    if decades:
+        band *= 10.0 ** rng.uniform(-decades, decades, dims)
+        x *= 10.0 ** rng.uniform(-decades, decades, (n, F))
+    return (BandedMatrix(torch.from_numpy(band.astype(np.float32)), n, W),
+            torch.from_numpy(x.astype(np.float32)))
+
+
+def test_six_split_products_hold_the_float64_product():
+    a, x = float_band(BIG)
+    want = tdir.banded_spmm_direct_reference(a, x, sum_dtype=torch.float64).to(torch.float64)
+    six = split_sum(a.band, x, a.bandwidth, band_mma.SPLIT_PRODUCTS)
+    torch.testing.assert_close(six, want, rtol=SPLIT_RTOL, atol=SPLIT_ATOL)
+    three = split_sum(a.band, x, a.bandwidth, [(0, 0), (0, 1), (1, 0)])
+    assert not torch.allclose(three, want, rtol=GATE, atol=GATE)
+
+
+def test_six_split_products_over_six_decades():
+    """Band and x spread over three decades each way, where cancelling
+    sums make a relative gate meaningless: each output of the six products
+    within 2^-22 of the sum of its products' magnitudes, ``|A| @ |x|`` (the
+    three left out are under 2^-25 of it together, and the reference's one
+    rounding to float32 under 2^-24)."""
+    a, x = float_band(BIG, decades=3.0)
+    want = tdir.banded_spmm_direct_reference(a, x, sum_dtype=torch.float64).to(torch.float64)
+    magnitude = tdir.banded_spmm_direct_reference(a._replace(band=a.band.abs()), x.abs(),
+                                                  sum_dtype=torch.float64).to(torch.float64)
+    six = split_sum(a.band, x, a.bandwidth, band_mma.SPLIT_PRODUCTS)
+    assert bool(((six - want).abs() <= 2.0 ** -22 * magnitude).all())
+
+
+def k_step_fragments(a: BandedMatrix, x: torch.Tensor, own_fragment: bool) -> torch.Tensor:
+    """The kernel's sums with float32 accumulation rounded to nearest at
+    every 16-sender k-step: hi·hi into each tile's dot and the five small
+    products into a fragment of the unit's own (``own_fragment``) or into
+    the tile's dot; each dot then into the float32 sum."""
+    nb, W, block, n = a.num_blocks, a.bandwidth, a.block, a.num_nodes
+    parts = band_mma.split_bf16x3(a.band).to(torch.float64)
+    xs = band_mma.split_bf16x3(x).to(torch.float64)
+    frames = [pad_blocks(xs[j], nb, W, block) for j in range(3)]
+    acc = torch.zeros((nb, block, x.shape[1]), dtype=torch.float32)
+    corr = torch.zeros_like(acc)
+    for d in range(2 * W + 1):
+        dot = torch.zeros_like(acc)
+        for k in range(0, block, 16):
+            for i, j in band_mma.SPLIT_PRODUCTS:
+                g = torch.bmm(parts[i][:, d, :, k : k + 16], frames[j][d : d + nb, k : k + 16])
+                if (i, j) == (0, 0) or not own_fragment:
+                    dot = (dot.to(torch.float64) + g).to(torch.float32)
+                else:
+                    corr = (corr.to(torch.float64) + g).to(torch.float32)
+        acc += dot
+    return (acc + corr).reshape(nb * block, -1)[:n]
+
+
+def test_small_products_need_a_fragment_of_their_own():
+    a, x = float_band(BIG)
+    want = tdir.banded_spmm_direct_reference(a, x, sum_dtype=torch.float64)
+    torch.testing.assert_close(k_step_fragments(a, x, True), want, rtol=GATE, atol=GATE)
+    assert not torch.allclose(k_step_fragments(a, x, False), want, rtol=GATE, atol=GATE)
+
+
+@pytest.mark.parametrize("shape", BAND_SHAPES, ids=shape_id)
+def test_float32_band_operands_give_the_float64_product(shape):
+    nb, W, block, n, F = shape
+    a, x = float_band(shape)
+    band_p, frames = band_mma.rowmajor_operands(a, x)
+    bp, Fp = band_mma.padded(block, 16), band_mma.padded(F, 8)
+    assert band_p.dtype == torch.float32 and band_p.shape == (nb, 2 * W + 1, bp, bp)
+    assert frames.dtype == torch.bfloat16 and frames.shape == (3, nb + 2 * W, bp, Fp)
+    x_hat = frames.to(torch.float64).sum(0)[W : W + nb, :block, :F].reshape(nb * block, F)
+    assert torch.equal(x_hat[:n], x.to(torch.float64)) and not bool(x_hat[n:].any())
+    got = band_mma.rowmajor_on_operands(band_p, frames, n, W, block, F)
+    want = tdir.banded_spmm_direct_reference(a, x, sum_dtype=torch.float64)
+    assert got.shape == (n, F)
+    torch.testing.assert_close(got, want, rtol=SPLIT_RTOL, atol=SPLIT_ATOL)
+
+
+@pytest.mark.parametrize("kid", ["K7-f32", "B2c"])
+def test_the_float32_plain_version_misses_its_float64_sums_at_the_4000_node_shape(kid):
+    """The reason the card tests hold these two kernels to the float64
+    sums: at random data with cancelling sums, the plain version's own
+    float32 rounding exceeds the 1e-5 gate, so any other order of sums,
+    exact or not, can differ from it by more."""
+    a, x = float_band(BIG)
+    if kid == "K7-f32":
+        plain, want = (tdir.banded_spmm_direct_reference(a, x, sum_dtype=t)
+                       for t in (torch.float32, torch.float64))
+    else:
+        q = tq.quantize_band(a)
+        plain, want = (tv.banded_spmm_quant_fused_dot_reference(q, x, sum_dtype=t)
+                       for t in (torch.float32, torch.float64))
+    assert not torch.allclose(plain, want, rtol=GATE, atol=GATE)
+
+
+# ---------------------------------------------------------------------------
+# B2c over K3's operands
+# ---------------------------------------------------------------------------
+
+
+def fold_bits(q: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    """The kernel's ``fold2``: each int8, its sign bit flipped, as the
+    float32 2^23 + q + 128, less 2^23 + 128 (exact), times the scale in
+    float32, rounded to bfloat16 by bit operations."""
+    u = (q.astype(np.int16).view(np.uint16).astype(np.uint32) & 0xFF) ^ 0x80
+    widened = (u | 0x4B000000).view(np.float32) - np.float32(8388736.0)
+    return bf16_bits((widened * scale).astype(np.float32))
+
+
+def test_wrow_bf16_fold_is_the_plain_versions_bit_for_bit():
+    rng = np.random.default_rng(3)
+    q = np.arange(-128, 128, dtype=np.int8)[None, :]
+    scales = np.concatenate([10.0 ** rng.uniform(-3, 3, 500), rng.uniform(1e-3, 1.1e-2, 500),
+                             [1.0, 2.0 ** -7, 1.0 / 127]]).astype(np.float32)[:, None]
+    band_q = torch.from_numpy(np.broadcast_to(q, (scales.shape[0], 256)).copy())[:, None, None, :]
+    folded = band_mma.fold_bf16(band_q, torch.from_numpy(scales))
+    plain = (torch.from_numpy(scales)[:, :, None, None] * band_q.to(torch.float32)).to(torch.bfloat16)
+    assert torch.equal(folded.view(torch.int16), plain.view(torch.int16))
+    got = (folded.view(torch.int16).numpy().view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    want = fold_bits(q, scales)
+    np.testing.assert_array_equal(got.reshape(want.shape).view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("wrow_bf16", [False, True], ids=["k3-order", "wrow-bf16"])
+@pytest.mark.parametrize("shape", K3_SHAPES + [BIG], ids=shape_id)
+def test_b2c_on_k3s_operands_holds_its_plain_version(shape, wrow_bf16):
+    """Role A over K3's prepared operands, the scale on each tile's dot or
+    folded into the tile, against B2c's plain fold summed in float64 at
+    the card tests' 1e-5 gate."""
+    a, x = float_band(shape)
+    q = tq.quantize_band(a)
+    nb, W, block, n, F = shape
+    band_p, frame = band_mma.pad_band(q.band_q), band_mma.rowmajor_frame(x, n, nb, W, block)
+    got = band_mma.rowmajor_on_operands(band_p, frame, n, W, block, F, q.scales, wrow_bf16)
+    want = tv.banded_spmm_quant_fused_dot_reference(q, x, wrow_bf16, sum_dtype=torch.float64)
+    assert got.shape == (n, F)
+    torch.testing.assert_close(got, want, rtol=GATE, atol=GATE)
+
+
+def test_k7_f32_and_b2c_launch_the_tensor_core_body():
+    """Their C entry points are defined in ``csrc/band_mma.cu`` and nowhere
+    else, and the CUDA-core body keeps nothing of theirs."""
+    import os
+
+    csrc = os.path.join(os.path.dirname(band_mma.__file__), "..", "csrc")
+    text = {f: open(os.path.join(csrc, f)).read() for f in ("band_mma.cu", "banded_spmm.cu")}
+    for entry in ("cgt_banded_spmm_direct_f32", "cgt_banded_spmm_quant_fused_dot"):
+        assert f"int {entry}(" in text["band_mma.cu"]
+        assert entry not in text["banded_spmm.cu"]
+    for gone in ("kFolded", "Act::kF32", "BandT", "Scale::"):
+        assert gone not in text["banded_spmm.cu"]

@@ -1,6 +1,6 @@
-"""The tensor-core band body (``csrc/band_mma.cu``: K7 over a bfloat16 band
-and B2a in role A, ``fm_bf16_band`` in role B) against the plain PyTorch
-versions, on the card.
+"""The tensor-core band body (``csrc/band_mma.cu``: K7 over a bfloat16 or
+float32 band, B2a and B2c in role A, ``fm_bf16_band`` in role B) against
+the plain PyTorch versions, on the card.
 
 Every test here needs a CUDA card and skips without one.  The machine with
 the card has no JAX, and ``tests/conftest.py`` imports it, so run them
@@ -16,7 +16,10 @@ Tolerance: rtol 1e-5 / atol 1e-5 against the plain version (the same exact
 products, float32 sums in another order).  A band whose entries span six
 decades shows whether the tensor cores' float32 accumulation differs from
 IEEE float32 sums in another order: each output is held to 1e-5 of the sum
-of its products' magnitudes, ``|A| @ |x̂|``.
+of its products' magnitudes, ``|A| @ |x̂|``.  K7 over a float32 band and
+B2c without ``wrow_bf16`` are held at 1e-5 to their plain versions summed
+in float64, and to the float32 plain versions within 1e-5 of that
+magnitude sum (``tests/test_torch_band_variants_cuda.py`` says why).
 """
 
 import numpy as np
@@ -26,6 +29,7 @@ import torch
 from connectome_gnn_tpu_torch.ops import band_mma
 from connectome_gnn_tpu_torch.ops import band_variants as tv
 from connectome_gnn_tpu_torch.ops import banded_direct as tdir
+from connectome_gnn_tpu_torch.ops import banded_quant as bq
 from connectome_gnn_tpu_torch.ops import fm_variants as fv
 from connectome_gnn_tpu_torch.ops.banded import BandedMatrix
 
@@ -53,8 +57,8 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
 
-def operands(shape, device, decades=0.0):
-    """A random non-symmetric bfloat16 band (70 % zeros, tile (0, 0) all
+def operands(shape, device, decades=0.0, dtype=torch.bfloat16):
+    """A random non-symmetric band of ``dtype`` (70 % zeros, tile (0, 0) all
     zero), per-tile scales and activations; with ``decades`` the band's and
     x's magnitudes spread log-uniformly over that many decades each way."""
     nb, W, block, n, F = shape
@@ -68,7 +72,7 @@ def operands(shape, device, decades=0.0):
     band[0, 0] = 0
     scales = rng.uniform(1e-3, 1.1e-2, dims[:2])
     as_t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
-    return as_t(band).to(torch.bfloat16), as_t(scales), as_t(x)
+    return as_t(band).to(dtype), as_t(scales), as_t(x)
 
 
 def rowmajor(kid, fn, band, x, shape):
@@ -89,6 +93,34 @@ def test_rowmajor_kernel_matches_plain_version(cuda, kid, shape):
     assert kernel.launches == before + 1
     assert got.shape == (shape[3], shape[4]) and got.dtype == torch.float32
     torch.testing.assert_close(got, rowmajor(kid, plain, band, x, shape), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kid", ["K7-f32", "B2c", "B2c-wrow-bf16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rowmajor_float32_and_int8_bands_match_plain_versions(cuda, kid, shape):
+    """The float32 band's 32-sender stages and three frames, and B2c over
+    K3's operands, at the padded and persistent shapes."""
+    nb, W, block, n, F = shape
+    band, _, x = operands(shape, cuda, dtype=torch.float32)
+    a = BandedMatrix(band, n, W)
+    if kid == "K7-f32":
+        kernel, run = tdir.banded_spmm_direct_kernel, lambda fn, **kw: fn(a, x, **kw)
+        plain, abs_run = tdir.banded_spmm_direct_reference, lambda fn: fn(a._replace(band=band.abs()), x.abs())
+    else:
+        q, wrow = bq.quantize_band(a), kid == "B2c-wrow-bf16"
+        kernel, run = tv.banded_spmm_quant_fused_dot_kernel, lambda fn, **kw: fn(q, x, wrow, **kw)
+        plain = tv.banded_spmm_quant_fused_dot_reference
+        abs_run = lambda fn: fn(q._replace(band_q=q.band_q.abs()), x.abs(), wrow)  # noqa: E731
+    before = kernel.launches
+    got = run(kernel)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == (n, F) and got.dtype == torch.float32
+    want = run(plain)
+    if kid != "B2c-wrow-bf16":
+        assert bool(((got - want).abs() <= MAGNITUDE_RTOL * abs_run(plain)).all())
+        want = run(plain, sum_dtype=torch.float64)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -140,6 +172,16 @@ def test_the_launch_alone_equals_the_wrapper(cuda):
     alone = band_mma.launch_fm("B3a", band_mma.pad_band(band), scales,
                                band_mma.fm_frame(x_pad, nb, W, block), W, block)
     assert torch.equal(alone[:, :n], fv.fm_bf16_band(band, scales, n, W, xT, rows_per_step=7))
+    a32 = BandedMatrix(band.to(torch.float32), n, W)
+    band_p, frames = band_mma.rowmajor_operands(a32, x)
+    alone = band_mma.launch_rowmajor("K7", band_p, frames, n, W, block, F)
+    assert torch.equal(alone, tdir.banded_spmm_direct(a32, x))
+    q = bq.quantize_band(a32)
+    frame = band_mma.rowmajor_frame(x, n, nb, W, block)
+    for wrow in (False, True):
+        alone = band_mma.launch_rowmajor("B2c", band_mma.pad_band(q.band_q), frame, n, W, block, F,
+                                         q.scales, wrow_bf16=wrow)
+        assert torch.equal(alone, tv.banded_spmm_quant_fused_dot(q, x, wrow))
 
 
 def test_wrappers_refuse_what_the_body_does_not_take(cuda):

@@ -9,7 +9,17 @@ there without the conftest:
 
 This file imports no JAX.  Tolerance: kernel against plain version rtol
 1e-5 / atol 1e-5 (the same exact products, float32 sums in another order;
-B2b's int32 dots are exact in both).
+B2b's int32 dots are exact in both).  K7 over a float32 band and B2c
+without ``wrow_bf16`` run on the tensor cores in an order of sums the plain
+version's float32 sums cannot share, and at the 4000-node shape those sums
+are themselves more than 1e-5 from the exact value of their function (by
+cancellation; ``tests/test_torch_band_mma.py`` records it on the CPU, whose
+bits the card's plain version repeats).  So those two are held at the same
+1e-5 to their plain version summed in float64 (``sum_dtype``: the same
+operands and products, no float32 rounding of the sums), and to the
+float32 plain version within 1e-5 of the sum of the products' magnitudes.
+The six-decade cases spread the band or the scales and ``x`` over three
+decades each way and hold each output within 1e-5 of that magnitude sum.
 """
 
 import numpy as np
@@ -17,6 +27,7 @@ import pytest
 import torch
 
 import connectome_gnn_tpu_torch as tp
+from connectome_gnn_tpu_torch.ops import band_mma
 from connectome_gnn_tpu_torch.ops import band_variants as tv
 from connectome_gnn_tpu_torch.ops import banded as tb
 from connectome_gnn_tpu_torch.ops import banded_direct as tdir
@@ -25,6 +36,8 @@ from connectome_gnn_tpu_torch.ops import banded_quant as bq
 pytestmark = pytest.mark.requires_cuda
 
 RTOL, ATOL = 1e-5, 1e-5
+#: |kernel - plain| against the sum of the products' magnitudes
+MAGNITUDE_RTOL = 1e-5
 #: kernel id → (kernel wrapper, entry point, plain version, band kind)
 KERNELS = {
     "K7-f32": (tdir.banded_spmm_direct_kernel, tdir.banded_spmm_direct,
@@ -38,6 +51,12 @@ KERNELS = {
     "B2c-wrow-bf16": (tv.banded_spmm_quant_fused_dot_kernel, tv.banded_spmm_quant_fused_dot,
                       tv.banded_spmm_quant_fused_dot_reference, "int8"),
 }
+#: the kernels held at 1e-5 to their plain version's float64 sums
+FLOAT64_SUMS = ("K7-f32", "B2c")
+#: the C entry point each tensor-core wrapper launches, and its last flag
+ENTRY_POINTS = {"K7-f32": ("cgt_banded_spmm_direct_f32", None),
+                "B2c": ("cgt_banded_spmm_quant_fused_dot", 0),
+                "B2c-wrow-bf16": ("cgt_banded_spmm_quant_fused_dot", 1)}
 #: (num_blocks, W, block, num_nodes, F): the ragged tail, W = 0, F = 5,
 #: F = 1, a block of 100 with two feature slices, and a 4000-node band
 SHAPES = [(10, 1, 64, 640, 16), (10, 1, 64, 600, 16), (10, 0, 64, 600, 16), (10, 2, 64, 640, 5),
@@ -64,16 +83,27 @@ def random_band(nb, W, block, n, seed, device):
     return tb.BandedMatrix(torch.from_numpy(band).to(device), n, W)
 
 
-def call(kid, fn, a, x):
-    """``fn`` (kernel, entry point or plain version) on ``kid``'s operands."""
+def call(kid, fn, a, x, q=None, **kw):
+    """``fn`` (kernel, entry point or plain version) on ``kid``'s operands:
+    the int8 band ``q`` where given, else ``a`` quantized."""
     kind = KERNELS[kid][3]
     if kind == "int8":
-        q = bq.quantize_band(a)
-        return fn(q, x, wrow_bf16=True) if kid == "B2c-wrow-bf16" else fn(q, x)
+        q = bq.quantize_band(a) if q is None else q
+        return fn(q, x, wrow_bf16=True, **kw) if kid == "B2c-wrow-bf16" else fn(q, x, **kw)
     band = a.band.to(torch.bfloat16) if kind == "bf16" else a.band
     if kid == "B2a":
         return fn(band, a.num_nodes, a.bandwidth, x)
-    return fn(a._replace(band=band), x)
+    return fn(a._replace(band=band), x, **kw)
+
+
+def magnitude(kid, a, x, q=None):
+    """The plain version over the magnitudes of the operands: each output's
+    sum of its products' magnitudes."""
+    plain = KERNELS[kid][2]
+    if KERNELS[kid][3] == "int8":
+        q = bq.quantize_band(a) if q is None else q
+        return call(kid, plain, a, x.abs(), q=q._replace(band_q=q.band_q.abs(), scales=q.scales.abs()))
+    return call(kid, plain, a._replace(band=a.band.abs()), x.abs())
 
 
 @pytest.mark.parametrize("kid", list(KERNELS))
@@ -88,7 +118,52 @@ def test_kernel_matches_plain_version(cuda, kid, shape):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert got.shape == (n, F) and got.dtype == torch.float32
-    torch.testing.assert_close(got, call(kid, plain, a, x), rtol=RTOL, atol=ATOL)
+    want = call(kid, plain, a, x)
+    if kid in FLOAT64_SUMS:
+        assert bool(((got - want).abs() <= MAGNITUDE_RTOL * magnitude(kid, a, x)).all())
+        want = call(kid, plain, a, x, sum_dtype=torch.float64)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kid", list(ENTRY_POINTS))
+@pytest.mark.parametrize("shape", [(20, 2, 256, 5000, 64), (7, 1, 100, 650, 70)])
+def test_accumulation_over_six_decades(cuda, kid, shape):
+    """K7's float32 band and x, or B2c's scales and x, spread log-uniformly
+    over three decades each way: each output within 1e-5 of the sum of its
+    products' magnitudes."""
+    nb, W, block, n, F = shape
+    a = random_band(nb, W, block, n, seed=sum(shape), device=cuda)
+    rng = np.random.default_rng(n + F)
+    x = rng.standard_normal((n, F)) * 10.0 ** rng.uniform(-3, 3, (n, F))
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    q = None
+    if kid == "K7-f32":
+        spread = 10.0 ** rng.uniform(-3, 3, tuple(a.band.shape))
+        a = a._replace(band=a.band * torch.from_numpy(spread.astype(np.float32)).to(cuda))
+    else:
+        q = bq.quantize_band(a)
+        scales = 10.0 ** rng.uniform(-3, 3, tuple(q.scales.shape))
+        q = q._replace(scales=torch.from_numpy(scales.astype(np.float32)).to(cuda))
+    kernel, _, plain, _ = KERNELS[kid]
+    got = call(kid, kernel, a, x, q=q)
+    want = call(kid, plain, a, x, q=q)
+    assert bool(((got - want).abs() <= MAGNITUDE_RTOL * magnitude(kid, a, x, q)).all())
+
+
+@pytest.mark.parametrize("kid", list(ENTRY_POINTS))
+def test_launches_go_through_the_tensor_core_body(cuda, kid, monkeypatch):
+    """The wrapper launches the C entry point of ``csrc/band_mma.cu``
+    (``tests/test_torch_band_mma.py`` holds that it is defined there and
+    nowhere else), with B2c's ``wrow_bf16`` flag."""
+    seen, launch = [], band_mma._launch
+    monkeypatch.setattr(band_mma, "_launch",
+                        lambda kind, entry, *args: (seen.append((entry, args)), launch(kind, entry, *args)))
+    a = random_band(10, 1, 64, 600, seed=4, device=cuda)
+    call(kid, KERNELS[kid][0], a, torch.randn(600, 16, device=cuda))
+    entry, flag = ENTRY_POINTS[kid]
+    assert [e for e, _ in seen] == [entry]
+    if flag is not None:
+        assert seen[0][1][-2] == flag
 
 
 @pytest.mark.parametrize("kid", list(KERNELS))
