@@ -15,7 +15,9 @@ Phases, one line each:
    and what ``ptxas -v`` says of the tensor-core body's kernels
    (registers, spills, shared memory; role A over the int8 band with the
    scale on the dot (K3, B2c) or folded into the tile (B2c ``wrow_bf16``)
-   and over the float32 band (K7) among them) and any warning it gives;
+   and over the float32 band (K7), and role B over the int8 band,
+   feature-major (K4) and blocked (K6), among them) and any warning it
+   gives;
 3. each fused kernel (K1 GCN, K2 SAGE) against its plain PyTorch version on
    the card at four (B, n, F, H, L) shapes, rtol 1e-4 / atol 1e-5 (the
    repository's f32 gate);
@@ -38,11 +40,11 @@ random weights from seed 0 and non-trivial BatchNorm state):
    card, the float32 logits of ``BandedNodeGCN`` / ``BandedNodeSAGE``, then
    ``prepare_quantized`` (feature-major and row-major) and the float32 band
    freed; bytes and the memory peak;
-7. each band kernel (K3 on the tensor-core body, K4, K5) against its plain
-   PyTorch version on the card, rtol 1e-5 / atol 1e-5: on random
+7. each band kernel (K3 and K4 on the tensor-core body, K5) against its
+   plain PyTorch version on the card, rtol 1e-5 / atol 1e-5: on random
    non-symmetric int8 bands at small shapes (the ragged tail, W = 0, F = 5,
-   F = 1, a block of 100; for K3 also a block of 16 and F = 130) and on the
-   prepared 1M-node bands;
+   F = 1, a block of 100; for K3 and K4 also a block of 16 and F = 130) and
+   on the prepared 1M-node bands;
 8. the serving path: ``apply_quantized`` feature-major (K4), w8a8 (K5),
    row-major (K3), on a hybrid graph with 10 % shortcuts (K3 and the COO
    remainder), and ``BandedNodeSAGE`` feature-major (K4), each with its
@@ -56,9 +58,11 @@ random weights from seed 0 and non-trivial BatchNorm state):
    dequantized band, checked for hidden copies; K5 has none) per call at
    full size (CUDA events, median, in turns and back to back, then the
    card's SM clock and power; device time from ``torch.profiler``), beside
-   the kernel's bound; K3's launch alone on the operands its wrapper
-   prepares (the padded band and the bf16 frame) and its share of the
-   bound; and ``apply_quantized`` ms per forward and edge-messages/s for
+   the kernel's bound; K3's and K4's launch alone on the operands their
+   wrappers prepare (K3: the padded band and the bf16 frame; K4: the band
+   and ``xT`` as they are), its share of the bound and the rate at which it
+   streams the band; and ``apply_quantized`` ms per forward and
+   edge-messages/s for
    feature-major, w8a8, row-major and hybrid serving, with a device-time
    breakdown by kernel (``--serving-forwards`` runs phase 6's build and
    these forwards alone, so that another tree's package can be timed by
@@ -74,7 +78,8 @@ dropout 0; fresh weights from seed 0):
     (the int8 band and its transpose); times and the memory peak;
 12. K6 and K4 over the transposed band (K4's backward launch) against
     their plain versions, rtol 1e-5 / atol 1e-5: K6 on the random
-    non-symmetric small bands, both on the prepared 1M-node bands;
+    non-symmetric small bands (with a block of 16 and F = 130), both on
+    the prepared 1M-node bands;
 13. the gradient of each trainable op at a small shape, kernels against
     ``plain=True`` at 1e-5, and blocked against feature-major;
 14. the main path: one Adam step through ``apply_quant_trainable`` (K4
@@ -93,9 +98,12 @@ dropout 0; fresh weights from seed 0):
     in turns) for feature-major, blocked, the plain path and float32, and
     edge-messages/s (L × E / step time, ``benchmarks/suite.py:1075``); K6
     and K4 over the transpose per call against their plain versions and
-    their library call (CUDA events), beside their bound; a
+    their library call (CUDA events), beside their bound, and their launch
+    alone with its share of the bound and its band rate; a
     ``torch.profiler`` device-time breakdown of one step; the memory peak
-    of training.
+    of training (``--train-steps`` runs phase 11's set-up and these steps,
+    feature-major, blocked and float32, alone, through the public API only,
+    so that another tree's package is timed by the same code).
 
 Then the band-SpMM variants at the 5d geometry of
 ``benchmarks/quant_kernel_diag.py`` (the same graph: 1M nodes, band ±512,
@@ -289,16 +297,17 @@ BAND_KERNELS = {
                replaces="connectome_gnn_tpu/ops/banded_quant.py:820"),
     "K4": dict(name="banded_spmm_quant_fm", kernel=bq.banded_spmm_quant_fm_kernel,
                plain=bq.banded_spmm_quant_fm_reference, feature_major=True,
+               source="connectome_gnn_tpu_torch/csrc/band_mma.cu",
                replaces="connectome_gnn_tpu/ops/banded_quant.py:284"),
     "K5": dict(name="banded_spmm_quant_fm_w8a8", kernel=bq.banded_spmm_quant_fm_w8a8_kernel,
                plain=bq.banded_spmm_quant_fm_w8a8_reference, feature_major=True,
                replaces="connectome_gnn_tpu/ops/banded_quant.py:434"),
 }
-#: K3's further shapes on the tensor-core body: a block of 16, F = 130
-#: (three 64-feature units)
-K3_SHAPES = [(12, 1, 16, 180, 8), (6, 1, 64, 350, 130)]
+#: K3's, K4's and K6's further shapes on the tensor-core body: a block of
+#: 16, F = 130 (three 64-feature units)
+MMA_SHAPES = [(12, 1, 16, 180, 8), (6, 1, 64, 350, 130)]
 BAND_SOURCE = "connectome_gnn_tpu_torch/csrc/banded_spmm.cu"
-#: the tensor-core body of K3, K7, B2a, B2c and B3a bf16_band
+#: the tensor-core body of K3, K4, K6, K7, B2a, B2c and B3a bf16_band
 MMA_SOURCE = "connectome_gnn_tpu_torch/csrc/band_mma.cu"
 #: a train step against its plain path on the card: the f32 gate
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
@@ -308,10 +317,10 @@ TRAIN_GATES = (2e-2, 5e-2)
 #: the training kernels, each with its plain version
 TRAIN_KERNELS = {
     "K4 backward": dict(name="banded_spmm_quant_fm_grad", kernel=bq.banded_spmm_quant_fm_grad_kernel,
-                        plain=bq.banded_spmm_quant_fm_reference,
+                        plain=bq.banded_spmm_quant_fm_reference, source=MMA_SOURCE,
                         replaces="connectome_gnn_tpu/ops/banded_quant.py:743"),
     "K6": dict(name="banded_spmm_quant_blocked", kernel=bq.banded_spmm_quant_blocked_kernel,
-               plain=bq.banded_spmm_quant_blocked_reference,
+               plain=bq.banded_spmm_quant_blocked_reference, source=MMA_SOURCE,
                replaces="connectome_gnn_tpu/ops/banded_quant.py:564"),
 }
 #: the band variants of phases 17-19 (K7 over each band dtype, B2a-B2c):
@@ -652,6 +661,22 @@ def library_kernels(fn) -> str:
     return f"{seen}; copy kernels: {copies or 'none'}; allocated beyond the output: {extra:,} B"
 
 
+def fm_launch_alone(kid, q, xT):
+    """Role B's launch over the int8 band on the operands K4's wrapper hands
+    it: at the main shape the band and ``xT`` as they are (checked)."""
+    x, x_block, x_cols = band_mma.fm_x_operand(xT, q.num_nodes, q.num_blocks, q.block)
+    check(x is xT and band_mma.pad_band(q.band_qT) is q.band_qT, (kid, "the wrapper copies its operands"))
+    return lambda: band_mma.launch_fm_int8(kid, q.band_qT, q.scales, xT, x_block, x_cols, q.num_nodes,
+                                           q.bandwidth, q.block)
+
+
+def launch_note(operands: str, ms: float, bound_ms: float, band) -> str:
+    """The launch alone's time, its share of the bound and the rate at which
+    it streams the band (the band's bytes over its time)."""
+    return (f"the launch alone {operands} {ms:.4f} ms, {bound_ms / ms:.1%} of the bound, the band "
+            f"({nbytes(band) / 1e9:.4g} GB) at {nbytes(band) / ms / 1e9:.4g} TB/s")
+
+
 def random_quantized_band(nb, W, block, n, seed, device):
     """A random NON-symmetric int8 band (70 % zeros; tile (0, 0) all zero
     with scale 1), so a swapped tile axis cannot go unseen."""
@@ -828,16 +853,18 @@ def giant_graph_phases(dev, card):
             max_err[kid] = max(max_err[kid], errs[kid])
         print(f"[7 band kernel] NB={nb} W={W} b={b} n={nodes} F={F}, random non-symmetric band: "
               + ", ".join(f"{kid} max|kernel-plain| = {e:.3e}" for kid, e in errs.items()), flush=True)
-    for shape in K3_SHAPES:
+    for shape in MMA_SHAPES:
         nb, W, b, nodes, F = shape
         q = random_quantized_band(nb, W, b, nodes, seed=sum(shape), device=dev)
         xs = torch.from_numpy(
             np.random.default_rng(nodes + F).standard_normal((nodes, F)).astype(np.float32)
         ).to(dev)
-        err = check_band_kernel("K3", q, xs)
-        max_err["K3"] = max(max_err["K3"], err)
+        errs = {"K3": check_band_kernel("K3", q, xs),
+                "K4": check_band_kernel("K4", bq.to_feature_major(q), xs.T.contiguous())}
+        for kid, err in errs.items():
+            max_err[kid] = max(max_err[kid], err)
         print(f"[7 band kernel] NB={nb} W={W} b={b} n={nodes} F={F}, random non-symmetric band: "
-              f"K3 max|kernel-plain| = {err:.3e}", flush=True)
+              + ", ".join(f"{kid} max|kernel-plain| = {e:.3e}" for kid, e in errs.items()), flush=True)
     full = {"K3": (q_rm, x), "K4": (q_fm, xT), "K5": (q_fm, xT)}
     for kid, operands in full.items():
         err = check_band_kernel(kid, *operands)
@@ -923,11 +950,15 @@ def giant_graph_phases(dev, card):
             frame = band_mma.rowmajor_frame(x, n, q.num_blocks, q.bandwidth, block)
             fns.append(lambda: band_mma.launch_rowmajor(kid, band_p, frame, n, q.bandwidth, block,
                                                          x.shape[1], q.scales))
+        elif kid == "K4":  # the launch alone: at this shape the wrapper passes band and xT as they are
+            fns.append(fm_launch_alone(kid, q, xin))
         ms = cuda_ms(fns, iters=20, warmup=3)
         times[kid], lib_ms[kid] = ms[:2], (ms[2] if kid != "K5" else None)
+        if kid in ("K3", "K4"):
+            alone_note = "; " + launch_note(
+                "on the padded band and the bf16 frame" if kid == "K3" else "on the band and f32 xT",
+                ms[3], bounds[kid][0], band)
         if kid == "K3":
-            alone_note = (f"; the launch alone on the padded band and the bf16 frame {ms[3]:.4f} ms, "
-                          f"{bounds[kid][0] / ms[3]:.1%} of the bound")
             del band_p, frame
         if lib_ms[kid] is not None:
             lib_note = (f"{lib_ms[kid]:.4f} ms, one torch.bmm over the dequantized band and x rounded "
@@ -978,11 +1009,12 @@ def flat(grads) -> torch.Tensor:
     return torch.cat([g.reshape(-1) for _, g in sorted(grads.items())])
 
 
-def giant_training_phases(dev, card, graph) -> list[dict]:
-    """Phases 11-16; returns the training kernels' entries of the JSON line."""
+def train_setup(dev, card, graph):
+    """Phase 11: the band rebuilt on the card, a fresh ``BandedNodeGCN`` from
+    seed 0, ``prepare`` and ``prepare_quant_trainable``, through the public
+    API only; returns the model, the normalized float32 band, ``dinv``, the
+    int8 band and its transpose, and the memory peak."""
     L, block, n, E = GIANT["layers"], GIANT["block"], graph.num_nodes, graph.num_edges
-
-    # 11. set-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1011,7 +1043,78 @@ def giant_training_phases(dev, card, graph) -> list[dict]:
           f"prepare_quant_trainable (int8 band and its transpose, 2 x {q.band_qT.numel():,} B) "
           f"{t_prep:.3f} s; max_memory_allocated {setup_peak:,} B; raw band freed, "
           f"{torch.cuda.memory_allocated():,} B now allocated", flush=True)
+    return model0, adj_norm, dinv, q, qT, setup_peak
 
+
+def train_paths(q, qT, adj_norm, dinv, x) -> dict:
+    """The train-step forwards: feature-major (K4) and blocked (K6) over the
+    int8 band, ``plain=True`` for their plain paths, and float32."""
+    return {
+        "feature-major": lambda m, plain=False: m.apply_quant_trainable(q, qT, dinv, x, plain=plain),
+        "blocked": lambda m, plain=False: m.apply_quant_trainable_blocked(q, qT, dinv, x, plain=plain),
+        "float32": lambda m, plain=False: m.apply_normalized(adj_norm, dinv, x),
+    }
+
+
+def time_train_steps(card, model0, forwards: dict, labels, E: int) -> dict:
+    """Adam steps (lr 1e-3, mean cross-entropy over all nodes) through each
+    forward, from copies of ``model0``: ms per step (host clock ending in a
+    synchronize, median of 10, in turns) and edge-messages/s; returns the
+    times and the steppers."""
+    L, n = GIANT["layers"], labels.shape[0]
+    steppers = {}
+    for label, forward in forwards.items():
+        model = copy.deepcopy(model0)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+        def step(model=model, opt=opt, forward=forward):
+            opt.zero_grad(set_to_none=True)
+            F.cross_entropy(forward(model), labels).backward()
+            opt.step()
+
+        steppers[label] = step
+    step_ms = dict(zip(steppers, host_ms(list(steppers.values()), iters=10)))
+    for label, ms in step_ms.items():
+        print(f"[16 times] {card} | train step {label}, {n:,} nodes, L={L}: {ms:.3f} ms/step "
+              f"({L * E / ms * 1e3:.4g} edge-messages/s) (host clock, median of 10, in turns)",
+              flush=True)
+    return step_ms, steppers
+
+
+def step_breakdowns(card, steppers: dict, step_ms: dict, labels) -> None:
+    """Each step's device time by kernel (torch.profiler, mean of 3)."""
+    for label in labels:
+        rows = device_breakdown(steppers[label], iters=3)
+        busy = sum(ms for _, ms in rows)
+        print(f"[16 times] {card} | train step {label}: device busy {busy:.3f} ms/step "
+              f"({busy / step_ms[label]:.1%} of the unprofiled step time; torch.profiler, mean of 3)",
+              flush=True)
+        for name, ms in rows[:12]:
+            print(f"[16 times] {card} |     {ms:9.4f} ms/step  {name[:200]}", flush=True)
+
+
+def train_steps(dev, card) -> None:
+    """``--train-steps``: phase 11's set-up and phase 16's step times
+    (feature-major, blocked, float32) with their device breakdowns, alone,
+    through the public API only, so that the package of another tree (on
+    ``sys.path`` first) is timed by the same code."""
+    n = GIANT["num_nodes"]
+    graph = generate_spatial_graph(n, degree=GIANT["degree"], band=GIANT["band"],
+                                   num_features=GIANT["in_channels"], seed=0)
+    model0, adj_norm, dinv, q, qT, _ = train_setup(dev, card, graph)
+    x = torch.from_numpy(graph.node_features).to(dev)
+    labels = torch.from_numpy(np.random.default_rng(2).integers(0, 2, n)).to(dev)
+    step_ms, steppers = time_train_steps(card, model0, train_paths(q, qT, adj_norm, dinv, x), labels,
+                                         graph.num_edges)
+    step_breakdowns(card, steppers, step_ms, step_ms)
+
+
+def giant_training_phases(dev, card, graph) -> list[dict]:
+    """Phases 11-16; returns the training kernels' entries of the JSON line."""
+    L, block, n, E = GIANT["layers"], GIANT["block"], graph.num_nodes, graph.num_edges
+
+    # 11. set-up
+    model0, adj_norm, dinv, q, qT, setup_peak = train_setup(dev, card, graph)
     x = torch.from_numpy(graph.node_features).to(dev)
     xT = x.T.contiguous()
     nb, W = q.num_blocks, q.bandwidth
@@ -1019,7 +1122,7 @@ def giant_training_phases(dev, card, graph) -> list[dict]:
     # 12. K6 and K4 over the transposed band against their plain versions
     max_err = dict.fromkeys(TRAIN_KERNELS, 0.0)
     with torch.no_grad():
-        for shape in BAND_SHAPES:
+        for shape in BAND_SHAPES + MMA_SHAPES:
             snb, sW, sb, snodes, sF = shape
             q_row = random_quantized_band(snb, sW, sb, snodes, seed=sum(shape), device=dev)
             xb_pad = torch.from_numpy(np.random.default_rng(snodes + sF).standard_normal(
@@ -1072,14 +1175,11 @@ def giant_training_phases(dev, card, graph) -> list[dict]:
 
     # 14. the main path: one Adam step each way
     labels = torch.from_numpy(np.random.default_rng(2).integers(0, 2, n)).to(dev)
-    paths = {
-        "feature-major": lambda m, plain=False: m.apply_quant_trainable(q, qT, dinv, x, plain=plain),
-        "blocked": lambda m, plain=False: m.apply_quant_trainable_blocked(q, qT, dinv, x, plain=plain),
-    }
+    forwards = train_paths(q, qT, adj_norm, dinv, x)
+    paths = {label: forwards[label] for label in ("feature-major", "blocked")}
     expected = {"feature-major": {"K4": 2 * L, "K4 backward": L},
                 "blocked": {"K6": 2 * L}}
-    f32_loss, f32_grads = grad_step(copy.deepcopy(model0),
-                                    lambda m: m.apply_normalized(adj_norm, dinv, x), labels)
+    f32_loss, f32_grads = grad_step(copy.deepcopy(model0), forwards["float32"], labels)
     launched = {}
     for label, forward in paths.items():
         model = copy.deepcopy(model0)
@@ -1124,10 +1224,8 @@ def giant_training_phases(dev, card, graph) -> list[dict]:
     with torch.no_grad():
         agg = banded_spmm(adj_norm, x[:, :1])[:, 0]
     learnable = (agg > agg.median()).long()
-    runs = {**{label: (lambda m, f=f: f(m)) for label, f in paths.items()},
-            "float32": lambda m: m.apply_normalized(adj_norm, dinv, x)}
     losses = {}
-    for label, forward in runs.items():
+    for label, forward in forwards.items():
         model = copy.deepcopy(model0)
         opt = torch.optim.Adam(model.parameters(), lr=1e-3)
         losses[label] = []
@@ -1145,26 +1243,11 @@ def giant_training_phases(dev, card, graph) -> list[dict]:
               f"|int8 - f32| = {abs(lq[-1] - lf[-1]):.3e}", flush=True)
 
     # 16. times (nothing asserted)
-    steppers = {}
-    for label, forward in {**{k: f for k, f in paths.items()},
-                           "plain path (feature-major)": lambda m: paths["feature-major"](m, True),
-                           "float32": runs["float32"]}.items():
-        model = copy.deepcopy(model0)
-        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
-
-        def step(model=model, opt=opt, forward=forward):
-            opt.zero_grad(set_to_none=True)
-            F.cross_entropy(forward(model), labels).backward()
-            opt.step()
-
-        steppers[label] = step
     torch.cuda.reset_peak_memory_stats()
-    step_ms = dict(zip(steppers, host_ms(list(steppers.values()), iters=10)))
+    step_ms, steppers = time_train_steps(
+        card, model0, {**paths, "plain path (feature-major)": lambda m: paths["feature-major"](m, True),
+                       "float32": forwards["float32"]}, labels, E)
     train_peak = torch.cuda.max_memory_allocated()
-    for label, ms in step_ms.items():
-        print(f"[16 times] {card} | train step {label}, {n:,} nodes, L={L}: {ms:.3f} ms/step "
-              f"({L * E / ms * 1e3:.4g} edge-messages/s) (host clock, median of 10, in turns)",
-              flush=True)
     print(f"[16 times] max_memory_allocated over the four timed steppers {train_peak:,} B "
           f"(set-up peak {setup_peak:,} B)", flush=True)
     times, bounds, lib_ms, Fx = {}, {}, {}, x.shape[1]
@@ -1184,7 +1267,15 @@ def giant_training_phases(dev, card, graph) -> list[dict]:
             bounds[kid] = band_bound(qq.band_qT, qq.scales, xread, out_numel, Fx, "bf16")
             rows = dequantized(qq.band_qT, qq.scales).reshape(nb, -1, block)
             run_lib = fm_library(rows, xpad, block)
-            times[kid] = cuda_ms([run_kernel, run_plain, run_lib], iters=20, warmup=3)
+            if kid == "K6":  # the launch alone: at this shape the wrapper passes band and frame as they are
+                check(band_mma.blocked_x_operand(xin, block) is xin and band_mma.pad_band(qq.band_qT) is qq.band_qT,
+                      (kid, "the wrapper copies its operands"))
+                run_alone = lambda qq=qq, xin=xin: band_mma.launch_blocked(kid, qq.band_qT, qq.scales, xin, W,  # noqa: E731
+                                                                           block)
+                operands = "on the band and the f32 blocked frame"
+            else:
+                run_alone, operands = fm_launch_alone(kid, qq, xin), "on the transposed band and f32 xT"
+            times[kid] = cuda_ms([run_kernel, run_plain, run_lib, run_alone], iters=20, warmup=3)
             lib_ms[kid] = times[kid][2]
             print(f"[16 times] {card} | {kid} {k['name']} at {n:,} nodes, F={GIANT['hidden']}: "
                   f"kernel {times[kid][0]:.4f} ms, plain {times[kid][1]:.4f} ms, library call "
@@ -1192,20 +1283,13 @@ def giant_training_phases(dev, card, graph) -> list[dict]:
                   f"call is one torch.bmm of feature-major windows by the dequantized transposed tiles, "
                   f"{library_kernels(run_lib)}); kernel {E / times[kid][0] / 1e6:.4g} G edges/s; bound "
                   f"{bounds[kid][0]:.4f} ms ({bounds[kid][1]}), {bounds[kid][0] / times[kid][0]:.1%} "
-                  f"of it", flush=True)
-            del rows, xpad, run_lib
-    for label in paths:
-        rows = device_breakdown(steppers[label], iters=3)
-        busy = sum(ms for _, ms in rows)
-        print(f"[16 times] {card} | train step {label}: device busy {busy:.3f} ms/step "
-              f"({busy / step_ms[label]:.1%} of the unprofiled step time; torch.profiler, mean of 3)",
-              flush=True)
-        for name, ms in rows[:12]:
-            print(f"[16 times] {card} |     {ms:9.4f} ms/step  {name[:200]}", flush=True)
+                  f"of it; {launch_note(operands, times[kid][3], bounds[kid][0], qq.band_qT)}", flush=True)
+            del rows, xpad, run_lib, run_alone
+    step_breakdowns(card, steppers, step_ms, paths)
 
     return [
         {
-            "name": k["name"], "route": "cuda", "source": BAND_SOURCE, "replaces": k["replaces"],
+            "name": k["name"], "route": "cuda", "source": k["source"], "replaces": k["replaces"],
             "launches": launched["feature-major" if kid == "K4 backward" else "blocked"][kid],
             "max_abs_err": max_err[kid], "ms": times[kid][0], "plain_ms": times[kid][1],
             "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1], "library_ms": lib_ms[kid],
@@ -1338,7 +1422,7 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
     # 18. each variant against its plain version, then the main path
     max_err = dict.fromkeys(VARIANTS, 0.0)
     with torch.no_grad():
-        for shape in BAND_SHAPES:
+        for shape in BAND_SHAPES + MMA_SHAPES:
             snb, sW, sb, snodes, sF = shape
             ops = variant_operands(random_float_band(snb, sW, sb, snodes, seed=sum(shape), device=dev))
             xs = torch.from_numpy(
@@ -2097,6 +2181,9 @@ def main() -> None:
             print(f"[2 build] ptxas: {line.strip()}", flush=True)
     if "--serving-forwards" in sys.argv[1:]:
         serving_forwards(dev, card)
+        return
+    if "--train-steps" in sys.argv[1:]:
+        train_steps(dev, card)
         return
 
     # 3. each kernel against its plain version on the card

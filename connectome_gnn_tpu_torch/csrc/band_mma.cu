@@ -5,6 +5,10 @@
 // Replaces the Pallas TPU kernels
 //   in connectome_gnn_tpu/ops/banded_quant.py:
 //   K3  banded_spmm_quant over the int8 band (pallas_call at :820)    role A, int8
+//   K4  banded_spmm_quant_fm (pallas_call at :284); also the backward of
+//       banded_spmm_quant_fm_grad (:743), K4 over the transposed band  role B, int8
+//   K6  banded_spmm_quant_blocked (pallas_call at :564), forward and
+//       backward of banded_spmm_quant_blocked_grad (:639)          role B, int8, blocked
 //   in connectome_gnn_tpu/ops/banded_pallas.py:
 //   K7  banded_spmm_pallas (pallas_call at :66)                       role A, bf16 or f32
 //   in benchmarks/quant_kernel_diag.py:
@@ -12,20 +16,23 @@
 //   B2c banded_spmm_quant_fused_dot         (pallas_call at :250)     role A, int8
 //   in benchmarks/fm_kernel_diag.py:
 //   B3a _fm_pipeline (pallas_call at :130) reached by fm_bf16_band :271   role B, bf16
-// K4-K6 and B2b stay on csrc/banded_spmm.cu, and the probes on
+// K5 and B2b stay on csrc/banded_spmm.cu, and the probes on
 // csrc/fm_pipeline.cu.
 //
 // Math.  The band holds, for row block rb and diagonal d in [0, 2W], one
 // b x b tile: bf16, f32, or int8 with one f32 scale.  x-hat is x in the
 // W-shifted padded frame: frame block rb + d holds the senders of node block
-// rb + d - W, zeros outside [0, num_nodes); rounded to bf16 (round to
-// nearest even), or for the f32 band split into three bf16 frames (below).
+// rb + d - W, zeros outside [0, num_nodes) (K6: the caller's whole padded
+// frame, no sender mask); rounded to bf16 (round to nearest even), or for
+// the f32 band split into three bf16 frames (below).
 //   Role A (row-major: K3, K7, B2a, B2c): receiver-major tiles T[rb, d][r, s],
 //   node-major frame x-hat[blk, s, f], the int8 band's tiles scaled:
 //     out[rb*b + r, f] = sum_d scale[rb, d] * sum_s T[rb, d][r, s] * x-hat[rb + d, s, f]
-//   Role B (feature-major, fm_bf16_band): transposed tiles tT[rb, d][s, r],
-//   feature-major frame xT-hat[f, blk*b + s], one f32 scale per tile:
+//   Role B (feature-major: K4, K6, fm_bf16_band): transposed tiles
+//   tT[rb, d][s, r], feature-major frame xT-hat[f, blk*b + s], one f32 scale
+//   per tile:
 //     out[f, rb*b + r] = sum_d scale[rb, d] * sum_s xT-hat[f, (rb + d)*b + s] * tT[rb, d][s, r]
+//   K6 stores the same sums blocked, out[(rb*F + f)*b + r].
 // As GEMMs, role A has M = receivers, N = features, and role B M =
 // features, N = receivers; in both the K axis is the senders, A is K-major
 // and B is MN-major (wgmma's transposed-B form).  Products are
@@ -39,7 +46,14 @@
 //   * bf16 (K7, B2a, B3a): the staged tile is wgmma's A (role A) or B (role
 //     B) as it is.  The kernel differs from the plain version only in the
 //     order of its f32 sums.
-//   * int8 (K3, B2c): widened to bf16 in registers, exactly (every int8 is a
+//   * int8 in role B (K4, K6): widened to bf16 exactly, into shared memory
+//     (there the band is wgmma's B operand, which only shared memory
+//     feeds); x stays f32 in the frame and each thread rounds its A
+//     fragment to bf16 in registers (cvt.rn.bf16x2.f32, the plain
+//     version's .to(torch.bfloat16) bit for bit), so every product is
+//     exact, and the tile's scale goes on its dot, the plain version's
+//     order.
+//   * int8 in role A (K3, B2c): widened to bf16 in registers, exactly (every int8 is a
 //     bf16), the tile's scale on its dot: K3's order, which B2c takes too
 //     unless wrow_bf16.  B2c's plain version folds the scale into the tile
 //     first, fl(s * q), a product of up to 24 bits: K3's order differs from
@@ -91,7 +105,10 @@
 //     tiles and release each stage when their products are done.  The band
 //     is loaded under an L2 evict_first policy and the frame under
 //     evict_last, so the band's stream does not push out the frame blocks
-//     that the neighbouring units read next.
+//     that the neighbouring units read next.  Role B over the int8 band
+//     stages 64 senders: one 8 KB band box of 128 receivers (128 bytes) by
+//     64 senders, and two 8 KB boxes of the f32 frame, 32 senders (128
+//     bytes) by 64 features each: 24 KB stages, 144 KB in the ring.
 //   * An int8 or f32 band becomes wgmma's A operand in registers.  Each
 //     consumer thread reads its A fragment (receivers 16 * warp + lane / 4
 //     and + 8 of its warpgroup's 64, senders 2 * (lane % 4) + {0, 1, 8, 9}
@@ -103,12 +120,42 @@
 //     conflicts.  No tile goes back to shared memory, so no proxy fence is
 //     needed, and the widening of k-step k + 1 runs while k-step k's wgmma
 //     is in flight.
+//   * An int8 band in role B is wgmma's B operand, which comes only from
+//     shared memory.  Each consumer warpgroup widens its own 64 receivers
+//     of the stage's int8 box into a swizzled bf16 box of 64 receivers by
+//     64 senders, the layout of the bf16 band's box, so the same B
+//     descriptor reads it: a thread reads 16 int8 (chunk c ^ (s % 8) of
+//     sender row s) and writes 32 bytes of bf16 (chunks 2c' and 2c' + 1,
+//     each ^ (s % 8)), eight rows of one chunk a quarter warp, so no bank
+//     is met twice.  The box goes into one of two buffers of the
+//     warpgroup's own, apart from the ring.  Written by the generic proxy,
+//     read by wgmma's async proxy: each thread issues
+//     fence.proxy.async.shared::cta after its stores, then the warpgroup
+//     meets at a named barrier (bar.sync 1 + group, 128), and only then are
+//     the products issued.  The frame stays f32: each thread loads its A
+//     fragment (features 16 * warp + lane / 4 and + 8, senders as above)
+//     by 64-bit loads and rounds it with cvt.rn.bf16x2.f32, so the wrapper
+//     makes no pass over x.  Once the widening and the fragment have read
+//     a stage, the warps release it, before the products run.  A stage's
+//     products stay in flight while the next stage is widened into the
+//     other buffer and its f32 pairs are loaded; then wgmma.wait_group 0
+//     frees the fragment registers for the new pairs.  The products that
+//     read a buffer, two stages back, are done before it is written again:
+//     every thread waited for them before the warpgroup's barrier of the
+//     stage between.  A tile's last stage waits for its products, so its
+//     dot can join the sum.  (A first version kept two fragment sets and
+//     chose one by the buffer's parity: ptxas serialized every wgmma of
+//     both role B instantiations, C7518, "WG.DP in divergent path".)
 //   * The operands are 3-D tensor maps, [NB*D tiles, b, b] for the band and
 //     [blocks, b, F] (role A; [3 * blocks, b, F] for the f32 band's three
 //     frames, frame s at block s * blocks + blk) or [F, blocks, b] (role B)
 //     for the frame, so every sender or receiver outside a tile or a frame
 //     block, and every feature past F, is the hardware's zero fill: no mask
-//     in the loop.  The maps are built on the host for every call and
+//     in the loop.  K4 reads the caller's f32 xT [F, >= n] through a 2-D map
+//     of extent num_nodes at sender (rb + d - W) * b + s: a coordinate below
+//     0 or past num_nodes is zero fill, which is K4's sender mask.  K6 reads
+//     its padded blocked frame [blocks, F, b] through a 3-D map.  The maps
+//     are built on the host for every call and
 //     passed as __grid_constant__ parameters.  cuTensorMapEncodeTiled is a
 //     driver function; it is reached through the runtime's driver entry
 //     point, so the library links no libcuda.
@@ -124,11 +171,20 @@
 //     products: receivers x features in role A, features x receivers in
 //     role B; the sum, a tile's dot (and the f32 band's `corr`) are 32 f32
 //     registers a thread each.  The sums are stored from registers, masked
-//     to b, num_nodes and F.
+//     to b, num_nodes and F: node-major (role A), feature-major (K4, B3a) or
+//     blocked (K6).
 //   * TMA needs 16-byte global strides, so the wrappers pad what this body
 //     cannot take with zeros: b to a multiple of 16 and role A's features
-//     to a multiple of 8.  The kernel reads the padded block b_pad and
-//     stores in the caller's block b.
+//     to a multiple of 8; for K4 and K6, an f32 x whose block is not a
+//     multiple of 16, whose row stride is not a multiple of 4 elements or
+//     whose base is not 16-byte aligned, into one padded copy.  The kernel
+//     reads the padded block b_pad and stores in the caller's block b.  At
+//     the main shape nothing is padded.
+//     Documented limit of K4 without the copy: a stage reads 64 senders,
+//     so where b is not a multiple of 64 a tile's last stage reads senders
+//     of the next node block too, times band rows that are zero fill; a
+//     non-finite x there gives NaN where the plain version, which never
+//     reads them, does not.  The wrapper does not check.
 //   * On the H100 80GB HBM3 at 700 W (chip_smoke.py phases 10, 19 and 22,
 //     1M-node shape) a bf16 band's launch takes 1.08 ms, 89 % of its
 //     bound, beside torch.bmm's 1.07-1.09 ms; K3's launch over the int8
@@ -137,7 +193,15 @@
 //     receivers a warpgroup (two m64n64 or one m64n128 products) in five 40
 //     KB stages over 4,096 units with no L2 policy, took 1.14-1.16 ms.  K7
 //     over the f32 band and B2c took 8.18 and 7.88-7.91 ms on the CUDA-core
-//     body of csrc/banded_spmm.cu; their times here are in PERF.md.
+//     body of csrc/banded_spmm.cu; their times here are in PERF.md.  K4's
+//     launch over the int8 band takes 1.13 ms, K6's 1.32 (9.0 and 9.3 on
+//     the CUDA-core body; the f32 torch.bmm 5.3): half of the 0.56 ms
+//     bound, the band at 1.19 TB/s.  Every variant of this body moves 26-30
+//     GB/s per SM into shared memory, so a launch takes the bytes it stages
+//     over that rate: role B over the int8 band stages 3 bytes a band byte
+//     (its f32 frame is read by both receiver tiles of a row block), K3 2.
+//     Two variants did not help: a cluster of the two receiver tiles with
+//     the frame box multicast to both (2.38 ms), and eight stages (1.13).
 //
 // Each C entry point returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for arguments it does not take (and for a tensor
@@ -153,7 +217,11 @@
 
 namespace {
 
-enum class Role { kRowMajor, kFeatureMajor };
+// Role A is row-major (K3, K7, B2a, B2c).  Role B is feature-major: the
+// frame a 2-D map over xT (K4; B3a's bf16 frame is a 3-D map) with the
+// output [F, n], or blocked (K6): the frame a 3-D map over [blocks, F, b],
+// the output [nb, F, b].
+enum class Role { kRowMajor, kFeatureMajor, kBlocked };
 // Where an int8 band's scale goes: on the tile's dot (K3, B2c, role B), or
 // folded into the tile and rounded to bf16 as it is widened (B2c wrow_bf16).
 enum class Fold { kOnDot, kIntoTileBf16 };
@@ -161,26 +229,31 @@ enum class Fold { kOnDot, kIntoTileBf16 };
 constexpr int kConsumerGroups = 2;                     // warpgroups running wgmma
 constexpr int kThreads = (kConsumerGroups + 1) * 128;  // + one producer warpgroup
 constexpr int kConsumerWarps = kConsumerGroups * 4;
-constexpr int kStages = 6;
 constexpr int kRowBytes = 128;                         // a staged row: the 128-byte swizzle span
 constexpr int kGroupR = 64;                            // receivers a consumer warpgroup
 constexpr int kTileR = kGroupR * kConsumerGroups;      // receivers a unit
 constexpr int kTileF = 64;                             // features a unit: one 128-byte bf16 row
 constexpr int kBoxBytes = 64 * kRowBytes;              // 64 rows of 128 bytes: 8 KB
-constexpr int kBandBytes = kTileR * kRowBytes;         // 16 KB of band a stage
 constexpr int kSwizzleAtom = 1024;                     // 8 rows of 128 bytes
 
-// A stage of a band of type Band: 128 bytes of senders (kK of them) for each
-// of 128 receivers, and those senders' rows of 64 bf16 features in each of
-// the band's kFrames frames (three for the f32 band's split x).
-template <typename Band>
+// A stage of a band of type Band in role kRole: 128 bytes of senders (kK of
+// them) for each of 128 receivers, and those senders' rows of 64 bf16
+// features in each of the band's kFrames frames (three for the f32 band's
+// split x).  Role B over the int8 band (kWiden) stages 64 senders by 128
+// receivers of band and their f32 rows; after the ring come each consumer
+// warpgroup's two bf16 boxes of the widened band.
+template <Role kRole, typename Band>
 struct Stage {
-  static constexpr int kK = kRowBytes / sizeof(Band);  // senders a stage: 32 f32, 64 bf16, 128 int8
-  static constexpr int kSteps = kK / 16;               // wgmma k-steps of 16 senders
+  static constexpr bool kWiden = kRole != Role::kRowMajor && std::is_same_v<Band, int8_t>;
+  static constexpr int kK = kWiden ? 64 : kRowBytes / sizeof(Band);  // senders: 32 f32, 64 bf16, 128 int8
+  static constexpr int kSteps = kK / 16;                              // wgmma k-steps of 16 senders
   static constexpr int kFrames = std::is_same_v<Band, float> ? 3 : 1;
-  static constexpr int kFrameBytes = kK * kTileF * 2;  // one frame's rows: 4, 8 or 16 KB
+  static constexpr int kBandBytes = kWiden ? kBoxBytes : kTileR * kRowBytes;  // 8 or 16 KB
+  static constexpr int kFrameBytes = kK * kTileF * (kWiden ? 4 : 2);  // one frame's rows: 4, 8 or 16 KB
   static constexpr int kBytes = kBandBytes + kFrames * kFrameBytes;
-  static constexpr int kSmemBytes = kStages * kBytes + kSwizzleAtom;
+  static constexpr int kWideBytes = kWiden ? kConsumerGroups * 2 * kBoxBytes : 0;
+  static constexpr int kStages = 6;
+  static constexpr int kSmemBytes = kStages * kBytes + kWideBytes + kSwizzleAtom;
   static_assert(kBytes % kSwizzleAtom == 0 && kFrameBytes % kSwizzleAtom == 0,
                 "stages and frames keep the 1024-byte swizzle alignment");
 };
@@ -194,7 +267,9 @@ struct Params {
   int F;       // features stored
   int mtiles, ftiles;
   long long n;    // output nodes stored
-  long long ldo;  // output row stride, elements
+  long long ldo;  // output stride of a node (role A) or a feature (role B), elements
+  long long ldb;  // role B: output stride of a row block, elements
+  int fblock;     // K4: senders of a node block in the frame's map (b, or b_pad for a padded copy)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -251,6 +326,29 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same from a 2-D tensor map (K4's xT); c0 may be negative or past the
+// map's extent, which is zero fill.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                            int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma's shared-memory operands).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier over one consumer warpgroup's 128 threads (barrier 0 is
+// __syncthreads).
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + group) : "memory");
+}
+
 // A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
 // address, leading byte offset (MN-major: from one 64-element column of the
 // swizzle atom to the next; unused K-major), stride byte offset (from one
@@ -266,6 +364,7 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
+// Waits until no committed wgmma group of this warp is pending.
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
@@ -382,20 +481,50 @@ __device__ __forceinline__ void store2(float* out, long long i, bool ok0, bool o
   }
 }
 
+// The sums of a unit from registers: fragment entry i is row 16 * warp +
+// quad (+ 8 for i % 4 >= 2), column 8 * (i / 4) + pair (+ 1 for odd i); rows
+// are receivers in role A, features in role B.  Role A stores node-major,
+// out[node * ldo + f]; role B out[f * ldo + rb * ldb + r] (K4 and B3a: ldo
+// the output's columns, ldb = b; K6: ldo = b, ldb = F * b).
+template <Role kRole>
+__device__ __forceinline__ void store_sums(const float (&acc)[32], const Params& p, int rb, int mt,
+                                           int ft, int group, int warp, int quad, int pair) {
+  const long long block0 = (long long)rb * p.b;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int row = 16 * warp + quad + 8 * ((i >> 1) & 1), col = 8 * (i >> 2) + pair;
+    if constexpr (kRole == Role::kRowMajor) {
+      const int r = mt * kTileR + kGroupR * group + row, f = ft * kTileF + col;
+      const long long node = block0 + r;
+      const bool row_ok = r < p.b && node < p.n;
+      store2(p.out, node * p.ldo + f, row_ok && f < p.F, row_ok && f + 1 < p.F, acc[i], acc[i + 1]);
+    } else {
+      const int f = ft * kTileF + row, r = mt * kTileR + kGroupR * group + col;
+      const long long node = block0 + r;
+      const bool f_ok = f < p.F;
+      store2(p.out, (long long)f * p.ldo + rb * p.ldb + r, f_ok && r < p.b && node < p.n,
+             f_ok && r + 1 < p.b && node + 1 < p.n, acc[i], acc[i + 1]);
+    }
+  }
+}
+
 template <Role kRole, typename Band, Fold kFold>
 __global__ void __launch_bounds__(kThreads, 1)
     band_mma_kernel(__grid_constant__ const CUtensorMap band_map,
                     __grid_constant__ const CUtensorMap frame_map, const Params p) {
-  using S = Stage<Band>;
+  using S = Stage<kRole, Band>;
   constexpr bool kRowMajor = kRole == Role::kRowMajor;
-  constexpr bool kInt8 = std::is_same_v<Band, int8_t>;  // widened in registers
+  constexpr bool kInt8 = std::is_same_v<Band, int8_t>;  // widened in registers (role A) or shared memory (role B)
   constexpr bool kF32 = std::is_same_v<Band, float>;    // split in registers
   constexpr bool kFoldBf16 = kFold == Fold::kIntoTileBf16;
   constexpr bool kScaledDot = (kInt8 && !kFoldBf16) || !kRowMajor;
-  static_assert(kRowMajor || std::is_same_v<Band, __nv_bfloat16>, "role B takes a bf16 band");
+  static_assert(kRowMajor || kInt8 || std::is_same_v<Band, __nv_bfloat16>,
+                "role B takes a bf16 or an int8 band");
+  static_assert(kRole != Role::kBlocked || kInt8, "the blocked layout takes the int8 band");
   static_assert(kInt8 || !kFoldBf16, "only an int8 band has a scale to fold");
-  __shared__ __align__(8) uint64_t full_bar[kStages];
-  __shared__ __align__(8) uint64_t empty_bar[kStages];
+  static_assert(kRowMajor || !kFoldBf16, "role B keeps the scale on the dot");
+  __shared__ __align__(8) uint64_t full_bar[S::kStages];
+  __shared__ __align__(8) uint64_t empty_bar[S::kStages];
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: stages start on that grid
   const uint32_t ring = (smem_u32(smem_raw) + kSwizzleAtom - 1) & ~(uint32_t)(kSwizzleAtom - 1);
@@ -406,7 +535,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int group = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S::kStages; ++s) {
       mbar_init(smem_u32(&full_bar[s]), 1);
       mbar_init(smem_u32(&empty_bar[s]), kConsumerWarps);
     }
@@ -430,7 +559,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const uint32_t full = smem_u32(&full_bar[stage]);
           mbar_wait(smem_u32(&empty_bar[stage]), phase ^ 1);
           mbar_expect_tx(full, S::kBytes);
-          const uint32_t band = ring + stage * S::kBytes, frame = band + kBandBytes;
+          const uint32_t band = ring + stage * S::kBytes, frame = band + S::kBandBytes;
           const int tile = rb * D + d, blk = rb + d, s0 = kc * S::kK, r0 = mt * kTileR, f0 = ft * kTileF;
           if constexpr (kRowMajor) {
             // band box {kK senders, 128 receivers, 1 tile}; frame boxes {64
@@ -439,6 +568,21 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
             for (int f = 0; f < S::kFrames; ++f)
               tma_load(frame + f * S::kFrameBytes, &frame_map, full, f0, s0, f * blocks + blk, keep);
+          } else if constexpr (S::kWiden) {
+            // band box {128 receivers, 64 senders, 1 tile}; two f32 frame
+            // boxes {32 senders, 64 features}: K4's at sender (rb + d - W) *
+            // fblock + s of its 2-D map over xT (below 0 or past the map's
+            // extent is zero fill), K6's at sender s of block rb + d
+            tma_load(band, &band_map, full, r0, s0, tile, stream);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if constexpr (kRole == Role::kBlocked) {
+                tma_load(frame + h * kBoxBytes, &frame_map, full, s0 + 32 * h, f0, blk, keep);
+              } else {
+                tma_load_2d(frame + h * kBoxBytes, &frame_map, full,
+                            (rb + d - p.W) * p.fblock + s0 + 32 * h, f0, keep);
+              }
+            }
           } else {
             // two band boxes {64 receivers, 64 senders, 1 tile}; frame box {64 senders, 1 block, 64 features}
 #pragma unroll
@@ -446,9 +590,119 @@ __global__ void __launch_bounds__(kThreads, 1)
               tma_load(band + c * kBoxBytes, &band_map, full, r0 + 64 * c, s0, tile, stream);
             tma_load(frame, &frame_map, full, s0, blk, f0, keep);
           }
-          if (++stage == kStages) stage = 0, phase ^= 1;
+          if (++stage == S::kStages) stage = 0, phase ^= 1;
         }
       }
+    }
+  } else if constexpr (S::kWiden) {
+    // the consumers of role B over the int8 band: warpgroup `group` owns
+    // receivers [64 * group, 64 * group + 64) of a unit, m64n64 products of
+    // features x receivers.  Widening: thread t of the warpgroup takes the
+    // group's 16-receiver chunk wj of sender rows ws and ws + 32 (one row %
+    // 8); a quarter warp takes one chunk of eight consecutive rows, so its
+    // 16-byte loads and stores meet each bank once
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int quad = lane / 4, pair = 2 * (lane % 4);
+    const uint8_t* const ring_ptr = smem_raw + (ring - smem_u32(smem_raw));
+    const int t = threadIdx.x % 128;
+    const int wj = (t >> 3) & 3, ws = (t & 7) + 8 * (t >> 5), sw = ws & 7;
+    const int in_off = ws * kRowBytes + (((4 * group + wj) ^ sw) << 4);  // int8 receivers 64 group + 16 wj ...
+    const int lo_off = ws * kRowBytes + (((2 * wj) ^ sw) << 4);          // ... as bf16, the first 8
+    const int hi_off = ws * kRowBytes + (((2 * wj + 1) ^ sw) << 4);      // and the next 8
+    // this warpgroup's two bf16 boxes, after the ring
+    const uint32_t wide = ring + S::kStages * S::kBytes + group * 2 * kBoxBytes;
+    uint8_t* const wide_ptr = smem_raw + (wide - smem_u32(smem_raw));
+    // the A fragment in a 32-sender f32 box: senders 16 kk + pair (+1) at
+    // byte 64 kk + 4 pair, chunk 4 kk + pair / 4, and + 8 senders two
+    // chunks on, each chunk ^ quad (the row's % 8)
+    int a_off[2][2];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      a_off[kk][0] = (((4 * kk + pair / 4) ^ quad) << 4) + 4 * (pair % 4);
+      a_off[kk][1] = (((4 * kk + 2 + pair / 4) ^ quad) << 4) + 4 * (pair % 4);
+    }
+    const int frag_row = (16 * warp + quad) * kRowBytes;
+    int stage = 0, buf = 0;
+    uint32_t phase = 0;
+    float acc[32], dot[32];
+    uint32_t a[S::kSteps][4] = {};
+    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+      const int ft = (int)(u % p.ftiles);
+      const int mt = (int)((u / p.ftiles) % p.mtiles);
+      const int rb = (int)(u / ((long long)p.ftiles * p.mtiles));
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        const float scale = __ldg(p.scales + (size_t)rb * D + d);
+        for (int kc = 0; kc < nk; ++kc) {
+          mbar_wait(smem_u32(&full_bar[stage]), phase);
+          const uint8_t* const st = ring_ptr + stage * S::kBytes;
+          uint8_t* const wb = wide_ptr + buf * kBoxBytes;
+          // widening, while the last stage's products read the other
+          // buffer; the products two stages back, which read this one, are
+          // done (every thread of the warpgroup waited for them before the
+          // last stage's barrier)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // 16 int8 receivers, widened exactly into two 16-byte bf16 chunks
+            const uint4 v = *reinterpret_cast<const uint4*>(st + in_off + h * 32 * kRowBytes);
+            *reinterpret_cast<uint4*>(wb + lo_off + h * 32 * kRowBytes) =
+                make_uint4(widen2(v.x), widen2(v.x >> 16), widen2(v.y), widen2(v.y >> 16));
+            *reinterpret_cast<uint4*>(wb + hi_off + h * 32 * kRowBytes) =
+                make_uint4(widen2(v.z), widen2(v.z >> 16), widen2(v.w), widen2(v.w >> 16));
+          }
+          // the A fragment's f32 pairs of all k-steps (0-1 in the first frame
+          // box, senders 0-31; 2-3 in the second), loaded while they run too
+          const uint8_t* const frame = st + S::kBandBytes + frag_row;
+          float2 x[S::kSteps][4];
+#pragma unroll
+          for (int k = 0; k < S::kSteps; ++k) {
+            const uint8_t* const rows = frame + (k >> 1) * kBoxBytes;
+            const int c0 = a_off[k & 1][0], c1 = a_off[k & 1][1];
+            x[k][0] = *reinterpret_cast<const float2*>(rows + c0);
+            x[k][1] = *reinterpret_cast<const float2*>(rows + 8 * kRowBytes + c0);
+            x[k][2] = *reinterpret_cast<const float2*>(rows + c1);
+            x[k][3] = *reinterpret_cast<const float2*>(rows + 8 * kRowBytes + c1);
+          }
+          // the last stage's products read the fragment registers: let them
+          // finish, then round the pairs into them
+          wgmma_wait_all();
+          fence_fragments(a);
+#pragma unroll
+          for (int k = 0; k < S::kSteps; ++k)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) a[k][j] = pack_bf16x2(x[k][j].x, x[k][j].y);
+          // nothing reads the stage again: it goes back before the products run
+          __syncwarp();
+          if (lane == 0) mbar_arrive(smem_u32(&empty_bar[stage]));
+          // the widened box was written through the generic proxy and wgmma
+          // reads it through the async proxy: each thread fences its stores,
+          // then the warpgroup meets, so all its stores are in before any
+          // product
+          fence_proxy_async();
+          group_sync(group);
+          fence_operands(dot);
+          wgmma_fence();  // orders the fragment's registers before the products read them
+          const uint32_t wbox = wide + buf * kBoxBytes;
+#pragma unroll
+          for (int k = 0; k < S::kSteps; ++k)
+            // B: the widened box's rows (senders) of 64 receivers, MN-major, k-step 16 rows
+            wgmma_m64n64_rs(dot, a[k], smem_desc(wbox + k * 16 * kRowBytes, kBoxBytes, 1024),
+                            (kc | k) != 0);  // the tile's first k-step starts its dot
+          wgmma_commit();
+          if (kc == nk - 1) {
+            // the tile's dot into the sum, times its scale
+            wgmma_wait_all();
+            fence_fragments(a);
+            fence_operands(dot);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) acc[i] += scale * dot[i];
+          }
+          if (++stage == S::kStages) stage = 0, phase ^= 1;
+          buf ^= 1;
+        }
+      }
+      store_sums<kRole>(acc, p, rb, mt, ft, group, warp, quad, pair);
     }
   } else {
     // the consumers: warpgroup `group` owns receivers [64 * group, 64 * group + 64)
@@ -478,7 +732,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float dot_scale = kScaledDot ? scale : 1.f;
         for (int kc = 0; kc < nk; ++kc) {
           mbar_wait(smem_u32(&full_bar[stage]), phase);
-          const uint32_t band = ring + stage * S::kBytes, frame = band + kBandBytes;
+          const uint32_t band = ring + stage * S::kBytes, frame = band + S::kBandBytes;
           if constexpr (kInt8) {
             // the fragment's bytes of all k-steps, 16-bit loads at chunk k ^ quad
             const uint8_t* const rows = ring_ptr + stage * S::kBytes + frag_row;
@@ -567,7 +821,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           fence_operands(dot);
           __syncwarp();
           if (lane == 0) mbar_arrive(smem_u32(&empty_bar[stage]));
-          if (++stage == kStages) stage = 0, phase ^= 1;
+          if (++stage == S::kStages) stage = 0, phase ^= 1;
         }
         // the tile's dot into the sum
 #pragma unroll
@@ -577,26 +831,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[i] += corr[i];
       }
-      // store: fragment entry i is row 16 * warp + quad (+ 8 for i % 4 >= 2),
-      // column 8 * (i / 4) + pair (+ 1 for odd i); rows are receivers in
-      // role A, features in role B
-      const long long block0 = (long long)rb * p.b;
-#pragma unroll
-      for (int i = 0; i < 32; i += 2) {
-        const int row = 16 * warp + quad + 8 * ((i >> 1) & 1), col = 8 * (i >> 2) + pair;
-        if constexpr (kRowMajor) {
-          const int r = mt * kTileR + kGroupR * group + row, f = ft * kTileF + col;
-          const long long node = block0 + r;
-          const bool row_ok = r < p.b && node < p.n;
-          store2(p.out, node * p.ldo + f, row_ok && f < p.F, row_ok && f + 1 < p.F, acc[i], acc[i + 1]);
-        } else {
-          const int f = ft * kTileF + row, r = mt * kTileR + kGroupR * group + col;
-          const long long node = block0 + r;
-          const bool f_ok = f < p.F;
-          store2(p.out, (long long)f * p.ldo + node, f_ok && r < p.b && node < p.n,
-                 f_ok && r + 1 < p.b && node + 1 < p.n, acc[i], acc[i + 1]);
-        }
-      }
+      store_sums<kRole>(acc, p, rb, mt, ft, group, warp, quad, pair);
     }
   }
 }
@@ -626,28 +861,34 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D tensor map of f32, bf16 or int8 elements (the int8 band is mapped as
-// bytes; the zero fill is int8 0): dims innermost first, strides of dims 1
-// and 2 in bytes, a box of box0 x box1 x box2 elements, 128-byte swizzle,
-// zero fill.
+// A tensor map of rank 2 or 3 over f32, bf16 or int8 elements (the int8
+// band is mapped as bytes; the zero fill is int8 0): dims innermost first,
+// the strides of dims 1 (and 2) in bytes, a box of box[i] elements, 128-byte
+// swizzle, zero fill.
 template <typename T>
-bool tensor_map(CUtensorMap* map, const T* base, uint64_t d0, uint64_t d1, uint64_t d2,
-                uint32_t box0, uint32_t box1, uint32_t box2) {
+bool tensor_map(CUtensorMap* map, const T* base, int rank, const cuuint64_t* dims,
+                const cuuint64_t* strides, const cuuint32_t* box) {
   static_assert(std::is_same_v<T, float> || std::is_same_v<T, __nv_bfloat16> ||
                     std::is_same_v<T, int8_t>,
                 "f32, bf16 or int8");
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * sizeof(T), d0 * d1 * sizeof(T)};
-  const cuuint32_t box[3] = {box0, box1, box2};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUtensorMapDataType type = sizeof(T) == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                    : sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                                     : CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  return encode(map, type, 3, const_cast<T*>(base), dims, strides, box, elem_strides,
+  return encode(map, type, (cuuint32_t)rank, const_cast<T*>(base), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D tensor map of a contiguous [d2, d1, d0] array.
+template <typename T>
+bool tensor_map(CUtensorMap* map, const T* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                uint32_t box0, uint32_t box1, uint32_t box2) {
+  const cuuint64_t dims[3] = {d0, d1, d2}, strides[2] = {d0 * sizeof(T), d0 * d1 * sizeof(T)};
+  const cuuint32_t box[3] = {box0, box1, box2};
+  return tensor_map(map, base, 3, dims, strides, box);
 }
 
 bool valid(int nb, int W, int b, int b_pad, int F) {
@@ -664,7 +905,7 @@ int launch(const CUtensorMap& band_map, const CUtensorMap& frame_map, Params p, 
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   auto kernel = band_mma_kernel<kRole, Band, kFold>;
-  constexpr int smem = Stage<Band>::kSmemBytes;
+  constexpr int smem = Stage<kRole, Band>::kSmemBytes;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)(units < sms ? units : sms);
@@ -681,13 +922,13 @@ int launch_rowmajor(const Band* band, const float* scales, const __nv_bfloat16* 
   if (!valid(nb, W, block, block_pad, F) || F_pad < F || F_pad % 8 != 0 || num_nodes <= 0 ||
       num_nodes > (long long)nb * block || (std::is_same_v<Band, int8_t> && scales == nullptr))
     return (int)cudaErrorInvalidValue;
-  using S = Stage<Band>;
+  using S = Stage<Role::kRowMajor, Band>;
   const uint64_t bp = block_pad, D = 2 * W + 1, blocks = (uint64_t)nb + 2 * W;
   CUtensorMap band_map, frame_map;
   if (!tensor_map(&band_map, band, bp, bp, (uint64_t)nb * D, S::kK, kTileR, 1) ||
       !tensor_map(&frame_map, frame, (uint64_t)F_pad, bp, S::kFrames * blocks, kTileF, S::kK, 1))
     return (int)cudaErrorInvalidValue;
-  Params p{scales, out, nb, W, block, block_pad, F, 0, (F_pad + kTileF - 1) / kTileF, num_nodes, F};
+  Params p{scales, out, nb, W, block, block_pad, F, 0, (F_pad + kTileF - 1) / kTileF, num_nodes, F, 0, 0};
   return launch<Role::kRowMajor, Band, kFold>(band_map, frame_map, p, stream);
 }
 
@@ -752,13 +993,61 @@ int cgt_fm_bf16_band(const __nv_bfloat16* band_T, const float* scales, const __n
       ldo < num_cols)
     return (int)cudaErrorInvalidValue;
   const uint64_t bp = block_pad, D = 2 * W + 1, blocks = (uint64_t)nb + 2 * W;
-  constexpr int kK = Stage<__nv_bfloat16>::kK;
+  constexpr int kK = Stage<Role::kFeatureMajor, __nv_bfloat16>::kK;
   CUtensorMap band_map, frame_map;
   if (!tensor_map(&band_map, band_T, bp, bp, (uint64_t)nb * D, 64, kK, 1) ||
       !tensor_map(&frame_map, x_pad, bp, blocks, (uint64_t)F, kK, 1, kTileF))
     return (int)cudaErrorInvalidValue;
-  Params p{scales, outT, nb, W, block, block_pad, F, 0, (F + kTileF - 1) / kTileF, num_cols, ldo};
+  Params p{scales, outT, nb, W, block, block_pad, F, 0, (F + kTileF - 1) / kTileF, num_cols, ldo, block, 0};
   return launch<Role::kFeatureMajor, __nv_bfloat16>(band_map, frame_map, p, stream);
+}
+
+// K4 banded_spmm_quant_fm, and its backward launch over the transposed
+// band: band_qT [nb, 2W+1, block_pad, block_pad] int8 (transposed tiles,
+// zero past block) with scales [nb, 2W+1]; xT f32, row f at xT + f * ldx,
+// sender v of node block j at column j * x_block + v for the first x_cols
+// columns (the caller's xT with x_block = block and x_cols = num_nodes, or a
+// padded copy); outT [F, num_nodes] float32, column rb * block + r.
+int cgt_banded_spmm_quant_fm(const int8_t* band_qT, const float* scales, const float* xT, float* outT,
+                             int nb, int W, int block, int block_pad, int F, int num_nodes,
+                             int x_block, long long x_cols, long long ldx, void* stream) {
+  if (!valid(nb, W, block, block_pad, F) || scales == nullptr || num_nodes <= 0 ||
+      num_nodes > (long long)nb * block || x_block < block || x_cols <= 0 || ldx < x_cols ||
+      ldx % 4 != 0 || reinterpret_cast<uintptr_t>(xT) % 16 != 0 ||
+      (long long)(nb + W) * x_block + block_pad > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  using S = Stage<Role::kFeatureMajor, int8_t>;
+  const uint64_t bp = block_pad, D = 2 * W + 1;
+  const cuuint64_t dims[2] = {(cuuint64_t)x_cols, (cuuint64_t)F}, strides[1] = {(cuuint64_t)ldx * 4};
+  const cuuint32_t box[2] = {32, kTileF};
+  CUtensorMap band_map, frame_map;
+  if (!tensor_map(&band_map, band_qT, bp, bp, (uint64_t)nb * D, kTileR, S::kK, 1) ||
+      !tensor_map(&frame_map, xT, 2, dims, strides, box))
+    return (int)cudaErrorInvalidValue;
+  Params p{scales, outT, nb, W, block, block_pad, F, 0, (F + kTileF - 1) / kTileF, num_nodes,
+           num_nodes, block, x_block};
+  return launch<Role::kFeatureMajor, int8_t>(band_map, frame_map, p, stream);
+}
+
+// K6 banded_spmm_quant_blocked: band_qT and scales as for K4; xb_pad [nb +
+// 2W, F, block_pad] float32, the W-shifted padded frame, blocked (zero past
+// block); out [nb, F, block] float32.  Every receiver of the frame is
+// stored and no sender is masked.
+int cgt_banded_spmm_quant_blocked(const int8_t* band_qT, const float* scales, const float* xb_pad,
+                                  float* out, int nb, int W, int block, int block_pad, int F,
+                                  void* stream) {
+  if (!valid(nb, W, block, block_pad, F) || scales == nullptr ||
+      (long long)nb * block > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  using S = Stage<Role::kBlocked, int8_t>;
+  const uint64_t bp = block_pad, D = 2 * W + 1, blocks = (uint64_t)nb + 2 * W;
+  CUtensorMap band_map, frame_map;
+  if (!tensor_map(&band_map, band_qT, bp, bp, (uint64_t)nb * D, kTileR, S::kK, 1) ||
+      !tensor_map(&frame_map, xb_pad, bp, (uint64_t)F, blocks, 32, kTileF, 1))
+    return (int)cudaErrorInvalidValue;
+  Params p{scales, out, nb, W, block, block_pad, F, 0, (F + kTileF - 1) / kTileF,
+           (long long)nb * block, block, (long long)F * block, 0};
+  return launch<Role::kBlocked, int8_t>(band_map, frame_map, p, stream);
 }
 
 }  // extern "C"

@@ -129,9 +129,9 @@ def library() -> ctypes.CDLL:
     lib.cgt_fused_gcn_forward.argtypes = [ptr] * 12 + [i32] * 7 + [size, ptr]
     lib.cgt_fused_sage_forward.argtypes = [ptr] * 15 + [i32] * 7 + [size, ptr]
     lib.cgt_banded_spmm_quant.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
-    lib.cgt_banded_spmm_quant_fm.argtypes = [ptr] * 4 + [i32] * 5 + [i64, ptr]
+    lib.cgt_banded_spmm_quant_fm.argtypes = [ptr] * 4 + [i32] * 7 + [i64, i64, ptr]
     lib.cgt_banded_spmm_quant_fm_w8a8.argtypes = [ptr] * 5 + [i32] * 5 + [i64, ptr]
-    lib.cgt_banded_spmm_quant_blocked.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.cgt_banded_spmm_quant_blocked.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.cgt_banded_spmm_direct_f32.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
     lib.cgt_banded_spmm_direct_bf16.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
     lib.cgt_banded_spmm_w8a8_rowmajor.argtypes = [ptr] * 5 + [i32] * 5 + [i64, ptr]

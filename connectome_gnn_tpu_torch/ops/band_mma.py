@@ -1,21 +1,28 @@
 """Operands and launches of the tensor-core band body, ``csrc/band_mma.cu``.
 
-That body serves K3 and B2c over the int8 band, K7 over a float32 or
-bfloat16 band, and B2a and B3a over a bfloat16 band.  Role A is row-major:
+That body serves K3, K4, K6 and B2c over the int8 band, K7 over a float32
+or bfloat16 band, and B2a and B3a over a bfloat16 band.  Role A is row-major:
 ``out[rb·b + r] = Σ_d scale[rb, d] · (tile[rb, d] @ x̂[rb + d])`` for the
 int8 band with its per-tile scales (widened to bfloat16 in the kernel's
 registers, which is exact; with B2c's ``wrow_bf16`` each scale is folded
 into its tile instead, rounded to bfloat16 as the plain version does), and
 without scales for a bfloat16 band (K7, B2a) and a float32 band (K7), whose
 every value the kernel splits exactly into three bfloat16 terms, as
-:func:`split_bf16x3` splits ``x`` into three frames.  Role B is B3a's
-``fm_bf16_band`` (feature-major, with per-dot scales).  Its products are
-``wgmma`` on tiles staged by TMA, and TMA needs 16-byte global strides.
-So the wrappers hand it the band and the frame padded with zeros where they
-are not: the block to ``b' = ⌈b/16⌉·16`` and, in role A, the features to
-``F' = ⌈F/8⌉·8``.  Zero senders and receivers change no sum; the kernel
-stores only the caller's ``b`` receivers a block and ``F`` features.  At
-the main shape (``b = 256``, ``F = 64``) nothing is padded.
+:func:`split_bf16x3` splits ``x`` into three frames.  Role B is
+feature-major, with per-dot scales: B3a's ``fm_bf16_band`` over a bfloat16
+band and frame, and K4 and K6 over the int8 band, which the kernel widens
+to bfloat16 in shared memory, with float32 ``x`` that it rounds to bfloat16
+in registers (K4 reads the caller's ``xT`` itself, K6 its blocked padded
+frame).  Its products are ``wgmma`` on tiles staged by TMA, and TMA needs
+16-byte global strides.  So the wrappers hand it the band and the frame
+padded with zeros where they are not: the block to ``b' = ⌈b/16⌉·16`` and,
+in role A, the features to ``F' = ⌈F/8⌉·8``; K4's and K6's ``x`` is copied
+once, padded, where its block is not a multiple of 16, its row stride not
+a multiple of 4 elements or its base not 16-byte aligned
+(:func:`fm_x_operand`, :func:`blocked_x_operand`).  Zero senders and
+receivers change no sum; the kernel stores only the caller's ``b``
+receivers a block and ``F`` features.  At the main shape (``b = 256``,
+``F = 64``) nothing is padded or copied.
 
 ``x̂`` is ``x[:num_nodes]`` in the W-shifted padded frame, rounded to
 bfloat16 (round to nearest even), as ``connectome_gnn_tpu/ops/banded_pallas.py``
@@ -24,9 +31,10 @@ float32 band, split into its three bfloat16 terms:
 :func:`rowmajor_frame` builds either at the main shape in one pass over
 ``x`` (three for the split).  :func:`rowmajor_on_operands` and
 :func:`fm_on_operands` compute the kernel's function on the prepared
-operands in plain torch, so the tests can hold the padding against the
-plain versions on the original operands.  The launches here count
-nothing; their callers count.
+operands in plain torch (with :func:`fm_window_frame`, the frame as K4's
+tensor map reads it), so the tests can hold the padding against the plain
+versions on the original operands.  The launches here count nothing;
+their callers count.
 """
 
 from __future__ import annotations
@@ -167,12 +175,59 @@ def rowmajor_on_operands(band_p: torch.Tensor, frame: torch.Tensor, num_nodes: i
     return out[:, :block, :F].reshape(nb * block, F)[:num_nodes]
 
 
+def fm_x_operand(xT: torch.Tensor, num_nodes: int, num_blocks: int,
+                 block: int) -> tuple[torch.Tensor, int, int]:
+    """K4's float32 activations as its 2-D tensor map reads them: ``(x,
+    x_block, x_cols)``, sender ``v`` of node block ``j`` at column ``j ·
+    x_block + v`` of ``x``'s first ``x_cols`` columns, zero fill past them.
+    The caller's ``xT [F, ≥num_nodes]`` itself (``x_block = b``, ``x_cols =
+    num_nodes``) where ``b`` is a multiple of 16 and TMA takes its rows (a
+    row stride that is a multiple of 4 elements, a 16-byte aligned base);
+    else one zero-padded copy ``[F, NB·b']``."""
+    bp, ld = padded(block, BLOCK_MULTIPLE), xT.stride(0)
+    if bp == block and ld % 4 == 0 and ld >= num_nodes and xT.data_ptr() % 16 == 0:
+        return xT, block, num_nodes
+    F = xT.shape[0]
+    nodes = xT.new_zeros((F, num_blocks * block))
+    nodes[:, :num_nodes] = xT[:, :num_nodes]
+    x = xT.new_zeros((F, num_blocks, bp))
+    x[:, :, :block] = nodes.view(F, num_blocks, block)
+    return x.view(F, num_blocks * bp), bp, num_blocks * bp
+
+
+def blocked_x_operand(xb_pad: torch.Tensor, block: int) -> torch.Tensor:
+    """K6's float32 padded blocked frame ``[NB + 2W, F, b]`` as its 3-D tensor
+    map reads it, ``[NB + 2W, F, b']``: itself where ``b' = b`` and its base
+    is 16-byte aligned, else a zero-padded copy."""
+    bp = padded(block, BLOCK_MULTIPLE)
+    if bp == block and xb_pad.data_ptr() % 16 == 0:
+        return xb_pad
+    out = xb_pad.new_zeros((*xb_pad.shape[:2], bp))
+    out[..., :block] = xb_pad
+    return out
+
+
+def fm_window_frame(x: torch.Tensor, x_block: int, x_cols: int, num_blocks: int, W: int,
+                    block_pad: int) -> torch.Tensor:
+    """The W-shifted padded frame ``[F, (NB + 2W)·b']`` that K4's map gives
+    the kernel from :func:`fm_x_operand`'s operands: sender ``s < b'`` of
+    frame block ``w`` is column ``(w - W)·x_block + s`` of ``x``, zero
+    outside ``[0, x_cols)``."""
+    cols = ((torch.arange(num_blocks + 2 * W)[:, None] - W) * x_block
+            + torch.arange(block_pad)[None, :]).reshape(-1).to(x.device)
+    inside = (cols >= 0) & (cols < x_cols)
+    frame = x[:, cols.clamp(0, x_cols - 1)]
+    return torch.where(inside, frame, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def fm_on_operands(band_p: torch.Tensor, scales: torch.Tensor, x_pad_p: torch.Tensor, W: int,
                    block: int) -> torch.Tensor:
     """Role B's function on its prepared operands, in plain torch:
-    ``[F, NB·block]`` float32."""
+    ``[F, NB·block]`` float32.  The frame is rounded to bfloat16 first (a
+    no-op for B3a's bfloat16 frame; K4's and K6's float32 ``x``, as the
+    kernel rounds it in registers); an int8 band is exact in float32."""
     nb, bp, F = band_p.shape[0], band_p.shape[2], x_pad_p.shape[0]
-    xw = x_pad_p.to(torch.float32).view(F, nb + 2 * W, bp).permute(1, 0, 2)
+    xw = x_pad_p.to(torch.bfloat16).to(torch.float32).view(F, nb + 2 * W, bp).permute(1, 0, 2)
     out = xw.new_zeros((nb, F, bp))
     for d in range(2 * W + 1):
         out += scales[:, d, None, None] * torch.bmm(xw[d : d + nb], band_p[:, d].to(torch.float32))
@@ -222,6 +277,16 @@ def launch_rowmajor(kind: str, band_p: torch.Tensor, frame: torch.Tensor, num_no
     return out
 
 
+def blocked_on_operands(band_p: torch.Tensor, scales: torch.Tensor, xb: torch.Tensor, W: int,
+                        block: int) -> torch.Tensor:
+    """K6's function on its prepared operands (the padded int8 band and
+    :func:`blocked_x_operand`'s frame ``[NB + 2W, F, b']``), in plain torch:
+    ``[NB, F, block]`` float32."""
+    nb, F = band_p.shape[0], xb.shape[1]
+    out = fm_on_operands(band_p, scales, xb.permute(1, 0, 2).reshape(F, -1), W, block)
+    return out.view(F, nb, block).permute(1, 0, 2)
+
+
 def launch_fm(kind: str, band_p: torch.Tensor, scales: torch.Tensor, x_pad_p: torch.Tensor, W: int,
               block: int) -> torch.Tensor:
     """Role B on CUDA operands (the padded band of transposed tiles, its
@@ -232,4 +297,46 @@ def launch_fm(kind: str, band_p: torch.Tensor, scales: torch.Tensor, x_pad_p: to
     out = torch.empty((F, nb * block), dtype=torch.float32, device=x_pad_p.device)
     _launch(kind, "cgt_fm_bf16_band", band_p.data_ptr(), scales.data_ptr(), x_pad_p.data_ptr(),
             out.data_ptr(), nb, W, block, bp, F, nb * block, nb * block, _stream(x_pad_p.device))
+    return out
+
+
+def _check_int8_band(kind: str, band_p: torch.Tensor, x: torch.Tensor) -> None:
+    if band_p.dtype != torch.int8 or not band_p.is_contiguous() or band_p.shape[2] % BLOCK_MULTIPLE:
+        raise ValueError(f"{kind}: the padded band must be contiguous int8 [NB, D, b', b'] with b' a "
+                         f"multiple of {BLOCK_MULTIPLE}, got {band_p.dtype} {tuple(band_p.shape)}")
+    if x.dtype != torch.float32 or x.device != band_p.device:
+        raise ValueError(f"{kind}: x must be float32 on {band_p.device}, got {x.dtype} on {x.device}")
+
+
+def launch_fm_int8(kind: str, band_p: torch.Tensor, scales: torch.Tensor, x: torch.Tensor,
+                   x_block: int, x_cols: int, num_nodes: int, W: int, block: int) -> torch.Tensor:
+    """Role B over the padded int8 band of transposed tiles and its scales,
+    on float32 activations from :func:`fm_x_operand`: K4's launch (and its
+    backward's over the transposed band).  Returns ``[F, num_nodes]``
+    float32."""
+    _check_int8_band(kind, band_p, x)
+    nb, bp, F = band_p.shape[0], band_p.shape[2], x.shape[0]
+    if x.dim() != 2 or x.stride(1) != 1 or x.shape[1] < x_cols:
+        raise ValueError(f"{kind}: x must be [F, ≥{x_cols}] with unit inner stride, got "
+                         f"{tuple(x.shape)} strides {x.stride()}")
+    out = torch.empty((F, num_nodes), dtype=torch.float32, device=x.device)
+    _launch(kind, "cgt_banded_spmm_quant_fm", band_p.data_ptr(), scales.data_ptr(), x.data_ptr(),
+            out.data_ptr(), nb, W, block, bp, F, num_nodes, x_block, x_cols, x.stride(0),
+            _stream(x.device))
+    return out
+
+
+def launch_blocked(kind: str, band_p: torch.Tensor, scales: torch.Tensor, xb: torch.Tensor, W: int,
+                   block: int) -> torch.Tensor:
+    """Role B over the padded int8 band of transposed tiles and its scales,
+    on :func:`blocked_x_operand`'s frame ``[NB + 2W, F, b']``: K6's launch.
+    Returns ``[NB, F, block]`` float32."""
+    _check_int8_band(kind, band_p, xb)
+    nb, bp, F = band_p.shape[0], band_p.shape[2], xb.shape[1]
+    if tuple(xb.shape) != (nb + 2 * W, F, bp) or not xb.is_contiguous():
+        raise ValueError(f"{kind}: the frame must be contiguous [{nb + 2 * W}, F, {bp}], got "
+                         f"{tuple(xb.shape)}")
+    out = torch.empty((nb, F, block), dtype=torch.float32, device=xb.device)
+    _launch(kind, "cgt_banded_spmm_quant_blocked", band_p.data_ptr(), scales.data_ptr(),
+            xb.data_ptr(), out.data_ptr(), nb, W, block, bp, F, _stream(xb.device))
     return out

@@ -7,7 +7,10 @@ than float32.  Four hand-written CUDA kernels contract it with the
 activations: K3 on the tensor cores (role A of ``csrc/band_mma.cu``, the
 int8 band widened to bfloat16 in registers, x rounded to bfloat16 in the
 padded frame by :func:`~connectome_gnn_tpu_torch.ops.band_mma.rowmajor_frame`
-first), K4-K6 on the CUDA cores (``csrc/banded_spmm.cu``):
+first), K4 and K6 on the tensor cores too (role B of ``csrc/band_mma.cu``:
+the int8 band widened to bfloat16 in shared memory, float32 x rounded to
+bfloat16 in the kernel's registers, so the wrapper passes x as it is at
+the main shape), K5 on the CUDA cores (``csrc/banded_spmm.cu``):
 
 =====  ==================================  =======================================
 K3     :func:`banded_spmm_quant`           ``A_q·x``, row-major ``x [N, F]``
@@ -68,8 +71,8 @@ from connectome_gnn_tpu_torch.ops.banded import (
 #: largest block for which K5's plain version is exact: its float32 dot of
 #: int8 values stays below 2^24 while 127² · block < 2^24
 MAX_EXACT_W8A8_BLOCK = 1040
-#: grid limits of the launch: x is one block per (row block, 64-receiver
-#: tile), y one per 64-feature slice (see csrc/banded_spmm.cu)
+#: grid limits of the CUDA-core launch (K5): x is one block per (row block,
+#: 64-receiver tile), y one per 64-feature slice (see csrc/banded_spmm.cu)
 TILE_M = TILE_N = 64
 MAX_GRID_X = 2**31 - 1
 MAX_GRID_Y = 65535
@@ -432,19 +435,24 @@ def banded_spmm_quant_kernel(q: QuantizedBandedMatrix, x: torch.Tensor) -> torch
 
 def banded_spmm_quant_fm_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
     """Launch K4 on CUDA tensors: ``(A_q @ x)ᵀ`` for ``xT [F, ≥num_nodes]``
-    float32; returns ``[F, num_nodes]`` float32."""
+    float32; returns ``[F, num_nodes]`` float32.  The kernel reads ``xT``
+    itself; it is copied once, padded, only where its block is not a
+    multiple of 16 or TMA cannot take its rows
+    (:func:`~connectome_gnn_tpu_torch.ops.band_mma.fm_x_operand`), and the
+    band is padded likewise."""
+    from connectome_gnn_tpu_torch.ops import band_mma  # it imports this module
+
     kind, n, F = "K4 banded_spmm_quant_fm", q.num_nodes, xT.shape[0]
     _check_band(kind, q.band_qT, q.scales, xT.device)
     _check_activations(kind, xT, F, n, torch.float32)
     if -(-F // TILE_N) > MAX_GRID_Y:
         raise ValueError(f"{kind}: F={F} exceeds the launch grid")
-    out = torch.empty((F, n), dtype=torch.float32, device=xT.device)
     if n == 0 or F == 0:
-        return out
+        return torch.empty((F, n), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
-        _launch(kind, "cgt_banded_spmm_quant_fm", q.band_qT.data_ptr(), q.scales.data_ptr(),
-                xT.data_ptr(), out.data_ptr(), q.num_blocks, q.bandwidth, q.block, F, n,
-                xT.stride(0), _stream(xT.device))
+        x, x_block, x_cols = band_mma.fm_x_operand(xT, n, q.num_blocks, q.block)
+        out = band_mma.launch_fm_int8(kind, band_mma.pad_band(q.band_qT), q.scales, x, x_block, x_cols,
+                                      n, q.bandwidth, q.block)
     banded_spmm_quant_fm_kernel.launches += 1
     return out
 
@@ -482,7 +490,12 @@ def banded_spmm_quant_fm_grad_kernel(qT: QuantizedBandedMatrixFM, gT: torch.Tens
 
 def banded_spmm_quant_blocked_kernel(q: QuantizedBandedMatrixFM, xb_pad: torch.Tensor) -> torch.Tensor:
     """Launch K6 on CUDA tensors: ``A_q @ x`` for contiguous float32
-    ``xb_pad [NB + 2W, F, block]``; returns ``[NB, F, block]`` float32."""
+    ``xb_pad [NB + 2W, F, block]``; returns ``[NB, F, block]`` float32.  The
+    kernel reads ``xb_pad`` itself, padded only where the block is not a
+    multiple of 16 (:func:`~connectome_gnn_tpu_torch.ops.band_mma.
+    blocked_x_operand`)."""
+    from connectome_gnn_tpu_torch.ops import band_mma  # it imports this module
+
     kind = "K6 banded_spmm_quant_blocked"
     _check_band(kind, q.band_qT, q.scales, xb_pad.device)
     _check_blocked(kind, q, xb_pad)
@@ -492,13 +505,11 @@ def banded_spmm_quant_blocked_kernel(q: QuantizedBandedMatrixFM, xb_pad: torch.T
                          f"strides {xb_pad.stride()}")
     if -(-F // TILE_N) > MAX_GRID_Y:
         raise ValueError(f"{kind}: F={F} exceeds the launch grid")
-    out = torch.empty((q.num_blocks, F, q.block), dtype=torch.float32, device=xb_pad.device)
     if F == 0:
-        return out
+        return torch.empty((q.num_blocks, F, q.block), dtype=torch.float32, device=xb_pad.device)
     with torch.cuda.device(xb_pad.device):
-        _launch(kind, "cgt_banded_spmm_quant_blocked", q.band_qT.data_ptr(), q.scales.data_ptr(),
-                xb_pad.data_ptr(), out.data_ptr(), q.num_blocks, q.bandwidth, q.block, F,
-                _stream(xb_pad.device))
+        out = band_mma.launch_blocked(kind, band_mma.pad_band(q.band_qT), q.scales,
+                                      band_mma.blocked_x_operand(xb_pad, q.block), q.bandwidth, q.block)
     banded_spmm_quant_blocked_kernel.launches += 1
     return out
 

@@ -46,6 +46,22 @@ the plain version's fold summed in float64 (``sum_dtype=torch.float64``);
 at the 4000-node shape the plain float32 versions of K7 over a float32
 band and of B2c do not, by their own rounding, which is why the card tests
 hold those two kernels to the float64 sums.
+
+K4 and K6 run role B over the int8 band of transposed tiles.  On their
+prepared operands (the int8 band through :func:`pad_band`; K4's ``xT``
+itself where TMA takes it, else one padded copy, and K6's blocked frame,
+through :func:`fm_x_operand` and :func:`blocked_x_operand`; the frame as
+K4's tensor map reads it, zero below sender 0 and past ``num_nodes``) role
+B's function, ``x`` rounded to bfloat16, equals K4's and K6's plain
+versions and JAX's ``banded_spmm_quant_fm`` / ``banded_spmm_quant_blocked``
+in interpret mode at rtol 1e-5 / atol 1e-5, at blocks of 100 and 16, W = 0,
+F = 1, F = 130 and ``num_nodes`` not a multiple of 4.  Two numpy emulations
+hold the kernel's shared-memory address maps: the widening (a 128-byte
+swizzled int8 box read as 16-byte chunks, ``widen2`` by bit operations, and
+the two swizzled bfloat16 boxes written from it) gives the tile's entries
+at the positions the B descriptor reads, each bank met once a quarter
+warp; and each thread's A fragment reads the right senders of the
+swizzled float32 frame boxes.
 """
 
 import jax.numpy as jnp
@@ -153,6 +169,12 @@ def test_padding_is_a_no_op_at_the_main_shape():
     assert band_mma.fm_frame(x_pad, 2, 2, 256) is x_pad
     frame = band_mma.rowmajor_frame(torch.ones((500, 64)), 500, 2, 2, 256)
     assert frame.shape == (6, 256, 64) and int(frame.to(torch.float32).sum()) == 500 * 64
+    # K4 reads the caller's float32 xT, K6 its padded blocked frame, as they are
+    xT = torch.zeros((64, 512))
+    x, x_block, x_cols = band_mma.fm_x_operand(xT, 500, 2, 256)
+    assert x is xT and (x_block, x_cols) == (256, 500)
+    xb_pad = torch.zeros((6, 64, 256))
+    assert band_mma.blocked_x_operand(xb_pad, 256) is xb_pad
 
 
 def random_quantized(shape, seed):
@@ -421,14 +443,195 @@ def test_b2c_on_k3s_operands_holds_its_plain_version(shape, wrow_bf16):
 
 
 def test_k7_f32_and_b2c_launch_the_tensor_core_body():
-    """Their C entry points are defined in ``csrc/band_mma.cu`` and nowhere
-    else, and the CUDA-core body keeps nothing of theirs."""
+    """Their C entry points, and K4's and K6's, are defined in
+    ``csrc/band_mma.cu`` and in no other source, and the CUDA-core body
+    keeps nothing of theirs: no float activations, no blocked layout."""
     import os
 
     csrc = os.path.join(os.path.dirname(band_mma.__file__), "..", "csrc")
-    text = {f: open(os.path.join(csrc, f)).read() for f in ("band_mma.cu", "banded_spmm.cu")}
-    for entry in ("cgt_banded_spmm_direct_f32", "cgt_banded_spmm_quant_fused_dot"):
+    text = {f: open(os.path.join(csrc, f)).read() for f in sorted(os.listdir(csrc)) if f.endswith(".cu")}
+    for entry in ("cgt_banded_spmm_direct_f32", "cgt_banded_spmm_quant_fused_dot",
+                  "cgt_banded_spmm_quant_fm", "cgt_banded_spmm_quant_blocked"):
         assert f"int {entry}(" in text["band_mma.cu"]
-        assert entry not in text["banded_spmm.cu"]
-    for gone in ("kFolded", "Act::kF32", "BandT", "Scale::"):
+        assert not [f for f, t in text.items() if f != "band_mma.cu" and f"int {entry}(" in t]
+    assert "cgt_banded_spmm_quant_fm(" not in text["banded_spmm.cu"]
+    for gone in ("kFolded", "Act::kF32", "BandT", "Scale::", "Act::kBf16", "kBlocked", "round_bf16"):
         assert gone not in text["banded_spmm.cu"]
+
+
+# ---------------------------------------------------------------------------
+# K4 and K6: role B over the int8 band
+# ---------------------------------------------------------------------------
+
+#: (num_blocks, W, block, num_nodes, F): a block of 100 (padded to 112; x
+#: copied), of 16, W = 0, F = 1, F = 130 (three feature units), num_nodes
+#: not a multiple of 4 at a block of 64 (x's row stride: copied), and
+#: shapes where the kernel reads xT as it is
+FM_INT8_SHAPES = [(7, 1, 100, 650, 70), (12, 1, 16, 180, 8), (10, 0, 64, 600, 16),
+                  (10, 2, 64, 640, 1), (6, 1, 64, 350, 130), (10, 2, 64, 603, 5)]
+
+
+def fm_int8_operands(shape):
+    """K4's and K6's operands as torch and JAX pairs: the feature-major int8
+    band, ``xT [F, n]`` and a random padded blocked frame."""
+    q, scales, x = random_quantized(shape, seed=sum(shape) + 1)
+    nb, W, block, n, F = shape
+    qT = np.ascontiguousarray(np.swapaxes(q, 2, 3))
+    xb_pad = np.random.default_rng(n + F).standard_normal((nb + 2 * W, F, block)).astype(np.float32)
+    tqf = tq.QuantizedBandedMatrixFM(torch.from_numpy(qT), torch.from_numpy(scales), n, W)
+    jqf = jq.QuantizedBandedMatrixFM(jnp.asarray(qT), jnp.asarray(scales), n, W)
+    return tqf, jqf, np.ascontiguousarray(x.T), xb_pad
+
+
+def k4_on_operands(q: tq.QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
+    """Role B over the int8 band on the operands K4's wrapper prepares, x read
+    as its 2-D tensor map reads it."""
+    nb, W, block, n = q.num_blocks, q.bandwidth, q.block, q.num_nodes
+    band_p = band_mma.pad_band(q.band_qT)
+    x, x_block, x_cols = band_mma.fm_x_operand(xT, n, nb, block)
+    copied = block % 16 != 0 or xT.stride(0) % 4 != 0
+    assert (x is not xT) == copied and x.dtype == torch.float32
+    frame = band_mma.fm_window_frame(x, x_block, x_cols, nb, W, band_p.shape[2])
+    return band_mma.fm_on_operands(band_p, q.scales, frame, W, block)[:, :n]
+
+
+def k6_on_operands(q: tq.QuantizedBandedMatrixFM, xb_pad: torch.Tensor) -> torch.Tensor:
+    band_p = band_mma.pad_band(q.band_qT)
+    xb = band_mma.blocked_x_operand(xb_pad, q.block)
+    assert (xb is xb_pad) == (q.block % 16 == 0)
+    return band_mma.blocked_on_operands(band_p, q.scales, xb, q.bandwidth, q.block)
+
+
+@pytest.mark.parametrize("shape", FM_INT8_SHAPES, ids=shape_id)
+def test_k4_on_its_operands_matches_its_plain_version(shape):
+    tqf, _, xT, _ = fm_int8_operands(shape)
+    got = k4_on_operands(tqf, torch.from_numpy(xT))
+    assert got.shape == (shape[4], shape[3])
+    torch.testing.assert_close(got, tq.banded_spmm_quant_fm_reference(tqf, torch.from_numpy(xT)),
+                               rtol=K3_RTOL, atol=K3_ATOL)
+
+
+@pytest.mark.parametrize("shape", FM_INT8_SHAPES, ids=shape_id)
+def test_k4_on_its_operands_matches_jax_interpret(shape):
+    tqf, jqf, xT, _ = fm_int8_operands(shape)
+    want = np.asarray(jq.banded_spmm_quant_fm(jqf, jnp.asarray(xT), interpret=True))
+    np.testing.assert_allclose(k4_on_operands(tqf, torch.from_numpy(xT)).numpy(), want,
+                               rtol=K3_RTOL, atol=K3_ATOL)
+
+
+@pytest.mark.parametrize("shape", FM_INT8_SHAPES, ids=shape_id)
+def test_k6_on_its_operands_matches_its_plain_version(shape):
+    tqf, _, _, xb_pad = fm_int8_operands(shape)
+    got = k6_on_operands(tqf, torch.from_numpy(xb_pad))
+    assert got.shape == (shape[0], shape[4], shape[2])
+    torch.testing.assert_close(got, tq.banded_spmm_quant_blocked_reference(tqf, torch.from_numpy(xb_pad)),
+                               rtol=K3_RTOL, atol=K3_ATOL)
+
+
+@pytest.mark.parametrize("shape", FM_INT8_SHAPES, ids=shape_id)
+def test_k6_on_its_operands_matches_jax_interpret(shape):
+    tqf, jqf, _, xb_pad = fm_int8_operands(shape)
+    want = np.asarray(jq.banded_spmm_quant_blocked(jqf, jnp.asarray(xb_pad), interpret=True))
+    np.testing.assert_allclose(k6_on_operands(tqf, torch.from_numpy(xb_pad)).numpy(), want,
+                               rtol=K3_RTOL, atol=K3_ATOL)
+
+
+def test_k4_copies_x_only_where_tma_cannot_take_it():
+    """A strided view whose row stride is a multiple of 4 elements is read as
+    it is; a base that is not 16-byte aligned, or a row stride that is not
+    a multiple of 4, gets one padded copy, which the map reads as the same
+    frame."""
+    wide, odd = torch.randn(5, 700), torch.randn(5, 601)
+    for view, copied in ((wide[:, :600], False), (wide[:, 1:601], True), (odd[:, :600], True)):
+        x, x_block, x_cols = band_mma.fm_x_operand(view, 600, 10, 64)
+        assert (x is not view) == copied, (view.stride(), view.data_ptr() % 16)
+        want = band_mma.fm_window_frame(view.contiguous(), 64, 600, 10, 1, 64)
+        assert want.shape == (5, 12 * 64)
+        torch.testing.assert_close(band_mma.fm_window_frame(x, x_block, x_cols, 10, 1, 64), want,
+                                   rtol=0, atol=0)
+
+
+def swizzled(row, byte):
+    """Byte ``byte`` of row ``row`` of a box of 128-byte rows under TMA's
+    128-byte swizzle: 16-byte chunk c of row r at chunk c ^ (r % 8)."""
+    return row * 128 + (((byte >> 4) ^ (row % 8)) << 4) + (byte & 15)
+
+
+def widen2_bits(v: np.ndarray) -> np.ndarray:
+    """The kernel's ``widen2`` by bit operations: bytes 0 and 1 of ``v`` to
+    ``__byte_perm``'s halves, 128 plus the low seven bits (``m``) less 128,
+    or 256 for a negative byte (``c``), as bf16x2."""
+    v = v.astype(np.uint32)
+    s = (v & 0xFF) | (((v >> 8) & 0xFF) << 16)
+    m = (s & 0x007F007F) | 0x43004300
+    c = (s & 0x00800080) | 0x43004300
+    half = lambda h: ((h & 0xFFFF) << 16).view(np.float32)  # noqa: E731
+    lo, hi = half(m) - half(c), half(m >> 16) - half(c >> 16)
+    return (bf16_bits(lo).view(np.uint32) >> 16) | (bf16_bits(hi).view(np.uint32) & 0xFFFF0000)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_widening_writes_the_box_the_b_descriptor_reads(seed):
+    """A stage's int8 box (64 senders by 128 receivers, 128-byte swizzled as
+    TMA writes it): each warpgroup's 128 threads widen its 64 receivers as
+    the kernel does, and the bfloat16 box holds tile[s, 64 group + r] at
+    byte swizzled(s, 2 r), where the B descriptor of the bfloat16 band's box
+    reads it; every chunk is written once, and the eight threads of a
+    quarter warp meet eight distinct chunks (each bank once)."""
+    tile = np.random.default_rng(seed).integers(-128, 128, (64, 128)).astype(np.int8)
+    if seed == 1:
+        tile[0, :] = np.arange(-128, 0)  # every negative byte
+    s_idx, r_idx = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+    box = np.zeros(64 * 128, np.uint8)
+    box[swizzled(s_idx, r_idx)] = tile.view(np.uint8)
+    for group in range(2):
+        wide = np.zeros(64 * 128, np.uint8)
+        written = np.zeros(64 * 128 // 16, np.int64)
+        chunks = {}
+        for t in range(128):
+            wj, ws = (t >> 3) & 3, (t & 7) + 8 * (t >> 5)
+            sw = ws & 7
+            offs = (ws * 128 + (((4 * group + wj) ^ sw) << 4), ws * 128 + (((2 * wj) ^ sw) << 4),
+                    ws * 128 + (((2 * wj + 1) ^ sw) << 4))
+            for kind, off in zip(("in", "lo", "hi"), offs):
+                chunks.setdefault((t // 8, kind), []).append((off >> 4) & 7)
+            for h in (0, 32 * 128):
+                in_off, lo_off, hi_off = (o + h for o in offs)
+                words = box[in_off:in_off + 16].view("<u4")
+                out = widen2_bits(np.stack([words, words >> 16], axis=1).reshape(-1))
+                wide[lo_off:lo_off + 16] = out[:4].view(np.uint8)
+                wide[hi_off:hi_off + 16] = out[4:].view(np.uint8)
+                written[[lo_off // 16, hi_off // 16]] += 1
+        assert (written == 1).all()
+        assert all(len(set(c)) == 8 for c in chunks.values())
+        s_b, r_b = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+        pos = swizzled(s_b, 2 * r_b)
+        bits = wide[pos].astype(np.uint32) | (wide[pos + 1].astype(np.uint32) << 8)
+        np.testing.assert_array_equal((bits << 16).view(np.float32),
+                                      tile[:, 64 * group:64 * group + 64].astype(np.float32))
+
+
+def test_a_fragment_reads_the_f32_frame_boxes():
+    """A stage's float32 frame (64 features by 64 senders) in two 128-byte
+    swizzled boxes of 32 senders: each thread's 64-bit loads at the kernel's
+    offsets read its wgmma A fragment, features 16 warp + lane / 4 (+ 8),
+    senders 16 k + 2 (lane % 4) (+ 1) and + 8, of each k-step k."""
+    frame = np.random.default_rng(5).standard_normal((64, 64)).astype(np.float32)
+    f_idx, s_idx = np.meshgrid(np.arange(64), np.arange(32), indexing="ij")
+    boxes = np.zeros((2, 64 * 32), np.float32)
+    for h in range(2):
+        boxes[h, swizzled(f_idx, 4 * s_idx) // 4] = frame[:, 32 * h:32 * h + 32]
+    for warp in range(4):
+        for lane in range(32):
+            quad, pair = lane // 4, 2 * (lane % 4)
+            a_off = [[(((4 * kk + pair // 4) ^ quad) << 4) + 4 * (pair % 4),
+                      (((4 * kk + 2 + pair // 4) ^ quad) << 4) + 4 * (pair % 4)] for kk in range(2)]
+            row = 16 * warp + quad
+            for k in range(4):
+                box = boxes[k >> 1]
+                c0, c1 = a_off[k & 1]
+                got = [box[(r * 128 + c) // 4:(r * 128 + c) // 4 + 2]
+                       for r, c in ((row, c0), (row + 8, c0), (row, c1), (row + 8, c1))]
+                want = [frame[r, 16 * k + pair + e:16 * k + pair + e + 2]
+                        for r, e in ((row, 0), (row + 8, 0), (row, 8), (row + 8, 8))]
+                np.testing.assert_array_equal(np.stack(got), np.stack(want))

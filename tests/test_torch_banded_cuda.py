@@ -1,6 +1,6 @@
 """The int8 band kernels K3, K4 and K5 against their plain PyTorch versions,
-on the card.  K3 runs on the tensor-core body (``csrc/band_mma.cu``, role A
-over the int8 band), K4 and K5 on the CUDA-core body.
+on the card.  K3 and K4 run on the tensor-core body (``csrc/band_mma.cu``,
+role A and role B over the int8 band), K5 on the CUDA-core body.
 
 Every test here needs a CUDA card and skips without one.  The machine with
 the card has no JAX, and ``tests/conftest.py`` imports it, so run them
@@ -14,9 +14,12 @@ quantized model against its plain path rtol 1e-4 / atol 1e-4.  The shapes
 take each kernel through a ragged tail, W = 0, F = 5, F = 1 and F = 130
 (three of K3's 64-feature units), blocks of 100 and 16 (K3 pads them to
 112 and 16) and the main shape's 256-node block.  A band whose scales and
-activations span six decades each way shows whether K3's tensor-core
-accumulation differs from IEEE float32 sums in another order: each output
-is held to 1e-5 of the sum of its products' magnitudes.
+activations span six decades each way shows whether K3's and K4's
+tensor-core accumulation differs from IEEE float32 sums in another order:
+each output is held to 1e-5 of the sum of its products' magnitudes.  K4's
+tensor map masks its senders: at row block 0 with W >= 1 its first
+coordinates are negative, and an ``xT`` wider than the graph holds values
+past ``num_nodes`` that must not enter.
 """
 
 import numpy as np
@@ -100,6 +103,54 @@ def test_k3_accumulation_over_six_decades(cuda, shape):
     want = bq.banded_spmm_quant_reference(q, x)
     magnitude = bq.banded_spmm_quant_reference(q._replace(band_q=q.band_q.abs()), x.abs())
     assert bool(((got - want).abs() <= MAGNITUDE_RTOL * magnitude).all())
+
+
+@pytest.mark.parametrize("shape", [(20, 2, 256, 5000, 64), (7, 1, 100, 650, 70)])
+def test_k4_accumulation_over_six_decades(cuda, shape):
+    """As K3's: each output of K4 within 1e-5 of the sum of its products'
+    magnitudes."""
+    nb, W, block, n, F = shape
+    q = bq.to_feature_major(random_band(nb, W, block, n, seed=sum(shape), device=cuda))
+    rng = np.random.default_rng(n + F)
+    scales = 10.0 ** rng.uniform(-3, 3, q.scales.shape)
+    x = rng.standard_normal((F, n)) * 10.0 ** rng.uniform(-3, 3, (F, n))
+    q = q._replace(scales=torch.from_numpy(scales.astype(np.float32)).to(cuda))
+    xT = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    got = bq.banded_spmm_quant_fm_kernel(q, xT)
+    want = bq.banded_spmm_quant_fm_reference(q, xT)
+    magnitude = bq.banded_spmm_quant_fm_reference(q._replace(band_qT=q.band_qT.abs()), xT.abs())
+    assert bool(((got - want).abs() <= MAGNITUDE_RTOL * magnitude).all())
+
+
+def test_k4_launch_alone_equals_the_wrapper(cuda):
+    """At the main shape's layout (b = 256, F = 64) K4's wrapper hands the
+    kernel the band and ``xT`` as they are: its launch alone gives the
+    entry point's output bit for bit."""
+    nb, W, block, n, F = 12, 2, 256, 3000, 64
+    q = bq.to_feature_major(random_band(nb, W, block, n, seed=6, device=cuda))
+    xT = torch.randn(F, n, device=cuda)
+    x, x_block, x_cols = band_mma.fm_x_operand(xT, n, nb, block)
+    assert x is xT and band_mma.pad_band(q.band_qT) is q.band_qT
+    alone = band_mma.launch_fm_int8("K4", q.band_qT, q.scales, xT, x_block, x_cols, n, W, block)
+    assert torch.equal(alone, bq.banded_spmm_quant_fm(q, xT))
+
+
+@pytest.mark.parametrize("shape", [(10, 2, 64, 600, 16), (8, 1, 256, 1900, 64), (9, 2, 32, 270, 5)])
+def test_k4_map_masks_senders_outside_the_graph(cuda, shape):
+    """``xT`` is a view of a wider array whose columns past ``num_nodes``
+    hold 1e30: K4's map, of extent ``num_nodes``, reads them as zeros, and
+    row block 0's coordinates below sender 0 as zeros too."""
+    nb, W, block, n, F = shape
+    q = bq.to_feature_major(random_band(nb, W, block, n, seed=sum(shape), device=cuda))
+    wide = torch.full((F, nb * block + 64), 1e30, device=cuda)
+    wide[:, :n] = torch.randn(F, n, device=cuda)
+    xT = wide[:, :n]
+    x, _, _ = band_mma.fm_x_operand(xT, n, nb, block)
+    assert x is xT
+    got = bq.banded_spmm_quant_fm_kernel(q, xT)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, bq.banded_spmm_quant_fm_reference(q, xT.contiguous()),
+                               rtol=RTOL, atol=ATOL)
 
 
 def test_k3_launch_alone_equals_the_wrapper(cuda):

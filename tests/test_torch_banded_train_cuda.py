@@ -1,5 +1,6 @@
 """K6 and the trainable band ops against their plain PyTorch versions, on
-the card.
+the card.  K6, like K4, runs role B of the tensor-core body
+(``csrc/band_mma.cu``) over the int8 band.
 
 Every test here needs a CUDA card and skips without one.  The machine with
 the card has no JAX, and ``tests/conftest.py`` imports it, so run them
@@ -8,7 +9,9 @@ there without the conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_banded_train_cuda.py
 
 This file imports no JAX.  Tolerances: kernel against plain version rtol
-1e-5 / atol 1e-5 (the same exact products, float32 sums in another order).
+1e-5 / atol 1e-5 (the same exact products, float32 sums in another order);
+on a band whose scales and activations span six decades each way, each
+output within 1e-5 of the sum of its products' magnitudes.
 A 4000-node train step against its plain path: loss rtol 1e-5, each
 gradient and running moment within 5e-3 of its norm in relative Frobenius
 error (plus 1e-6 for the conv biases, whose gradients BatchNorm cancels to
@@ -36,6 +39,8 @@ from connectome_gnn_tpu_torch.ops import banded_quant as bq
 pytestmark = pytest.mark.requires_cuda
 
 RTOL, ATOL = 1e-5, 1e-5
+#: |kernel - plain| against the plain version over |A_q|, |scales| and |x|
+MAGNITUDE_RTOL = 1e-5
 STEP_LOSS_RTOL, STEP_REL_FRO, STEP_FRO_ATOL = 1e-5, 5e-3, 1e-6
 #: (num_blocks, W, block, num_nodes, F): the ragged tail, W = 0, F = 5, a
 #: block of 100 with two feature slices, the full block
@@ -69,7 +74,7 @@ def randn(shape, seed, device):
     return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape).astype(np.float32)).to(device)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + [(12, 1, 16, 180, 8), (6, 1, 64, 350, 130)])
 def test_k6_matches_its_plain_version(cuda, shape):
     nb, W, block, n, F_ = shape
     q, _ = random_operands(nb, W, block, n, seed=sum(shape), device=cuda)
@@ -80,6 +85,38 @@ def test_k6_matches_its_plain_version(cuda, shape):
     assert bq.banded_spmm_quant_blocked_kernel.launches == before + 1
     torch.testing.assert_close(got, bq.banded_spmm_quant_blocked_reference(q, xb_pad),
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", [(20, 2, 256, 5000, 64), (7, 1, 100, 650, 70)])
+def test_k6_accumulation_over_six_decades(cuda, shape):
+    """Scales and the whole padded frame spread log-uniformly over three
+    decades each way: each output of K6 within 1e-5 of the sum of its
+    products' magnitudes."""
+    nb, W, block, n, F_ = shape
+    q, _ = random_operands(nb, W, block, n, seed=sum(shape), device=cuda)
+    rng = np.random.default_rng(n + F_)
+    scales = 10.0 ** rng.uniform(-3, 3, q.scales.shape)
+    xb = rng.standard_normal((nb + 2 * W, F_, block)) * 10.0 ** rng.uniform(-3, 3, (nb + 2 * W, F_, block))
+    q = q._replace(scales=torch.from_numpy(scales.astype(np.float32)).to(cuda))
+    xb_pad = torch.from_numpy(xb.astype(np.float32)).to(cuda)
+    got = bq.banded_spmm_quant_blocked_kernel(q, xb_pad)
+    want = bq.banded_spmm_quant_blocked_reference(q, xb_pad)
+    magnitude = bq.banded_spmm_quant_blocked_reference(q._replace(band_qT=q.band_qT.abs()), xb_pad.abs())
+    assert bool(((got - want).abs() <= MAGNITUDE_RTOL * magnitude).all())
+
+
+def test_k6_launch_alone_equals_the_wrapper(cuda):
+    """At the main shape's layout (b = 256, F = 64) K6's wrapper hands the
+    kernel the band and the padded frame as they are: its launch alone gives
+    the entry point's output bit for bit."""
+    from connectome_gnn_tpu_torch.ops import band_mma
+
+    nb, W, block, F_ = 12, 2, 256, 64
+    q, _ = random_operands(nb, W, block, nb * block, seed=8, device=cuda)
+    xb_pad = randn((nb + 2 * W, F_, block), 9, cuda)
+    assert band_mma.blocked_x_operand(xb_pad, block) is xb_pad
+    alone = band_mma.launch_blocked("K6", q.band_qT, q.scales, xb_pad, W, block)
+    assert torch.equal(alone, bq.banded_spmm_quant_blocked(q, xb_pad))
 
 
 def test_k6_refuses_operands_it_does_not_take(cuda):
