@@ -15,9 +15,10 @@ Phases, one line each:
    and what ``ptxas -v`` says of the tensor-core body's kernels
    (registers, spills, shared memory; role A over the int8 band with the
    scale on the dot (K3, B2c) or folded into the tile (B2c ``wrow_bf16``)
-   and over the float32 band (K7), and role B over the int8 band,
-   feature-major (K4) and blocked (K6), among them) and any warning it
-   gives;
+   and over the float32 band (K7), and role B over the int8 band on a
+   float32 frame, feature-major (K4, B3c) and blocked (K6), and on a
+   bfloat16 frame, feature-major (timed against K4) and blocked (B3d),
+   among them) and any warning it gives;
 3. each fused kernel (K1 GCN, K2 SAGE) against its plain PyTorch version on
    the card at four (B, n, F, H, L) shapes, rtol 1e-4 / atol 1e-5 (the
    repository's f32 gate);
@@ -53,7 +54,12 @@ random weights from seed 0 and non-trivial BatchNorm state):
    argmax agreement, the gates of ``tests/test_banded_quant.py``);
 9. RCM at the demo size (20,000 nodes, degree 12, band 256): scramble,
    recover, bandwidth before and after;
-10. times: each band kernel, its plain version and its library call (one
+10. K4's reads past its node block: K4 and its backward launch over the
+   transposed band with an Inf and then a NaN of x in one interior node
+   block, at blocks of 16, 32 and 48 and W = 0, 1, 2, against the plain
+   version NaN for NaN (rtol 1e-5 / atol 1e-5), every row block that does
+   not read that block finite; then
+   times: each band kernel, its plain version and its library call (one
    ``torch.bmm`` over a strided window view of the padded frame and the
    dequantized band, checked for hidden copies; K5 has none) per call at
    full size (CUDA events, median, in turns and back to back, then the
@@ -142,12 +148,13 @@ nodes, band ±512, block 256, F = 64), whose path is their entry points:
     bytes and the memory peak;
 21. each B3 kernel (``fm_dma_only`` bitwise, the others at rtol 1e-5 /
     atol 1e-5) against its plain version on random non-symmetric small
-    bands, ``fm_deep`` at each (R, S, K) and ``fm_blocked`` at each (R, S)
-    of the script's sweeps; then the main path, each entry point once at
-    1M nodes with one launch each, against its plain version and, for
-    ``fm_deep``, ``fm_blocked``, ``fm_bf16_band`` and ``fm_w8a8``, under
-    the 3e-2 gate against the float32 ``banded_spmm``; then both sweeps at
-    1M nodes against the plain version;
+    bands, ``fm_deep`` (B3c, K4's launch) and ``fm_blocked`` (B3d, role B
+    over the int8 band on a bfloat16 frame) also at blocks of 48 and 80
+    and at a few (R, S, K) and (R, S) of the script's sweeps, each the one
+    result bit for bit; then the main path, each entry point once at 1M nodes with one
+    launch each, against its plain version and, for ``fm_deep``,
+    ``fm_blocked``, ``fm_bf16_band`` and ``fm_w8a8``, under the 3e-2 gate
+    against the float32 ``banded_spmm``, the sweeps' calls the one result;
 22. times: each B3 kernel's wrapper, plain version, library call (the
     feature-major ``torch.bmm`` for ``fm_deep`` and ``fm_blocked``, its
     bfloat16 form for ``fm_bf16_band``; the others have none) and, where the
@@ -155,11 +162,14 @@ nodes, band ±512, block 256, F = 64), whose path is their entry points:
     events, median of 10, in turns), G edge-messages/s and the share of the
     bound (for the two probes, the bound of what their output needs: one
     chunk for compute-only, diagonal 0's first F tile rows for dma-only);
-    the ``fm_deep`` sweep over (R, S, K), the ``fm_blocked`` sweep over
-    (R, S) and the dma-only body at each depth S with the rate at which it
-    stages the bytes it is built to stage, launches alone; staging
-    (dma-only) against arithmetic (compute-only) against both (deep); the
-    memory peak.
+    role B over the same int8 band on a float32 frame against a bfloat16
+    one, launches alone in turns (K4 on ``xT``, B3c's route, against the
+    feature-major launch on ``pad_xT``'s bfloat16 frame; K6 on the blocked
+    frame in float32 against B3d), each output equal to its pair's bit for
+    bit, each with the bytes it stages into shared memory and their rate,
+    and the bfloat16 route whole (``pad_xT``, then the launch) beside K4's
+    launch; the CUDA-core probes' staging (dma-only) and arithmetic
+    (compute-only); the memory peak.
 
 Then graph-classification training (``Trainer.fit``, which runs no
 hand-written kernel) and the random-row gather B1 of
@@ -307,7 +317,7 @@ BAND_KERNELS = {
 #: 16, F = 130 (three 64-feature units)
 MMA_SHAPES = [(12, 1, 16, 180, 8), (6, 1, 64, 350, 130)]
 BAND_SOURCE = "connectome_gnn_tpu_torch/csrc/banded_spmm.cu"
-#: the tensor-core body of K3, K4, K6, K7, B2a, B2c and B3a bf16_band
+#: the tensor-core body of K3, K4, K6, K7, B2a, B2c, B3a bf16_band, B3c and B3d
 MMA_SOURCE = "connectome_gnn_tpu_torch/csrc/band_mma.cu"
 #: a train step against its plain path on the card: the f32 gate
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
@@ -377,19 +387,27 @@ FM_KERNELS = {
     "B3b": dict(name="fm_compute_only", kernel=fv.fm_compute_only_kernel, entry=fv.fm_compute_only,
                 plain=fv.fm_compute_only_reference, replaces="benchmarks/fm_kernel_diag.py:242"),
     "B3c": dict(name="fm_deep", kernel=fv.fm_deep_kernel, entry=fv.fm_deep,
-                plain=fv.fm_deep_reference, replaces="benchmarks/fm_kernel_diag.py:393"),
+                plain=fv.fm_deep_reference, source=MMA_SOURCE,
+                replaces="benchmarks/fm_kernel_diag.py:393"),
     "B3d": dict(name="fm_blocked", kernel=fv.fm_blocked_kernel, entry=fv.fm_blocked,
-                plain=fv.fm_blocked_reference, replaces="benchmarks/fm_kernel_diag.py:495"),
+                plain=fv.fm_blocked_reference, source=MMA_SOURCE,
+                replaces="benchmarks/fm_kernel_diag.py:495"),
 }
 FM_SOURCE = "connectome_gnn_tpu_torch/csrc/fm_pipeline.cu"
-#: the script's sweeps: fm_deep (R, S, K) at :654-657, fm_blocked (R, S) at :679
-DEEP_SWEEP = [(32, 2, 1), (32, 3, 1), (32, 4, 1), (32, 4, 4), (16, 6, 1), (16, 8, 2), (64, 3, 1)]
-BLOCKED_SWEEP = [(32, 2), (32, 4), (16, 4), (64, 2)]
+#: some of the script's sweeps, fm_deep (R, S, K) at :654-657 and fm_blocked
+#: (R, S) at :679: on role B they shape nothing, so each gives the one result
+DEEP_SWEEP = [(32, 2, 1), (32, 4, 4), (16, 8, 2)]
+BLOCKED_SWEEP = [(32, 4), (16, 4)]
 #: (num_blocks, W, block, num_nodes, F, R) of the random small bands: W = 0,
 #: 1, 2, F = 1, 5, 16, 64, ragged tails; NB = 12 at R = 2 and 4 puts chunk
 #: i* of fm_compute_only at 4 and 2
 FM_SHAPES = [(8, 1, 64, 512, 16, 4), (12, 0, 64, 700, 16, 2), (12, 2, 64, 768, 5, 4),
              (8, 1, 64, 500, 1, 2), (8, 2, 64, 512, 64, 4)]
+#: B3c's and B3d's further shapes: blocks of 48 and 80, multiples of 16 but
+#: not of 64, so a 64-sender stage of role B reaches past the block
+FM_ROLE_B_SHAPES = [(12, 1, 48, 560, 16, 4), (8, 2, 80, 600, 20, 4)]
+#: K4's non-finite check: blocks that are not multiples of 64, each W
+NONFINITE_BLOCKS, NONFINITE_WS = (16, 32, 48), (0, 1, 2)
 #: every band kernel's launch counter
 COUNTERS = {"K3": bq.banded_spmm_quant_kernel, "K4": bq.banded_spmm_quant_fm_kernel,
             "K5": bq.banded_spmm_quant_fm_w8a8_kernel,
@@ -703,6 +721,44 @@ def check_band_kernel(kid, q, x) -> float:
     return float((got - want).abs().max())
 
 
+def k4_nonfinite_check(dev) -> None:
+    """K4, and its backward launch over the transposed band, with an Inf and
+    a NaN of x in one interior node block k, at blocks that are not
+    multiples of 64 (a 64-sender stage reaches into the next node blocks)
+    and each W: equal to the plain version NaN for NaN at 1e-5, and finite
+    in every row block that does not read block k, as the plain version is."""
+    nb, F, worst, runs = 12, 8, 0.0, 0
+    k = nb // 2
+    for block in NONFINITE_BLOCKS:
+        for W in NONFINITE_WS:
+            n = nb * block - 5
+            q = random_quantized_band(nb, W, block, n, seed=block + W, device=dev)
+            rng = np.random.default_rng(block + W)
+            xT = torch.from_numpy(rng.standard_normal((F, n)).astype(np.float32)).to(dev)
+            reads_k = (torch.arange(n, device=dev) // block - k).abs() <= W
+            for value in (float("inf"), float("nan")):
+                x = xT.clone()
+                x[2, k * block + 3] = value
+                for kid, qf in (("K4", bq.to_feature_major(q)),
+                                ("K4 backward", bq.transposed_feature_major(q))):
+                    kern = {**BAND_KERNELS, **TRAIN_KERNELS}[kid]
+                    got = kern["kernel"](qf, x)
+                    torch.cuda.synchronize()
+                    want = kern["plain"](qf, x)
+                    what = (kid, block, W, value)
+                    torch.testing.assert_close(got, want, rtol=BAND_RTOL, atol=BAND_ATOL, equal_nan=True,
+                                               msg=str(what))
+                    check(bool(torch.isfinite(got[:, ~reads_k]).all()), ("non-finite past block k",) + what)
+                    check(not bool(torch.isfinite(want[:, reads_k]).all()), ("nothing read it",) + what)
+                    both = torch.isfinite(got) & torch.isfinite(want)
+                    worst = max(worst, float((got - want)[both].abs().max()))
+                    runs += 1
+    print(f"[10 K4 non-finite] K4 and K4 over the transposed band, an Inf and a NaN of x at node "
+          f"{k} * b + 3, blocks {NONFINITE_BLOCKS}, W in {NONFINITE_WS}: {runs} launches equal to the plain "
+          f"version NaN for NaN (largest finite |kernel-plain| {worst:.3e}), every row block with "
+          f"|rb - {k}| > W finite", flush=True)
+
+
 def reset_counters() -> None:
     for k in COUNTERS.values():
         k.launches = 0
@@ -924,7 +980,8 @@ def giant_graph_phases(dev, card):
           f"RCM bandwidth {after_bw:,} ({t_rcm:.2f} s host); banded at block 128: "
           f"W={banded.bandwidth}, {banded.num_blocks} row blocks", flush=True)
 
-    # 10. times (nothing asserted)
+    # 10. K4's reads past its node block, then times (nothing asserted)
+    k4_nonfinite_check(dev)
     times, bounds, lib_ms = {}, {}, {}
     for kid, (q, xin) in full.items():
         k = BAND_KERNELS[kid]
@@ -1552,6 +1609,34 @@ def check_fm(kid, ops, R=32, **kw) -> float:
     return float((got - want).abs().max())
 
 
+def sweep_kw(config) -> dict:
+    """``depth`` (and ``band_splits``) of an (R, S[, K]) sweep entry."""
+    return dict(zip(("depth", "band_splits"), config[1:]))
+
+
+def check_sweep(kid, ops, sweep) -> float:
+    """B3c or B3d at each (R, S[, K]) of ``sweep``: its plain version at
+    1e-5, and the default call's output bit for bit (on role B R, S and K
+    shape nothing); returns max |kernel - plain|."""
+    kernel = FM_KERNELS[kid]["kernel"]
+    one, err = fm_call(kid, kernel, ops), 0.0
+    for config in sweep:
+        err = max(err, check_fm(kid, ops, config[0], **sweep_kw(config)))
+        check(torch.equal(fm_call(kid, kernel, ops, config[0], **sweep_kw(config)), one),
+              (kid, config, "not the one result"))
+    return err
+
+
+def role_b_staged(nb, W, block, F, frame_elem_bytes) -> int:
+    """The bytes role B over the int8 band stages into shared memory: for
+    each (row block, 128-receiver tile, 64-feature tile) unit, D·⌈b'/64⌉
+    stages of an 8 KB band box and 64 senders by 64 features of the frame
+    (f32: 16 KB, bf16: 8 KB)."""
+    bp = band_mma.padded(block, band_mma.BLOCK_MULTIPLE)
+    units = nb * -(-bp // 128) * -(-F // 64)
+    return units * (2 * W + 1) * -(-bp // 64) * (8192 + 64 * 64 * frame_elem_bytes)
+
+
 def fm_pipeline_phases(dev, card, graph) -> list[dict]:
     """Phases 20-22; returns the B3 kernels' entries of the JSON line."""
     block, n, E = GIANT["block"], graph.num_nodes, graph.num_edges
@@ -1589,23 +1674,22 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
     # 21. each kernel against its plain version, then the main path
     max_err = dict.fromkeys(FM_KERNELS, 0.0)
     with torch.no_grad():
-        for shape in FM_SHAPES:
+        for shape in FM_SHAPES + FM_ROLE_B_SHAPES:
             snb, sW, sb, snodes, sF, sR = shape
             sq = bq.to_feature_major(random_quantized_band(snb, sW, sb, snodes, seed=sum(shape), device=dev))
             sxT = torch.from_numpy(np.random.default_rng(snodes + sF).standard_normal(
                 (sF, snodes)).astype(np.float32)).to(dev)
             ops = fm_operands(sq, (sq.band_qT.float() * 1.37).to(torch.bfloat16), sxT)
-            errs = {kid: check_fm(kid, ops, sR) for kid in FM_KERNELS}
-            for R, S, K in DEEP_SWEEP:
-                errs["B3c"] = max(errs["B3c"], check_fm("B3c", ops, R, depth=S, band_splits=K))
-            for R, S in BLOCKED_SWEEP:
-                errs["B3d"] = max(errs["B3d"], check_fm("B3d", ops, R, depth=S))
+            kids = FM_KERNELS if shape in FM_SHAPES else ("B3c", "B3d")
+            errs = {kid: check_fm(kid, ops, sR) for kid in kids}
+            errs["B3c"] = max(errs["B3c"], check_sweep("B3c", ops, DEEP_SWEEP))
+            errs["B3d"] = max(errs["B3d"], check_sweep("B3d", ops, BLOCKED_SWEEP))
             for kid, err in errs.items():
                 max_err[kid] = max(max_err[kid], err)
             print(f"[21 fm kernel] NB={snb} W={sW} b={sb} n={snodes} F={sF} R={sR}, random non-symmetric "
-                  f"band, fm_deep at every (R, S, K) and fm_blocked at every (R, S) of the script's "
-                  f"sweeps, max|kernel-plain|: " + ", ".join(f"{kid} {e:.3e}" for kid, e in errs.items()),
-                  flush=True)
+                  f"band, fm_deep at each (R, S, K) of {DEEP_SWEEP} and fm_blocked at each (R, S) of "
+                  f"{BLOCKED_SWEEP} the one result bit for bit, max|kernel-plain|: "
+                  + ", ".join(f"{kid} {e:.3e}" for kid, e in errs.items()), flush=True)
         del ops, sq, sxT
         # the main path: each entry point once at the 1M-node shape
         torch.cuda.synchronize()
@@ -1620,9 +1704,8 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
         launched = {kid: COUNTERS[kid].launches for kid in FM_KERNELS}
         print(f"[21 fm main path] launches: { {c: v for c, v in counts().items() if v} }", flush=True)
         ref_norm = torch.linalg.norm(ref)
-        plain_out = {}
         for kid, k in FM_KERNELS.items():
-            out = outs[kid]
+            out = outs.pop(kid)
             want = fm_call(kid, k["plain"], full)
             check(bool(torch.isfinite(out).all()) and out.shape == want.shape, (kid, tuple(out.shape)))
             torch.testing.assert_close(out, want, **fm_tolerance(kid), msg=kid)
@@ -1634,21 +1717,16 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
                 rel = float(torch.linalg.norm(nodes.T - ref) / ref_norm)
                 check(rel < CHECK_GATE, (kid, "against the float32 banded_spmm", rel))
                 gate = f"; against the float32 banded_spmm: relative Frobenius error {rel:.4e} (gate {CHECK_GATE})"
+            sweep = {"B3c": DEEP_SWEEP, "B3d": BLOCKED_SWEEP}.get(kid, [])
+            for config in sweep:
+                got = fm_call(kid, k["kernel"], full, config[0], **sweep_kw(config))
+                check(torch.equal(got, out), (kid, config, "not the one result"))
+            if sweep:
+                gate += f"; at each of {sweep} the one result bit for bit"
             print(f"[21 fm main path] {kid} {k['name']} at {n:,} nodes, F={F_}: output {tuple(out.shape)} "
                   f"finite, 1 launch; max|kernel-plain| = {err:.3e}{gate}", flush=True)
-            if kid in ("B3c", "B3d"):
-                plain_out[kid] = want
-        sweeps = [("B3c", (R, S, K), fv.fm_deep_kernel(q, full["xT"], R, S, K)) for R, S, K in DEEP_SWEEP]
-        sweeps += [("B3d", (R, S), fv.fm_blocked_kernel(q, full["xb"], R, S)) for R, S in BLOCKED_SWEEP]
-        for kid, config, got in sweeps:
-            torch.testing.assert_close(got, plain_out[kid], rtol=BAND_RTOL, atol=BAND_ATOL,
-                                       msg=f"{kid} {config}")
-            max_err[kid] = max(max_err[kid], float((got - plain_out[kid]).abs().max()))
-        del sweeps
-        print(f"[21 fm main path] fm_deep at each (R, S, K) of {DEEP_SWEEP} and fm_blocked at each "
-              f"(R, S) of {BLOCKED_SWEEP} at {n:,} nodes against the plain version: max|kernel-plain| "
-              f"{max_err['B3c']:.3e} and {max_err['B3d']:.3e}", flush=True)
-        del outs, plain_out, ref
+            del out, want
+        del outs, ref
 
     # 22. times (nothing asserted)
     R = 32
@@ -1675,9 +1753,7 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
         "B3a dma_only": lambda: fv._launch_dma_only(q, x_pad, R),
         "B3a bf16_band": lambda: fv._launch_bf16_band(qb, x_pad),
         "B3b": lambda: fv._launch_compute_only(q, x_win, R),
-        "B3c": lambda: fv._launch_deep(q, x_pad, R, 4, 1),
     }
-    frame_bound = bound(nbytes(q.band_qT, q.scales, x_pad) + 4 * F_ * nb * block, 2 * F_ * nnz8, "bf16")
     entries, peak, alone_ms = [], torch.cuda.max_memory_allocated(), {}
     with torch.no_grad():
         rows = dequantized(q.band_qT, q.scales).reshape(nb, -1, block)
@@ -1721,36 +1797,48 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             })
         del rows, rows16, x_pad32, library
-        # the new finding: whether pipeline depth S or band splits K move anything
-        deep = cuda_ms([lambda R=R, S=S, K=K: fv._launch_deep(q, x_pad, R, S, K) for R, S, K in DEEP_SWEEP],
-                       iters=10, warmup=2)
-        for (r, s, k), ms in zip(DEEP_SWEEP, deep):
-            print(f"[22 fm_deep sweep] {card} | R={r} S={s} K={k}: {ms:.4f} ms (launch alone, CUDA events, "
-                  f"median of 10, the seven in turns), {E / ms / 1e6:.4g} G edge-messages/s, "
-                  f"{frame_bound[0] / ms:.1%} of the bound on the bf16 frame ({frame_bound[0]:.4f} ms)",
-                  flush=True)
+        # the frame's type alone: role B over the same int8 band, f32 frame
+        # (K4 on xT, B3c's route; K6 on the blocked frame widened) against
+        # bf16 (the feature-major launch on pad_xT's frame; B3d), first
+        # checked to give the same bits; then the bf16 feature-major route
+        # whole (pad_xT, then the launch)
+        xb32 = full["xb"].float()
+        frames = {
+            "K4 f32 frame": fm_launch_alone("K4", q, xT),
+            "feature-major bf16 frame": lambda: band_mma.launch_fm("B3c", q.band_qT, q.scales, x_pad, W,
+                                                                   block),
+            "K6 f32 frame": lambda: band_mma.launch_blocked("K6", q.band_qT, q.scales, xb32, W, block),
+            "B3d bf16 frame": lambda: band_mma.launch_blocked("B3d", q.band_qT, q.scales, full["xb"], W,
+                                                              block),
+        }
+        outs = {label: fn() for label, fn in frames.items()}
+        check(torch.equal(outs["feature-major bf16 frame"][:, :n], outs["K4 f32 frame"]), "bf16 frame != K4")
+        check(torch.equal(outs["B3d bf16 frame"], outs["K6 f32 frame"]), "B3d != K6 on its frame in float32")
+        del outs
+        bf16_route = lambda: band_mma.launch_fm(  # noqa: E731
+            "B3c", q.band_qT, q.scales, fv.pad_xT(xT, n, nb, W, block), W, block)
+        timed = cuda_ms([*frames.values(), bf16_route], iters=10, warmup=2)
+        frame_ms, route_ms = dict(zip(frames, timed)), timed[-1]
+        staged = {label: role_b_staged(nb, W, block, F_, 4 if "f32" in label else 2) for label in frames}
+        print(f"[22 frame] {card} | role B over the same int8 band, the launch alone (CUDA events, median "
+              f"of 10, the five in turns; the bf16 frame's output equal to the f32 frame's bit for bit): "
+              + "; ".join(f"{label} {ms:.4f} ms, {staged[label] / 1e9:.4g} GB staged into shared memory at "
+                          f"{staged[label] / ms / 1e9:.4g} TB/s" for label, ms in frame_ms.items())
+              + f"; bf16 / f32 frame: feature-major "
+              f"{frame_ms['feature-major bf16 frame'] / frame_ms['K4 f32 frame']:.3f}, blocked "
+              f"{frame_ms['B3d bf16 frame'] / frame_ms['K6 f32 frame']:.3f}; the bf16 route whole (pad_xT, "
+              f"then the launch) {route_ms:.4f} ms against K4's launch on xT (B3c's route) "
+              f"{frame_ms['K4 f32 frame']:.4f} ms", flush=True)
+        del xb32
         # what the dma-only ring stages by design (its output needs far less):
         # the band once per 64-feature slice, each bf16 x block once per
         # diagonal and 64-receiver tile (csrc/fm_pipeline.cu)
-        staged = (nbytes(q.band_qT) * -(-F_ // 64)
-                  + 2 * F_ * block * nb * (2 * W + 1) * -(-block // 64))
-        dma = cuda_ms([lambda S=S: fv._launch_dma_only(q, x_pad, R, S) for S in fv.DEPTHS],
-                      iters=10, warmup=2)
-        for S, ms in zip(fv.DEPTHS, dma):
-            print(f"[22 fm_dma_only depth] {card} | R={R} S={S}: {ms:.4f} ms (launch alone, CUDA events, "
-                  f"median of 10, the five in turns), staging {staged:,} B at {staged / ms / 1e9:.4g} TB/s",
-                  flush=True)
-        blocked = cuda_ms([lambda R=R, S=S: fv.fm_blocked_kernel(q, full["xb"], R, S) for R, S in BLOCKED_SWEEP],
-                          iters=10, warmup=2)
-        for (r, s), ms in zip(BLOCKED_SWEEP, blocked):
-            print(f"[22 fm_blocked sweep] {card} | R={r} S={s}: {ms:.4f} ms (CUDA events, median of 10, "
-                  f"the four in turns), {E / ms / 1e6:.4g} G edge-messages/s", flush=True)
-        print(f"[22 times] {card} | staging against arithmetic, launches alone: fm_dma_only "
-              f"{alone_ms['B3a dma_only']:.4f} ms, fm_compute_only {alone_ms['B3b']:.4f} ms, fm_deep "
-              f"(S=4) {alone_ms['B3c']:.4f} ms; compute-only / deep = "
-              f"{alone_ms['B3b'] / alone_ms['B3c']:.3f}, dma-only / deep = "
-              f"{alone_ms['B3a dma_only'] / alone_ms['B3c']:.3f}; dma-only stages {staged:,} B at "
-              f"{staged / alone_ms['B3a dma_only'] / 1e9:.4g} TB/s", flush=True)
+        dma_staged = (nbytes(q.band_qT) * -(-F_ // 64)
+                      + 2 * F_ * block * nb * (2 * W + 1) * -(-block // 64))
+        print(f"[22 times] {card} | the CUDA-core probes, launches alone: fm_dma_only (staging) "
+              f"{alone_ms['B3a dma_only']:.4f} ms, {dma_staged:,} B at "
+              f"{dma_staged / alone_ms['B3a dma_only'] / 1e9:.4g} TB/s; fm_compute_only (arithmetic) "
+              f"{alone_ms['B3b']:.4f} ms", flush=True)
     print(f"[22 times] max_memory_allocated over phases 20-22 {peak:,} B", flush=True)
     return entries
 

@@ -16,8 +16,10 @@
 //   B2c banded_spmm_quant_fused_dot         (pallas_call at :250)     role A, int8
 //   in benchmarks/fm_kernel_diag.py:
 //   B3a _fm_pipeline (pallas_call at :130) reached by fm_bf16_band :271   role B, bf16
-// K5 and B2b stay on csrc/banded_spmm.cu, and the probes on
-// csrc/fm_pipeline.cu.
+//   B3c fm_deep     (pallas_call at :393), K4's function: K4's launch     role B, int8
+//   B3d fm_blocked  (pallas_call at :495), K6's function on a bf16 frame  role B, int8, blocked
+// K5 and B2b stay on csrc/banded_spmm.cu, and the probes B3a dma-only and
+// w8a8 and B3b on csrc/fm_pipeline.cu.
 //
 // Math.  The band holds, for row block rb and diagonal d in [0, 2W], one
 // b x b tile: bf16, f32, or int8 with one f32 scale.  x-hat is x in the
@@ -28,11 +30,11 @@
 //   Role A (row-major: K3, K7, B2a, B2c): receiver-major tiles T[rb, d][r, s],
 //   node-major frame x-hat[blk, s, f], the int8 band's tiles scaled:
 //     out[rb*b + r, f] = sum_d scale[rb, d] * sum_s T[rb, d][r, s] * x-hat[rb + d, s, f]
-//   Role B (feature-major: K4, K6, fm_bf16_band): transposed tiles
+//   Role B (feature-major: K4, K6, B3a fm_bf16_band, B3c, B3d): transposed tiles
 //   tT[rb, d][s, r], feature-major frame xT-hat[f, blk*b + s], one f32 scale
 //   per tile:
 //     out[f, rb*b + r] = sum_d scale[rb, d] * sum_s xT-hat[f, (rb + d)*b + s] * tT[rb, d][s, r]
-//   K6 stores the same sums blocked, out[(rb*F + f)*b + r].
+//   K6 and B3d store the same sums blocked, out[(rb*F + f)*b + r].
 // As GEMMs, role A has M = receivers, N = features, and role B M =
 // features, N = receivers; in both the K axis is the senders, A is K-major
 // and B is MN-major (wgmma's transposed-B form).  Products are
@@ -46,13 +48,16 @@
 //   * bf16 (K7, B2a, B3a): the staged tile is wgmma's A (role A) or B (role
 //     B) as it is.  The kernel differs from the plain version only in the
 //     order of its f32 sums.
-//   * int8 in role B (K4, K6): widened to bf16 exactly, into shared memory
-//     (there the band is wgmma's B operand, which only shared memory
-//     feeds); x stays f32 in the frame and each thread rounds its A
-//     fragment to bf16 in registers (cvt.rn.bf16x2.f32, the plain
-//     version's .to(torch.bfloat16) bit for bit), so every product is
-//     exact, and the tile's scale goes on its dot, the plain version's
-//     order.
+//   * int8 in role B (K4, K6, B3c, B3d): widened to bf16 exactly, into
+//     shared memory (there the band is wgmma's B operand, which only shared
+//     memory feeds).  K4's (so B3c's) and K6's x stays f32 in the frame and
+//     each thread rounds its A fragment to bf16 in registers
+//     (cvt.rn.bf16x2.f32, the plain version's .to(torch.bfloat16) bit for
+//     bit).  B3d's frame is bf16 already (its TPU function's own operand),
+//     as is that of the feature-major bf16-frame launch (B3c's function on
+//     pad_xT's frame, which chip_smoke.py times against K4's launch): it is
+//     the A fragment as it is.  Every product is exact, and the tile's
+//     scale goes on its dot, the plain version's order.
 //   * int8 in role A (K3, B2c): widened to bf16 in registers, exactly (every int8 is a
 //     bf16), the tile's scale on its dot: K3's order, which B2c takes too
 //     unless wrow_bf16.  B2c's plain version folds the scale into the tile
@@ -108,7 +113,10 @@
 //     that the neighbouring units read next.  Role B over the int8 band
 //     stages 64 senders: one 8 KB band box of 128 receivers (128 bytes) by
 //     64 senders, and two 8 KB boxes of the f32 frame, 32 senders (128
-//     bytes) by 64 features each: 24 KB stages, 144 KB in the ring.
+//     bytes) by 64 features each (K4, K6: 24 KB stages, 144 KB in the
+//     ring), or one 8 KB box of the bf16 frame, 64 senders by 64 features
+//     (B3d and the feature-major bf16 frame: 16 KB stages, 96 KB in the
+//     ring).
 //   * An int8 or f32 band becomes wgmma's A operand in registers.  Each
 //     consumer thread reads its A fragment (receivers 16 * warp + lane / 4
 //     and + 8 of its warpgroup's 64, senders 2 * (lane % 4) + {0, 1, 8, 9}
@@ -132,13 +140,16 @@
 //     read by wgmma's async proxy: each thread issues
 //     fence.proxy.async.shared::cta after its stores, then the warpgroup
 //     meets at a named barrier (bar.sync 1 + group, 128), and only then are
-//     the products issued.  The frame stays f32: each thread loads its A
-//     fragment (features 16 * warp + lane / 4 and + 8, senders as above)
-//     by 64-bit loads and rounds it with cvt.rn.bf16x2.f32, so the wrapper
-//     makes no pass over x.  Once the widening and the fragment have read
-//     a stage, the warps release it, before the products run.  A stage's
-//     products stay in flight while the next stage is widened into the
-//     other buffer and its f32 pairs are loaded; then wgmma.wait_group 0
+//     the products issued.  K4's and K6's frame stays f32: each thread
+//     loads its A fragment (features 16 * warp + lane / 4 and + 8, senders
+//     as above) by 64-bit loads and rounds it with cvt.rn.bf16x2.f32, so the
+//     wrapper makes no pass over x.  A bf16 frame is loaded by 32-bit
+//     loads (bf16 pairs, 16-byte chunk 2k, + 1 for senders + 8, of the row,
+//     ^ (row % 8): a warp's loads meet each bank once) and used as it is.
+//     Once the widening and the fragment have read a stage, the warps
+//     release it, before the products run.  A
+//     stage's products stay in flight while the next stage is widened into
+//     the other buffer and its pairs are loaded; then wgmma.wait_group 0
 //     frees the fragment registers for the new pairs.  The products that
 //     read a buffer, two stages back, are done before it is written again:
 //     every thread waited for them before the warpgroup's barrier of the
@@ -154,7 +165,9 @@
 //     in the loop.  K4 reads the caller's f32 xT [F, >= n] through a 2-D map
 //     of extent num_nodes at sender (rb + d - W) * b + s: a coordinate below
 //     0 or past num_nodes is zero fill, which is K4's sender mask.  K6 reads
-//     its padded blocked frame [blocks, F, b] through a 3-D map.  The maps
+//     its padded blocked frame [blocks, F, b] through a 3-D map, and B3d
+//     its bf16 one; the feature-major bf16-frame launch reads B3a's frame
+//     map [F, blocks, b].  The maps
 //     are built on the host for every call and
 //     passed as __grid_constant__ parameters.  cuTensorMapEncodeTiled is a
 //     driver function; it is reached through the runtime's driver entry
@@ -171,37 +184,47 @@
 //     products: receivers x features in role A, features x receivers in
 //     role B; the sum, a tile's dot (and the f32 band's `corr`) are 32 f32
 //     registers a thread each.  The sums are stored from registers, masked
-//     to b, num_nodes and F: node-major (role A), feature-major (K4, B3a) or
-//     blocked (K6).
+//     to b, num_nodes and F: node-major (role A), feature-major (K4, B3a,
+//     B3c) or blocked (K6, B3d).
 //   * TMA needs 16-byte global strides, so the wrappers pad what this body
 //     cannot take with zeros: b to a multiple of 16 and role A's features
-//     to a multiple of 8; for K4 and K6, an f32 x whose block is not a
-//     multiple of 16, whose row stride is not a multiple of 4 elements or
-//     whose base is not 16-byte aligned, into one padded copy.  The kernel
-//     reads the padded block b_pad and stores in the caller's block b.  At
-//     the main shape nothing is padded.
-//     Documented limit of K4 without the copy: a stage reads 64 senders,
-//     so where b is not a multiple of 64 a tile's last stage reads senders
-//     of the next node block too, times band rows that are zero fill; a
-//     non-finite x there gives NaN where the plain version, which never
-//     reads them, does not.  The wrapper does not check.
-//   * On the H100 80GB HBM3 at 700 W (chip_smoke.py phases 10, 19 and 22,
-//     1M-node shape) a bf16 band's launch takes 1.08 ms, 89 % of its
+//     to a multiple of 8; for K4, K6 and B3d, an x whose block is not a
+//     multiple of 16, whose row stride is not a multiple of 4 elements
+//     (K4) or whose base is not 16-byte aligned, into one padded copy.  The
+//     kernel reads the padded block b_pad and stores in the caller's block
+//     b.  At the main shape nothing is padded.
+//   * A role B stage over the int8 band reads 64 senders.  Where b_pad is
+//     not a multiple of 64, a tile's last stage reaches past the block.
+//     The 3-D frame maps (K6, B3a, B3d, the feature-major bf16 frame) have
+//     a sender extent of b_pad, so those senders are the hardware's zero
+//     fill.  K4's 2-D map over xT (or its padded copy) reads on into the
+//     next node blocks' x, times band rows that are zero fill, where a
+//     non-finite x would give 0 * Inf = NaN in row blocks that the plain
+//     version never lets read that block; so each thread sets those
+//     k-steps of its A fragment to zero by a select in registers, in an
+//     instantiation of its own (kPastBlock) that K4's entry point takes
+//     where b_pad % 64 != 0.  The main shape runs the instantiation without
+//     it: a select, or a branch uniform over the launch, in its loop slowed
+//     K4's launch there.
+//   * On the H100 80GB HBM3 at 700 W (chip_smoke.py phases 10, 16, 19 and
+//     22, 1M-node shape) a bf16 band's launch takes 1.08 ms, 89 % of its
 //     bound, beside torch.bmm's 1.07-1.09 ms; K3's launch over the int8
 //     band 0.65 ms, 87 % of its 0.56 ms bound, where torch.bmm over the
 //     dequantized band takes 3.64 ms.  The first bf16 version, 128
 //     receivers a warpgroup (two m64n64 or one m64n128 products) in five 40
 //     KB stages over 4,096 units with no L2 policy, took 1.14-1.16 ms.  K7
 //     over the f32 band and B2c took 8.18 and 7.88-7.91 ms on the CUDA-core
-//     body of csrc/banded_spmm.cu; their times here are in PERF.md.  K4's
-//     launch over the int8 band takes 1.13 ms, K6's 1.32 (9.0 and 9.3 on
-//     the CUDA-core body; the f32 torch.bmm 5.3): half of the 0.56 ms
-//     bound, the band at 1.19 TB/s.  Every variant of this body moves 26-30
-//     GB/s per SM into shared memory, so a launch takes the bytes it stages
-//     over that rate: role B over the int8 band stages 3 bytes a band byte
-//     (its f32 frame is read by both receiver tiles of a row block), K3 2.
-//     Two variants did not help: a cluster of the two receiver tiles with
-//     the frame box multicast to both (2.38 ms), and eight stages (1.13).
+//     body of csrc/banded_spmm.cu; their times here are in PERF.md.  Role B
+//     over the int8 band: K4's launch (and B3c's, which is K4's) 1.13 ms,
+//     K6's 1.31 (9.0, 9.3 and 8.4 on the CUDA-core bodies; the f32
+//     torch.bmm 5.3), half of the 0.56 ms bound; on a bf16 frame, the same
+//     band and body, 1.00 ms feature-major and 0.99 ms blocked (B3d).  A
+//     third fewer bytes staged (2.68 GB against 4.03) took 12 % and 24 %
+//     off: role B's stages take 0.80-1.06 us each, 16 KB or 24 KB, so its
+//     time is set mostly by the number of stages (the widening, the proxy
+//     fence and the named barrier of each), not by their bytes.  Two
+//     variants did not help: a cluster of the two receiver tiles with the
+//     frame box multicast to both (2.38 ms), and eight stages (1.13).
 //
 // Each C entry point returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for arguments it does not take (and for a tensor
@@ -236,20 +259,21 @@ constexpr int kTileF = 64;                             // features a unit: one 1
 constexpr int kBoxBytes = 64 * kRowBytes;              // 64 rows of 128 bytes: 8 KB
 constexpr int kSwizzleAtom = 1024;                     // 8 rows of 128 bytes
 
-// A stage of a band of type Band in role kRole: 128 bytes of senders (kK of
-// them) for each of 128 receivers, and those senders' rows of 64 bf16
-// features in each of the band's kFrames frames (three for the f32 band's
-// split x).  Role B over the int8 band (kWiden) stages 64 senders by 128
-// receivers of band and their f32 rows; after the ring come each consumer
-// warpgroup's two bf16 boxes of the widened band.
-template <Role kRole, typename Band>
+// A stage of a band of type Band in role kRole, with a frame of type Frame:
+// 128 bytes of senders (kK of them) for each of 128 receivers, and those
+// senders' rows of 64 features in each of the band's kFrames frames (three
+// for the f32 band's split x).  Role B over the int8 band (kWiden) stages 64
+// senders by 128 receivers of band and their rows of the frame, f32 (K4,
+// K6) or bf16 (B3c, B3d); after the ring come each consumer warpgroup's two
+// bf16 boxes of the widened band.  Every other stage's frame is bf16.
+template <Role kRole, typename Band, typename Frame>
 struct Stage {
   static constexpr bool kWiden = kRole != Role::kRowMajor && std::is_same_v<Band, int8_t>;
   static constexpr int kK = kWiden ? 64 : kRowBytes / sizeof(Band);  // senders: 32 f32, 64 bf16, 128 int8
   static constexpr int kSteps = kK / 16;                              // wgmma k-steps of 16 senders
   static constexpr int kFrames = std::is_same_v<Band, float> ? 3 : 1;
   static constexpr int kBandBytes = kWiden ? kBoxBytes : kTileR * kRowBytes;  // 8 or 16 KB
-  static constexpr int kFrameBytes = kK * kTileF * (kWiden ? 4 : 2);  // one frame's rows: 4, 8 or 16 KB
+  static constexpr int kFrameBytes = kK * kTileF * (int)sizeof(Frame);  // one frame's rows: 4, 8 or 16 KB
   static constexpr int kBytes = kBandBytes + kFrames * kFrameBytes;
   static constexpr int kWideBytes = kWiden ? kConsumerGroups * 2 * kBoxBytes : 0;
   static constexpr int kStages = 6;
@@ -445,6 +469,10 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return out;
 }
 
+// An A fragment's pair as bf16x2: an f32 pair rounded, a bf16 pair as it is.
+__device__ __forceinline__ uint32_t bf16x2(float2 v) { return pack_bf16x2(v.x, v.y); }
+__device__ __forceinline__ uint32_t bf16x2(uint32_t v) { return v; }
+
 // Two int8 values, bits 0-7 and 8-15 of v, times scale, as bf16x2: each
 // byte, its sign bit flipped (q + 128), becomes the f32 2^23 + q + 128, from
 // which one subtraction gives q exactly; then fl(q * scale) in f32, rounded
@@ -508,21 +536,26 @@ __device__ __forceinline__ void store_sums(const float (&acc)[32], const Params&
   }
 }
 
-template <Role kRole, typename Band, Fold kFold>
+template <Role kRole, typename Band, typename Frame, Fold kFold, bool kPastBlock>
 __global__ void __launch_bounds__(kThreads, 1)
     band_mma_kernel(__grid_constant__ const CUtensorMap band_map,
                     __grid_constant__ const CUtensorMap frame_map, const Params p) {
-  using S = Stage<kRole, Band>;
+  using S = Stage<kRole, Band, Frame>;
   constexpr bool kRowMajor = kRole == Role::kRowMajor;
   constexpr bool kInt8 = std::is_same_v<Band, int8_t>;  // widened in registers (role A) or shared memory (role B)
   constexpr bool kF32 = std::is_same_v<Band, float>;    // split in registers
+  constexpr bool kF32Frame = std::is_same_v<Frame, float>;  // rounded in registers (K4, K6)
+  constexpr bool kXT = kRole == Role::kFeatureMajor && kF32Frame;  // K4: a 2-D map over xT
   constexpr bool kFoldBf16 = kFold == Fold::kIntoTileBf16;
   constexpr bool kScaledDot = (kInt8 && !kFoldBf16) || !kRowMajor;
   static_assert(kRowMajor || kInt8 || std::is_same_v<Band, __nv_bfloat16>,
                 "role B takes a bf16 or an int8 band");
   static_assert(kRole != Role::kBlocked || kInt8, "the blocked layout takes the int8 band");
+  static_assert(std::is_same_v<Frame, __nv_bfloat16> || (S::kWiden && kF32Frame),
+                "a bf16 frame, or an f32 one for role B over the int8 band");
   static_assert(kInt8 || !kFoldBf16, "only an int8 band has a scale to fold");
   static_assert(kRowMajor || !kFoldBf16, "role B keeps the scale on the dot");
+  static_assert(kXT || !kPastBlock, "only K4's 2-D map reads past the block");
   __shared__ __align__(8) uint64_t full_bar[S::kStages];
   __shared__ __align__(8) uint64_t empty_bar[S::kStages];
   extern __shared__ uint8_t smem_raw[];
@@ -569,19 +602,28 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int f = 0; f < S::kFrames; ++f)
               tma_load(frame + f * S::kFrameBytes, &frame_map, full, f0, s0, f * blocks + blk, keep);
           } else if constexpr (S::kWiden) {
-            // band box {128 receivers, 64 senders, 1 tile}; two f32 frame
-            // boxes {32 senders, 64 features}: K4's at sender (rb + d - W) *
-            // fblock + s of its 2-D map over xT (below 0 or past the map's
-            // extent is zero fill), K6's at sender s of block rb + d
+            // band box {128 receivers, 64 senders, 1 tile}
             tma_load(band, &band_map, full, r0, s0, tile, stream);
+            if constexpr (kF32Frame) {
+              // two f32 frame boxes {32 senders, 64 features}: K4's at sender
+              // (rb + d - W) * fblock + s of its 2-D map over xT (below 0 or
+              // past the map's extent is zero fill), K6's at sender s of
+              // block rb + d
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              if constexpr (kRole == Role::kBlocked) {
-                tma_load(frame + h * kBoxBytes, &frame_map, full, s0 + 32 * h, f0, blk, keep);
-              } else {
-                tma_load_2d(frame + h * kBoxBytes, &frame_map, full,
-                            (rb + d - p.W) * p.fblock + s0 + 32 * h, f0, keep);
+              for (int h = 0; h < 2; ++h) {
+                if constexpr (kXT) {
+                  tma_load_2d(frame + h * kBoxBytes, &frame_map, full,
+                              (rb + d - p.W) * p.fblock + s0 + 32 * h, f0, keep);
+                } else {
+                  tma_load(frame + h * kBoxBytes, &frame_map, full, s0 + 32 * h, f0, blk, keep);
+                }
               }
+            } else if constexpr (kRole == Role::kBlocked) {
+              // one bf16 frame box {64 senders, 64 features, 1 block} (B3d)
+              tma_load(frame, &frame_map, full, s0, f0, blk, keep);
+            } else {
+              // one bf16 frame box {64 senders, 1 block, 64 features} (B3c), B3a's
+              tma_load(frame, &frame_map, full, s0, blk, f0, keep);
             }
           } else {
             // two band boxes {64 receivers, 64 senders, 1 tile}; frame box {64 senders, 1 block, 64 features}
@@ -612,16 +654,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     // this warpgroup's two bf16 boxes, after the ring
     const uint32_t wide = ring + S::kStages * S::kBytes + group * 2 * kBoxBytes;
     uint8_t* const wide_ptr = smem_raw + (wide - smem_u32(smem_raw));
-    // the A fragment in a 32-sender f32 box: senders 16 kk + pair (+1) at
-    // byte 64 kk + 4 pair, chunk 4 kk + pair / 4, and + 8 senders two
-    // chunks on, each chunk ^ quad (the row's % 8)
-    int a_off[2][2];
+    // the A fragment's pairs in a stage's frame, from its row 16 warp +
+    // quad: senders 16 k + pair (+1) of k-step k (h = 0) and 8 on (h = 1),
+    // each 16-byte chunk ^ quad (the row's % 8).  An f32 frame: box k / 2
+    // of 32 senders, byte 64 (k % 2) + 32 h + 4 pair, a 64-bit load; a bf16
+    // frame: one box of 64 senders, byte 32 k + 16 h + 2 pair, a 32-bit load
+    int a_off[S::kSteps][2];
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      a_off[kk][0] = (((4 * kk + pair / 4) ^ quad) << 4) + 4 * (pair % 4);
-      a_off[kk][1] = (((4 * kk + 2 + pair / 4) ^ quad) << 4) + 4 * (pair % 4);
-    }
+    for (int k = 0; k < S::kSteps; ++k)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        a_off[k][h] = kF32Frame ? (k >> 1) * kBoxBytes + (((4 * (k & 1) + 2 * h + pair / 4) ^ quad) << 4) +
+                                      4 * (pair % 4)
+                                : (((2 * k + h) ^ quad) << 4) + 2 * pair;
     const int frag_row = (16 * warp + quad) * kRowBytes;
+    using Pair = std::conditional_t<kF32Frame, float2, uint32_t>;
     int stage = 0, buf = 0;
     uint32_t phase = 0;
     float acc[32], dot[32];
@@ -651,27 +698,37 @@ __global__ void __launch_bounds__(kThreads, 1)
             *reinterpret_cast<uint4*>(wb + hi_off + h * 32 * kRowBytes) =
                 make_uint4(widen2(v.z), widen2(v.z >> 16), widen2(v.w), widen2(v.w >> 16));
           }
-          // the A fragment's f32 pairs of all k-steps (0-1 in the first frame
-          // box, senders 0-31; 2-3 in the second), loaded while they run too
+          // the A fragment's pairs of all k-steps, loaded while they run too
           const uint8_t* const frame = st + S::kBandBytes + frag_row;
-          float2 x[S::kSteps][4];
+          Pair x[S::kSteps][4];
 #pragma unroll
           for (int k = 0; k < S::kSteps; ++k) {
-            const uint8_t* const rows = frame + (k >> 1) * kBoxBytes;
-            const int c0 = a_off[k & 1][0], c1 = a_off[k & 1][1];
-            x[k][0] = *reinterpret_cast<const float2*>(rows + c0);
-            x[k][1] = *reinterpret_cast<const float2*>(rows + 8 * kRowBytes + c0);
-            x[k][2] = *reinterpret_cast<const float2*>(rows + c1);
-            x[k][3] = *reinterpret_cast<const float2*>(rows + 8 * kRowBytes + c1);
+            const int c0 = a_off[k][0], c1 = a_off[k][1];
+            x[k][0] = *reinterpret_cast<const Pair*>(frame + c0);
+            x[k][1] = *reinterpret_cast<const Pair*>(frame + 8 * kRowBytes + c0);
+            x[k][2] = *reinterpret_cast<const Pair*>(frame + c1);
+            x[k][3] = *reinterpret_cast<const Pair*>(frame + 8 * kRowBytes + c1);
           }
           // the last stage's products read the fragment registers: let them
-          // finish, then round the pairs into them
+          // finish, then put the pairs into them (an f32 frame rounded)
           wgmma_wait_all();
           fence_fragments(a);
+          if (kPastBlock && kc == nk - 1) {
+            // K4 where b_pad is not a multiple of 64: its 2-D map reads the
+            // tile's last stage on past the block, into the next node
+            // blocks' x, which meets band rows of zero fill.  Those k-steps
+            // are set to zero, so a non-finite x there cannot enter (0 * Inf
+            // is NaN)
 #pragma unroll
-          for (int k = 0; k < S::kSteps; ++k)
+            for (int k = 0; k < S::kSteps; ++k)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) a[k][j] = pack_bf16x2(x[k][j].x, x[k][j].y);
+              for (int j = 0; j < 4; ++j) a[k][j] = kc * S::kK + 16 * k < p.b_pad ? bf16x2(x[k][j]) : 0u;
+          } else {
+#pragma unroll
+            for (int k = 0; k < S::kSteps; ++k)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) a[k][j] = bf16x2(x[k][j]);
+          }
           // nothing reads the stage again: it goes back before the products run
           __syncwarp();
           if (lane == 0) mbar_arrive(smem_u32(&empty_bar[stage]));
@@ -896,7 +953,8 @@ bool valid(int nb, int W, int b, int b_pad, int F) {
          (long long)nb * (2 * W + 1) < 0x7fffffffLL;
 }
 
-template <Role kRole, typename Band, Fold kFold = Fold::kOnDot>
+template <Role kRole, typename Band, typename Frame = __nv_bfloat16, Fold kFold = Fold::kOnDot,
+          bool kPastBlock = false>
 int launch(const CUtensorMap& band_map, const CUtensorMap& frame_map, Params p, void* stream) {
   p.mtiles = (p.b_pad + kTileR - 1) / kTileR;
   const long long units = (long long)p.nb * p.mtiles * p.ftiles;
@@ -904,8 +962,8 @@ int launch(const CUtensorMap& band_map, const CUtensorMap& frame_map, Params p, 
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  auto kernel = band_mma_kernel<kRole, Band, kFold>;
-  constexpr int smem = Stage<kRole, Band>::kSmemBytes;
+  auto kernel = band_mma_kernel<kRole, Band, Frame, kFold, kPastBlock>;
+  constexpr int smem = Stage<kRole, Band, Frame>::kSmemBytes;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)(units < sms ? units : sms);
@@ -922,14 +980,54 @@ int launch_rowmajor(const Band* band, const float* scales, const __nv_bfloat16* 
   if (!valid(nb, W, block, block_pad, F) || F_pad < F || F_pad % 8 != 0 || num_nodes <= 0 ||
       num_nodes > (long long)nb * block || (std::is_same_v<Band, int8_t> && scales == nullptr))
     return (int)cudaErrorInvalidValue;
-  using S = Stage<Role::kRowMajor, Band>;
+  using S = Stage<Role::kRowMajor, Band, __nv_bfloat16>;
   const uint64_t bp = block_pad, D = 2 * W + 1, blocks = (uint64_t)nb + 2 * W;
   CUtensorMap band_map, frame_map;
   if (!tensor_map(&band_map, band, bp, bp, (uint64_t)nb * D, S::kK, kTileR, 1) ||
       !tensor_map(&frame_map, frame, (uint64_t)F_pad, bp, S::kFrames * blocks, kTileF, S::kK, 1))
     return (int)cudaErrorInvalidValue;
   Params p{scales, out, nb, W, block, block_pad, F, 0, (F_pad + kTileF - 1) / kTileF, num_nodes, F, 0, 0};
-  return launch<Role::kRowMajor, Band, kFold>(band_map, frame_map, p, stream);
+  return launch<Role::kRowMajor, Band, __nv_bfloat16, kFold>(band_map, frame_map, p, stream);
+}
+
+// Role B, feature-major, on a bf16 frame x_pad [F, (nb + 2W) * block_pad] in
+// the W-shifted padded frame: over a bf16 band (B3a, two 64-receiver band
+// boxes a stage) or the int8 band (B3c, one 128-receiver box, widened).
+template <typename Band>
+int launch_fm_bf16_frame(const Band* band_T, const float* scales, const __nv_bfloat16* x_pad,
+                         float* outT, int nb, int W, int block, int block_pad, int F, long long ldo,
+                         long long num_cols, void* stream) {
+  if (!valid(nb, W, block, block_pad, F) || scales == nullptr || num_cols <= 0 ||
+      num_cols > (long long)nb * block || ldo < num_cols)
+    return (int)cudaErrorInvalidValue;
+  using S = Stage<Role::kFeatureMajor, Band, __nv_bfloat16>;
+  const uint64_t bp = block_pad, D = 2 * W + 1, blocks = (uint64_t)nb + 2 * W;
+  CUtensorMap band_map, frame_map;
+  if (!tensor_map(&band_map, band_T, bp, bp, (uint64_t)nb * D, S::kWiden ? kTileR : 64, S::kK, 1) ||
+      !tensor_map(&frame_map, x_pad, bp, blocks, (uint64_t)F, S::kK, 1, kTileF))
+    return (int)cudaErrorInvalidValue;
+  Params p{scales, outT, nb, W, block, block_pad, F, 0, (F + kTileF - 1) / kTileF, num_cols, ldo, block, 0};
+  return launch<Role::kFeatureMajor, Band>(band_map, frame_map, p, stream);
+}
+
+// Role B over the int8 band, blocked, on the frame xb_pad [nb + 2W, F,
+// block_pad], f32 (K6) or bf16 (B3d).
+template <typename Frame>
+int launch_blocked(const int8_t* band_qT, const float* scales, const Frame* xb_pad, float* out, int nb,
+                   int W, int block, int block_pad, int F, void* stream) {
+  if (!valid(nb, W, block, block_pad, F) || scales == nullptr ||
+      (long long)nb * block > 0x7fffffffLL || reinterpret_cast<uintptr_t>(xb_pad) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  using S = Stage<Role::kBlocked, int8_t, Frame>;
+  const uint64_t bp = block_pad, D = 2 * W + 1, blocks = (uint64_t)nb + 2 * W;
+  CUtensorMap band_map, frame_map;
+  // frame boxes of 128-byte rows: {32 f32 or 64 bf16 senders, 64 features, 1 block}
+  if (!tensor_map(&band_map, band_qT, bp, bp, (uint64_t)nb * D, kTileR, S::kK, 1) ||
+      !tensor_map(&frame_map, xb_pad, bp, (uint64_t)F, blocks, kRowBytes / (int)sizeof(Frame), kTileF, 1))
+    return (int)cudaErrorInvalidValue;
+  Params p{scales, out, nb, W, block, block_pad, F, 0, (F + kTileF - 1) / kTileF,
+           (long long)nb * block, block, (long long)F * block, 0};
+  return launch<Role::kBlocked, int8_t, Frame>(band_map, frame_map, p, stream);
 }
 
 }  // namespace
@@ -989,17 +1087,19 @@ int cgt_banded_spmm_direct_f32(const float* band, const __nv_bfloat16* frames, f
 int cgt_fm_bf16_band(const __nv_bfloat16* band_T, const float* scales, const __nv_bfloat16* x_pad,
                      float* outT, int nb, int W, int block, int block_pad, int F, long long ldo,
                      long long num_cols, void* stream) {
-  if (!valid(nb, W, block, block_pad, F) || num_cols <= 0 || num_cols > (long long)nb * block ||
-      ldo < num_cols)
-    return (int)cudaErrorInvalidValue;
-  const uint64_t bp = block_pad, D = 2 * W + 1, blocks = (uint64_t)nb + 2 * W;
-  constexpr int kK = Stage<Role::kFeatureMajor, __nv_bfloat16>::kK;
-  CUtensorMap band_map, frame_map;
-  if (!tensor_map(&band_map, band_T, bp, bp, (uint64_t)nb * D, 64, kK, 1) ||
-      !tensor_map(&frame_map, x_pad, bp, blocks, (uint64_t)F, kK, 1, kTileF))
-    return (int)cudaErrorInvalidValue;
-  Params p{scales, outT, nb, W, block, block_pad, F, 0, (F + kTileF - 1) / kTileF, num_cols, ldo, block, 0};
-  return launch<Role::kFeatureMajor, __nv_bfloat16>(band_map, frame_map, p, stream);
+  return launch_fm_bf16_frame(band_T, scales, x_pad, outT, nb, W, block, block_pad, F, ldo, num_cols,
+                              stream);
+}
+
+// K4's function (B3c's) on the bf16 frame: band_qT [nb, 2W+1, block_pad,
+// block_pad] int8 (transposed tiles, zero past block) with scales [nb,
+// 2W+1]; x_pad and outT as for B3a.  No entry point of the port calls it:
+// chip_smoke.py times it against K4's launch, B3c's route.
+int cgt_banded_spmm_quant_fm_bf16(const int8_t* band_qT, const float* scales,
+                                  const __nv_bfloat16* x_pad, float* outT, int nb, int W, int block,
+                                  int block_pad, int F, long long ldo, long long num_cols, void* stream) {
+  return launch_fm_bf16_frame(band_qT, scales, x_pad, outT, nb, W, block, block_pad, F, ldo, num_cols,
+                              stream);
 }
 
 // K4 banded_spmm_quant_fm, and its backward launch over the transposed
@@ -1016,7 +1116,7 @@ int cgt_banded_spmm_quant_fm(const int8_t* band_qT, const float* scales, const f
       ldx % 4 != 0 || reinterpret_cast<uintptr_t>(xT) % 16 != 0 ||
       (long long)(nb + W) * x_block + block_pad > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  using S = Stage<Role::kFeatureMajor, int8_t>;
+  using S = Stage<Role::kFeatureMajor, int8_t, float>;
   const uint64_t bp = block_pad, D = 2 * W + 1;
   const cuuint64_t dims[2] = {(cuuint64_t)x_cols, (cuuint64_t)F}, strides[1] = {(cuuint64_t)ldx * 4};
   const cuuint32_t box[2] = {32, kTileF};
@@ -1026,7 +1126,11 @@ int cgt_banded_spmm_quant_fm(const int8_t* band_qT, const float* scales, const f
     return (int)cudaErrorInvalidValue;
   Params p{scales, outT, nb, W, block, block_pad, F, 0, (F + kTileF - 1) / kTileF, num_nodes,
            num_nodes, block, x_block};
-  return launch<Role::kFeatureMajor, int8_t>(band_map, frame_map, p, stream);
+  // a block that is not a multiple of a stage's 64 senders takes the
+  // instantiation that masks the reads past it; the main shape's does not
+  return block_pad % S::kK != 0
+             ? launch<Role::kFeatureMajor, int8_t, float, Fold::kOnDot, true>(band_map, frame_map, p, stream)
+             : launch<Role::kFeatureMajor, int8_t, float>(band_map, frame_map, p, stream);
 }
 
 // K6 banded_spmm_quant_blocked: band_qT and scales as for K4; xb_pad [nb +
@@ -1036,18 +1140,15 @@ int cgt_banded_spmm_quant_fm(const int8_t* band_qT, const float* scales, const f
 int cgt_banded_spmm_quant_blocked(const int8_t* band_qT, const float* scales, const float* xb_pad,
                                   float* out, int nb, int W, int block, int block_pad, int F,
                                   void* stream) {
-  if (!valid(nb, W, block, block_pad, F) || scales == nullptr ||
-      (long long)nb * block > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  using S = Stage<Role::kBlocked, int8_t>;
-  const uint64_t bp = block_pad, D = 2 * W + 1, blocks = (uint64_t)nb + 2 * W;
-  CUtensorMap band_map, frame_map;
-  if (!tensor_map(&band_map, band_qT, bp, bp, (uint64_t)nb * D, kTileR, S::kK, 1) ||
-      !tensor_map(&frame_map, xb_pad, bp, (uint64_t)F, blocks, 32, kTileF, 1))
-    return (int)cudaErrorInvalidValue;
-  Params p{scales, out, nb, W, block, block_pad, F, 0, (F + kTileF - 1) / kTileF,
-           (long long)nb * block, block, (long long)F * block, 0};
-  return launch<Role::kBlocked, int8_t>(band_map, frame_map, p, stream);
+  return launch_blocked(band_qT, scales, xb_pad, out, nb, W, block, block_pad, F, stream);
+}
+
+// B3d fm_blocked, K6's function on a bf16 frame: band_qT and scales as for
+// K4; xb_pad [nb + 2W, F, block_pad] bf16 (zero past block); out as for K6.
+int cgt_banded_spmm_quant_blocked_bf16(const int8_t* band_qT, const float* scales,
+                                       const __nv_bfloat16* xb_pad, float* out, int nb, int W,
+                                       int block, int block_pad, int F, void* stream) {
+  return launch_blocked(band_qT, scales, xb_pad, out, nb, W, block, block_pad, F, stream);
 }
 
 }  // extern "C"

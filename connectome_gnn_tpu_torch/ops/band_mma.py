@@ -1,7 +1,7 @@
 """Operands and launches of the tensor-core band body, ``csrc/band_mma.cu``.
 
-That body serves K3, K4, K6 and B2c over the int8 band, K7 over a float32
-or bfloat16 band, and B2a and B3a over a bfloat16 band.  Role A is row-major:
+That body serves K3, K4, K6, B2c, B3c and B3d over the int8 band, K7 over a
+float32 or bfloat16 band, and B2a and B3a over a bfloat16 band.  Role A is row-major:
 ``out[rb·b + r] = Σ_d scale[rb, d] · (tile[rb, d] @ x̂[rb + d])`` for the
 int8 band with its per-tile scales (widened to bfloat16 in the kernel's
 registers, which is exact; with B2c's ``wrow_bf16`` each scale is folded
@@ -10,15 +10,17 @@ without scales for a bfloat16 band (K7, B2a) and a float32 band (K7), whose
 every value the kernel splits exactly into three bfloat16 terms, as
 :func:`split_bf16x3` splits ``x`` into three frames.  Role B is
 feature-major, with per-dot scales: B3a's ``fm_bf16_band`` over a bfloat16
-band and frame, and K4 and K6 over the int8 band, which the kernel widens
-to bfloat16 in shared memory, with float32 ``x`` that it rounds to bfloat16
-in registers (K4 reads the caller's ``xT`` itself, K6 its blocked padded
-frame).  Its products are ``wgmma`` on tiles staged by TMA, and TMA needs
+band and frame, and K4, K6, B3c and B3d over the int8 band, which the
+kernel widens to bfloat16 in shared memory.  K4 and K6 take float32 ``x``,
+which the kernel rounds to bfloat16 in registers (K4 reads the caller's
+``xT`` itself, K6 its blocked padded frame); B3c and B3d take the bfloat16
+frame their TPU functions take (B3c B3a's feature-major one, B3d a blocked
+one).  Its products are ``wgmma`` on tiles staged by TMA, and TMA needs
 16-byte global strides.  So the wrappers hand it the band and the frame
 padded with zeros where they are not: the block to ``b' = ⌈b/16⌉·16`` and,
-in role A, the features to ``F' = ⌈F/8⌉·8``; K4's and K6's ``x`` is copied
-once, padded, where its block is not a multiple of 16, its row stride not
-a multiple of 4 elements or its base not 16-byte aligned
+in role A, the features to ``F' = ⌈F/8⌉·8``; K4's, K6's and B3d's ``x`` is
+copied once, padded, where its block is not a multiple of 16, its row
+stride not a multiple of 4 elements (K4) or its base not 16-byte aligned
 (:func:`fm_x_operand`, :func:`blocked_x_operand`).  Zero senders and
 receivers change no sum; the kernel stores only the caller's ``b``
 receivers a block and ``F`` features.  At the main shape (``b = 256``,
@@ -196,9 +198,9 @@ def fm_x_operand(xT: torch.Tensor, num_nodes: int, num_blocks: int,
 
 
 def blocked_x_operand(xb_pad: torch.Tensor, block: int) -> torch.Tensor:
-    """K6's float32 padded blocked frame ``[NB + 2W, F, b]`` as its 3-D tensor
-    map reads it, ``[NB + 2W, F, b']``: itself where ``b' = b`` and its base
-    is 16-byte aligned, else a zero-padded copy."""
+    """K6's float32 (or B3d's bfloat16) padded blocked frame ``[NB + 2W, F,
+    b]`` as its 3-D tensor map reads it, ``[NB + 2W, F, b']``: itself where
+    ``b' = b`` and its base is 16-byte aligned, else a zero-padded copy."""
     bp = padded(block, BLOCK_MULTIPLE)
     if bp == block and xb_pad.data_ptr() % 16 == 0:
         return xb_pad
@@ -224,10 +226,13 @@ def fm_on_operands(band_p: torch.Tensor, scales: torch.Tensor, x_pad_p: torch.Te
                    block: int) -> torch.Tensor:
     """Role B's function on its prepared operands, in plain torch:
     ``[F, NB·block]`` float32.  The frame is rounded to bfloat16 first (a
-    no-op for B3a's bfloat16 frame; K4's and K6's float32 ``x``, as the
-    kernel rounds it in registers); an int8 band is exact in float32."""
+    no-op for the bfloat16 frames of B3a, B3c and B3d; K4's and K6's float32
+    ``x``, as the kernel rounds it in registers); an int8 band is exact in
+    float32.  Where nothing is padded it is the plain versions' arithmetic
+    op for op (``banded_quant._windows_times_band``), so bit for bit."""
     nb, bp, F = band_p.shape[0], band_p.shape[2], x_pad_p.shape[0]
-    xw = x_pad_p.to(torch.bfloat16).to(torch.float32).view(F, nb + 2 * W, bp).permute(1, 0, 2)
+    xw = x_pad_p.to(torch.bfloat16).to(torch.float32).view(F, nb + 2 * W, bp)
+    xw = xw.permute(1, 0, 2).contiguous()
     out = xw.new_zeros((nb, F, bp))
     for d in range(2 * W + 1):
         out += scales[:, d, None, None] * torch.bmm(xw[d : d + nb], band_p[:, d].to(torch.float32))
@@ -279,33 +284,42 @@ def launch_rowmajor(kind: str, band_p: torch.Tensor, frame: torch.Tensor, num_no
 
 def blocked_on_operands(band_p: torch.Tensor, scales: torch.Tensor, xb: torch.Tensor, W: int,
                         block: int) -> torch.Tensor:
-    """K6's function on its prepared operands (the padded int8 band and
-    :func:`blocked_x_operand`'s frame ``[NB + 2W, F, b']``), in plain torch:
-    ``[NB, F, block]`` float32."""
+    """K6's and B3d's function on its prepared operands (the padded int8 band
+    and :func:`blocked_x_operand`'s float32 or bfloat16 frame ``[NB + 2W, F,
+    b']``), in plain torch: ``[NB, F, block]`` float32."""
     nb, F = band_p.shape[0], xb.shape[1]
     out = fm_on_operands(band_p, scales, xb.permute(1, 0, 2).reshape(F, -1), W, block)
     return out.view(F, nb, block).permute(1, 0, 2)
 
 
+#: role B's feature-major entry point on the bfloat16 frame, by band type
+FM_BF16_FRAME_ENTRIES = {torch.bfloat16: "cgt_fm_bf16_band", torch.int8: "cgt_banded_spmm_quant_fm_bf16"}
+
+
 def launch_fm(kind: str, band_p: torch.Tensor, scales: torch.Tensor, x_pad_p: torch.Tensor, W: int,
               block: int) -> torch.Tensor:
-    """Role B on CUDA operands (the padded band of transposed tiles, its
-    scales, the frame from :func:`fm_frame`); returns ``[F, NB·block]``
-    float32."""
+    """Role B on CUDA operands: the padded band of transposed tiles,
+    bfloat16 (B3a's ``fm_bf16_band``) or int8 (B3c's ``fm_deep``), its
+    scales, and the bfloat16 frame from :func:`fm_frame`; returns ``[F,
+    NB·block]`` float32."""
     nb, bp, F = band_p.shape[0], band_p.shape[2], x_pad_p.shape[0]
-    _check(kind, band_p, x_pad_p, (F, (nb + 2 * W) * bp))
+    band_dtype = band_p.dtype if band_p.dtype in FM_BF16_FRAME_ENTRIES else torch.bfloat16
+    _check(kind, band_p, x_pad_p, (F, (nb + 2 * W) * bp), band_dtype)
     out = torch.empty((F, nb * block), dtype=torch.float32, device=x_pad_p.device)
-    _launch(kind, "cgt_fm_bf16_band", band_p.data_ptr(), scales.data_ptr(), x_pad_p.data_ptr(),
-            out.data_ptr(), nb, W, block, bp, F, nb * block, nb * block, _stream(x_pad_p.device))
+    _launch(kind, FM_BF16_FRAME_ENTRIES[band_dtype], band_p.data_ptr(), scales.data_ptr(),
+            x_pad_p.data_ptr(), out.data_ptr(), nb, W, block, bp, F, nb * block, nb * block,
+            _stream(x_pad_p.device))
     return out
 
 
-def _check_int8_band(kind: str, band_p: torch.Tensor, x: torch.Tensor) -> None:
+def _check_int8_band(kind: str, band_p: torch.Tensor, x: torch.Tensor,
+                     x_dtypes=(torch.float32,)) -> None:
     if band_p.dtype != torch.int8 or not band_p.is_contiguous() or band_p.shape[2] % BLOCK_MULTIPLE:
         raise ValueError(f"{kind}: the padded band must be contiguous int8 [NB, D, b', b'] with b' a "
                          f"multiple of {BLOCK_MULTIPLE}, got {band_p.dtype} {tuple(band_p.shape)}")
-    if x.dtype != torch.float32 or x.device != band_p.device:
-        raise ValueError(f"{kind}: x must be float32 on {band_p.device}, got {x.dtype} on {x.device}")
+    if x.dtype not in x_dtypes or x.device != band_p.device:
+        names = " or ".join(str(t).removeprefix("torch.") for t in x_dtypes)
+        raise ValueError(f"{kind}: x must be {names} on {band_p.device}, got {x.dtype} on {x.device}")
 
 
 def launch_fm_int8(kind: str, band_p: torch.Tensor, scales: torch.Tensor, x: torch.Tensor,
@@ -326,17 +340,23 @@ def launch_fm_int8(kind: str, band_p: torch.Tensor, scales: torch.Tensor, x: tor
     return out
 
 
+#: role B's blocked entry point over the int8 band, by frame type
+BLOCKED_ENTRIES = {torch.float32: "cgt_banded_spmm_quant_blocked",
+                   torch.bfloat16: "cgt_banded_spmm_quant_blocked_bf16"}
+
+
 def launch_blocked(kind: str, band_p: torch.Tensor, scales: torch.Tensor, xb: torch.Tensor, W: int,
                    block: int) -> torch.Tensor:
     """Role B over the padded int8 band of transposed tiles and its scales,
-    on :func:`blocked_x_operand`'s frame ``[NB + 2W, F, b']``: K6's launch.
-    Returns ``[NB, F, block]`` float32."""
-    _check_int8_band(kind, band_p, xb)
+    on :func:`blocked_x_operand`'s frame ``[NB + 2W, F, b']``: K6's launch on
+    a float32 frame, B3d's on a bfloat16 one.  Returns ``[NB, F, block]``
+    float32."""
+    _check_int8_band(kind, band_p, xb, tuple(BLOCKED_ENTRIES))
     nb, bp, F = band_p.shape[0], band_p.shape[2], xb.shape[1]
     if tuple(xb.shape) != (nb + 2 * W, F, bp) or not xb.is_contiguous():
         raise ValueError(f"{kind}: the frame must be contiguous [{nb + 2 * W}, F, {bp}], got "
                          f"{tuple(xb.shape)}")
     out = torch.empty((nb, F, block), dtype=torch.float32, device=xb.device)
-    _launch(kind, "cgt_banded_spmm_quant_blocked", band_p.data_ptr(), scales.data_ptr(),
-            xb.data_ptr(), out.data_ptr(), nb, W, block, bp, F, _stream(xb.device))
+    _launch(kind, BLOCKED_ENTRIES[xb.dtype], band_p.data_ptr(), scales.data_ptr(), xb.data_ptr(),
+            out.data_ptr(), nb, W, block, bp, F, _stream(xb.device))
     return out

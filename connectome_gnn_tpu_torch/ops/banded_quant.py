@@ -433,16 +433,17 @@ def banded_spmm_quant_kernel(q: QuantizedBandedMatrix, x: torch.Tensor) -> torch
     return out
 
 
-def banded_spmm_quant_fm_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
-    """Launch K4 on CUDA tensors: ``(A_q @ x)ᵀ`` for ``xT [F, ≥num_nodes]``
-    float32; returns ``[F, num_nodes]`` float32.  The kernel reads ``xT``
-    itself; it is copied once, padded, only where its block is not a
-    multiple of 16 or TMA cannot take its rows
+def launch_fm_int8_on_xT(kind: str, kernel, q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
+    """K4's launch on CUDA tensors, counted as a launch of ``kernel``:
+    ``(A_q @ x)ᵀ`` for ``xT [F, ≥num_nodes]`` float32; returns ``[F,
+    num_nodes]`` float32.  The kernel reads ``xT`` itself; it is copied
+    once, padded, only where its block is not a multiple of 16 or TMA
+    cannot take its rows
     (:func:`~connectome_gnn_tpu_torch.ops.band_mma.fm_x_operand`), and the
     band is padded likewise."""
     from connectome_gnn_tpu_torch.ops import band_mma  # it imports this module
 
-    kind, n, F = "K4 banded_spmm_quant_fm", q.num_nodes, xT.shape[0]
+    n, F = q.num_nodes, xT.shape[0]
     _check_band(kind, q.band_qT, q.scales, xT.device)
     _check_activations(kind, xT, F, n, torch.float32)
     if -(-F // TILE_N) > MAX_GRID_Y:
@@ -453,8 +454,15 @@ def banded_spmm_quant_fm_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tensor) ->
         x, x_block, x_cols = band_mma.fm_x_operand(xT, n, q.num_blocks, q.block)
         out = band_mma.launch_fm_int8(kind, band_mma.pad_band(q.band_qT), q.scales, x, x_block, x_cols,
                                       n, q.bandwidth, q.block)
-    banded_spmm_quant_fm_kernel.launches += 1
+    kernel.launches += 1
     return out
+
+
+def banded_spmm_quant_fm_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
+    """Launch K4 on CUDA tensors: ``(A_q @ x)ᵀ`` for ``xT [F, ≥num_nodes]``
+    float32; returns ``[F, num_nodes]`` float32
+    (:func:`launch_fm_int8_on_xT`)."""
+    return launch_fm_int8_on_xT("K4 banded_spmm_quant_fm", banded_spmm_quant_fm_kernel, q, xT)
 
 
 def banded_spmm_quant_fm_w8a8_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:

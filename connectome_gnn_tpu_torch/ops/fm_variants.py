@@ -17,8 +17,8 @@ B3a     :func:`fm_w8a8`             K5's function on given int8 operands (it doe
 B3b     :func:`fm_compute_only`     every chunk's dots against panel 0 with
                                     loop-variant indices; returns chunk i*'s panel
                                     ``[F, R·block]``
-B3c     :func:`fm_deep`             K4's function through an S-deep ring with the band
-                                    copy split into K groups
+B3c     :func:`fm_deep`             K4's function (the TPU kernel's S-deep ring with the
+                                    band copy split into K groups)
 B3d     :func:`fm_blocked`          K4's function on blocked bfloat16 ``xb [NB + 2W, F,
                                     block]``, returning ``[NB, F, block]``
 ======  ==========================  =================================================
@@ -42,12 +42,23 @@ not depend on R, the depth S or the band splits K.  Where JAX asserts
 :data:`DEPTHS`, a split outside :data:`BAND_SPLITS` and, for
 ``fm_dma_only``, ``F > block``.
 
-Every kernel but ``fm_bf16_band`` is an instantiation of the pipelined
-body in ``csrc/fm_pipeline.cu`` (an S-stage ``cp.async`` ring; ``fm_deep``'s
-``depth`` is its S), and needs a block that is a multiple of 16.
-``fm_bf16_band`` is role B of the tensor-core body ``csrc/band_mma.cu``
-(``wgmma`` on tiles staged by TMA), which takes any block: its wrapper pads
-the band and the frame to a multiple of 16 with zeros (:mod:`band_mma`).
+``fm_dma_only``, ``fm_w8a8`` and ``fm_compute_only`` are instantiations of
+the pipelined body in ``csrc/fm_pipeline.cu`` (the TPU kernel's two-stage
+``cp.async`` ring), and need a block that is a multiple of 16.
+``fm_bf16_band``, ``fm_deep`` and ``fm_blocked`` are role B of the
+tensor-core body ``csrc/band_mma.cu`` (``wgmma`` on tiles staged by TMA):
+``fm_bf16_band`` over its bfloat16 band, ``fm_deep`` and ``fm_blocked``
+over the int8 band, which the kernel widens to bfloat16 in shared memory.
+``fm_blocked`` reads its caller's bfloat16 blocked frame.  ``fm_deep`` is
+K4's launch on the caller's float32 ``xT``, which the kernel rounds to
+bfloat16 in registers as ``pad_xT`` casts it: the same function bit for
+bit as role B's launch on ``pad_xT``'s bfloat16 frame, without the pad
+pass, and faster on the H100 than that pass and launch together
+(``chip_smoke.py`` phase 22 times both).  That body takes any block: the
+wrappers pad the band and the frame to a multiple of 16 with zeros where
+it is not one (:mod:`band_mma`).  Its schedule is its own, so
+``rows_per_step``, ``depth`` and ``band_splits`` are checked as the TPU
+kernels take them and shape nothing.
 Beside each kernel sit its plain PyTorch version (``*_reference``, the
 oracle of the tests and of ``chip_smoke.py``) and a launch counter
 (``*_kernel.launches``).  The entry points take the plain version for CPU
@@ -71,15 +82,17 @@ from connectome_gnn_tpu_torch.ops.banded_quant import (
     _stream,
     _windows_times_band,
     banded_spmm_quant_fm_reference,
+    launch_fm_int8_on_xT,
     quantize_activations_fm,
     w8a8_windows_times_band,
 )
 
-#: the pipeline depths (S) the kernels are built for: those the script sweeps
+#: the pipeline depths (S) ``fm_deep`` and ``fm_blocked`` take: those the script sweeps
 DEPTHS = (2, 3, 4, 6, 8)
-#: the band splits (K) the kernels take
+#: the band splits (K) ``fm_deep`` takes
 BAND_SPLITS = (1, 2, 4)
-#: the kernels stage 16-byte rows, so the block must be a multiple of this
+#: the ``fm_pipeline.cu`` kernels stage 16-byte rows, so their block must be
+#: a multiple of this
 BLOCK_MULTIPLE = 16
 
 #: ``[F, NBwin·block]`` → int8 and one float32 scale per column block (max-abs
@@ -253,26 +266,6 @@ def _check_operand(kind: str, x: torch.Tensor, dtype, shape) -> None:
                          f"{x.dtype} {tuple(x.shape)} strides {x.stride()}")
 
 
-def _launch_deep(q: QuantizedBandedMatrixFM, x_pad: torch.Tensor, R: int, depth: int,
-                 band_splits: int) -> torch.Tensor:
-    """B3c on the bfloat16 padded frame ``x_pad [F, (NB + 2W)·block]``;
-    returns the whole frame ``[F, NB·block]``.  Counted as a launch of
-    :func:`fm_deep_kernel`."""
-    kind, nb, W, b = "B3c fm_deep", q.num_blocks, q.bandwidth, q.block
-    _check_card(kind, q.band_qT, q.scales, x_pad.device)
-    F = x_pad.shape[0]
-    _check_operand(kind, x_pad, torch.bfloat16, (F, (nb + 2 * W) * b))
-    out = torch.empty((F, nb * b), dtype=torch.float32, device=x_pad.device)
-    if F == 0:
-        return out
-    with torch.cuda.device(x_pad.device):
-        _launch(kind, "cgt_fm_deep", q.band_qT.data_ptr(), q.scales.data_ptr(), x_pad.data_ptr(),
-                out.data_ptr(), nb, W, b, F, R, depth, band_splits, x_pad.stride(0),
-                _stream(x_pad.device))
-    fm_deep_kernel.launches += 1
-    return out
-
-
 def _launch_bf16_band(q: QuantizedBandedMatrixFM, x_pad: torch.Tensor) -> torch.Tensor:
     """B3a's bfloat16-band dots on the padded frame, on the tensor-core
     body (band and frame padded to a block that is a multiple of 16 where
@@ -291,13 +284,10 @@ def _launch_bf16_band(q: QuantizedBandedMatrixFM, x_pad: torch.Tensor) -> torch.
     return out
 
 
-def _launch_dma_only(q: QuantizedBandedMatrixFM, x_pad: torch.Tensor, R: int,
-                     depth: int = 2) -> torch.Tensor:
-    """B3a's copy-plus-add on the padded frame; ``[F, NB·block]``.  The TPU
-    kernel's ring is 2-deep; a deeper one probes the ring's staging rate.
-    Counted as a launch of :func:`fm_dma_only_kernel`."""
+def _launch_dma_only(q: QuantizedBandedMatrixFM, x_pad: torch.Tensor, R: int) -> torch.Tensor:
+    """B3a's copy-plus-add on the padded frame; ``[F, NB·block]``.  Counted
+    as a launch of :func:`fm_dma_only_kernel`."""
     kind, nb, W, b = "B3a fm_dma_only", q.num_blocks, q.bandwidth, q.block
-    _check_depth(kind, depth)
     _check_card(kind, q.band_qT, None, x_pad.device)
     F = x_pad.shape[0]
     _check_operand(kind, x_pad, torch.bfloat16, (F, (nb + 2 * W) * b))
@@ -306,7 +296,7 @@ def _launch_dma_only(q: QuantizedBandedMatrixFM, x_pad: torch.Tensor, R: int,
         return out
     with torch.cuda.device(x_pad.device):
         _launch(kind, "cgt_fm_dma_only", q.band_qT.data_ptr(), x_pad.data_ptr(), out.data_ptr(),
-                nb, W, b, F, R, depth, x_pad.stride(0), _stream(x_pad.device))
+                nb, W, b, F, R, x_pad.stride(0), _stream(x_pad.device))
     fm_dma_only_kernel.launches += 1
     return out
 
@@ -390,31 +380,34 @@ def fm_w8a8_kernel(q: QuantizedBandedMatrixFM, xqT_pad: torch.Tensor, xscales: t
 
 def fm_deep_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tensor, rows_per_step: int = 32,
                    depth: int = 4, band_splits: int = 1) -> torch.Tensor:
-    """Pad ``xT`` in torch, then launch B3c with a ``depth``-stage ring and
-    the band copy in ``band_splits`` groups; returns ``[F, num_nodes]``."""
+    """Launch B3c on CUDA tensors, K4's launch on float32 ``xT [F,
+    ≥num_nodes]`` as it is; returns ``[F, num_nodes]`` float32.
+    ``rows_per_step``, ``depth`` and ``band_splits`` are checked and change
+    nothing."""
     kind = "B3c fm_deep"
-    R = _deep_rows(kind, q.num_blocks, rows_per_step, depth, band_splits)
+    _deep_rows(kind, q.num_blocks, rows_per_step, depth, band_splits)
     _check_xT(kind, xT, q.num_nodes)
-    x_pad = pad_xT(xT, q.num_nodes, q.num_blocks, q.bandwidth, q.block)
-    return _launch_deep(q, x_pad, R, depth, band_splits)[:, : q.num_nodes]
+    return launch_fm_int8_on_xT(kind, fm_deep_kernel, q, xT)
 
 
 def fm_blocked_kernel(q: QuantizedBandedMatrixFM, xb: torch.Tensor, rows_per_step: int = 32,
                       depth: int = 2) -> torch.Tensor:
-    """Launch B3d on CUDA tensors: contiguous bfloat16 ``xb [NB + 2W, F,
-    block]``; returns ``[NB, F, block]`` float32."""
+    """Launch B3d, role B over the int8 band, on CUDA tensors: contiguous
+    bfloat16 ``xb [NB + 2W, F, block]``, read as it is (copied, padded, only
+    where the block is not a multiple of 16 or its base not 16-byte
+    aligned); returns ``[NB, F, block]`` float32.  ``rows_per_step`` and
+    ``depth`` are checked and change nothing."""
     kind, nb, W, b = "B3d fm_blocked", q.num_blocks, q.bandwidth, q.block
-    R = _divisor_rows(kind, nb, rows_per_step, depth)
-    _check_card(kind, q.band_qT, q.scales, xb.device)
+    _divisor_rows(kind, nb, rows_per_step, depth)
+    _check_band(kind, q.band_qT, q.scales, xb.device)
     _check_blocked(kind, q, xb)
     F = xb.shape[1]
     _check_operand(kind, xb, torch.bfloat16, (nb + 2 * W, F, b))
-    out = torch.empty((nb, F, b), dtype=torch.float32, device=xb.device)
     if F == 0:
-        return out
+        return torch.empty((nb, F, b), dtype=torch.float32, device=xb.device)
     with torch.cuda.device(xb.device):
-        _launch(kind, "cgt_fm_blocked", q.band_qT.data_ptr(), q.scales.data_ptr(), xb.data_ptr(),
-                out.data_ptr(), nb, W, b, F, R, depth, _stream(xb.device))
+        out = band_mma.launch_blocked(kind, band_mma.pad_band(q.band_qT), q.scales,
+                                      band_mma.blocked_x_operand(xb, b), W, b)
     fm_blocked_kernel.launches += 1
     return out
 
@@ -469,8 +462,8 @@ def fm_w8a8(q: QuantizedBandedMatrixFM, xqT_pad: torch.Tensor, xscales: torch.Te
 
 def fm_deep(q: QuantizedBandedMatrixFM, xT: torch.Tensor, rows_per_step: int = 32, depth: int = 4,
             band_splits: int = 1) -> torch.Tensor:
-    """``(A_q @ x)ᵀ`` (K4's function) through a ``depth``-stage staging ring;
-    ``[F, num_nodes]`` float32."""
+    """``(A_q @ x)ᵀ`` (K4's function), ``x`` rounded to bfloat16; ``[F,
+    num_nodes]`` float32."""
     if xT.device.type == "cpu":
         return fm_deep_reference(q, xT, rows_per_step, depth, band_splits)
     return fm_deep_kernel(q, xT, rows_per_step, depth, band_splits)

@@ -61,7 +61,13 @@ swizzled int8 box read as 16-byte chunks, ``widen2`` by bit operations, and
 the two swizzled bfloat16 boxes written from it) gives the tile's entries
 at the positions the B descriptor reads, each bank met once a quarter
 warp; and each thread's A fragment reads the right senders of the
-swizzled float32 frame boxes.
+swizzled float32 frame boxes, and of B3c's and B3d's bfloat16 frame box
+(each bank once a warp).  K4's 64-sender stages, emulated in numpy over
+the operands its wrapper prepares at blocks of 16, 48 and 40 (padded
+copy), carry an Inf of x past its node block into row blocks that the
+plain version keeps finite, unless the k-steps at or past b' are set to
+zero as the kernel does; with that mask they give the plain version, NaN
+for NaN.
 """
 
 import jax.numpy as jnp
@@ -611,6 +617,15 @@ def test_widening_writes_the_box_the_b_descriptor_reads(seed):
                                       tile[:, 64 * group:64 * group + 64].astype(np.float32))
 
 
+def a_fragment_offset(k, h, quad, pair, f32):
+    """The kernel's ``a_off[k][h]``: the byte, from the fragment's row, of
+    senders 16 k + pair (+ 8 h) of k-step k in a stage's frame; f32: box k /
+    2 of 32 senders, bf16: one box of 64 senders; each chunk ^ quad."""
+    if f32:
+        return (k >> 1) * 64 * 128 + (((4 * (k & 1) + 2 * h + pair // 4) ^ quad) << 4) + 4 * (pair % 4)
+    return (((2 * k + h) ^ quad) << 4) + 2 * pair
+
+
 def test_a_fragment_reads_the_f32_frame_boxes():
     """A stage's float32 frame (64 features by 64 senders) in two 128-byte
     swizzled boxes of 32 senders: each thread's 64-bit loads at the kernel's
@@ -621,17 +636,104 @@ def test_a_fragment_reads_the_f32_frame_boxes():
     boxes = np.zeros((2, 64 * 32), np.float32)
     for h in range(2):
         boxes[h, swizzled(f_idx, 4 * s_idx) // 4] = frame[:, 32 * h:32 * h + 32]
+    stage = boxes.reshape(-1)
     for warp in range(4):
         for lane in range(32):
             quad, pair = lane // 4, 2 * (lane % 4)
-            a_off = [[(((4 * kk + pair // 4) ^ quad) << 4) + 4 * (pair % 4),
-                      (((4 * kk + 2 + pair // 4) ^ quad) << 4) + 4 * (pair % 4)] for kk in range(2)]
             row = 16 * warp + quad
             for k in range(4):
-                box = boxes[k >> 1]
-                c0, c1 = a_off[k & 1]
-                got = [box[(r * 128 + c) // 4:(r * 128 + c) // 4 + 2]
+                c0, c1 = (a_fragment_offset(k, h, quad, pair, f32=True) for h in range(2))
+                got = [stage[(r * 128 + c) // 4:(r * 128 + c) // 4 + 2]
                        for r, c in ((row, c0), (row + 8, c0), (row, c1), (row + 8, c1))]
                 want = [frame[r, 16 * k + pair + e:16 * k + pair + e + 2]
                         for r, e in ((row, 0), (row + 8, 0), (row, 8), (row + 8, 8))]
                 np.testing.assert_array_equal(np.stack(got), np.stack(want))
+
+
+def test_a_fragment_reads_the_bf16_frame_box():
+    """B3c's and B3d's bfloat16 frame (64 features by 64 senders) in one
+    128-byte swizzled box, as TMA writes either map's box: each thread's
+    32-bit loads at the kernel's offsets read its wgmma A fragment, features
+    16 warp + lane / 4 (+ 8), senders 16 k + 2 (lane % 4) (+ 1) and + 8,
+    of each k-step k; each load of a warp meets every bank once."""
+    frame = np.random.default_rng(6).integers(0, 1 << 16, (64, 64)).astype(np.uint16)
+    f_idx, s_idx = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+    box = np.zeros(64 * 64, np.uint16)
+    box[swizzled(f_idx, 2 * s_idx) // 2] = frame
+    for warp in range(4):
+        banks = {}
+        for lane in range(32):
+            quad, pair = lane // 4, 2 * (lane % 4)
+            row = 16 * warp + quad
+            for k in range(4):
+                c0, c1 = (a_fragment_offset(k, h, quad, pair, f32=False) for h in range(2))
+                loads = ((row, c0), (row + 8, c0), (row, c1), (row + 8, c1))
+                got = [box[(r * 128 + c) // 2:(r * 128 + c) // 2 + 2] for r, c in loads]
+                want = [frame[r, 16 * k + pair + e:16 * k + pair + e + 2]
+                        for r, e in ((row, 0), (row + 8, 0), (row, 8), (row + 8, 8))]
+                np.testing.assert_array_equal(np.stack(got), np.stack(want))
+                for j, (r, c) in enumerate(loads):
+                    assert (r * 128 + c) % 4 == 0
+                    banks.setdefault((k, j), []).append((r * 128 + c) // 4 % 32)
+        assert all(sorted(b) == list(range(32)) for b in banks.values())
+
+
+def k4_by_stages(q: tq.QuantizedBandedMatrixFM, xT: torch.Tensor, masked: bool) -> np.ndarray:
+    """K4's kernel stage by stage in float64 numpy, on the operands its
+    wrapper prepares: each 64-sender stage of a tile reads x through the
+    2-D map (sender (rb + d - W)·x_block + s, zero fill outside [0,
+    x_cols)) and the band's rows, zero fill at and past b'.  With ``masked``
+    the k-steps at or past b' are set to zero, as the kernel now does.
+    Products elementwise, so 0 · Inf is NaN as on the tensor cores."""
+    nb, W, block, n = q.num_blocks, q.bandwidth, q.block, q.num_nodes
+    band_p = band_mma.pad_band(q.band_qT).numpy().astype(np.float64)
+    bp = band_p.shape[2]
+    x, x_block, x_cols = band_mma.fm_x_operand(xT, n, nb, block)
+    x = x.to(torch.bfloat16).to(torch.float64).numpy()
+    scales = q.scales.numpy().astype(np.float64)
+    out = np.zeros((xT.shape[0], nb, block))
+    for rb in range(nb):
+        acc = np.zeros((xT.shape[0], bp))
+        for d in range(2 * W + 1):
+            dot = np.zeros_like(acc)
+            for kc in range(-(-bp // 64)):
+                s = kc * 64 + np.arange(64)
+                cols = (rb + d - W) * x_block + s
+                inside = (cols >= 0) & (cols < x_cols)
+                xs = np.where(inside, x[:, np.clip(cols, 0, x_cols - 1)], 0.0)
+                if masked:
+                    xs[:, kc * 64 + 16 * (np.arange(64) // 16) >= bp] = 0.0
+                tile = np.zeros((64, bp))
+                tile[s < bp] = band_p[rb, d, s[s < bp]]
+                with np.errstate(invalid="ignore"):
+                    dot += (xs[:, :, None] * tile[None]).sum(axis=1)
+            with np.errstate(invalid="ignore"):
+                acc += scales[rb, d] * dot
+        out[:, rb] = acc[:, :block]
+    return out.reshape(xT.shape[0], nb * block)[:, :n]
+
+
+@pytest.mark.parametrize("block", [16, 48, 40])
+def test_k4_stage_reads_past_its_node_block_only_without_the_mask(block):
+    """An Inf in node block k: a 64-sender stage of a tile whose block is
+    not a multiple of 64 reads on into the next node blocks' x (b = 16 and
+    48 through xT itself, b = 40 through the padded copy, x_block = 48).
+    Without the mask the Inf meets band rows of zero fill in row blocks
+    that do not read block k, NaN where the plain version is finite; with
+    it the stages give K4's plain version, NaN for NaN, and those row
+    blocks stay finite."""
+    nb, W, n, F = 10, 1, 10 * block - 7, 4
+    q, scales, x = random_quantized((nb, W, block, n, F), seed=block)
+    qf = tq.QuantizedBandedMatrixFM(torch.from_numpy(np.ascontiguousarray(np.swapaxes(q, 2, 3))),
+                                    torch.from_numpy(scales), n, W)
+    xT = torch.from_numpy(np.ascontiguousarray(x.T))
+    k = nb // 2
+    xT[1, k * block + 3] = float("inf")
+    want = tq.banded_spmm_quant_fm_reference(qf, xT).numpy().reshape(F, -1)
+    reads_k = np.abs(np.arange(nb * block)[:n] // block - k) <= W
+    assert np.isfinite(want[:, ~reads_k]).all() and not np.isfinite(want[:, reads_k]).all()
+    unmasked = k4_by_stages(qf, xT, masked=False)
+    assert not np.isfinite(unmasked[:, ~reads_k]).all()
+    masked = k4_by_stages(qf, xT, masked=True)
+    assert np.isfinite(masked[:, ~reads_k]).all()
+    np.testing.assert_allclose(masked, want, rtol=K3_RTOL, atol=K3_ATOL, equal_nan=True)

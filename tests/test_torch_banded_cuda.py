@@ -19,7 +19,10 @@ tensor-core accumulation differs from IEEE float32 sums in another order:
 each output is held to 1e-5 of the sum of its products' magnitudes.  K4's
 tensor map masks its senders: at row block 0 with W >= 1 its first
 coordinates are negative, and an ``xT`` wider than the graph holds values
-past ``num_nodes`` that must not enter.
+past ``num_nodes`` that must not enter.  A stage reads 64 senders, so at
+blocks of 16, 32 and 48 it reaches into the next node blocks: an Inf or a
+NaN of x in one interior block reaches no row block that the plain version
+keeps finite, forward and over the transposed band (K4's backward).
 """
 
 import numpy as np
@@ -151,6 +154,33 @@ def test_k4_map_masks_senders_outside_the_graph(cuda, shape):
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, bq.banded_spmm_quant_fm_reference(q, xT.contiguous()),
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("value", [float("inf"), float("nan")], ids=["inf", "nan"])
+@pytest.mark.parametrize("W", [0, 1, 2])
+@pytest.mark.parametrize("block", [16, 32, 48])
+@pytest.mark.parametrize("kid", ["K4", "K4 backward"])
+def test_k4_reads_no_sender_past_its_node_block(cuda, kid, block, W, value):
+    """A non-finite x in one interior node block k: where the block is not
+    a multiple of 64, a 64-sender stage of role B reads on into the next
+    node blocks through K4's 2-D map, which the kernel masks.  K4, and K4's
+    backward launch over the transposed band, equal the plain version NaN
+    for NaN, and every row block that does not read block k (|rb - k| > W)
+    is finite."""
+    nb, F = 12, 8
+    n = nb * block - 5
+    q = random_band(nb, W, block, n, seed=block + W, device=cuda)
+    qf = bq.transposed_feature_major(q) if kid == "K4 backward" else bq.to_feature_major(q)
+    kernel = bq.banded_spmm_quant_fm_grad_kernel if kid == "K4 backward" else bq.banded_spmm_quant_fm_kernel
+    xT = torch.randn(F, n, device=cuda)
+    k = nb // 2
+    xT[2, k * block + 3] = value
+    got = kernel(qf, xT)
+    want = bq.banded_spmm_quant_fm_reference(qf, xT)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL, equal_nan=True)
+    reads_k = (torch.arange(n, device=cuda) // block - k).abs() <= W
+    assert bool(torch.isfinite(want[:, ~reads_k]).all()) and not bool(torch.isfinite(want[:, reads_k]).all())
+    assert bool(torch.isfinite(got[:, ~reads_k]).all())
 
 
 def test_k3_launch_alone_equals_the_wrapper(cuda):

@@ -11,8 +11,14 @@ The inputs: a spatial graph and random NON-symmetric int8 bands at block
 ragged tail, and NB in {8, 12} with R in {2, 4}, so that
 ``fm_compute_only``'s chunk i* (the largest even chunk) is 0, 2 and 4.
 ``fm_deep`` and ``fm_blocked`` agree with one port result at several
-(R, S, K).  The kernels themselves run only on the card
-(``tests/test_torch_fm_variants_cuda.py``).
+(R, S, K).  Their kernels are role B of ``csrc/band_mma.cu`` over the int8
+band: ``fm_deep`` K4's launch on ``xT``, ``fm_blocked`` on its bfloat16
+blocked frame.  Role B's function on the operands the wrappers prepare
+(the padded band, ``xT`` as K4's map reads it, which equals role B on
+``fm_frame(pad_xT(xT))`` bit for bit, and the blocked frame) is their
+plain versions bit for bit and JAX's in interpret mode at 1e-5, at block
+64 and at blocks of 16 and 48.  The kernels themselves run only on
+the card (``tests/test_torch_fm_variants_cuda.py``).
 """
 
 import os
@@ -30,6 +36,7 @@ import connectome_gnn_tpu_torch.data as td
 import connectome_gnn_tpu_torch.ops.banded as tb
 import connectome_gnn_tpu_torch.ops.banded_quant as tq
 import connectome_gnn_tpu_torch.ops.fm_variants as fv
+from connectome_gnn_tpu_torch.ops import band_mma
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import benchmarks.fm_kernel_diag as fd  # noqa: E402
@@ -229,6 +236,95 @@ def test_fm_blocked_at_each_depth_matches_one_port_result(cases, R, S):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+#: case → (num_blocks, W, block, num_nodes, F) of a random int8 band beside
+#: CASES: blocks of 16 and 48, multiples of 16 but not of 64, so that a
+#: 64-sender stage of role B reaches past the block (zero fill in the 3-D
+#: frame maps), W = 0, 1, 2, F = 5, ragged tails
+ROLE_B_SHAPES = {"b16-W1": (12, 1, 16, 180, 8), "b48-W2-F5-ragged": (10, 2, 48, 470, 5),
+                 "b48-W0": (8, 0, 48, 380, 16)}
+ROLE_B_CASES = list(CASES) + list(ROLE_B_SHAPES)
+
+
+def role_b_case(cases, case):
+    """(port band, JAX band, xT numpy [F, n], block) of a case of CASES at
+    block 64, or of a random non-symmetric int8 band of ROLE_B_SHAPES."""
+    if case in CASES:
+        c = cases[case]
+        return c.tq, c.jq, c.xT, BLOCK
+    nb, W, block, n, F = ROLE_B_SHAPES[case]
+    rng = np.random.default_rng(nb + block + n)
+    shape = (nb, 2 * W + 1, block, block)
+    qT = (rng.integers(-127, 128, shape) * (rng.random(shape) < 0.3)).astype(np.int8)
+    scales = rng.uniform(1e-3, 1.1e-2, shape[:2]).astype(np.float32)
+    xT = rng.standard_normal((F, n)).astype(np.float32)
+    return (tq.QuantizedBandedMatrixFM(torch.from_numpy(qT), torch.from_numpy(scales), n, W),
+            jq.QuantizedBandedMatrixFM(jnp.asarray(qT), jnp.asarray(scales), n, W), xT, block)
+
+
+def deep_on_operands(q, xT: torch.Tensor, block: int) -> torch.Tensor:
+    """B3c's kernel function on the operands its wrapper prepares, K4's:
+    the padded int8 band and ``xT`` as K4's 2-D map reads it, rounded to
+    bfloat16 as the kernel rounds it; checked bit for bit against role B
+    on the bfloat16 frame ``fm_frame(pad_xT(xT))``, the route it was
+    timed against."""
+    nb, W, n = q.num_blocks, q.bandwidth, q.num_nodes
+    band_p = band_mma.pad_band(q.band_qT)
+    x, x_block, x_cols = band_mma.fm_x_operand(xT, n, nb, block)
+    frame = band_mma.fm_window_frame(x, x_block, x_cols, nb, W, band_p.shape[2])
+    got = band_mma.fm_on_operands(band_p, q.scales, frame, W, block)[:, :n]
+    bf16_frame = band_mma.fm_frame(fv.pad_xT(xT, n, nb, W, block), nb, W, block)
+    assert torch.equal(got, band_mma.fm_on_operands(band_p, q.scales, bf16_frame, W, block)[:, :n])
+    return got
+
+
+def blocked_on_operands(q, xb: torch.Tensor, block: int) -> torch.Tensor:
+    """B3d's kernel function on the operands its wrapper prepares: the
+    padded int8 band and the caller's bfloat16 blocked frame."""
+    xb_p = band_mma.blocked_x_operand(xb, block)
+    return band_mma.blocked_on_operands(band_mma.pad_band(q.band_qT), q.scales, xb_p, q.bandwidth, block)
+
+
+def blocked_frames(q, xT: np.ndarray, block: int):
+    """The bfloat16 blocked frame ``[NB + 2W, F, block]`` in both packages."""
+    n, nb, W = q.num_nodes, q.num_blocks, q.bandwidth
+    txb = tq.to_blocked(fv.pad_xT(torch.from_numpy(xT), n, nb, W, block), block)
+    jxb = fd.to_blocked(fd._pad_xT(jnp.asarray(xT), n, nb, W, block, jnp.bfloat16), block)
+    return txb, jxb
+
+
+@pytest.mark.parametrize("case", ROLE_B_CASES)
+def test_fm_deep_on_its_role_b_operands_is_its_plain_version_bit_for_bit(cases, case):
+    q, _, xT, block = role_b_case(cases, case)
+    xt = torch.from_numpy(xT)
+    assert torch.equal(deep_on_operands(q, xt, block), fv.fm_deep_reference(q, xt))
+
+
+@pytest.mark.parametrize("case", ROLE_B_CASES)
+def test_fm_deep_on_its_role_b_operands_matches_jax_interpret(cases, case):
+    q, jqf, xT, block = role_b_case(cases, case)
+    want = np.asarray(fd.fm_deep(jqf, jnp.asarray(xT), rows_per_step=4, interpret=True))
+    np.testing.assert_allclose(deep_on_operands(q, torch.from_numpy(xT), block).numpy(), want,
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ROLE_B_CASES)
+def test_fm_blocked_on_its_role_b_operands_is_its_plain_version_bit_for_bit(cases, case):
+    q, _, xT, block = role_b_case(cases, case)
+    txb, _ = blocked_frames(q, xT, block)
+    got = blocked_on_operands(q, txb, block)
+    assert got.shape == (q.num_blocks, xT.shape[0], block)
+    assert torch.equal(got, fv.fm_blocked_reference(q, txb))
+
+
+@pytest.mark.parametrize("case", ROLE_B_CASES)
+def test_fm_blocked_on_its_role_b_operands_matches_jax_interpret(cases, case):
+    q, jqf, xT, block = role_b_case(cases, case)
+    txb, jxb = blocked_frames(q, xT, block)
+    np.testing.assert_array_equal(txb.float().numpy(), as_f32(jxb))
+    want = np.asarray(fd.fm_blocked(jqf, jxb, rows_per_step=4, interpret=True))
+    np.testing.assert_allclose(blocked_on_operands(q, txb, block).numpy(), want, rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.parametrize("variant", ["fm_deep", "fm_blocked", "fm_bf16_band", "fm_w8a8"])
 def test_checks_phase_at_a_small_size(cases, variant):
     """Each variant within 3e-2 relative Frobenius error of the float32
@@ -327,3 +423,22 @@ def test_kernel_wrappers_refuse_cpu_tensors(cases, kernel):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         fn(*args)
     assert fn.launches == before
+
+
+def test_fm_deep_and_fm_blocked_left_the_cuda_core_pipeline():
+    """B3c and B3d launch role B of ``csrc/band_mma.cu`` (B3c through K4's
+    entry, B3d through its own bfloat16-frame entry); ``fm_pipeline.cu``
+    keeps only the probes' two-stage ring: no depth S, no band splits, no
+    blocked layout, and none of their entry points."""
+    csrc = os.path.join(os.path.dirname(fv.__file__), "..", "csrc")
+    mma = open(os.path.join(csrc, "band_mma.cu")).read()
+    pipeline = open(os.path.join(csrc, "fm_pipeline.cu")).read()
+    for entry in ("cgt_banded_spmm_quant_fm", "cgt_banded_spmm_quant_fm_bf16",
+                  "cgt_banded_spmm_quant_blocked_bf16"):
+        assert f"int {entry}(" in mma
+    for gone in ("cgt_fm_deep", "cgt_fm_blocked", "launch_int8_depth", "Layout", "kBlocked",
+                 "band_splits", "int S>", "int S)"):
+        assert gone not in pipeline
+    assert "constexpr int kStages = 2;" in pipeline
+    for entry in ("cgt_fm_dma_only", "cgt_fm_w8a8", "cgt_fm_compute_only"):
+        assert f"int {entry}(" in pipeline

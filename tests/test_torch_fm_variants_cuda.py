@@ -1,5 +1,8 @@
-"""The feature-major band-pipeline kernels B3a-B3d (``ops/fm_variants.py``,
-``csrc/fm_pipeline.cu``) against their plain PyTorch versions, on the card.
+"""The feature-major band-pipeline kernels B3a-B3d (``ops/fm_variants.py``;
+``csrc/fm_pipeline.cu`` for ``fm_dma_only``, ``fm_w8a8`` and
+``fm_compute_only``, role B of ``csrc/band_mma.cu`` for ``fm_bf16_band``,
+``fm_deep`` and ``fm_blocked``) against their plain PyTorch versions, on
+the card.
 
 Every test here needs a CUDA card and skips without one.  The machine with
 the card has no JAX, and ``tests/conftest.py`` imports it, so run them
@@ -10,14 +13,21 @@ there without the conftest:
 This file imports no JAX.  Tolerance: kernel against plain version rtol
 1e-5 / atol 1e-5 (the same exact products, float32 sums in another order);
 ``fm_dma_only`` bitwise (one float32 add); ``fm_w8a8`` bitwise against K5's
-kernel on K5's operands (both take exact int32 dots).  The bands are random
-and NON-symmetric, so a swapped tile axis cannot go unseen.
+kernel on K5's operands (both take exact int32 dots); ``fm_deep``, which
+is K4's launch, bitwise against role B's launch on the bfloat16 frame
+``pad_xT`` builds (the same products in the same order: K4 rounds x to
+bfloat16 in registers as ``pad_xT`` does).
+``fm_deep``'s and ``fm_blocked``'s ``rows_per_step``, ``depth`` and
+``band_splits`` shape nothing on this card: each of the script's values
+gives the one result.  The bands are random and NON-symmetric, so a
+swapped tile axis cannot go unseen.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from connectome_gnn_tpu_torch.ops import band_mma
 from connectome_gnn_tpu_torch.ops import banded_quant as bq
 from connectome_gnn_tpu_torch.ops import fm_variants as fv
 
@@ -99,28 +109,70 @@ def test_kernel_matches_plain_version(cuda, kid, shape):
 @pytest.mark.parametrize("K", fv.BAND_SPLITS)
 @pytest.mark.parametrize("S", fv.DEPTHS)
 def test_fm_deep_at_every_depth_and_split(cuda, S, K):
+    """Each (S, K) gives the one result: the plain version's, and the
+    kernel's at the default (R, S, K) bit for bit."""
     ops = Operands(16, 2, 64, 1000, 16, seed=S * 10 + K, device=cuda)
     got = fv.fm_deep_kernel(ops.q, ops.xT, rows_per_step=4, depth=S, band_splits=K)
     torch.testing.assert_close(got, fv.fm_deep_reference(ops.q, ops.xT), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, fv.fm_deep_kernel(ops.q, ops.xT))
 
 
 @pytest.mark.parametrize("S", fv.DEPTHS)
 def test_fm_blocked_at_every_depth(cuda, S):
+    """Each S gives the one result, as for ``fm_deep``."""
     ops = Operands(16, 1, 64, 1024, 24, seed=S, device=cuda)
     got = fv.fm_blocked_kernel(ops.q, ops.xb, rows_per_step=8, depth=S)
     torch.testing.assert_close(got, fv.fm_blocked_reference(ops.q, ops.xb), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, fv.fm_blocked_kernel(ops.q, ops.xb))
 
 
-@pytest.mark.parametrize("S", fv.DEPTHS)
-def test_dma_only_probe_at_every_depth(cuda, S):
-    """The copy-plus-add body through a deeper ring (the TPU kernel's is
-    2-deep) gives the same output, bit for bit, and counts as a launch."""
-    ops = Operands(16, 2, 64, 1000, 16, seed=S, device=cuda)
-    before = fv.fm_dma_only_kernel.launches
-    x_pad = fv.pad_xT(ops.xT, ops.n, 16, 2, 64)
-    got = fv._launch_dma_only(ops.q, x_pad, 4, S)[:, : ops.n]
-    assert fv.fm_dma_only_kernel.launches == before + 1
-    assert torch.equal(got, fv.fm_dma_only_reference(ops.q, ops.xT, 4))
+@pytest.mark.parametrize("kid", ["deep", "blocked"])
+def test_role_b_pads_a_block_that_is_not_a_multiple_of_16(cuda, kid):
+    """``fm_deep`` and ``fm_blocked`` take any block: their wrappers pad
+    the band and the frame to a multiple of 16 with zeros."""
+    ops = Operands(6, 1, 40, 230, 5, seed=11, device=cuda)
+    got = run(kid, "kernel", ops, 2)
+    torch.testing.assert_close(got, run(kid, "plain", ops, 2), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", [(12, 2, 256, 3000, 64), (10, 1, 48, 470, 16), (9, 0, 16, 140, 70)])
+def test_bf16_frame_launch_is_fm_deeps_bit_for_bit(cuda, shape):
+    """On the same band: ``fm_deep`` (K4's launch on the float32 ``xT``,
+    which the kernel rounds in registers) and role B's launch on the
+    bfloat16 frame ``fm_frame(pad_xT(xT))`` give the same output."""
+    nb, W, block, n, F = shape
+    ops = Operands(nb, W, block, n, F, seed=sum(shape), device=cuda)
+    x_pad = band_mma.fm_frame(fv.pad_xT(ops.xT, n, nb, W, block), nb, W, block)
+    bf16 = band_mma.launch_fm("B3c", band_mma.pad_band(ops.q.band_qT), ops.q.scales, x_pad, W, block)
+    assert torch.equal(bf16[:, :n], fv.fm_deep_kernel(ops.q, ops.xT))
+
+
+@pytest.mark.parametrize("shape", [(20, 2, 256, 5000, 64), (7, 1, 48, 330, 16)])
+def test_fm_deep_and_fm_blocked_over_six_decades(cuda, shape):
+    """Scales and activations spread over three decades each way: each
+    output within 1e-5 of the sum of its products' magnitudes."""
+    nb, W, block, n, F = shape
+    ops = Operands(nb, W, block, n, F, seed=sum(shape), device=cuda)
+    rng = np.random.default_rng(n)
+    q = ops.q._replace(scales=torch.from_numpy(
+        (10.0 ** rng.uniform(-3, 3, ops.q.scales.shape)).astype(np.float32)).to(cuda))
+    xT = ops.xT * torch.from_numpy((10.0 ** rng.uniform(-3, 3, (F, n))).astype(np.float32)).to(cuda)
+    xb = bq.to_blocked(fv.pad_xT(xT, n, nb, W, block), block)
+    q_abs = q._replace(band_qT=q.band_qT.abs())
+    for got, want, magnitude in (
+            (fv.fm_deep_kernel(q, xT), fv.fm_deep_reference(q, xT), fv.fm_deep_reference(q_abs, xT.abs())),
+            (fv.fm_blocked_kernel(q, xb), fv.fm_blocked_reference(q, xb),
+             fv.fm_blocked_reference(q_abs, xb.abs()))):
+        assert bool(((got - want).abs() <= 1e-5 * magnitude).all())
+
+
+def test_fm_blocked_launch_alone_equals_the_wrapper(cuda):
+    """At the main shape's layout (b = 256, F = 64) B3d's wrapper hands the
+    kernel the band and the caller's ``xb`` as they are."""
+    ops = Operands(12, 2, 256, 3000, 64, seed=8, device=cuda)
+    assert band_mma.blocked_x_operand(ops.xb, 256) is ops.xb
+    alone = band_mma.launch_blocked("B3d", ops.q.band_qT, ops.q.scales, ops.xb, 2, 256)
+    assert torch.equal(alone, fv.fm_blocked(ops.q, ops.xb))
 
 
 def test_fm_w8a8_is_k5_on_its_operands(cuda):
@@ -154,7 +206,7 @@ def test_kernels_refuse_operands_they_do_not_take(cuda):
     ops = Operands(8, 1, 64, 512, 16, seed=4, device=cuda)
     odd = Operands(4, 1, 40, 160, 8, seed=4, device=cuda)
     with pytest.raises(ValueError, match="multiple of 16"):
-        fv.fm_deep_kernel(odd.q, odd.xT, rows_per_step=2)
+        fv.fm_dma_only_kernel(odd.q, odd.xT, rows_per_step=2)
     with pytest.raises(ValueError, match="share"):
         fv.fm_deep_kernel(ops.q._replace(band_qT=ops.q.band_qT.cpu()), ops.xT)
     with pytest.raises(ValueError, match="depth"):
