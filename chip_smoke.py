@@ -15,10 +15,12 @@ Phases, one line each:
    and what ``ptxas -v`` says of the tensor-core body's kernels
    (registers, spills, shared memory; role A over the int8 band with the
    scale on the dot (K3, B2c) or folded into the tile (B2c ``wrow_bf16``)
-   and over the float32 band (K7), and role B over the int8 band on a
-   float32 frame, feature-major (K4, B3c) and blocked (K6), and on a
-   bfloat16 frame, feature-major (timed against K4) and blocked (B3d),
-   among them) and any warning it gives;
+   and over the float32 band (K7), role A's schedule on s8 products (K5),
+   and role B over the int8 band on a float32 frame, feature-major (K4,
+   B3c) and blocked (K6), and on a bfloat16 frame, feature-major (timed
+   against K4), with B3b's panel map and blocked (B3d), among them) and any
+   warning it gives, and C7518 (``wgmma`` serialized); the full run fails
+   if a kernel spills or draws C7518;
 3. each fused kernel (K1 GCN, K2 SAGE) against its plain PyTorch version on
    the card at four (B, n, F, H, L) shapes, rtol 1e-4 / atol 1e-5 (the
    repository's f32 gate);
@@ -41,11 +43,12 @@ random weights from seed 0 and non-trivial BatchNorm state):
    card, the float32 logits of ``BandedNodeGCN`` / ``BandedNodeSAGE``, then
    ``prepare_quantized`` (feature-major and row-major) and the float32 band
    freed; bytes and the memory peak;
-7. each band kernel (K3 and K4 on the tensor-core body, K5) against its
-   plain PyTorch version on the card, rtol 1e-5 / atol 1e-5: on random
-   non-symmetric int8 bands at small shapes (the ragged tail, W = 0, F = 5,
-   F = 1, a block of 100; for K3 and K4 also a block of 16 and F = 130) and
-   on the prepared 1M-node bands;
+7. each band kernel (K3, K4 and K5, all on the tensor-core body) against
+   its plain PyTorch version on the card, rtol 1e-5 / atol 1e-5 (K5 bit for
+   bit): on random non-symmetric int8 bands at small shapes (the ragged
+   tail, W = 0, F = 5, F = 1, a block of 100; for K3 and K4 also a block of
+   16 and F = 130), K5 on a saturated band and x of ±127 at b = 256, and on
+   the prepared 1M-node bands;
 8. the serving path: ``apply_quantized`` feature-major (K4), w8a8 (K5),
    row-major (K3), on a hybrid graph with 10 % shortcuts (K3 and the COO
    remainder), and ``BandedNodeSAGE`` feature-major (K4), each with its
@@ -64,10 +67,13 @@ random weights from seed 0 and non-trivial BatchNorm state):
    dequantized band, checked for hidden copies; K5 has none) per call at
    full size (CUDA events, median, in turns and back to back, then the
    card's SM clock and power; device time from ``torch.profiler``), beside
-   the kernel's bound; K3's and K4's launch alone on the operands their
-   wrappers prepare (K3: the padded band and the bf16 frame; K4: the band
-   and ``xT`` as they are), its share of the bound and the rate at which it
-   streams the band; and ``apply_quantized`` ms per forward and
+   the kernel's bound; the launch alone on the operands the wrapper
+   prepares (K3: the padded band and the bf16 frame; K4: the band and
+   ``xT`` as they are; K5: the band and the int8 frame with its scales,
+   its output equal to the wrapper's and so to the plain version's bit for
+   bit), its share of the bound and the rate at which it streams the band,
+   and K5's activation quantization in torch alone; and
+   ``apply_quantized`` ms per forward and
    edge-messages/s for
    feature-major, w8a8, row-major and hybrid serving, with a device-time
    breakdown by kernel (``--serving-forwards`` runs phase 6's build and
@@ -161,15 +167,18 @@ nodes, band ±512, block 256, F = 64), whose path is their entry points:
     wrapper prepares its operands in torch first, the launch alone (CUDA
     events, median of 10, in turns), G edge-messages/s and the share of the
     bound (for the two probes, the bound of what their output needs: one
-    chunk for compute-only, diagonal 0's first F tile rows for dma-only);
+    chunk for compute-only, diagonal 0's first F tile rows for dma-only,
+    and for compute-only also the work bound of every chunk's dense dots);
     role B over the same int8 band on a float32 frame against a bfloat16
     one, launches alone in turns (K4 on ``xT``, B3c's route, against the
     feature-major launch on ``pad_xT``'s bfloat16 frame; K6 on the blocked
     frame in float32 against B3d), each output equal to its pair's bit for
     bit, each with the bytes it stages into shared memory and their rate,
     and the bfloat16 route whole (``pad_xT``, then the launch) beside K4's
-    launch; the CUDA-core probes' staging (dma-only) and arithmetic
-    (compute-only); the memory peak.
+    launch; the dma-only probe's staging rate; role B with the HBM stream
+    taken out: B3b (its panel in L2) against B3d (the band streamed), the
+    launches alone in turns, with their stages a block and µs a stage; the
+    memory peak.
 
 Then graph-classification training (``Trainer.fit``, which runs no
 hand-written kernel) and the random-row gather B1 of
@@ -227,6 +236,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -310,14 +320,16 @@ BAND_KERNELS = {
                source="connectome_gnn_tpu_torch/csrc/band_mma.cu",
                replaces="connectome_gnn_tpu/ops/banded_quant.py:284"),
     "K5": dict(name="banded_spmm_quant_fm_w8a8", kernel=bq.banded_spmm_quant_fm_w8a8_kernel,
-               plain=bq.banded_spmm_quant_fm_w8a8_reference, feature_major=True,
+               plain=bq.banded_spmm_quant_fm_w8a8_reference, feature_major=True, exact=True,
+               source="connectome_gnn_tpu_torch/csrc/band_mma.cu",
                replaces="connectome_gnn_tpu/ops/banded_quant.py:434"),
 }
 #: K3's, K4's and K6's further shapes on the tensor-core body: a block of
 #: 16, F = 130 (three 64-feature units)
 MMA_SHAPES = [(12, 1, 16, 180, 8), (6, 1, 64, 350, 130)]
+#: the CUDA-core body of B2b
 BAND_SOURCE = "connectome_gnn_tpu_torch/csrc/banded_spmm.cu"
-#: the tensor-core body of K3, K4, K6, K7, B2a, B2c, B3a bf16_band, B3c and B3d
+#: the tensor-core body of K3-K7, B2a, B2c, B3a bf16_band, B3b, B3c and B3d
 MMA_SOURCE = "connectome_gnn_tpu_torch/csrc/band_mma.cu"
 #: a train step against its plain path on the card: the f32 gate
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
@@ -385,7 +397,8 @@ FM_KERNELS = {
     "B3a w8a8": dict(name="fm_w8a8", kernel=fv.fm_w8a8_kernel, entry=fv.fm_w8a8,
                      plain=fv.fm_w8a8_reference, replaces="benchmarks/fm_kernel_diag.py:130"),
     "B3b": dict(name="fm_compute_only", kernel=fv.fm_compute_only_kernel, entry=fv.fm_compute_only,
-                plain=fv.fm_compute_only_reference, replaces="benchmarks/fm_kernel_diag.py:242"),
+                plain=fv.fm_compute_only_reference, source=MMA_SOURCE,
+                replaces="benchmarks/fm_kernel_diag.py:242"),
     "B3c": dict(name="fm_deep", kernel=fv.fm_deep_kernel, entry=fv.fm_deep,
                 plain=fv.fm_deep_reference, source=MMA_SOURCE,
                 replaces="benchmarks/fm_kernel_diag.py:393"),
@@ -688,6 +701,23 @@ def fm_launch_alone(kid, q, xT):
                                            q.bandwidth, q.block)
 
 
+def k5_launch_alone(kid, q, xT):
+    """K5's launch alone on the operands its wrapper hands it (at the main
+    shape the band and the int8 frame as they are, checked), its output the
+    wrapper's bit for bit; and the activation quantization in torch alone."""
+    xq, xscales = bq.quantize_activations_padded(q, xT)
+    check(band_mma.fm_frame(xq, q.num_blocks, q.bandwidth, q.block) is xq
+          and band_mma.pad_band(q.band_qT) is q.band_qT, (kid, "the wrapper copies its operands"))
+    launch = lambda: band_mma.launch_w8a8(kid, q.band_qT, q.scales, xq, xscales, q.num_nodes,  # noqa: E731
+                                          q.bandwidth, q.block)
+    out = launch()
+    check(torch.equal(out, bq.banded_spmm_quant_fm_w8a8_kernel(q, xT)), (kid, "launch alone != wrapper"))
+    check(torch.equal(out, bq.banded_spmm_quant_fm_w8a8_reference(q, xT)), (kid, "launch alone != plain"))
+    print(f"[10 K5] the launch alone at {q.num_nodes:,} nodes: bit for bit the wrapper's output and the "
+          f"plain version's", flush=True)
+    return launch, lambda: bq.quantize_activations_padded(q, xT)
+
+
 def launch_note(operands: str, ms: float, bound_ms: float, band) -> str:
     """The launch alone's time, its share of the bound and the rate at which
     it streams the band (the band's bytes over its time)."""
@@ -710,15 +740,40 @@ def random_quantized_band(nb, W, block, n, seed, device):
 
 def check_band_kernel(kid, q, x) -> float:
     """One band kernel (K3-K6, K4's backward) against its plain version on
-    the same operands; returns max |kernel - plain|."""
+    the same operands (K5 bit for bit); returns max |kernel - plain|."""
     k = {**BAND_KERNELS, **TRAIN_KERNELS}[kid]
     got = k["kernel"](q, x)
     torch.cuda.synchronize()
     want = k["plain"](q, x)
     torch.cuda.synchronize()
     check(got.shape == want.shape and bool(torch.isfinite(got).all()), (kid, tuple(got.shape)))
-    torch.testing.assert_close(got, want, rtol=BAND_RTOL, atol=BAND_ATOL)
+    if k.get("exact"):
+        check(torch.equal(got, want), (kid, "not the plain version bit for bit"))
+    else:
+        torch.testing.assert_close(got, want, rtol=BAND_RTOL, atol=BAND_ATOL)
     return float((got - want).abs().max())
+
+
+def k5_saturated_check(dev) -> None:
+    """K5 on a non-symmetric band and x of ±127 at b = 256, one tile all
+    +127 against a frame block all +127 (a dot of 127²·256, the largest the
+    block allows): bit for bit its plain version."""
+    nb, W, block, F = 6, 2, 256, 64
+    n = nb * block - 37
+    rng = np.random.default_rng(12)
+    band = (127 * rng.choice([-1, 1], (nb, 2 * W + 1, block, block))).astype(np.int8)
+    band[2, W] = 127
+    band[3, W + 1] = np.triu(np.full((block, block), 127, np.int8))
+    scales = rng.uniform(1e-3, 1.1e-2, (nb, 2 * W + 1)).astype(np.float32)
+    q = bq.QuantizedBandedMatrixFM(torch.from_numpy(band).to(dev), torch.from_numpy(scales).to(dev), n, W)
+    xT = torch.from_numpy(rng.choice([-3.0, 3.0], (F, n)).astype(np.float32)).to(dev)
+    xT[:, 2 * block:3 * block] = 3.0
+    xq, _ = bq.quantize_activations_padded(q, xT)
+    check(int(xq[:, W * block:(W + nb) * block - 37].abs().min()) == 127, "K5 saturated: x not at ±127")
+    err = check_band_kernel("K5", q, xT)
+    print(f"[7 band kernel] K5 on a saturated band and x of ±127, NB={nb} W={W} b={block} n={n} F={F} "
+          f"(a dot of 127²·{block} = {127 * 127 * block:,}): bit for bit its plain version "
+          f"(max|kernel-plain| = {err:.3e})", flush=True)
 
 
 def k4_nonfinite_check(dev) -> None:
@@ -845,8 +900,8 @@ def serving_forwards(dev, card) -> None:
     hq, hdinv = gcn.prepare_quantized(h)
     del h
     E = graph.num_edges
-    time_forwards(card, gcn, [("feature-major", q_fm, dinv, x, E, {}), ("row-major", q_rm, dinv, x, E, {}),
-                              ("hybrid", hq, hdinv, xh, E_h, {})])
+    time_forwards(card, gcn, [("feature-major", q_fm, dinv, x, E, {}), ("w8a8", q_fm, dinv, x, E, {"w8a8": True}),
+                              ("row-major", q_rm, dinv, x, E, {}), ("hybrid", hq, hdinv, xh, E_h, {})])
 
 
 @torch.no_grad()
@@ -916,11 +971,13 @@ def giant_graph_phases(dev, card):
             np.random.default_rng(nodes + F).standard_normal((nodes, F)).astype(np.float32)
         ).to(dev)
         errs = {"K3": check_band_kernel("K3", q, xs),
-                "K4": check_band_kernel("K4", bq.to_feature_major(q), xs.T.contiguous())}
+                "K4": check_band_kernel("K4", bq.to_feature_major(q), xs.T.contiguous()),
+                "K5": check_band_kernel("K5", bq.to_feature_major(q), xs.T.contiguous())}
         for kid, err in errs.items():
             max_err[kid] = max(max_err[kid], err)
         print(f"[7 band kernel] NB={nb} W={W} b={b} n={nodes} F={F}, random non-symmetric band: "
               + ", ".join(f"{kid} max|kernel-plain| = {e:.3e}" for kid, e in errs.items()), flush=True)
+    k5_saturated_check(dev)
     full = {"K3": (q_rm, x), "K4": (q_fm, xT), "K5": (q_fm, xT)}
     for kid, operands in full.items():
         err = check_band_kernel(kid, *operands)
@@ -980,7 +1037,8 @@ def giant_graph_phases(dev, card):
           f"RCM bandwidth {after_bw:,} ({t_rcm:.2f} s host); banded at block 128: "
           f"W={banded.bandwidth}, {banded.num_blocks} row blocks", flush=True)
 
-    # 10. K4's reads past its node block, then times (nothing asserted)
+    # 10. K4's reads past its node block, then times (nothing asserted but
+    # K5's launch alone, bit for bit)
     k4_nonfinite_check(dev)
     times, bounds, lib_ms = {}, {}, {}
     for kid, (q, xin) in full.items():
@@ -1009,12 +1067,18 @@ def giant_graph_phases(dev, card):
                                                          x.shape[1], q.scales))
         elif kid == "K4":  # the launch alone: at this shape the wrapper passes band and xT as they are
             fns.append(fm_launch_alone(kid, q, xin))
+        else:  # K5: the launch alone on the band and the int8 frame, then the quantization alone
+            fns += k5_launch_alone(kid, q, xin)
         ms = cuda_ms(fns, iters=20, warmup=3)
         times[kid], lib_ms[kid] = ms[:2], (ms[2] if kid != "K5" else None)
         if kid in ("K3", "K4"):
             alone_note = "; " + launch_note(
                 "on the padded band and the bf16 frame" if kid == "K3" else "on the band and f32 xT",
                 ms[3], bounds[kid][0], band)
+        else:
+            alone_note = ("; " + launch_note("on the band and the int8 frame (bit for bit the wrapper's)",
+                                             ms[2], bounds[kid][0], band)
+                          + f"; the activation quantization in torch alone {ms[3]:.4f} ms")
         if kid == "K3":
             del band_p, frame
         if lib_ms[kid] is not None:
@@ -1748,6 +1812,11 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
         "B3c": bound(nbytes(q.band_qT, q.scales, xT) + out_bytes, 2 * F_ * nnz8, "bf16"),
         "B3d": bound(nbytes(q.band_qT, q.scales, full["xb"]) + out_bytes, 2 * F_ * nnz8, "bf16"),
     }
+    # B3b's work bound beside its output's: every chunk's dots over the
+    # panel, dense (its R·D tiles, NB / R times) and by the panel's nonzeros
+    b3b_dense_flop = 2 * F_ * block * block * (2 * W + 1) * nb
+    b3b_work = {"dense": b3b_dense_flop / PEAK_OPS["bf16"] * 1e3,
+                "nonzeros": 2 * F_ * nnz_panel * (nb // R) / PEAK_OPS["bf16"] * 1e3}
     # the launch alone, on operands the wrapper would build first in torch
     alone = {
         "B3a dma_only": lambda: fv._launch_dma_only(q, x_pad, R),
@@ -1786,6 +1855,11 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
                 alone_ms[kid] = ms[-1]
             note = (f"; the launch alone on the prepared bf16 frame {alone_ms[kid]:.4f} ms" if kid in alone
                     else "; the wrapper is the launch alone")
+            if kid == "B3b":
+                note += (f"; its work bound, every chunk's dense dots ({b3b_dense_flop / 1e9:.4g} GFLOP at "
+                         f"{PEAK_OPS['bf16'] / 1e12:.0f} TFLOP/s bf16), {b3b_work['dense']:.4f} ms, the launch "
+                         f"at {b3b_work['dense'] / alone_ms[kid]:.1%} of it (by the panel's nonzeros "
+                         f"{b3b_work['nonzeros']:.4f} ms)")
             print(f"[22 times] {card} | {kid} {k['name']} at {n:,} nodes, F={F_}, R={R}: kernel {ms[0]:.4f} ms, "
                   f"plain {ms[1]:.4f} ms per call (CUDA events, median of 10, in turns){note}; kernel "
                   f"{E / ms[0] / 1e6:.4g} G edge-messages/s; bound {b_ms:.4f} ms ({b_by}), the kernel at "
@@ -1835,10 +1909,21 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
         # diagonal and 64-receiver tile (csrc/fm_pipeline.cu)
         dma_staged = (nbytes(q.band_qT) * -(-F_ // 64)
                       + 2 * F_ * block * nb * (2 * W + 1) * -(-block // 64))
-        print(f"[22 times] {card} | the CUDA-core probes, launches alone: fm_dma_only (staging) "
+        print(f"[22 times] {card} | the CUDA-core probe, its launch alone: fm_dma_only (staging) "
               f"{alone_ms['B3a dma_only']:.4f} ms, {dma_staged:,} B at "
-              f"{dma_staged / alone_ms['B3a dma_only'] / 1e9:.4g} TB/s; fm_compute_only (arithmetic) "
-              f"{alone_ms['B3b']:.4f} ms", flush=True)
+              f"{dma_staged / alone_ms['B3a dma_only'] / 1e9:.4g} TB/s", flush=True)
+        # role B with the HBM stream taken out: B3b's panel (10.5 MB) and
+        # window stay in L2, B3d streams the band; the same units, stages and
+        # 16 KB a stage, each widened, fenced and met at a named barrier
+        units, sms = nb * -(-block // 128) * -(-F_ // 64), torch.cuda.get_device_properties(dev).multi_processor_count
+        stages = -(-units // sms) * (2 * W + 1) * -(-block // 64)
+        b3d_alone = lambda: band_mma.launch_blocked("B3d", q.band_qT, q.scales, full["xb"], W, block)  # noqa: E731
+        b3b_ms, b3d_ms = cuda_ms([alone["B3b"], b3d_alone], iters=10, warmup=2)
+        print(f"[22 role B] {card} | launches alone in turns (CUDA events, median of 10): B3b (panel in L2, "
+              f"{nbytes(q.band_qT[:R]) / 1e6:.4g} MB, evict_last) {b3b_ms:.4f} ms against B3d (the band "
+              f"streamed, {nbytes(q.band_qT) / 1e9:.4g} GB) {b3d_ms:.4f} ms, ratio {b3b_ms / b3d_ms:.3f}; "
+              f"{stages:,} stages of 16 KB a block: {b3b_ms / stages * 1e3:.4f} and {b3d_ms / stages * 1e3:.4f} "
+              f"µs a stage", flush=True)
     print(f"[22 times] max_memory_allocated over phases 20-22 {peak:,} B", flush=True)
     return entries
 
@@ -2265,14 +2350,21 @@ def main() -> None:
             kernel = demangled(line.split("'")[1])
             usage = " ".join(s.strip().removeprefix("ptxas info    : ") for s in ptxas[i + 2 : i + 4])
             print(f"[2 build] ptxas -v, {', '.join(_build.PTXAS_VERBOSE)}: {kernel}: {usage}", flush=True)
-        elif "warning" in line.lower():
-            print(f"[2 build] ptxas: {line.strip()}", flush=True)
+        elif "warning" in line.lower() or "C7518" in line:
+            print(f"[2 build] ptxas: {line.strip()[:400]}", flush=True)
+    spills = [line.strip() for line in ptxas if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
+    serialized = [line for line in ptxas if "C7518" in line]
+    print(f"[2 build] ptxas: {len(spills)} kernels spill, {len(serialized)} have their wgmma serialized (C7518)",
+          flush=True)
     if "--serving-forwards" in sys.argv[1:]:
         serving_forwards(dev, card)
         return
     if "--train-steps" in sys.argv[1:]:
         train_steps(dev, card)
         return
+    # the timing modes above may time another tree's package; this tree's
+    # kernels must neither spill nor have their wgmma serialized
+    check(not spills and not serialized, ("a kernel spills or ptxas serialized its wgmma (C7518)", spills))
 
     # 3. each kernel against its plain version on the card
     max_err = {kind: 0.0 for kind in KERNELS}

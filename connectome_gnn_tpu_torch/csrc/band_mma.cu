@@ -1,12 +1,13 @@
 // The band SpMM body on Hopper's tensor cores (built for sm_90a): wgmma
 // products on tiles staged by TMA into an mbarrier ring, one kernel body with
-// two roles and three band types.
+// two roles, three band types and, for K5, s8 x s8 products.
 //
 // Replaces the Pallas TPU kernels
 //   in connectome_gnn_tpu/ops/banded_quant.py:
 //   K3  banded_spmm_quant over the int8 band (pallas_call at :820)    role A, int8
 //   K4  banded_spmm_quant_fm (pallas_call at :284); also the backward of
 //       banded_spmm_quant_fm_grad (:743), K4 over the transposed band  role B, int8
+//   K5  banded_spmm_quant_fm_w8a8 (pallas_call at :434)     role A's schedule, int8 x int8
 //   K6  banded_spmm_quant_blocked (pallas_call at :564), forward and
 //       backward of banded_spmm_quant_blocked_grad (:639)          role B, int8, blocked
 //   in connectome_gnn_tpu/ops/banded_pallas.py:
@@ -16,10 +17,11 @@
 //   B2c banded_spmm_quant_fused_dot         (pallas_call at :250)     role A, int8
 //   in benchmarks/fm_kernel_diag.py:
 //   B3a _fm_pipeline (pallas_call at :130) reached by fm_bf16_band :271   role B, bf16
+//   B3b fm_compute_only (pallas_call at :242), on a bf16 frame        role B, int8, panel map
 //   B3c fm_deep     (pallas_call at :393), K4's function: K4's launch     role B, int8
 //   B3d fm_blocked  (pallas_call at :495), K6's function on a bf16 frame  role B, int8, blocked
-// K5 and B2b stay on csrc/banded_spmm.cu, and the probes B3a dma-only and
-// w8a8 and B3b on csrc/fm_pipeline.cu.
+// B2b stays on csrc/banded_spmm.cu, and the probes B3a dma-only and w8a8 on
+// csrc/fm_pipeline.cu.
 //
 // Math.  The band holds, for row block rb and diagonal d in [0, 2W], one
 // b x b tile: bf16, f32, or int8 with one f32 scale.  x-hat is x in the
@@ -35,11 +37,21 @@
 //   per tile:
 //     out[f, rb*b + r] = sum_d scale[rb, d] * sum_s xT-hat[f, (rb + d)*b + s] * tT[rb, d][s, r]
 //   K6 and B3d store the same sums blocked, out[(rb*F + f)*b + r].
+//   K5 takes the transposed tiles and an int8 frame xq-hat, x quantized per
+//   frame block with one scale xscale[blk] each:
+//     out[f, rb*b + r] = sum_d fl(scale[rb, d] * xscale[rb + d])
+//                          * float(sum_s xq-hat[f, (rb + d)*b + s] * tT[rb, d][s, r])
+//   B3b computes role B's sums for every row rb = i*R + r of chunk i of R
+//   row blocks over one panel: band row (r + i) mod R of the first R, frame
+//   block (r + d + i) mod (R + 2W) of a window of R + 2W blocks, scale row
+//   rb; chunk i* (the largest even chunk) stores at column r*b + c, every
+//   other chunk's sums go into a one-float sink.
 // As GEMMs, role A has M = receivers, N = features, and role B M =
 // features, N = receivers; in both the K axis is the senders, A is K-major
-// and B is MN-major (wgmma's transposed-B form).  Products are
-// wgmma.mma_async.m64nNk16.f32.bf16.bf16, never TF32; every bf16 x bf16
-// product is exact in f32.  Each tile's dot is taken in a fragment of its
+// and B is MN-major (wgmma's transposed-B form).  K5 has role A's M and N,
+// and both operands K-major (the 8-bit forms have no transposed one).
+// Products are wgmma.mma_async.m64nNk16.f32.bf16.bf16, never TF32 (K5's
+// m64n64k32.s32.s8.s8); every bf16 x bf16 product is exact in f32.  Each tile's dot is taken in a fragment of its
 // own (the tile's first k-step starts it with scale-d 0) and then added into
 // the sum in f32, times the tile's scale where it has one, as the TPU
 // kernels do (banded_quant.py:804-812, banded_pallas.py:53-57,
@@ -68,6 +80,10 @@
 //     rounded to bf16 (cvt.rn.bf16x2.f32), the plain version's two
 //     roundings; every product is then exact, and the tile's dot is added
 //     with scale 1.
+//   * int8 x int8 (K5): wgmma.mma_async.m64n64k32.s32.s8.s8, each tile's dot
+//     exact in s32 and then in f32 (|dot| <= 127^2 * b < 2^24 for b <=
+//     1040), times fl(scale * xscale), then added, each rounding apart
+//     (__fmul_rn, __fadd_rn): the plain version bit for bit.
 //   * f32 (K7): wgmma has no f32 x f32 form and TF32 keeps 10 bits, so each
 //     f32 value a is split exactly into three bf16 terms, hi = rn(a), mid =
 //     rn(a - hi), lo = a - hi - mid (a - hi and lo are exact in f32, and lo
@@ -115,8 +131,14 @@
 //     64 senders, and two 8 KB boxes of the f32 frame, 32 senders (128
 //     bytes) by 64 features each (K4, K6: 24 KB stages, 144 KB in the
 //     ring), or one 8 KB box of the bf16 frame, 64 senders by 64 features
-//     (B3d and the feature-major bf16 frame: 16 KB stages, 96 KB in the
-//     ring).
+//     (B3b, B3d and the feature-major bf16 frame: 16 KB stages, 96 KB in
+//     the ring).  K5 stages 128 senders: a 16 KB box of the transposed
+//     tile, 128 sender rows of 128 receivers, and an 8 KB box of the int8
+//     frame, 64 feature rows of 128 senders (24 KB stages, 144 KB in the
+//     ring; 620 stages a block at the main shape, role B's 1,241).  B3b
+//     reads its 10.5 MB panel again for every chunk, so its band boxes are
+//     loaded under evict_last too: the panel and the window stay in L2,
+//     and B3b times role B with the HBM stream taken out.
 //   * An int8 or f32 band becomes wgmma's A operand in registers.  Each
 //     consumer thread reads its A fragment (receivers 16 * warp + lane / 4
 //     and + 8 of its warpgroup's 64, senders 2 * (lane % 4) + {0, 1, 8, 9}
@@ -128,6 +150,26 @@
 //     conflicts.  No tile goes back to shared memory, so no proxy fence is
 //     needed, and the widening of k-step k + 1 runs while k-step k's wgmma
 //     is in flight.
+//   * K5's band is wgmma's A operand in registers too, but its staged tile
+//     is transposed (sender rows of 128 receiver bytes) and a thread's s8
+//     fragment register holds four consecutive senders of one receiver: a
+//     gather across four rows.  The fragment's row order is free, as long
+//     as the output rows take the same order, so each thread gets two
+//     adjacent receivers (row 16 * warp + lane / 4 is receiver 16 * warp +
+//     2 * (lane / 4), row + 8 the next): one 16-bit load at a sender row
+//     serves both, and two byte permutes a pair of loads and one a register
+//     build the fragment, 8 loads and 8 prmt a k32-step.  The K order is
+//     not free (it is the frame box's), but the order of a thread's own
+//     four loads is: lanes t and t + 2 of a quad read rows four apart,
+//     which under the swizzle fall on the same chunk, so lanes with t >= 2
+//     take their senders rotated by one, and every 16-bit load of a warp
+//     meets each bank once (tests/test_torch_band_mma.py emulates the
+//     gather, two wavefronts a load without the rotation).  The frame box
+//     is wgmma's B through a K-major descriptor, the frame's rows as they
+//     are.  As for K3, no tile goes back to shared memory: no proxy fence,
+//     no named barrier.  The sums are stored feature-major from the
+//     permuted rows, a thread's two receivers side by side, so a warp's
+//     8-byte stores fill whole 32-byte sectors.
 //   * An int8 band in role B is wgmma's B operand, which comes only from
 //     shared memory.  Each consumer warpgroup widens its own 64 receivers
 //     of the stage's int8 box into a swizzled bf16 box of 64 receivers by
@@ -153,10 +195,13 @@
 //     frees the fragment registers for the new pairs.  The products that
 //     read a buffer, two stages back, are done before it is written again:
 //     every thread waited for them before the warpgroup's barrier of the
-//     stage between.  A tile's last stage waits for its products, so its
-//     dot can join the sum.  (A first version kept two fragment sets and
-//     chose one by the buffer's parity: ptxas serialized every wgmma of
-//     both role B instantiations, C7518, "WG.DP in divergent path".)
+//     stage between.  After a tile's last stage every thread waits for its
+//     products, so its dot can join the sum.  ptxas serializes every wgmma
+//     of an instantiation (C7518, "WG.DP in divergent path") where that
+//     wait sits under a test of the tile's last stage inside the stage
+//     loop, as it once did in every role B instantiation over the int8
+//     band (a version with two fragment sets chosen by the buffer's parity
+//     drew it too): the wait is after the loop.
 //   * The operands are 3-D tensor maps, [NB*D tiles, b, b] for the band and
 //     [blocks, b, F] (role A; [3 * blocks, b, F] for the f32 band's three
 //     frames, frame s at block s * blocks + blk) or [F, blocks, b] (role B)
@@ -215,16 +260,19 @@
 //     KB stages over 4,096 units with no L2 policy, took 1.14-1.16 ms.  K7
 //     over the f32 band and B2c took 8.18 and 7.88-7.91 ms on the CUDA-core
 //     body of csrc/banded_spmm.cu; their times here are in PERF.md.  Role B
-//     over the int8 band: K4's launch (and B3c's, which is K4's) 1.13 ms,
-//     K6's 1.31 (9.0, 9.3 and 8.4 on the CUDA-core bodies; the f32
+//     over the int8 band: K4's launch (and B3c's, which is K4's) 1.11 ms,
+//     K6's 1.10 (9.0, 9.3 and 8.4 on the CUDA-core bodies; the f32
 //     torch.bmm 5.3), half of the 0.56 ms bound; on a bf16 frame, the same
-//     band and body, 1.00 ms feature-major and 0.99 ms blocked (B3d).  A
-//     third fewer bytes staged (2.68 GB against 4.03) took 12 % and 24 %
-//     off: role B's stages take 0.80-1.06 us each, 16 KB or 24 KB, so its
-//     time is set mostly by the number of stages (the widening, the proxy
-//     fence and the named barrier of each), not by their bytes.  Two
-//     variants did not help: a cluster of the two receiver tiles with the
-//     frame box multicast to both (2.38 ms), and eight stages (1.13).
+//     band and body, 0.85 ms feature-major and 0.84 ms blocked (B3d).  With
+//     the tile-end wait under a test of the last stage (C7518, above) K6
+//     took 1.31 ms and the bf16 frame 1.00.  B3b, the same stages with its
+//     panel in L2, takes 0.78 ms: 0.62 us a stage without the HBM stream
+//     against B3d's 0.67 with it, so role B's time is set mostly by the
+//     number of stages (the widening, the proxy fence and the named
+//     barrier of each), not by their bytes.  Two variants did not help: a
+//     cluster of the two receiver tiles with the frame box multicast to
+//     both (2.38 ms), and eight stages (1.13).  K5's launch takes 0.64 ms,
+//     87 % of its 0.56 ms bound (4.25 ms on the CUDA-core body).
 //
 // Each C entry point returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for arguments it does not take (and for a tensor
@@ -248,6 +296,10 @@ enum class Role { kRowMajor, kFeatureMajor, kBlocked };
 // Where an int8 band's scale goes: on the tile's dot (K3, B2c, role B), or
 // folded into the tile and rounded to bf16 as it is widened (B2c wrow_bf16).
 enum class Fold { kOnDot, kIntoTileBf16 };
+// What a role B launch over the int8 band adds to K4's: nothing; the A
+// fragment's k-steps past a block that is not a multiple of 64 set to zero
+// (K4's kPastBlock); or B3b's panel map (kPanel).
+enum class Variant { kPlain, kPastBlock, kPanel };
 
 constexpr int kConsumerGroups = 2;                     // warpgroups running wgmma
 constexpr int kThreads = (kConsumerGroups + 1) * 128;  // + one producer warpgroup
@@ -264,13 +316,17 @@ constexpr int kSwizzleAtom = 1024;                     // 8 rows of 128 bytes
 // senders' rows of 64 features in each of the band's kFrames frames (three
 // for the f32 band's split x).  Role B over the int8 band (kWiden) stages 64
 // senders by 128 receivers of band and their rows of the frame, f32 (K4,
-// K6) or bf16 (B3c, B3d); after the ring come each consumer warpgroup's two
-// bf16 boxes of the widened band.  Every other stage's frame is bf16.
+// K6) or bf16 (B3b, B3c, B3d); after the ring come each consumer
+// warpgroup's two bf16 boxes of the widened band.  K5 (kS8: an int8 frame,
+// s8 products) stages 128 senders by 128 receivers of the transposed tile
+// and their 64 features' rows of 128 bytes of the int8 frame.  Every other
+// stage's frame is bf16.
 template <Role kRole, typename Band, typename Frame>
 struct Stage {
-  static constexpr bool kWiden = kRole != Role::kRowMajor && std::is_same_v<Band, int8_t>;
+  static constexpr bool kS8 = std::is_same_v<Frame, int8_t>;
+  static constexpr bool kWiden = kRole != Role::kRowMajor && std::is_same_v<Band, int8_t> && !kS8;
   static constexpr int kK = kWiden ? 64 : kRowBytes / sizeof(Band);  // senders: 32 f32, 64 bf16, 128 int8
-  static constexpr int kSteps = kK / 16;                              // wgmma k-steps of 16 senders
+  static constexpr int kSteps = kK / (kS8 ? 32 : 16);                 // wgmma k-steps of 16 (s8: 32) senders
   static constexpr int kFrames = std::is_same_v<Band, float> ? 3 : 1;
   static constexpr int kBandBytes = kWiden ? kBoxBytes : kTileR * kRowBytes;  // 8 or 16 KB
   static constexpr int kFrameBytes = kK * kTileF * (int)sizeof(Frame);  // one frame's rows: 4, 8 or 16 KB
@@ -294,6 +350,9 @@ struct Params {
   long long ldo;  // output stride of a node (role A) or a feature (role B), elements
   long long ldb;  // role B: output stride of a row block, elements
   int fblock;     // K4: senders of a node block in the frame's map (b, or b_pad for a padded copy)
+  const float* xscales = nullptr;  // K5: [nb + 2W], one scale per frame block
+  float* sink = nullptr;           // B3b: one float, the other chunks' sums
+  int R = 1, i_star = 0;           // B3b: row blocks of a chunk, the chunk that stores
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -438,6 +497,35 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// D (+)= A * B, m64n64k32, s32 += s8 x s8, exact: A from registers, this
+// thread's fragment of the 64 x 32 s8 A tile, a[0] = (row q, k 4t..4t+3),
+// a[1] = (row q + 8, same k), a[2] = (row q, k 4t+16..4t+19), a[3] = (row q
+// + 8, same k), for q = 16 * warp + lane / 4 and t = lane % 4, lower k in
+// the lower byte; B K-major from shared memory (the 8-bit forms have no
+// transposed operand).  `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The same fence for an s32 accumulator.
+template <int N>
+__device__ __forceinline__ void fence_operands(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // Keeps A fragments in registers of their own until the wgmma that reads
 // them has completed (the compiler sees only the issue).
 template <int N>
@@ -536,7 +624,29 @@ __device__ __forceinline__ void store_sums(const float (&acc)[32], const Params&
   }
 }
 
-template <Role kRole, typename Band, typename Frame, Fold kFold, bool kPastBlock>
+// K5's sums from registers, feature-major, out[f * ldo + rb * ldb + r]: its
+// fragment's rows are receivers in the permuted order, entry i receiver 16
+// * warp + 2 * quad + ((i >> 1) & 1) of the warpgroup's 64, column feature 8
+// * (i / 4) + pair (+ 1 for odd i).  A thread's two receivers sit side by
+// side, one 8-byte store a feature; a warp's store covers 16 receivers of
+// each of 4 features, whole 32-byte sectors.
+__device__ __forceinline__ void store_sums_s8(const float (&acc)[32], const Params& p, int rb, int mt, int ft,
+                                              int group, int warp, int quad, int pair) {
+  const int r = mt * kTileR + kGroupR * group + 16 * warp + 2 * quad;
+  const long long node = (long long)rb * p.b + r;
+  const bool ok0 = r < p.b && node < p.n, ok1 = r + 1 < p.b && node + 1 < p.n;
+#pragma unroll
+  for (int i = 0; i < 32; i += 4) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int f = ft * kTileF + 8 * (i >> 2) + pair + e;
+      if (f < p.F)
+        store2(p.out, (long long)f * p.ldo + rb * p.ldb + r, ok0, ok1, acc[i + e], acc[i + 2 + e]);
+    }
+  }
+}
+
+template <Role kRole, typename Band, typename Frame, Fold kFold, Variant kVariant>
 __global__ void __launch_bounds__(kThreads, 1)
     band_mma_kernel(__grid_constant__ const CUtensorMap band_map,
                     __grid_constant__ const CUtensorMap frame_map, const Params p) {
@@ -548,14 +658,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr bool kXT = kRole == Role::kFeatureMajor && kF32Frame;  // K4: a 2-D map over xT
   constexpr bool kFoldBf16 = kFold == Fold::kIntoTileBf16;
   constexpr bool kScaledDot = (kInt8 && !kFoldBf16) || !kRowMajor;
+  constexpr bool kPastBlock = kVariant == Variant::kPastBlock;
+  constexpr bool kPanel = kVariant == Variant::kPanel;
   static_assert(kRowMajor || kInt8 || std::is_same_v<Band, __nv_bfloat16>,
                 "role B takes a bf16 or an int8 band");
   static_assert(kRole != Role::kBlocked || kInt8, "the blocked layout takes the int8 band");
-  static_assert(std::is_same_v<Frame, __nv_bfloat16> || (S::kWiden && kF32Frame),
-                "a bf16 frame, or an f32 one for role B over the int8 band");
+  static_assert(std::is_same_v<Frame, __nv_bfloat16> || (S::kWiden && kF32Frame) ||
+                    (S::kS8 && kInt8 && kRole == Role::kFeatureMajor),
+                "a bf16 frame, an f32 one for role B over the int8 band, or K5's int8 one");
   static_assert(kInt8 || !kFoldBf16, "only an int8 band has a scale to fold");
   static_assert(kRowMajor || !kFoldBf16, "role B keeps the scale on the dot");
   static_assert(kXT || !kPastBlock, "only K4's 2-D map reads past the block");
+  static_assert(!kPanel || (S::kWiden && kRole == Role::kFeatureMajor && !kF32Frame),
+                "B3b's panel is role B's over the int8 band on a bf16 frame");
   __shared__ __align__(8) uint64_t full_bar[S::kStages];
   __shared__ __align__(8) uint64_t empty_bar[S::kStages];
   extern __shared__ uint8_t smem_raw[];
@@ -579,7 +694,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (group == kConsumerGroups) {
     // the producer: one thread keeps the ring full
     if (threadIdx.x != kConsumerGroups * 128) return;
-    const uint64_t stream = l2_policy(false), keep = l2_policy(true);
+    const uint64_t keep = l2_policy(true);
+    // B3b re-reads its panel: it stays in L2 (evict_last) like the frame
+    const uint64_t stream = kPanel ? keep : l2_policy(false);
     const int blocks = p.nb + 2 * p.W;  // frame blocks of one frame
     int stage = 0;
     uint32_t phase = 0;
@@ -587,13 +704,23 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int ft = (int)(u % p.ftiles);
       const int mt = (int)((u / p.ftiles) % p.mtiles);
       const int rb = (int)(u / ((long long)p.ftiles * p.mtiles));
+      // the unit's band row and first frame block: its own, or B3b's panel
+      // map for row r of chunk i: band row (r + i) mod R, frame block (r + d
+      // + i) mod (R + 2W)
+      int band_row = rb, blk0 = rb;
+      if constexpr (kPanel) {
+        const int chunk = rb / p.R, r = rb - chunk * p.R;
+        band_row = (r + chunk) % p.R;
+        blk0 = r + chunk;
+      }
       for (int d = 0; d < D; ++d) {
+        const int tile = band_row * D + d, blk = kPanel ? (blk0 + d) % (p.R + 2 * p.W) : blk0 + d;
         for (int kc = 0; kc < nk; ++kc) {
           const uint32_t full = smem_u32(&full_bar[stage]);
           mbar_wait(smem_u32(&empty_bar[stage]), phase ^ 1);
           mbar_expect_tx(full, S::kBytes);
           const uint32_t band = ring + stage * S::kBytes, frame = band + S::kBandBytes;
-          const int tile = rb * D + d, blk = rb + d, s0 = kc * S::kK, r0 = mt * kTileR, f0 = ft * kTileF;
+          const int s0 = kc * S::kK, r0 = mt * kTileR, f0 = ft * kTileF;
           if constexpr (kRowMajor) {
             // band box {kK senders, 128 receivers, 1 tile}; frame boxes {64
             // features, kK senders, 1 block}, one from each frame
@@ -601,8 +728,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
             for (int f = 0; f < S::kFrames; ++f)
               tma_load(frame + f * S::kFrameBytes, &frame_map, full, f0, s0, f * blocks + blk, keep);
-          } else if constexpr (S::kWiden) {
-            // band box {128 receivers, 64 senders, 1 tile}
+          } else if constexpr (S::kWiden || S::kS8) {
+            // band box {128 receivers, 64 senders (K5: 128), 1 tile}
             tma_load(band, &band_map, full, r0, s0, tile, stream);
             if constexpr (kF32Frame) {
               // two f32 frame boxes {32 senders, 64 features}: K4's at sender
@@ -622,7 +749,8 @@ __global__ void __launch_bounds__(kThreads, 1)
               // one bf16 frame box {64 senders, 64 features, 1 block} (B3d)
               tma_load(frame, &frame_map, full, s0, f0, blk, keep);
             } else {
-              // one bf16 frame box {64 senders, 1 block, 64 features} (B3c), B3a's
+              // one frame box {128 bytes of senders, 1 block, 64 features}:
+              // bf16 (B3a's frame, B3b's window) or int8 (K5)
               tma_load(frame, &frame_map, full, s0, blk, f0, keep);
             }
           } else {
@@ -635,6 +763,90 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (++stage == S::kStages) stage = 0, phase ^= 1;
         }
       }
+    }
+  } else if constexpr (S::kS8) {
+    // the consumers of K5: warpgroup `group` owns receivers [64 * group, 64
+    // * group + 64) of a unit, m64n64k32 s8 products of receivers x
+    // features, exact in s32.  The A fragment's rows are receivers in a
+    // permuted order, row 16 * warp + quad receiver 16 * warp + 2 * quad and
+    // row + 8 the next one, so one 16-bit load at a sender row of the
+    // swizzled transposed tile (chunk 4 * group + warp ^ s % 8, byte 2 *
+    // quad) serves both of a thread's rows.  Its senders 4t + e (+ 16) of a
+    // k-group go in the order e = (i + t / 2) % 4: lanes t and t + 2 then
+    // meet rows of different s % 8, so different chunks, and a warp's load
+    // meets each bank once.  Two byte permutes a pair of loads, then one a
+    // register, give the fragment: receiver 2 * quad's senders in `lo`, 2 *
+    // quad + 1's in `hi`, sender 4t + e in byte e
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int quad = lane / 4, pair = 2 * (lane % 4), rot = (lane % 4) >> 1;
+    const uint8_t* const ring_ptr = smem_raw + (ring - smem_u32(smem_raw));
+    int s_off[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = 2 * pair + ((i + rot) & 3);  // 4t + e
+      s_off[i] = s * kRowBytes + (((4 * group + warp) ^ (s & 7)) << 4) + 2 * quad;
+    }
+    const uint32_t sel_lo = rot ? 0x4206u : 0x6420u, sel_hi = rot ? 0x5317u : 0x7531u;
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[32];
+    int dot[32];
+    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+      const int ft = (int)(u % p.ftiles);
+      const int mt = (int)((u / p.ftiles) % p.mtiles);
+      const int rb = (int)(u / ((long long)p.ftiles * p.mtiles));
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        // the tile's scale times its frame block's, read while its products run
+        const float scale = __fmul_rn(__ldg(p.scales + (size_t)rb * D + d), __ldg(p.xscales + rb + d));
+        for (int kc = 0; kc < nk; ++kc) {
+          mbar_wait(smem_u32(&full_bar[stage]), phase);
+          const uint8_t* const rows = ring_ptr + stage * S::kBytes;
+          const uint32_t frame = ring + stage * S::kBytes + S::kBandBytes;
+          // the fragment's bytes of all k-steps: k-group h of k-step k is
+          // senders 32k + 16h + 4t .. + 3, two receivers a 16-bit load
+          uint32_t halves[S::kSteps][2][2], a[S::kSteps][4];
+#pragma unroll
+          for (int k = 0; k < S::kSteps; ++k)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint32_t v[4];
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                v[i] = *reinterpret_cast<const uint16_t*>(rows + (32 * k + 16 * h) * kRowBytes + s_off[i]);
+              halves[k][h][0] = __byte_perm(v[0], v[1], 0x5410);
+              halves[k][h][1] = __byte_perm(v[2], v[3], 0x5410);
+            }
+          fence_operands(dot);
+#pragma unroll
+          for (int k = 0; k < S::kSteps; ++k) {
+            // gathered outside any wgmma group: each k-step is a group of its own
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              a[k][2 * h] = __byte_perm(halves[k][h][0], halves[k][h][1], sel_lo);
+              a[k][2 * h + 1] = __byte_perm(halves[k][h][0], halves[k][h][1], sel_hi);
+            }
+            wgmma_fence();  // orders the fragment's registers before the product reads them
+            // B: the frame box's rows (features) of 128 senders, K-major, k-step 32 bytes
+            wgmma_m64n64k32_s8(dot, a[k], smem_desc(frame + k * 32, 0, 1024),
+                               (kc | k) != 0);  // the tile's first k-step starts its dot
+            wgmma_commit();
+          }
+          wgmma_wait_all();
+          fence_fragments(a);
+          fence_operands(dot);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(smem_u32(&empty_bar[stage]));
+          if (++stage == S::kStages) stage = 0, phase ^= 1;
+        }
+        // the tile's dot into the sum: exact in f32 (|dot| <= 127^2 * 256 <
+        // 2^24), times the scale, then added, each rounding apart, the plain
+        // version's order
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(scale, __int2float_rn(dot[i])));
+      }
+      store_sums_s8(acc, p, rb, mt, ft, group, warp, quad, pair);
     }
   } else if constexpr (S::kWiden) {
     // the consumers of role B over the int8 band: warpgroup `group` owns
@@ -672,6 +884,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     int stage = 0, buf = 0;
     uint32_t phase = 0;
     float acc[32], dot[32];
+    [[maybe_unused]] float sink = 0.f;  // B3b: the other chunks' sums
     uint32_t a[S::kSteps][4] = {};
     for (long long u = blockIdx.x; u < units; u += gridDim.x) {
       const int ft = (int)(u % p.ftiles);
@@ -747,19 +960,38 @@ __global__ void __launch_bounds__(kThreads, 1)
             wgmma_m64n64_rs(dot, a[k], smem_desc(wbox + k * 16 * kRowBytes, kBoxBytes, 1024),
                             (kc | k) != 0);  // the tile's first k-step starts its dot
           wgmma_commit();
-          if (kc == nk - 1) {
-            // the tile's dot into the sum, times its scale
-            wgmma_wait_all();
-            fence_fragments(a);
-            fence_operands(dot);
-#pragma unroll
-            for (int i = 0; i < 32; ++i) acc[i] += scale * dot[i];
-          }
           if (++stage == S::kStages) stage = 0, phase ^= 1;
           buf ^= 1;
         }
+        // the tile's dot into the sum, times its scale, once its last
+        // stage's products are done: after the stage loop, where every
+        // thread waits, not under a test of the tile's last stage (there
+        // ptxas serialized every wgmma of role B, C7518)
+        wgmma_wait_all();
+        fence_fragments(a);
+        fence_operands(dot);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] += scale * dot[i];
       }
-      store_sums<kRole>(acc, p, rb, mt, ft, group, warp, quad, pair);
+      if constexpr (kPanel) {
+        // B3b: chunk i* stores its panel at its local row; every other
+        // chunk's sums fold into the sink, so no chunk's arithmetic can be
+        // dropped
+        const int chunk = rb / p.R;
+        if (chunk == p.i_star) {
+          store_sums<kRole>(acc, p, rb - chunk * p.R, mt, ft, group, warp, quad, pair);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) sink += acc[i];
+        }
+      } else {
+        store_sums<kRole>(acc, p, rb, mt, ft, group, warp, quad, pair);
+      }
+    }
+    if constexpr (kPanel) {
+      // one warp sum and one atomic a warp, after its last unit
+      for (int off = 16; off > 0; off >>= 1) sink += __shfl_xor_sync(0xffffffffu, sink, off);
+      if (lane == 0) atomicAdd(p.sink, sink);
     }
   } else {
     // the consumers: warpgroup `group` owns receivers [64 * group, 64 * group + 64)
@@ -954,7 +1186,7 @@ bool valid(int nb, int W, int b, int b_pad, int F) {
 }
 
 template <Role kRole, typename Band, typename Frame = __nv_bfloat16, Fold kFold = Fold::kOnDot,
-          bool kPastBlock = false>
+          Variant kVariant = Variant::kPlain>
 int launch(const CUtensorMap& band_map, const CUtensorMap& frame_map, Params p, void* stream) {
   p.mtiles = (p.b_pad + kTileR - 1) / kTileR;
   const long long units = (long long)p.nb * p.mtiles * p.ftiles;
@@ -962,7 +1194,7 @@ int launch(const CUtensorMap& band_map, const CUtensorMap& frame_map, Params p, 
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  auto kernel = band_mma_kernel<kRole, Band, Frame, kFold, kPastBlock>;
+  auto kernel = band_mma_kernel<kRole, Band, Frame, kFold, kVariant>;
   constexpr int smem = Stage<kRole, Band, Frame>::kSmemBytes;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -990,24 +1222,28 @@ int launch_rowmajor(const Band* band, const float* scales, const __nv_bfloat16* 
   return launch<Role::kRowMajor, Band, __nv_bfloat16, kFold>(band_map, frame_map, p, stream);
 }
 
-// Role B, feature-major, on a bf16 frame x_pad [F, (nb + 2W) * block_pad] in
-// the W-shifted padded frame: over a bf16 band (B3a, two 64-receiver band
-// boxes a stage) or the int8 band (B3c, one 128-receiver box, widened).
-template <typename Band>
-int launch_fm_bf16_frame(const Band* band_T, const float* scales, const __nv_bfloat16* x_pad,
-                         float* outT, int nb, int W, int block, int block_pad, int F, long long ldo,
-                         long long num_cols, void* stream) {
+// Role B's layout, feature-major, on a frame x_pad [F, (nb + 2W) *
+// block_pad] in the W-shifted padded frame: bf16 over a bf16 band (B3a, two
+// 64-receiver band boxes a stage) or the int8 band (B3c's bf16 route, one
+// 128-receiver box, widened); int8, with one scale a frame block in
+// xscales [nb + 2W], over the int8 band (K5, s8 products).
+template <typename Band, typename Frame>
+int launch_fm_frame(const Band* band_T, const float* scales, const Frame* x_pad, const float* xscales,
+                    float* outT, int nb, int W, int block, int block_pad, int F, long long ldo,
+                    long long num_cols, void* stream) {
+  using S = Stage<Role::kFeatureMajor, Band, Frame>;
   if (!valid(nb, W, block, block_pad, F) || scales == nullptr || num_cols <= 0 ||
-      num_cols > (long long)nb * block || ldo < num_cols)
+      num_cols > (long long)nb * block || ldo < num_cols || (S::kS8 && xscales == nullptr))
     return (int)cudaErrorInvalidValue;
-  using S = Stage<Role::kFeatureMajor, Band, __nv_bfloat16>;
   const uint64_t bp = block_pad, D = 2 * W + 1, blocks = (uint64_t)nb + 2 * W;
+  // band boxes of 128-byte rows: {128 int8 or 64 bf16 receivers, kK senders, 1 tile}
   CUtensorMap band_map, frame_map;
-  if (!tensor_map(&band_map, band_T, bp, bp, (uint64_t)nb * D, S::kWiden ? kTileR : 64, S::kK, 1) ||
+  if (!tensor_map(&band_map, band_T, bp, bp, (uint64_t)nb * D, kRowBytes / (int)sizeof(Band), S::kK, 1) ||
       !tensor_map(&frame_map, x_pad, bp, blocks, (uint64_t)F, S::kK, 1, kTileF))
     return (int)cudaErrorInvalidValue;
   Params p{scales, outT, nb, W, block, block_pad, F, 0, (F + kTileF - 1) / kTileF, num_cols, ldo, block, 0};
-  return launch<Role::kFeatureMajor, Band>(band_map, frame_map, p, stream);
+  p.xscales = xscales;
+  return launch<Role::kFeatureMajor, Band, Frame>(band_map, frame_map, p, stream);
 }
 
 // Role B over the int8 band, blocked, on the frame xb_pad [nb + 2W, F,
@@ -1087,8 +1323,8 @@ int cgt_banded_spmm_direct_f32(const float* band, const __nv_bfloat16* frames, f
 int cgt_fm_bf16_band(const __nv_bfloat16* band_T, const float* scales, const __nv_bfloat16* x_pad,
                      float* outT, int nb, int W, int block, int block_pad, int F, long long ldo,
                      long long num_cols, void* stream) {
-  return launch_fm_bf16_frame(band_T, scales, x_pad, outT, nb, W, block, block_pad, F, ldo, num_cols,
-                              stream);
+  return launch_fm_frame(band_T, scales, x_pad, static_cast<const float*>(nullptr), outT, nb, W, block,
+                         block_pad, F, ldo, num_cols, stream);
 }
 
 // K4's function (B3c's) on the bf16 frame: band_qT [nb, 2W+1, block_pad,
@@ -1098,8 +1334,46 @@ int cgt_fm_bf16_band(const __nv_bfloat16* band_T, const float* scales, const __n
 int cgt_banded_spmm_quant_fm_bf16(const int8_t* band_qT, const float* scales,
                                   const __nv_bfloat16* x_pad, float* outT, int nb, int W, int block,
                                   int block_pad, int F, long long ldo, long long num_cols, void* stream) {
-  return launch_fm_bf16_frame(band_qT, scales, x_pad, outT, nb, W, block, block_pad, F, ldo, num_cols,
-                              stream);
+  return launch_fm_frame(band_qT, scales, x_pad, static_cast<const float*>(nullptr), outT, nb, W, block,
+                         block_pad, F, ldo, num_cols, stream);
+}
+
+// K5 banded_spmm_quant_fm_w8a8: band_qT [nb, 2W+1, block_pad, block_pad]
+// int8 (transposed tiles, zero past block) with scales [nb, 2W+1]; xq [F,
+// (nb + 2W) * block_pad] int8, x quantized per frame block in the W-shifted
+// padded frame (zero past block), with xscales [nb + 2W]; outT [F,
+// num_nodes] float32, column rb * block + r.
+int cgt_banded_spmm_quant_fm_w8a8(const int8_t* band_qT, const float* scales, const int8_t* xq,
+                                  const float* xscales, float* outT, int nb, int W, int block,
+                                  int block_pad, int F, int num_nodes, void* stream) {
+  return launch_fm_frame(band_qT, scales, xq, xscales, outT, nb, W, block, block_pad, F, num_nodes,
+                         num_nodes, stream);
+}
+
+// B3b fm_compute_only: role B over the panel band_qT [R, 2W+1, block_pad,
+// block_pad] int8 (band rows 0..R-1, transposed tiles, zero past block) with
+// the scales of all nb row blocks [nb, 2W+1]; x_win [F, (R + 2W) *
+// block_pad] bf16 (window 0 of the padded frame, zero past block); out [F,
+// R * block] float32, chunk i*'s panel; sink one float, which the caller
+// zeroes, gets every other chunk's sums.
+int cgt_fm_compute_only(const int8_t* band_qT, const float* scales, const __nv_bfloat16* x_win,
+                        float* out, float* sink, int nb, int W, int block, int block_pad, int F, int R,
+                        void* stream) {
+  if (!valid(nb, W, block, block_pad, F) || scales == nullptr || sink == nullptr || R <= 0 || nb % R != 0)
+    return (int)cudaErrorInvalidValue;
+  using S = Stage<Role::kFeatureMajor, int8_t, __nv_bfloat16>;
+  const uint64_t bp = block_pad, D = 2 * W + 1, blocks = (uint64_t)R + 2 * W;
+  CUtensorMap band_map, frame_map;
+  if (!tensor_map(&band_map, band_qT, bp, bp, (uint64_t)R * D, kTileR, S::kK, 1) ||
+      !tensor_map(&frame_map, x_win, bp, blocks, (uint64_t)F, S::kK, 1, kTileF))
+    return (int)cudaErrorInvalidValue;
+  const long long cols = (long long)R * block;
+  Params p{scales, out, nb, W, block, block_pad, F, 0, (F + kTileF - 1) / kTileF, cols, cols, block, 0};
+  p.sink = sink;
+  p.R = R;
+  p.i_star = (nb / R - 1) / 2 * 2;  // the largest even chunk: the TPU kernel's slots alternate
+  return launch<Role::kFeatureMajor, int8_t, __nv_bfloat16, Fold::kOnDot, Variant::kPanel>(band_map, frame_map,
+                                                                                          p, stream);
 }
 
 // K4 banded_spmm_quant_fm, and its backward launch over the transposed
@@ -1129,7 +1403,8 @@ int cgt_banded_spmm_quant_fm(const int8_t* band_qT, const float* scales, const f
   // a block that is not a multiple of a stage's 64 senders takes the
   // instantiation that masks the reads past it; the main shape's does not
   return block_pad % S::kK != 0
-             ? launch<Role::kFeatureMajor, int8_t, float, Fold::kOnDot, true>(band_map, frame_map, p, stream)
+             ? launch<Role::kFeatureMajor, int8_t, float, Fold::kOnDot, Variant::kPastBlock>(band_map, frame_map,
+                                                                                              p, stream)
              : launch<Role::kFeatureMajor, int8_t, float>(band_map, frame_map, p, stream);
 }
 

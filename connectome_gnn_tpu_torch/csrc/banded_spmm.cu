@@ -1,13 +1,9 @@
-// Band SpMM kernels on int8 activations, K5 and B2b, for NVIDIA Hopper
-// (built for sm_90a): one kernel body on the CUDA cores over the int8 band,
-// instantiated per layout.  K3, K4, K6, K7, B2a and B2c (the int8 band with
-// float32 x, and the float32 and bfloat16 bands) run on the tensor-core body
-// in band_mma.cu.
+// Band SpMM kernel B2b on int8 activations for NVIDIA Hopper (built for
+// sm_90a): a kernel body on the CUDA cores over the int8 band, row-major.
+// K3-K7, B2a and B2c run on the tensor-core body in band_mma.cu; K5, B2b's
+// function on feature-major activations, runs there on s8 x s8 products.
 //
-// Replaces the Pallas TPU kernels
-//   in connectome_gnn_tpu/ops/banded_quant.py:
-//   K5  banded_spmm_quant_fm_w8a8  (pallas_call at :434)  K4 on int8
-//       activations, feature-major xT [F, N]
+// Replaces the Pallas TPU kernel
 //   in benchmarks/quant_kernel_diag.py:
 //   B2b banded_spmm_w8a8             (pallas_call at :173)  K5's math on
 //       row-major int8 activations and receiver-major tiles
@@ -20,40 +16,38 @@
 //   out[rb*b + r, f] = sum_d scale[rb, d] * sum_s A[r, s] * X[s, f]
 //
 // B2b reads receiver-major tiles (A[r, s] at tile[r*b + s]) and node-major
-// int8 x; K5 reads transposed tiles (A[r, s] at tile[s*b + r]),
-// feature-major activations, and writes feature-major output.  Both read
-// activations already quantized per node block in the W-shifted padded
-// frame (block rb + d is sender block rb + d - W; the halo blocks are
-// zero), take each tile's dot exactly in int32 with __dp4a, and apply
+// int8 x already quantized per node block in the W-shifted padded frame
+// (block rb + d is sender block rb + d - W; the halo blocks are zero), takes
+// each tile's dot exactly in int32 with __dp4a, and applies
 // (scale[rb, d] * xscale[rb + d]) * float(dot).
 //
-// What bounds it on this card.  At the 1M-node serving shape (NB = 4096,
-// b = 256, W = 2, F = 64) the kernel multiplies every entry of the dense
-// tiles, 86 G multiply-adds, against a band of 1.34 GB, four multiply-adds
-// a __dp4a.  Only 39.8M of the 1.34G tile entries are nonzero (3.0 %), so
-// the function's least time is the bytes it moves (the band, x and out):
-// about 0.56 ms.  Tensor cores move a band kernel towards that bound, as
-// band_mma.cu does for the other band kernels; wgmma's s8 x s8 form is the
-// route for these two, later work.
+// What bounds it on this card.  At the 1M-node shape (NB = 4096, b = 256,
+// W = 2, F = 64) the kernel multiplies every entry of the dense tiles, 86 G
+// multiply-adds, against a band of 1.34 GB, four multiply-adds a __dp4a.
+// Only 39.8M of the 1.34G tile entries are nonzero (3.0 %), so the
+// function's least time is the bytes it moves (the band, x and out): about
+// 0.56 ms.  Tensor cores move a band kernel towards that bound, as
+// band_mma.cu does for K5 with wgmma's s8 x s8 form; moving B2b there is
+// later work.
 //
 // What the design does about it.
 //   * One thread block per (row block, 64-receiver tile, 64-feature slice),
 //     so a million-node pass launches 16,384 blocks; nothing passes between
-//     blocks.  The TPU kernels' sequential grid, panel size and manual DMA
+//     blocks.  The TPU kernel's sequential grid, panel size and manual DMA
 //     pipeline have no counterpart.
 //   * The contraction over senders is staged 32 at a time in shared
 //     memory, packed four senders per 32-bit word, so any block size b and
 //     any F >= 1 work; receivers past b or num_nodes and features past F are
 //     masked.
 //   * Each thread keeps a 4 x 4 register tile of receivers x features,
-//     one per-tile int32 dot and one f32 sum over d.  Thread order puts
-//     neighbouring threads on neighbouring output addresses in both
-//     layouts, so the stores are coalesced.
+//     one per-tile int32 dot and one f32 sum over d.  Neighbouring threads
+//     take neighbouring features, the contiguous axis of the node-major
+//     output, so the stores are coalesced.
 //   * All offsets into the band and the activations are 64-bit: the band
 //     has 1.34e9 entries at the 1M-node shape.
 //
-// Each C entry point returns cudaGetLastError() after its launch, as an
-// int; 0 is success.
+// The C entry point returns cudaGetLastError() after its launch, as an int;
+// 0 is success.
 
 #include <cuda_runtime.h>
 
@@ -73,15 +67,10 @@ constexpr int kPad = 4;     // row padding in shared memory; keeps 16-byte align
 
 static_assert(kGroups * (kTileN / kMicro) == kThreads, "one 4x4 tile per thread");
 
-// B2b: kRowMajor.  K5: kFeatureMajor.
-enum class Layout { kRowMajor, kFeatureMajor };
-
-template <Layout kLayout>
 __global__ void __launch_bounds__(kThreads) band_spmm_kernel(
     const int8_t* __restrict__ band, const float* __restrict__ scales,
     const int8_t* __restrict__ xq, const float* __restrict__ xscales,
     float* __restrict__ out, int W, int b, int F, int n, long long ldx) {
-  constexpr bool kRowMajor = kLayout == Layout::kRowMajor;
   __shared__ __align__(16) int As[kRows][kTileM + kPad];  // As[k][m] = A[m0+m, s0+4k .. 4k+3]
   __shared__ __align__(16) int Xs[kRows][kTileN + kPad];  // Xs[k][f] = X[s0+4k .. 4k+3, f0+f]
 
@@ -91,10 +80,8 @@ __global__ void __launch_bounds__(kThreads) band_spmm_kernel(
   const int m0 = (blockIdx.x % mtiles) * kTileM;
   const int f0 = blockIdx.y * kTileN;
   const int tid = threadIdx.x;
-  // neighbouring threads take neighbouring output addresses: features in
-  // the node-major output, receivers in the feature-major one
-  const int tm = kRowMajor ? tid / kGroups : tid % kGroups;
-  const int tn = kRowMajor ? tid % kGroups : tid / kGroups;
+  // neighbouring threads take neighbouring features, neighbouring output addresses
+  const int tm = tid / kGroups, tn = tid % kGroups;
 
   float acc[kMicro][kMicro] = {};
   for (int d = 0; d < D; ++d) {
@@ -105,28 +92,25 @@ __global__ void __launch_bounds__(kThreads) band_spmm_kernel(
     for (int s0 = 0; s0 < b; s0 += kTileK) {
       for (int idx = tid; idx < kTileM * kRows; idx += kThreads) {
         // read along the tile's contiguous axis: four senders a thread
-        const int m = kRowMajor ? idx / kRows : idx % kTileM;
-        const int k4 = kRowMajor ? idx % kRows : idx / kTileM;
+        const int m = idx / kRows, k4 = idx % kRows;
         const int r = m0 + m;
         unsigned word = 0;
         for (int j = 0; j < 4; ++j) {
           const int s = s0 + 4 * k4 + j;
           int v = 0;
-          if (r < b && s < b) v = kRowMajor ? tile[(size_t)r * b + s] : tile[(size_t)s * b + r];
+          if (r < b && s < b) v = tile[(size_t)r * b + s];
           word |= (unsigned)(v & 0xff) << (8 * j);
         }
         As[k4][m] = (int)word;
       }
       for (int idx = tid; idx < kTileN * kRows; idx += kThreads) {
         // row-major x: four senders of one feature at stride ldx
-        const int k4 = kRowMajor ? idx / kTileN : idx % kRows;
-        const int f = kRowMajor ? idx % kTileN : idx / kRows;
+        const int k4 = idx / kTileN, f = idx % kTileN;
         unsigned word = 0;
         for (int j = 0; j < 4; ++j) {
           const int s = s0 + 4 * k4 + j;
           int v = 0;
-          if (f0 + f < F && s < b)
-            v = kRowMajor ? xq[(first + s) * ldx + f0 + f] : xq[(size_t)(f0 + f) * ldx + first + s];
+          if (f0 + f < F && s < b) v = xq[(first + s) * ldx + f0 + f];
           word |= (unsigned)(v & 0xff) << (8 * j);
         }
         Xs[k4][f] = (int)word;
@@ -160,49 +144,27 @@ __global__ void __launch_bounds__(kThreads) band_spmm_kernel(
 #pragma unroll
     for (int j = 0; j < kMicro; ++j) {
       const int f = f0 + tn * kMicro + j;
-      if (f >= F) continue;
-      if constexpr (kRowMajor) {
-        out[node * F + f] = acc[i][j];
-      } else {
-        out[(long long)f * n + node] = acc[i][j];
-      }
+      if (f < F) out[node * F + f] = acc[i][j];
     }
   }
-}
-
-template <Layout kLayout>
-int launch(const int8_t* band, const float* scales, const int8_t* xq, const float* xscales,
-           float* out, int nb, int W, int b, int F, int n, long long ldx, void* stream) {
-  if (nb <= 0 || W < 0 || b <= 0 || F <= 0 || n <= 0 || n > (long long)nb * b)
-    return (int)cudaErrorInvalidValue;
-  const long long mtiles = (b + kTileM - 1) / kTileM;
-  const dim3 grid((unsigned)(nb * mtiles), (unsigned)((F + kTileN - 1) / kTileN));
-  band_spmm_kernel<kLayout><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      band, scales, xq, xscales, out, W, b, F, n, ldx);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// K5: transposed int8 tiles, xq [F, (nb + 2W) * block] int8 in the
-// W-shifted padded frame with one scale per block, ldx its row stride.
-int cgt_banded_spmm_quant_fm_w8a8(const int8_t* band_qT, const float* scales,
-                                  const int8_t* xq, const float* xscales, float* outT,
-                                  int nb, int W, int block, int F, int num_nodes,
-                                  long long ldx, void* stream) {
-  return launch<Layout::kFeatureMajor>(band_qT, scales, xq, xscales, outT, nb, W, block, F,
-                                       num_nodes, ldx, stream);
-}
-
 // B2b: receiver-major int8 tiles, xq [(nb + 2W) * block, F] int8 in the
 // W-shifted padded frame with one scale per block, ldx its row stride.
 int cgt_banded_spmm_w8a8_rowmajor(const int8_t* band_q, const float* scales, const int8_t* xq,
                                   const float* xscales, float* out, int nb, int W, int block,
                                   int F, int num_nodes, long long ldx, void* stream) {
-  return launch<Layout::kRowMajor>(band_q, scales, xq, xscales, out, nb, W, block, F, num_nodes,
-                                   ldx, stream);
+  if (nb <= 0 || W < 0 || block <= 0 || F <= 0 || num_nodes <= 0 || num_nodes > (long long)nb * block)
+    return (int)cudaErrorInvalidValue;
+  const long long mtiles = (block + kTileM - 1) / kTileM;
+  const dim3 grid((unsigned)(nb * mtiles), (unsigned)((F + kTileN - 1) / kTileN));
+  band_spmm_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(band_q, scales, xq, xscales, out, W, block,
+                                                                F, num_nodes, ldx);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,15 +1,14 @@
-// Feature-major band-pipeline probes B3 for NVIDIA Hopper (built for sm_90a):
-// one kernel body over an int8 band with a two-stage cp.async ring in shared
-// memory, instantiated per body and activation type.
+// Feature-major band-pipeline probes B3a for NVIDIA Hopper (built for
+// sm_90a): one kernel body over an int8 band with a two-stage cp.async ring
+// in shared memory, instantiated per body and activation type.
 //
-// Replaces the Pallas TPU kernels of benchmarks/fm_kernel_diag.py:
+// Replaces the Pallas TPU kernel of benchmarks/fm_kernel_diag.py:
 //   B3a _fm_pipeline     (pallas_call at :130), reached by
 //       fm_dma_only  :157  copy-plus-add body           <kDmaOnly, bf16>
 //       fm_w8a8      :545  int8 band x int8 x dots      <kDots, int8>
 //       (fm_bf16_band :271, the bf16 band's dots, is role B of band_mma.cu)
-//   B3b fm_compute_only  (pallas_call at :242)          <kComputeOnly, bf16>
-// B3c fm_deep and B3d fm_blocked, K4's and K6's function on a bf16 frame,
-// are role B of band_mma.cu over the int8 band.
+// B3b fm_compute_only, B3c fm_deep and B3d fm_blocked are role B of
+// band_mma.cu over the int8 band on a bf16 frame (B3b with its panel map).
 //
 // Math.  The band holds, for row block rb and diagonal d in [0, 2W], one
 // transposed b x b int8 tile, tileT[s, r] = A[r, s], with one f32 scale.
@@ -19,38 +18,24 @@
 //
 //   out[f, rb*b + r] = sum_d scale(rb, d) * sum_s x[f, (rb + d)*b + s] * tileT[rb, d][s, r]
 //
-// with scale(rb, d) = scales[rb, d] * xscales[rb + d]; each tile's dot is
-// summed exactly in int32 by __dp4a, as K5, so fm_w8a8 is K5's function bit
-// for bit.  kDmaOnly writes out[f, rb*b + c] = x[f, rb*b + c] +
-// tileT[rb, 0][f, c] for f < F <= b (the padded frame, not shifted back), after
-// staging every byte of every tile and every x window.  kComputeOnly stages
-// only panel 0 (band rows 0..R-1, x window 0) and computes every chunk i of R
-// row blocks with the loop-variant indices rr = (r + i) mod R and
-// kk = (r + d + i) mod (R + 2W), its bf16 x by int8 products exact in f32:
-//
-//   acc_i[f, r*b + c] = sum_d scales[(i*R + r)*D + d] * sum_s x[f, kk*b + s] * tileT[rr, d][s, c]
-//
-// and writes only chunk i* (the largest even i < nb / R; the TPU kernel's
-// slots alternate and its final copy reads slot 0), as out[f, r*b + c].
+// with scale(rb, d) = fl(scales[rb, d] * xscales[rb + d]); each tile's dot
+// is summed exactly in int32 by __dp4a, converted exactly to f32, times the
+// scale and added, each rounding apart, as K5 and the plain version do, so
+// fm_w8a8 is K5's function bit for bit.  kDmaOnly writes out[f, rb*b + c] =
+// x[f, rb*b + c] + tileT[rb, 0][f, c] for f < F <= b (the padded frame, not
+// shifted back), after staging every byte of every tile and every x window.
 //
 // What bounds it on this card.  At the 1M-node shape (nb = 4096, b = 256,
-// W = 2, F = 64) the dots bodies multiply every entry of the dense tiles, 86 G
-// multiply-adds, on the CUDA cores (67 TFLOP/s f32; __dp4a does four int8
-// products an instruction), above the 0.4 ms that the band's 1.34 GB take at
-// 3.35 TB/s.  The products the data needs (39.8M nonzeros) take far less, so
-// the least time of each function is its bytes.  The two probes do more
-// work than their output needs, by design, so their times are rates, not
-// shares of a bound:
-//   * kDmaOnly's output needs only rows 0..F-1 of diagonal 0's tiles (67 MB
-//     of the band) besides x, a bound of about 0.18 ms; it stages every
-//     byte of the band and each x block once per diagonal and 64-receiver
-//     tile, about 4.0 GB, so its time is the ring's staging rate.
-//   * kComputeOnly's output is chunk i*'s panel, one chunk's dots; it
-//     computes every chunk, reading panel 0 again each time: 10.5 MB of int8
-//     band and a 1.2 MB x window, far above an SM's 228 KB of shared memory
-//     (the TPU kept it resident in VMEM) but well inside the 50 MB L2, so on
-//     this card the compute-only floor is "compute plus staging from L2",
-//     not pure compute.
+// W = 2, F = 64) the dots body multiplies every entry of the dense tiles, 86
+// G multiply-adds, on the CUDA cores (__dp4a does four int8 products an
+// instruction), above the 0.4 ms that the band's 1.34 GB take at 3.35
+// TB/s.  The products the data needs (39.8M nonzeros) take far less, so the
+// least time of the function is its bytes.  kDmaOnly does more work than
+// its output needs, by design, so its time is a rate, not a share of a
+// bound: its output needs only rows 0..F-1 of diagonal 0's tiles (67 MB of
+// the band) besides x, a bound of about 0.18 ms; it stages every byte of
+// the band and each x block once per diagonal and 64-receiver tile, about
+// 4.0 GB, so its time is the ring's staging rate.
 //
 // What the design does about it.
 //   * One thread block per (chunk of R row blocks, 64-receiver tile,
@@ -67,9 +52,7 @@
 //     stage's copies are in flight while one is consumed.  The bytes are
 //     widened where they are used, not while they are staged.
 //   * Dead code: cp.async is never eliminated, so kDmaOnly's unused tile
-//     bytes are really staged.  kComputeOnly folds the accumulators of every
-//     chunk other than i* into one sink float (a warp sum and an atomic add
-//     per row block), so no chunk's arithmetic can be dropped.
+//     bytes are really staged.
 //   * Each thread keeps a 4 x 4 register tile of receivers x features;
 //     neighbouring threads take neighbouring receivers, the contiguous axis
 //     of the feature-major output.  Receivers, senders and features past b
@@ -101,7 +84,7 @@ constexpr int kStages = 2;   // the ring's depth, the TPU kernel's
 
 static_assert(kGroups * (kTileN / kMicro) == kThreads, "one 4x4 tile per thread");
 
-enum class Body { kDots, kDmaOnly, kComputeOnly };
+enum class Body { kDots, kDmaOnly };
 
 struct Params {
   const void* band;
@@ -109,8 +92,7 @@ struct Params {
   const void* x;
   const float* xscales;
   float* out;
-  float* sink;
-  int W, b, F, R, i_star;
+  int W, b, F, R;
   long long ldx;  // feature-major x: row stride in elements
   long long ldo;  // feature-major out: row stride in elements
 };
@@ -129,15 +111,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
-
-// Four consecutive staged int8 band entries (receivers c..c+3 of one sender row), widened.
-__device__ __forceinline__ void load4(const unsigned char* row, int c, float (&v)[kMicro]) {
-  const char4 w = *reinterpret_cast<const char4*>(row + c);
-  v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
 }
 
 template <typename T>
@@ -181,16 +154,8 @@ __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
     unsigned char* sb = smem + (t % kStages) * kStage;
     unsigned char* sx = sb + kBandStage;
     const int r = t / per_row, d = (t / nK) % D, s0 = (t % nK) * kTileK;
-    long long tile_id, blk;
-    if constexpr (kBody == Body::kComputeOnly) {
-      tile_id = (long long)((r + chunk) % R) * D + d;
-      blk = (r + d + chunk) % (R + 2 * p.W);
-    } else {
-      const long long rb = (long long)chunk * R + r;
-      tile_id = rb * D + d;
-      blk = rb + d;
-    }
-    const int8_t* tile = band + (size_t)tile_id * b * b;
+    const long long rb = (long long)chunk * R + r, blk = rb + d;
+    const int8_t* tile = band + (size_t)(rb * D + d) * b * b;
     for (int idx = tid; idx < kTileK * kBandChunks; idx += kThreads) {
       const int k = idx / kBandChunks;
       const int c = (idx % kBandChunks) * 16;
@@ -210,9 +175,8 @@ __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
 
   issue(0);
 
-  using Dot = std::conditional_t<kInt8X, int, float>;
   float acc[kMicro][kMicro] = {};
-  Dot dot[kMicro][kMicro] = {};
+  int dot[kMicro][kMicro] = {};
   for (int t = 0; t < T; ++t) {
     cp_async_wait<0>();  // stage t has landed
     // every thread is past stage t - 1, whose slot the next issue refills
@@ -221,6 +185,7 @@ __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
     const unsigned char* sb = smem + (t % kStages) * kStage;
     const unsigned char* sx = sb + kBandStage;
     const int r = t / per_row, d = (t / nK) % D, s0 = (t % nK) * kTileK;
+    const long long rb = (long long)chunk * R + r;
 
     if constexpr (kBody == Body::kDmaOnly) {
       // out = x[f, rb*b + c] + tileT[rb, 0][f, c]: x from window block rb
@@ -239,7 +204,7 @@ __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
           }
         }
       }
-    } else if constexpr (kInt8X) {
+    } else {
 #pragma unroll
       for (int k0 = 0; k0 < kTileK; k0 += 4) {
         // four sender rows of four receivers, transposed to four senders a receiver
@@ -260,66 +225,33 @@ __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
 #pragma unroll
           for (int j = 0; j < kMicro; ++j) dot[i][j] = __dp4a(w[i], xw[j], dot[i][j]);
       }
-    } else {
-#pragma unroll
-      for (int k0 = 0; k0 < kTileK; k0 += 8) {
-        float xv[kMicro][8];
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) {
-          const uint4 w = *reinterpret_cast<const uint4*>(sx + (tn * kMicro + j) * kXRow + 2 * k0);
-          xv[j][0] = bf16_lo(w.x), xv[j][1] = bf16_hi(w.x), xv[j][2] = bf16_lo(w.y);
-          xv[j][3] = bf16_hi(w.y), xv[j][4] = bf16_lo(w.z), xv[j][5] = bf16_hi(w.z);
-          xv[j][6] = bf16_lo(w.w), xv[j][7] = bf16_hi(w.w);
-        }
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          float av[kMicro];
-          load4(sb + (k0 + kk) * kBandRow, tm * kMicro, av);
-#pragma unroll
-          for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-            for (int j = 0; j < kMicro; ++j) dot[i][j] = fmaf(av[i], xv[j][kk], dot[i][j]);
-        }
-      }
     }
 
-    if constexpr (kBody != Body::kDmaOnly) {
-      if (t % nK == nK - 1) {  // the tile's last senders: scale its dot into the sum
-        const long long rb = (long long)chunk * R + r;
-        float scale = p.scales[(size_t)rb * D + d];
-        if constexpr (kInt8X) scale = scale * p.xscales[rb + d];
+    if constexpr (kBody == Body::kDots) {
+      if (t % nK == nK - 1) {  // the tile's last senders: its dot into the sum
+        // exact in f32, times fl(scale * xscale), then added: each rounding
+        // apart, as the plain version rounds
+        const float scale = __fmul_rn(p.scales[(size_t)rb * D + d], p.xscales[rb + d]);
 #pragma unroll
         for (int i = 0; i < kMicro; ++i)
 #pragma unroll
           for (int j = 0; j < kMicro; ++j) {
-            acc[i][j] += scale * (float)dot[i][j];
+            acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(scale, __int2float_rn(dot[i][j])));
             dot[i][j] = 0;
           }
       }
     }
 
     if (t % per_row == per_row - 1) {  // the row block's last stage: store it
-      if (kBody == Body::kComputeOnly && chunk != p.i_star) {
-        float v = 0.f;
 #pragma unroll
-        for (int i = 0; i < kMicro; ++i)
+      for (int i = 0; i < kMicro; ++i) {
+        const int c = m0 + tm * kMicro + i;
+        if (c >= b) continue;
 #pragma unroll
-          for (int j = 0; j < kMicro; ++j) v += acc[i][j];
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-        if ((tid & 31) == 0) atomicAdd(p.sink, v);
-      } else {
-        // compute-only writes chunk i*'s panel at its local row r
-        const long long rb = kBody == Body::kComputeOnly ? r : (long long)chunk * R + r;
-#pragma unroll
-        for (int i = 0; i < kMicro; ++i) {
-          const int c = m0 + tm * kMicro + i;
-          if (c >= b) continue;
-#pragma unroll
-          for (int j = 0; j < kMicro; ++j) {
-            const int f = f0 + tn * kMicro + j;
-            if (f >= F) continue;
-            p.out[(size_t)f * p.ldo + (size_t)rb * b + c] = acc[i][j];
-          }
+        for (int j = 0; j < kMicro; ++j) {
+          const int f = f0 + tn * kMicro + j;
+          if (f >= F) continue;
+          p.out[(size_t)f * p.ldo + (size_t)rb * b + c] = acc[i][j];
         }
       }
 #pragma unroll
@@ -348,8 +280,8 @@ int launch(const Params& p, int chunks, void* stream) {
 }
 
 Params params(const void* band, const float* scales, const void* x, const float* xscales,
-              float* out, float* sink, int W, int b, int F, int R, long long ldx, long long ldo) {
-  return Params{band, scales, x, xscales, out, sink, W, b, F, R, -1, ldx, ldo};
+              float* out, int W, int b, int F, int R, long long ldx, long long ldo) {
+  return Params{band, scales, x, xscales, out, W, b, F, R, ldx, ldo};
 }
 
 }  // namespace
@@ -361,7 +293,7 @@ int cgt_fm_w8a8(const int8_t* band_qT, const float* scales, const int8_t* xq,
                 const float* xscales, float* outT, int nb, int W, int block, int F, int R,
                 long long ldx, void* stream) {
   if (!valid(nb, W, block, F, R)) return (int)cudaErrorInvalidValue;
-  const Params p = params(band_qT, scales, xq, xscales, outT, nullptr, W, block, F, R, ldx,
+  const Params p = params(band_qT, scales, xq, xscales, outT, W, block, F, R, ldx,
                           (long long)nb * block);
   return launch<Body::kDots, int8_t>(p, nb / R, stream);
 }
@@ -370,21 +302,9 @@ int cgt_fm_w8a8(const int8_t* band_qT, const float* scales, const int8_t* xq,
 int cgt_fm_dma_only(const int8_t* band_qT, const __nv_bfloat16* x_pad, float* outT, int nb,
                     int W, int block, int F, int R, long long ldx, void* stream) {
   if (!valid(nb, W, block, F, R) || F > block) return (int)cudaErrorInvalidValue;
-  const Params p = params(band_qT, nullptr, x_pad, nullptr, outT, nullptr, W, block, F, R, ldx,
+  const Params p = params(band_qT, nullptr, x_pad, nullptr, outT, W, block, F, R, ldx,
                           (long long)nb * block);
   return launch<Body::kDmaOnly, __nv_bfloat16>(p, nb / R, stream);
-}
-
-// B3b: x_win [F, (R + 2W) * block] bf16 (window 0 of the padded frame);
-// out [F, R * block], chunk i*'s panel; sink one float, zeroed by the caller.
-int cgt_fm_compute_only(const int8_t* band_qT, const float* scales, const __nv_bfloat16* x_win,
-                        float* out, float* sink, int nb, int W, int block, int F, int R,
-                        long long ldx, void* stream) {
-  if (!valid(nb, W, block, F, R)) return (int)cudaErrorInvalidValue;
-  Params p = params(band_qT, scales, x_win, nullptr, out, sink, W, block, F, R, ldx,
-                    (long long)R * block);
-  p.i_star = (nb / R - 1) / 2 * 2;
-  return launch<Body::kComputeOnly, __nv_bfloat16>(p, nb / R, stream);
 }
 
 }  // extern "C"

@@ -130,7 +130,7 @@ def library() -> ctypes.CDLL:
     lib.cgt_fused_sage_forward.argtypes = [ptr] * 15 + [i32] * 7 + [size, ptr]
     lib.cgt_banded_spmm_quant.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.cgt_banded_spmm_quant_fm.argtypes = [ptr] * 4 + [i32] * 7 + [i64, i64, ptr]
-    lib.cgt_banded_spmm_quant_fm_w8a8.argtypes = [ptr] * 5 + [i32] * 5 + [i64, ptr]
+    lib.cgt_banded_spmm_quant_fm_w8a8.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
     lib.cgt_banded_spmm_quant_blocked.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.cgt_banded_spmm_quant_fm_bf16.argtypes = [ptr] * 4 + [i32] * 5 + [i64, i64, ptr]
     lib.cgt_banded_spmm_quant_blocked_bf16.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
@@ -141,7 +141,7 @@ def library() -> ctypes.CDLL:
     lib.cgt_fm_bf16_band.argtypes = [ptr] * 4 + [i32] * 5 + [i64, i64, ptr]
     lib.cgt_fm_w8a8.argtypes = [ptr] * 5 + [i32] * 5 + [i64, ptr]
     lib.cgt_fm_dma_only.argtypes = [ptr] * 3 + [i32] * 5 + [i64, ptr]
-    lib.cgt_fm_compute_only.argtypes = [ptr] * 5 + [i32] * 5 + [i64, ptr]
+    lib.cgt_fm_compute_only.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
     lib.cgt_row_gather.argtypes = [ptr] * 3 + [i64] * 2 + [i32] * 4 + [ptr]
     for entry in (
         "cgt_fused_gcn_forward", "cgt_fused_sage_forward", "cgt_banded_spmm_quant",

@@ -1,7 +1,8 @@
 """Operands and launches of the tensor-core band body, ``csrc/band_mma.cu``.
 
-That body serves K3, K4, K6, B2c, B3c and B3d over the int8 band, K7 over a
-float32 or bfloat16 band, and B2a and B3a over a bfloat16 band.  Role A is row-major:
+That body serves K3, K4, K5, K6, B2c, B3b, B3c and B3d over the int8 band,
+K7 over a float32 or bfloat16 band, and B2a and B3a over a bfloat16 band.
+Role A is row-major:
 ``out[rb·b + r] = Σ_d scale[rb, d] · (tile[rb, d] @ x̂[rb + d])`` for the
 int8 band with its per-tile scales (widened to bfloat16 in the kernel's
 registers, which is exact; with B2c's ``wrow_bf16`` each scale is folded
@@ -15,8 +16,13 @@ kernel widens to bfloat16 in shared memory.  K4 and K6 take float32 ``x``,
 which the kernel rounds to bfloat16 in registers (K4 reads the caller's
 ``xT`` itself, K6 its blocked padded frame); B3c and B3d take the bfloat16
 frame their TPU functions take (B3c B3a's feature-major one, B3d a blocked
-one).  Its products are ``wgmma`` on tiles staged by TMA, and TMA needs
-16-byte global strides.  So the wrappers hand it the band and the frame
+one).  K5 takes role A's schedule over the int8 band of transposed tiles
+and an int8 frame (:func:`fm_frame` of K5's quantized activations) with one
+scale a frame block, on ``s8 × s8`` products exact in int32
+(:func:`launch_w8a8`); B3b takes role B's on a bfloat16 window, walking one
+panel of the band for every chunk (:func:`launch_panel`).  Its products
+are ``wgmma`` on tiles staged by TMA, and TMA needs 16-byte global
+strides.  So the wrappers hand it the band and the frame
 padded with zeros where they are not: the block to ``b' = ⌈b/16⌉·16`` and,
 in role A, the features to ``F' = ⌈F/8⌉·8``; K4's, K6's and B3d's ``x`` is
 copied once, padded, where its block is not a multiple of 16, its row
@@ -34,9 +40,9 @@ float32 band, split into its three bfloat16 terms:
 ``x`` (three for the split).  :func:`rowmajor_on_operands` and
 :func:`fm_on_operands` compute the kernel's function on the prepared
 operands in plain torch (with :func:`fm_window_frame`, the frame as K4's
-tensor map reads it), so the tests can hold the padding against the plain
-versions on the original operands.  The launches here count nothing;
-their callers count.
+tensor map reads it), and :func:`w8a8_on_operands` K5's, so the tests can
+hold the padding against the plain versions on the original operands.
+The launches here count nothing; their callers count.
 """
 
 from __future__ import annotations
@@ -240,15 +246,15 @@ def fm_on_operands(band_p: torch.Tensor, scales: torch.Tensor, x_pad_p: torch.Te
 
 
 def _check(kind: str, band_p: torch.Tensor, frame: torch.Tensor, frame_shape,
-           band_dtype=torch.bfloat16) -> None:
+           band_dtype=torch.bfloat16, frame_dtype=torch.bfloat16) -> None:
     bp = band_p.shape[2]
     if band_p.dtype != band_dtype or not band_p.is_contiguous() or bp % BLOCK_MULTIPLE:
         raise ValueError(f"{kind}: the padded band must be contiguous {band_dtype} [NB, D, b', b'] "
                          f"with b' a multiple of {BLOCK_MULTIPLE}, got {band_p.dtype} "
                          f"{tuple(band_p.shape)}")
-    if (frame.dtype != torch.bfloat16 or not frame.is_contiguous()
+    if (frame.dtype != frame_dtype or not frame.is_contiguous()
             or tuple(frame.shape) != tuple(frame_shape) or frame.device != band_p.device):
-        raise ValueError(f"{kind}: the frame must be contiguous bfloat16 {list(frame_shape)} on "
+        raise ValueError(f"{kind}: the frame must be contiguous {frame_dtype} {list(frame_shape)} on "
                          f"{band_p.device}, got {frame.dtype} {tuple(frame.shape)}")
 
 
@@ -359,4 +365,57 @@ def launch_blocked(kind: str, band_p: torch.Tensor, scales: torch.Tensor, xb: to
     out = torch.empty((nb, F, block), dtype=torch.float32, device=xb.device)
     _launch(kind, BLOCKED_ENTRIES[xb.dtype], band_p.data_ptr(), scales.data_ptr(), xb.data_ptr(),
             out.data_ptr(), nb, W, block, bp, F, _stream(xb.device))
+    return out
+
+
+def w8a8_on_operands(band_p: torch.Tensor, scales: torch.Tensor, xq_p: torch.Tensor,
+                     xscales: torch.Tensor, W: int, block: int) -> torch.Tensor:
+    """K5's function on its prepared operands (the padded int8 band of
+    transposed tiles, :func:`fm_frame`'s int8 frame ``[F, (NB + 2W)·b']``
+    and the block scales ``[NB + 2W]``), in plain torch: ``[F, NB·block]``
+    float32.  Each tile's dot is exact (summed in float64, as the kernel's
+    in int32), then exact in float32 (``|dot| ≤ 127²·b < 2²⁴``), times
+    ``fl(scale · xscale)`` and added in the order of the diagonals, each
+    rounding apart, as the kernel rounds: the plain version bit for bit."""
+    nb, bp, F = band_p.shape[0], band_p.shape[2], xq_p.shape[0]
+    xw = xq_p.view(F, nb + 2 * W, bp).permute(1, 0, 2).to(torch.float64)
+    out = torch.zeros((nb, F, bp), dtype=torch.float32, device=xq_p.device)
+    for d in range(2 * W + 1):
+        dots = torch.bmm(xw[d : d + nb], band_p[:, d].to(torch.float64)).to(torch.float32)
+        out += (scales[:, d] * xscales[d : d + nb])[:, None, None] * dots
+    return out[:, :, :block].permute(1, 0, 2).reshape(F, nb * block)
+
+
+def launch_w8a8(kind: str, band_p: torch.Tensor, scales: torch.Tensor, xq_p: torch.Tensor,
+                xscales: torch.Tensor, num_nodes: int, W: int, block: int) -> torch.Tensor:
+    """K5's launch on CUDA operands: the padded int8 band of transposed
+    tiles and its scales, the int8 frame from :func:`fm_frame` and its
+    block scales ``[NB + 2W]``; returns ``[F, num_nodes]`` float32."""
+    nb, bp, F = band_p.shape[0], band_p.shape[2], xq_p.shape[0]
+    _check(kind, band_p, xq_p, (F, (nb + 2 * W) * bp), torch.int8, torch.int8)
+    if (xscales.dtype != torch.float32 or tuple(xscales.shape) != (nb + 2 * W,)
+            or not xscales.is_contiguous() or xscales.device != xq_p.device):
+        raise ValueError(f"{kind}: xscales must be contiguous float32 [{nb + 2 * W}] on {xq_p.device}")
+    out = torch.empty((F, num_nodes), dtype=torch.float32, device=xq_p.device)
+    _launch(kind, "cgt_banded_spmm_quant_fm_w8a8", band_p.data_ptr(), scales.data_ptr(), xq_p.data_ptr(),
+            xscales.data_ptr(), out.data_ptr(), nb, W, block, bp, F, num_nodes, _stream(xq_p.device))
+    return out
+
+
+def launch_panel(kind: str, panel_p: torch.Tensor, scales: torch.Tensor, x_win_p: torch.Tensor,
+                 num_blocks: int, W: int, block: int, R: int) -> torch.Tensor:
+    """B3b's launch on CUDA operands: the padded panel (band rows 0..R-1,
+    int8 transposed tiles), the scales of all ``num_blocks`` row blocks and
+    the bfloat16 window ``[F, (R + 2W)·b']`` from :func:`fm_frame`; returns
+    chunk i*'s panel ``[F, R·block]`` float32.  Every other chunk's sums go
+    to a one-float sink, which is dropped."""
+    bp, F = panel_p.shape[2], x_win_p.shape[0]
+    _check(kind, panel_p, x_win_p, (F, (R + 2 * W) * bp), torch.int8)
+    if panel_p.shape[0] != R or tuple(scales.shape) != (num_blocks, 2 * W + 1):
+        raise ValueError(f"{kind}: the panel must be [{R}, D, b', b'] and the scales "
+                         f"[{num_blocks}, {2 * W + 1}], got {tuple(panel_p.shape)} and {tuple(scales.shape)}")
+    out = torch.empty((F, R * block), dtype=torch.float32, device=x_win_p.device)
+    sink = torch.zeros(1, dtype=torch.float32, device=x_win_p.device)
+    _launch(kind, "cgt_fm_compute_only", panel_p.data_ptr(), scales.data_ptr(), x_win_p.data_ptr(),
+            out.data_ptr(), sink.data_ptr(), num_blocks, W, block, bp, F, R, _stream(x_win_p.device))
     return out

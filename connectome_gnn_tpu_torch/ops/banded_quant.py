@@ -4,13 +4,14 @@ The port of ``connectome_gnn_tpu/ops/banded_quant.py``.  The band is
 stored as int8 with one float32 scale per (row block, diagonal) tile,
 ``band ≈ band_q · scales[..., None, None]``: four times fewer band bytes
 than float32.  Four hand-written CUDA kernels contract it with the
-activations: K3 on the tensor cores (role A of ``csrc/band_mma.cu``, the
-int8 band widened to bfloat16 in registers, x rounded to bfloat16 in the
-padded frame by :func:`~connectome_gnn_tpu_torch.ops.band_mma.rowmajor_frame`
-first), K4 and K6 on the tensor cores too (role B of ``csrc/band_mma.cu``:
-the int8 band widened to bfloat16 in shared memory, float32 x rounded to
-bfloat16 in the kernel's registers, so the wrapper passes x as it is at
-the main shape), K5 on the CUDA cores (``csrc/banded_spmm.cu``):
+activations, all on the tensor cores of ``csrc/band_mma.cu``: K3 in role A
+(the int8 band widened to bfloat16 in registers, x rounded to bfloat16 in
+the padded frame by
+:func:`~connectome_gnn_tpu_torch.ops.band_mma.rowmajor_frame` first), K4 and
+K6 in role B (the int8 band widened to bfloat16 in shared memory, float32 x
+rounded to bfloat16 in the kernel's registers, so the wrapper passes x as
+it is at the main shape), K5 on ``s8 × s8`` products in role A's schedule
+(the activations quantized in torch first):
 
 =====  ==================================  =======================================
 K3     :func:`banded_spmm_quant`           ``A_q·x``, row-major ``x [N, F]``
@@ -71,7 +72,7 @@ from connectome_gnn_tpu_torch.ops.banded import (
 #: largest block for which K5's plain version is exact: its float32 dot of
 #: int8 values stays below 2^24 while 127² · block < 2^24
 MAX_EXACT_W8A8_BLOCK = 1040
-#: grid limits of the CUDA-core launch (K5): x is one block per (row block,
+#: grid limits of the CUDA-core launch (B2b): x is one block per (row block,
 #: 64-receiver tile), y one per 64-feature slice (see csrc/banded_spmm.cu)
 TILE_M = TILE_N = 64
 MAX_GRID_X = 2**31 - 1
@@ -467,21 +468,23 @@ def banded_spmm_quant_fm_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tensor) ->
 
 def banded_spmm_quant_fm_w8a8_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
     """Quantize ``xT [F, ≥num_nodes]`` per column block in torch, then launch
-    K5 on CUDA tensors; returns ``[F, num_nodes]`` float32."""
+    K5 on CUDA tensors; returns ``[F, num_nodes]`` float32, the plain
+    version bit for bit.  The band and the int8 frame are padded to a block
+    that is a multiple of 16 where it is not one
+    (:func:`~connectome_gnn_tpu_torch.ops.band_mma.fm_frame`)."""
+    from connectome_gnn_tpu_torch.ops import band_mma  # it imports this module
+
     kind, n, F = "K5 banded_spmm_quant_fm_w8a8", q.num_nodes, xT.shape[0]
     _check_band(kind, q.band_qT, q.scales, xT.device)
     if xT.dim() != 2 or xT.shape[1] < n:
         raise ValueError(f"{kind}: activations {tuple(xT.shape)} are not [F, ≥{n}]")
-    if -(-F // TILE_N) > MAX_GRID_Y:
-        raise ValueError(f"{kind}: F={F} exceeds the launch grid")
-    out = torch.empty((F, n), dtype=torch.float32, device=xT.device)
     if n == 0 or F == 0:
-        return out
+        return torch.empty((F, n), dtype=torch.float32, device=xT.device)
+    nb, W, b = q.num_blocks, q.bandwidth, q.block
     xq, xscales = quantize_activations_padded(q, xT)
     with torch.cuda.device(xT.device):
-        _launch(kind, "cgt_banded_spmm_quant_fm_w8a8", q.band_qT.data_ptr(),
-                q.scales.data_ptr(), xq.data_ptr(), xscales.data_ptr(), out.data_ptr(),
-                q.num_blocks, q.bandwidth, q.block, F, n, xq.stride(0), _stream(xT.device))
+        out = band_mma.launch_w8a8(kind, band_mma.pad_band(q.band_qT), q.scales,
+                                   band_mma.fm_frame(xq, nb, W, b), xscales, n, W, b)
     banded_spmm_quant_fm_w8a8_kernel.launches += 1
     return out
 

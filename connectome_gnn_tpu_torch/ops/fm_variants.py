@@ -42,18 +42,21 @@ not depend on R, the depth S or the band splits K.  Where JAX asserts
 :data:`DEPTHS`, a split outside :data:`BAND_SPLITS` and, for
 ``fm_dma_only``, ``F > block``.
 
-``fm_dma_only``, ``fm_w8a8`` and ``fm_compute_only`` are instantiations of
-the pipelined body in ``csrc/fm_pipeline.cu`` (the TPU kernel's two-stage
-``cp.async`` ring), and need a block that is a multiple of 16.
-``fm_bf16_band``, ``fm_deep`` and ``fm_blocked`` are role B of the
+``fm_dma_only`` and ``fm_w8a8`` are instantiations of the pipelined body in
+``csrc/fm_pipeline.cu`` (the TPU kernel's two-stage ``cp.async`` ring), and
+need a block that is a multiple of 16.  ``fm_bf16_band``,
+``fm_compute_only``, ``fm_deep`` and ``fm_blocked`` are role B of the
 tensor-core body ``csrc/band_mma.cu`` (``wgmma`` on tiles staged by TMA):
-``fm_bf16_band`` over its bfloat16 band, ``fm_deep`` and ``fm_blocked``
-over the int8 band, which the kernel widens to bfloat16 in shared memory.
-``fm_blocked`` reads its caller's bfloat16 blocked frame.  ``fm_deep`` is
-K4's launch on the caller's float32 ``xT``, which the kernel rounds to
-bfloat16 in registers as ``pad_xT`` casts it: the same function bit for
-bit as role B's launch on ``pad_xT``'s bfloat16 frame, without the pad
-pass, and faster on the H100 than that pass and launch together
+``fm_bf16_band`` over its bfloat16 band, the others over the int8 band,
+which the kernel widens to bfloat16 in shared memory.  ``fm_compute_only``
+walks every chunk's units over panel 0 with the loop-variant indices, the
+panel under L2 evict_last, on the bfloat16 window; chunk i*'s units store
+and the others fold into a one-float sink, so no chunk's arithmetic can be
+dropped.  ``fm_blocked`` reads its caller's bfloat16 blocked frame.
+``fm_deep`` is K4's launch on the caller's float32 ``xT``, which the kernel
+rounds to bfloat16 in registers as ``pad_xT`` casts it: the same function
+bit for bit as role B's launch on ``pad_xT``'s bfloat16 frame, without the
+pad pass, and faster on the H100 than that pass and launch together
 (``chip_smoke.py`` phase 22 times both).  That body takes any block: the
 wrappers pad the band and the frame to a multiple of 16 with zeros where
 it is not one (:mod:`band_mma`).  Its schedule is its own, so
@@ -302,21 +305,19 @@ def _launch_dma_only(q: QuantizedBandedMatrixFM, x_pad: torch.Tensor, R: int) ->
 
 
 def _launch_compute_only(q: QuantizedBandedMatrixFM, x_win: torch.Tensor, R: int) -> torch.Tensor:
-    """B3b on window 0 ``x_win [F, (R + 2W)·block]``; ``[F, R·block]``.  The
-    other chunks' sums go to a one-float sink that is dropped.  Counted as
-    a launch of :func:`fm_compute_only_kernel`."""
+    """B3b on window 0 ``x_win [F, (R + 2W)·block]``, role B over panel 0
+    (band rows 0..R-1; the panel and the window padded to a block that is a
+    multiple of 16 where it is not one); ``[F, R·block]``.  Counted as a
+    launch of :func:`fm_compute_only_kernel`."""
     kind, nb, W, b = "B3b fm_compute_only", q.num_blocks, q.bandwidth, q.block
-    _check_card(kind, q.band_qT, q.scales, x_win.device)
+    _check_band(kind, q.band_qT, q.scales, x_win.device)
     F = x_win.shape[0]
     _check_operand(kind, x_win, torch.bfloat16, (F, (R + 2 * W) * b))
-    out = torch.empty((F, R * b), dtype=torch.float32, device=x_win.device)
     if F == 0:
-        return out
-    sink = torch.zeros(1, dtype=torch.float32, device=x_win.device)
+        return torch.empty((F, R * b), dtype=torch.float32, device=x_win.device)
     with torch.cuda.device(x_win.device):
-        _launch(kind, "cgt_fm_compute_only", q.band_qT.data_ptr(), q.scales.data_ptr(),
-                x_win.data_ptr(), out.data_ptr(), sink.data_ptr(), nb, W, b, F, R,
-                x_win.stride(0), _stream(x_win.device))
+        out = band_mma.launch_panel(kind, band_mma.pad_band(q.band_qT[:R]), q.scales,
+                                    band_mma.fm_frame(x_win, R, W, b), nb, W, b, R)
     fm_compute_only_kernel.launches += 1
     return out
 

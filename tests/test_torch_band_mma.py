@@ -737,3 +737,232 @@ def test_k4_stage_reads_past_its_node_block_only_without_the_mask(block):
     masked = k4_by_stages(qf, xT, masked=True)
     assert np.isfinite(masked[:, ~reads_k]).all()
     np.testing.assert_allclose(masked, want, rtol=K3_RTOL, atol=K3_ATOL, equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
+# K5: int8 x int8 on s8 products, role A's schedule over the transposed tiles
+# ---------------------------------------------------------------------------
+
+#: (num_blocks, W, block, num_nodes, F): a block of 100 (padded to 112), of
+#: 16, W = 0, F = 1, 5 and 130 (three feature units), ragged tails, and the
+#: main shape's block of 256 (two receiver tiles, two 128-sender stages)
+K5_SHAPES = [(7, 1, 100, 650, 70), (12, 1, 16, 180, 8), (10, 0, 64, 600, 16), (10, 2, 64, 640, 1),
+             (6, 1, 64, 350, 130), (10, 2, 64, 603, 5), (5, 2, 256, 1200, 64)]
+
+
+def prmt(x, y, selector):
+    """``__byte_perm(x, y, selector)``: byte n of the result is byte
+    ``selector``'s nibble n of the eight bytes of ``x`` (0-3) and ``y``
+    (4-7)."""
+    both = [(int(x) >> (8 * i)) & 0xFF for i in range(4)] + [(int(y) >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(both[(int(selector) >> (4 * n)) & 7] << (8 * n) for n in range(4))
+
+
+def k5_sender_offsets(group, warp, quad, t, rotate=True):
+    """The kernel's ``s_off``: the byte, in a stage's swizzled tile box (128
+    sender rows of 128 receiver bytes), of the i-th 16-bit load of a
+    k-group, senders 4t + (i + t / 2) % 4 (rotated) and receivers 64 group +
+    16 warp + 2 quad and + 1."""
+    rot = t >> 1 if rotate else 0
+    out = []
+    for i in range(4):
+        s = 4 * t + ((i + rot) & 3)
+        out.append(s * 128 + (((4 * group + warp) ^ (s & 7)) << 4) + 2 * quad)
+    return out, ((0x4206, 0x5317) if rot else (0x6420, 0x7531))
+
+
+def k5_gather(box: np.ndarray, group: int, rotate=True):
+    """Every thread of consumer warpgroup ``group`` gathers its s8 A
+    fragments of a stage's four k32-steps as the kernel does; returns A
+    [64 fragment rows' receivers, 128 senders] rebuilt from the fragment
+    registers (receiver of row 16 warp + quad + 8 h: 16 warp + 2 quad + h),
+    and for each load instruction of each warp the 32-bit words its lanes
+    read."""
+    A = np.full((64, 128), 999, np.int64)
+    words = {}
+    for warp in range(4):
+        for lane in range(32):
+            quad, t = lane // 4, lane % 4
+            offs, (sel_lo, sel_hi) = k5_sender_offsets(group, warp, quad, t, rotate)
+            for k in range(4):
+                regs = []
+                for h in range(2):
+                    v = []
+                    for i in range(4):
+                        at = (32 * k + 16 * h) * 128 + offs[i]
+                        v.append(int(box[at]) | (int(box[at + 1]) << 8))
+                        words.setdefault((warp, k, h, i), []).append(at // 4)
+                    x, y = prmt(v[0], v[1], 0x5410), prmt(v[2], v[3], 0x5410)
+                    regs += [prmt(x, y, sel_lo), prmt(x, y, sel_hi)]
+                # fragment register j: row q (even j) or q + 8, k 4t.. (j < 2) or 4t + 16..
+                for j, reg in enumerate(regs):
+                    r = 16 * warp + 2 * quad + (j & 1)
+                    for e in range(4):
+                        s = 32 * k + 16 * (j >> 1) + 4 * t + e
+                        assert A[r, s] == 999
+                        A[r, s] = np.int8(np.uint8((reg >> (8 * e)) & 0xFF))
+    return A, words
+
+
+def wavefronts(words) -> int:
+    """Shared-memory wavefronts of one warp's load: the most distinct 32-bit
+    words any bank is asked for (one word asked by several lanes is one)."""
+    per_bank = {}
+    for w in set(words):
+        per_bank.setdefault(w % 32, set()).add(w)
+    return max(len(v) for v in per_bank.values())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k5_fragment_gather_rebuilds_the_tile_and_meets_each_bank_once(seed):
+    """A stage's transposed int8 tile (128 senders by 128 receivers, 128-byte
+    swizzled as TMA writes it): each warpgroup's threads gather their s8 A
+    fragments as the kernel does, 8 16-bit loads and 8 byte permutes a
+    k32-step, and the fragments hold A[r, s] = tile[s, 64 group + r] for
+    every receiver and sender, each once.  Every load of a warp is one
+    wavefront; without the rotation of a thread's four senders, lanes t and
+    t + 2 read the same chunk of rows four apart, two wavefronts a load."""
+    tile = np.random.default_rng(seed).integers(-128, 128, (128, 128)).astype(np.int8)
+    if seed == 1:
+        tile[5, :] = np.arange(-128, 0)  # every negative byte
+    s_idx, r_idx = np.meshgrid(np.arange(128), np.arange(128), indexing="ij")
+    box = np.zeros(128 * 128, np.uint8)
+    box[swizzled(s_idx, r_idx)] = tile.view(np.uint8)
+    for group in range(2):
+        A, words = k5_gather(box, group)
+        np.testing.assert_array_equal(A, tile[:, 64 * group:64 * group + 64].T.astype(np.int64))
+        assert len(words) == 4 * 4 * 8  # warps x k-steps x 8 loads
+        assert all(wavefronts(w) == 1 for w in words.values())
+        A, words = k5_gather(box, group, rotate=False)
+        np.testing.assert_array_equal(A, tile[:, 64 * group:64 * group + 64].T.astype(np.int64))
+        assert all(wavefronts(w) == 2 for w in words.values())
+
+
+def test_k5_b_descriptor_reads_the_frame_box_k_major():
+    """The int8 frame box (64 feature rows of 128 senders, swizzled): the
+    K-major B descriptor of k32-step k starts 32 bytes on, and the core
+    matrix of 8 feature rows by 16 bytes at (rows 8 g.., byte 16 c + 32 k)
+    sits at the swizzled chunk (2 k + c) ^ (row % 8) of each row, where TMA
+    put senders 32 k + 16 c .. + 15."""
+    frame = np.random.default_rng(3).integers(-128, 128, (64, 128)).astype(np.int8)
+    f_idx, s_idx = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+    box = np.zeros(64 * 128, np.uint8)
+    box[swizzled(f_idx, s_idx)] = frame.view(np.uint8)
+    for k in range(4):
+        for g in range(8):
+            for c in range(2):
+                for row in range(8 * g, 8 * g + 8):
+                    # the hardware's address: start + 1024 g (SBO) + 128 (row % 8) + 16 c, chunk bits ^ row % 8
+                    linear = 32 * k + 1024 * g + 128 * (row % 8) + 16 * c
+                    at = (linear & ~0x70) | ((((linear >> 4) & 7) ^ (row % 8)) << 4)
+                    np.testing.assert_array_equal(box[at:at + 16].view(np.int8),
+                                                  frame[row, 32 * k + 16 * c:32 * k + 16 * c + 16])
+
+
+def test_k5_stores_fill_whole_sectors():
+    """K5's sums leave the permuted fragment rows feature-major: a thread's
+    two receivers side by side, one 8-byte store a feature.  Each store of a
+    warp writes 16 receivers of 4 features, 256 bytes in whole 32-byte
+    sectors, and the warpgroup's stores write each (receiver, feature) of
+    its 64 x 64 once."""
+    ldo, written = 1 << 20, {}
+    for warp in range(4):
+        for i in range(0, 32, 4):
+            for e in range(2):
+                lines = set()
+                for lane in range(32):
+                    quad, pair = lane // 4, 2 * (lane % 4)
+                    r, f = 16 * warp + 2 * quad, 8 * (i >> 2) + pair + e
+                    at = 4 * (f * ldo + r)
+                    assert at % 8 == 0
+                    lines.update(range(at, at + 8))
+                    for h in range(2):
+                        assert (r + h, f) not in written
+                        written[r + h, f] = True
+                sectors = {a // 32 for a in lines}
+                assert len(lines) == 256 and len(sectors) * 32 == 256
+    assert len(written) == 64 * 64
+
+
+def test_k5_dot_is_exact_in_f32_at_the_saturated_bound():
+    """Band and x all ±127 at b = 256 (every product 127² in magnitude, a
+    tile of a single sign): each tile's dot, exact in int64 as in the
+    kernel's s32, is at most 127²·256 < 2²⁴ and so equal to its float32
+    conversion; the float32 plain version, whose float32 products and sums
+    stay integers under 2²⁴, gives the kernel's order of roundings bit for
+    bit, and K5's function on its operands equals it."""
+    nb, W, b, n, F = 4, 1, 256, 4 * 256, 8
+    rng = np.random.default_rng(7)
+    band = (127 * rng.choice([-1, 1], (nb, 2 * W + 1, b, b))).astype(np.int8)
+    band[1, 1] = 127  # one tile and one frame block of a single sign: the bound itself
+    scales = rng.uniform(1e-3, 1.1e-2, (nb, 2 * W + 1)).astype(np.float32)
+    q = tq.QuantizedBandedMatrixFM(torch.from_numpy(band), torch.from_numpy(scales), n, W)
+    xT = torch.from_numpy(rng.choice([-1.0, 1.0], (F, n)).astype(np.float32))
+    xT[:, b:2 * b] = 1.0  # frame block 2, which tile (1, 1) reads
+    xq, xscales = tq.quantize_activations_padded(q, xT)
+    assert int(xq[:, W * b:(W + nb) * b].abs().min()) == 127
+    xw = xq.view(F, nb + 2 * W, b).permute(1, 0, 2).to(torch.int64)
+    largest = 0
+    for d in range(2 * W + 1):
+        dots = torch.einsum("nfs,nsr->nfr", xw[d:d + nb], q.band_qT[:, d].to(torch.int64))
+        largest = max(largest, int(dots.abs().max()))
+        assert torch.equal(dots.to(torch.float32).to(torch.int64), dots)
+        fdots = torch.bmm(xw[d:d + nb].to(torch.float32), q.band_qT[:, d].to(torch.float32))
+        assert torch.equal(fdots.to(torch.int64), dots)
+    assert largest == 127 * 127 * b < 2 ** 24
+    want = tq.banded_spmm_quant_fm_w8a8_reference(q, xT)
+    got = band_mma.w8a8_on_operands(q.band_qT, q.scales, xq, xscales, W, b)[:, :n]
+    assert torch.equal(got, want)
+
+
+def k5_operands(shape):
+    """K5's operands as torch and JAX pairs: the feature-major int8 band and
+    ``xT [F, n]``."""
+    q, scales, x = random_quantized(shape, seed=sum(shape) + 5)
+    nb, W, block, n, F = shape
+    qT = np.ascontiguousarray(np.swapaxes(q, 2, 3))
+    tqf = tq.QuantizedBandedMatrixFM(torch.from_numpy(qT), torch.from_numpy(scales), n, W)
+    jqf = jq.QuantizedBandedMatrixFM(jnp.asarray(qT), jnp.asarray(scales), n, W)
+    return tqf, jqf, np.ascontiguousarray(x.T)
+
+
+def k5_on_operands(q: tq.QuantizedBandedMatrixFM, xT: torch.Tensor) -> torch.Tensor:
+    """K5's kernel function on the operands its wrapper prepares: the padded
+    band and the int8 frame padded by :func:`fm_frame` (itself where the
+    block is a multiple of 16)."""
+    nb, W, block, n = q.num_blocks, q.bandwidth, q.block, q.num_nodes
+    xq, xscales = tq.quantize_activations_padded(q, xT)
+    xq_p = band_mma.fm_frame(xq, nb, W, block)
+    assert (xq_p is xq) == (block % 16 == 0) and xq_p.dtype == torch.int8
+    return band_mma.w8a8_on_operands(band_mma.pad_band(q.band_qT), q.scales, xq_p, xscales, W, block)[:, :n]
+
+
+@pytest.mark.parametrize("shape", K5_SHAPES, ids=shape_id)
+def test_k5_on_its_operands_is_its_plain_version_bit_for_bit(shape):
+    tqf, _, xT = k5_operands(shape)
+    xt = torch.from_numpy(xT)
+    got = k5_on_operands(tqf, xt)
+    assert got.shape == (shape[4], shape[3])
+    assert torch.equal(got, tq.banded_spmm_quant_fm_w8a8_reference(tqf, xt))
+
+
+@pytest.mark.parametrize("shape", K5_SHAPES, ids=shape_id)
+def test_k5_on_its_operands_matches_jax_interpret(shape):
+    tqf, jqf, xT = k5_operands(shape)
+    want = np.asarray(jq.banded_spmm_quant_fm_w8a8(jqf, jnp.asarray(xT), interpret=True))
+    np.testing.assert_allclose(k5_on_operands(tqf, torch.from_numpy(xT)).numpy(), want,
+                               rtol=K3_RTOL, atol=K3_ATOL)
+
+
+def test_k5_left_the_cuda_core_body():
+    """K5's C entry point is in ``csrc/band_mma.cu`` on s8 products, and
+    ``csrc/banded_spmm.cu`` keeps B2b alone: no feature-major layout, no K5."""
+    import os
+
+    csrc = os.path.join(os.path.dirname(band_mma.__file__), "..", "csrc")
+    mma = open(os.path.join(csrc, "band_mma.cu")).read()
+    cuda_cores = open(os.path.join(csrc, "banded_spmm.cu")).read()
+    assert "int cgt_banded_spmm_quant_fm_w8a8(" in mma and "m64n64k32.s32.s8.s8" in mma
+    for gone in ("cgt_banded_spmm_quant_fm_w8a8", "kFeatureMajor", "Layout", "K5  banded"):
+        assert gone not in cuda_cores
+    assert "int cgt_banded_spmm_w8a8_rowmajor(" in cuda_cores

@@ -1,6 +1,7 @@
 """The int8 band kernels K3, K4 and K5 against their plain PyTorch versions,
-on the card.  K3 and K4 run on the tensor-core body (``csrc/band_mma.cu``,
-role A and role B over the int8 band), K5 on the CUDA-core body.
+on the card.  All three run on the tensor-core body (``csrc/band_mma.cu``):
+K3 role A and K4 role B over the int8 band, K5 role A's schedule on s8 x s8
+products.
 
 Every test here needs a CUDA card and skips without one.  The machine with
 the card has no JAX, and ``tests/conftest.py`` imports it, so run them
@@ -10,6 +11,9 @@ there without the conftest:
 
 This file imports no JAX.  Tolerances: kernel against plain version rtol
 1e-5 / atol 1e-5 (the same exact products, float32 sums in another order);
+K5 bit for bit (each tile's dot exact in int32 and in float32, then scaled
+and added in the plain version's order, each rounding apart), also at a
+saturated band and x of ±127 at b = 256, where each dot reaches 127²·256;
 quantized model against its plain path rtol 1e-4 / atol 1e-4.  The shapes
 take each kernel through a ragged tail, W = 0, F = 5, F = 1 and F = 130
 (three of K3's 64-feature units), blocks of 100 and 16 (K3 pads them to
@@ -87,7 +91,33 @@ def test_kernel_matches_plain_version(cuda, kid, shape):
     got = kernel(*operands(kid, q, x))
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    torch.testing.assert_close(got, plain(*operands(kid, q, x)), rtol=RTOL, atol=ATOL)
+    want = plain(*operands(kid, q, x))
+    if kid == "K5":
+        assert got.shape == want.shape and torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("W", [1, 2])
+def test_k5_saturated_band_bit_for_bit(cuda, W):
+    """A non-symmetric band and x of ±127 at b = 256: one tile all +127
+    against a frame block all +127, so its dot is 127²·256, the largest
+    the block allows; K5 equals its plain version bit for bit."""
+    nb, block, F = 6, 256, 64
+    n = nb * block - 37
+    rng = np.random.default_rng(W)
+    band = (127 * rng.choice([-1, 1], (nb, 2 * W + 1, block, block))).astype(np.int8)
+    band[2, W] = 127
+    band[3, W + 1] = np.triu(np.full((block, block), 127, np.int8))  # not symmetric
+    scales = rng.uniform(1e-3, 1.1e-2, (nb, 2 * W + 1)).astype(np.float32)
+    q = bq.QuantizedBandedMatrixFM(torch.from_numpy(band).to(cuda), torch.from_numpy(scales).to(cuda), n, W)
+    xT = torch.from_numpy(rng.choice([-3.0, 3.0], (F, n)).astype(np.float32)).to(cuda)
+    xT[:, 2 * block:3 * block] = 3.0
+    xq, _ = bq.quantize_activations_padded(q, xT)
+    assert int(xq[:, W * block:(W + nb) * block - 37].abs().min()) == 127
+    got = bq.banded_spmm_quant_fm_w8a8_kernel(q, xT)
+    want = bq.banded_spmm_quant_fm_w8a8_reference(q, xT)
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shape", [(20, 2, 256, 5000, 64), (7, 1, 100, 650, 70)])

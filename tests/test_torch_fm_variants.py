@@ -440,5 +440,101 @@ def test_fm_deep_and_fm_blocked_left_the_cuda_core_pipeline():
                  "band_splits", "int S>", "int S)"):
         assert gone not in pipeline
     assert "constexpr int kStages = 2;" in pipeline
-    for entry in ("cgt_fm_dma_only", "cgt_fm_w8a8", "cgt_fm_compute_only"):
+    for entry in ("cgt_fm_dma_only", "cgt_fm_w8a8"):
         assert f"int {entry}(" in pipeline
+    assert "int cgt_fm_compute_only(" in mma
+
+
+def test_fm_compute_only_left_the_cuda_core_pipeline():
+    """B3b launches role B of ``csrc/band_mma.cu`` with its panel map;
+    ``fm_pipeline.cu`` keeps the dma-only and w8a8 probes alone: no
+    compute-only body, no sink."""
+    csrc = os.path.join(os.path.dirname(fv.__file__), "..", "csrc")
+    mma = open(os.path.join(csrc, "band_mma.cu")).read()
+    pipeline = open(os.path.join(csrc, "fm_pipeline.cu")).read()
+    assert "int cgt_fm_compute_only(" in mma and "Variant::kPanel" in mma
+    for gone in ("kComputeOnly", "cgt_fm_compute_only", "sink", "i_star"):
+        assert gone not in pipeline
+
+
+#: R of each role B case for B3b: NB = 12 at R = 4 puts chunk i* at 2, NB =
+#: 10 and 8 at R = 2 at 4 and 2
+PANEL_R = {"b16-W1": 4, "b48-W2-F5-ragged": 2, "b48-W0": 2}
+
+
+def panel_by_units(q, xT: torch.Tensor, block: int, R: int):
+    """B3b's kernel, unit by unit in numpy, on the operands its wrapper
+    prepares (panel 0 of the band and window 0 of the bfloat16 frame, padded
+    to b'): every (row block rb = i·R + r, 128-receiver tile, 64-feature
+    tile) unit of role B reads band row rr = (r + i) mod R, frame block kk =
+    (r + d + i) mod (R + 2W) and scale row rb; each tile's dot exact (float64,
+    as the tensor cores' products of int8 and bfloat16 are), then added in
+    float32 times its scale.  Chunk i*'s units store at column r·b + c; the
+    others add their sums into the sink.  Returns (panel [F, R·b], sink,
+    the band rows and frame blocks read)."""
+    nb, W, n = q.num_blocks, q.bandwidth, q.num_nodes
+    D = 2 * W + 1
+    panel = band_mma.pad_band(q.band_qT[:R]).numpy().astype(np.float64)
+    bp, F = panel.shape[2], xT.shape[0]
+    x_win = fv._pad_fm(xT[:, : min(n, (R + W) * block)], R, W, block, torch.bfloat16)
+    frame = band_mma.fm_frame(x_win, R, W, block).float().numpy().astype(np.float64)
+    scales = q.scales.numpy()
+    mtiles, ftiles = -(-bp // 128), -(-F // 64)
+    i_star = (nb // R - 1) // 2 * 2
+    out, sink, rows, blocks = np.zeros((F, R * block), np.float32), np.float32(0), set(), set()
+    for u in range(nb * mtiles * ftiles):
+        ft, mt, rb = u % ftiles, (u // ftiles) % mtiles, u // (ftiles * mtiles)
+        chunk, r = divmod(rb, R)
+        rr = (r + chunk) % R
+        f0, r0 = 64 * ft, 128 * mt
+        acc = np.zeros((min(64, F - f0), 128), np.float32)
+        for d in range(D):
+            kk = (r + d + chunk) % (R + 2 * W)
+            rows.add(rr)
+            blocks.add(kk)
+            tile = np.zeros((bp, 128))
+            tile[:, : min(128, bp - r0)] = panel[rr, d][:, r0:r0 + 128]
+            dot = (frame[f0:f0 + 64, kk * bp:(kk + 1) * bp] @ tile).astype(np.float32)
+            acc += np.float32(scales[rb, d]) * dot
+        cols = min(128, block - r0)
+        if cols <= 0:
+            continue
+        if chunk == i_star:
+            out[f0:f0 + 64, r * block + r0:r * block + r0 + cols] = acc[:, :cols]
+        else:
+            sink += acc.sum(dtype=np.float32)
+    return out, sink, rows, blocks
+
+
+def panel_case(cases, case):
+    """(port band, JAX band, xT numpy [F, n], block, R) of a CASES case or a
+    role B shape."""
+    if case in CASES:
+        c = cases[case]
+        return c.tq, c.jq, c.xT, BLOCK, c.R
+    q, jqf, xT, block = role_b_case(cases, case)
+    return q, jqf, xT, block, PANEL_R[case]
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(PANEL_R))
+def test_fm_compute_only_panel_map_over_role_b_units_is_its_plain_version(cases, case):
+    """The emulated units reproduce ``fm_compute_only_reference`` (1e-5:
+    float32 sums in another order), read only band rows 0..R-1 and frame
+    blocks 0..R+2W-1, all of them, and fold every other chunk into a finite
+    sink."""
+    q, _, xT, block, R = panel_case(cases, case)
+    xt = torch.from_numpy(xT)
+    got, sink, rows, blocks = panel_by_units(q, xt, block, R)
+    assert rows == set(range(R)) and blocks == set(range(R + 2 * q.bandwidth))
+    assert np.isfinite(sink) and (q.num_blocks // R > 1) == (sink != 0)
+    np.testing.assert_allclose(got, fv.fm_compute_only_reference(q, xt, rows_per_step=R).numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(PANEL_R))
+def test_fm_compute_only_panel_map_over_role_b_units_matches_jax_interpret(cases, case):
+    q, jqf, xT, block, R = panel_case(cases, case)
+    want = np.asarray(fd.fm_compute_only(jqf, jnp.asarray(xT), rows_per_step=R, interpret=True))
+    got, _, _, _ = panel_by_units(q, torch.from_numpy(xT), block, R)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)

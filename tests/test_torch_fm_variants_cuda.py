@@ -1,8 +1,8 @@
 """The feature-major band-pipeline kernels B3a-B3d (``ops/fm_variants.py``;
-``csrc/fm_pipeline.cu`` for ``fm_dma_only``, ``fm_w8a8`` and
-``fm_compute_only``, role B of ``csrc/band_mma.cu`` for ``fm_bf16_band``,
-``fm_deep`` and ``fm_blocked``) against their plain PyTorch versions, on
-the card.
+``csrc/fm_pipeline.cu`` for ``fm_dma_only`` and ``fm_w8a8``, role B of
+``csrc/band_mma.cu`` for ``fm_bf16_band``, ``fm_compute_only`` (with its
+panel map), ``fm_deep`` and ``fm_blocked``) against their plain PyTorch
+versions, on the card.
 
 Every test here needs a CUDA card and skips without one.  The machine with
 the card has no JAX, and ``tests/conftest.py`` imports it, so run them
@@ -13,7 +13,8 @@ there without the conftest:
 This file imports no JAX.  Tolerance: kernel against plain version rtol
 1e-5 / atol 1e-5 (the same exact products, float32 sums in another order);
 ``fm_dma_only`` bitwise (one float32 add); ``fm_w8a8`` bitwise against K5's
-kernel on K5's operands (both take exact int32 dots); ``fm_deep``, which
+kernel on K5's operands (both take exact int32 dots, then round the scale's
+product and the sum apart, as the plain version does); ``fm_deep``, which
 is K4's launch, bitwise against role B's launch on the bfloat16 frame
 ``pad_xT`` builds (the same products in the same order: K4 rounds x to
 bfloat16 in registers as ``pad_xT`` does).
