@@ -12,7 +12,8 @@ Phases, one line each:
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
    TF32 is switched off for every f32 product;
 2. the build: ``nvcc`` compiles ``connectome_gnn_tpu_torch/csrc`` for sm_90a,
-   and what ``ptxas -v`` says of the tensor-core body's kernels
+   and what ``ptxas -v`` says of the fused kernels K1 and K2
+   (``fused_forward.cu``) and of the tensor-core body's kernels
    (registers, spills, shared memory; role A over the int8 band with the
    scale on the dot (K3, B2c) or folded into the tile (B2c ``wrow_bf16``)
    and over the float32 band (K7), role A's schedule on s8 products (K5),
@@ -22,17 +23,30 @@ Phases, one line each:
    warning it gives, and C7518 (``wgmma`` serialized); the full run fails
    if a kernel spills or draws C7518;
 3. each fused kernel (K1 GCN, K2 SAGE) against its plain PyTorch version on
-   the card at four (B, n, F, H, L) shapes, rtol 1e-4 / atol 1e-5 (the
-   repository's f32 gate);
+   the card at sixteen (B, n, F, H, L) shapes, rtol 1e-4 / atol 1e-5 (the
+   repository's f32 gate), which take every cluster size the rule picks
+   (1 to 8 CTAs a graph; printed), and each at one shape that takes the
+   compact layout (n = 128, H = 161 or 151: odd strides); then the
+   kernels' own shared-memory layout (``cgt_fused_smem_bytes``) against
+   the routing rule: every shape it admits fits one block;
 4. the main path: ``generate_dataset`` → dense ``ConnectomeDataLoader`` on
    CUDA → ``Trainer.predict`` for GCN and SAGE at the flagship width
    (hidden 64, 3 layers, random weights from seed 0 and non-trivial
    BatchNorm state), checked against the unfused path on the card and on
    the CPU, with each kernel's launch count; then ``Trainer.evaluate``;
-5. times: each kernel and its plain version per call by CUDA events (median
-   of 100 after warm-up) and as device time by ``torch.profiler``, at batch
-   16 and 512, beside the kernel's bound, and ``predict`` over the 64
-   graphs by the host clock.
+5. times, at batch 16 and 512: each kernel and its plain version per call
+   by CUDA events (median of 100 after warm-up, in turns) and as device
+   time by ``torch.profiler``; the kernel wrapper's host µs alone (host
+   clock, mean over 200 calls with no sync among them); the kernel's bound
+   and its share of it; the padded batch's dense multiply-adds and their
+   time at 67 TFLOP/s (f32 on the CUDA cores) and at 989/6 TFLOP/s (six
+   bf16 products of the split on the tensor cores); the device time of the
+   launch alone (the C entry with its arguments ready) with 0 to 3 layers
+   and, at batch 16, at every cluster size; and ``predict`` over
+   the 64 graphs by the host clock (``--fused-times`` runs this phase
+   alone, so that another tree's package can be timed by the same code;
+   ``--host-times`` runs only the wrappers' host time and ``predict``, for
+   many alternating processes of two trees).
 
 Then the giant-graph node-classification serving path, at the 5qs
 configuration of ``benchmarks/suite.py:676-737`` (1,048,576 nodes, degree
@@ -266,6 +280,7 @@ from connectome_gnn_tpu_torch.ops import band_variants as bv
 from connectome_gnn_tpu_torch.ops import banded_direct as bd
 from connectome_gnn_tpu_torch.ops import banded_quant as bq
 from connectome_gnn_tpu_torch.ops import fm_variants as fv
+from connectome_gnn_tpu_torch.ops import fused
 from connectome_gnn_tpu_torch.ops import gather_dma as gd
 from connectome_gnn_tpu_torch.ops.banded import BandedMatrix, banded_spmm, pad_blocks, to_banded, to_hybrid
 from connectome_gnn_tpu_torch.ops.fused import (
@@ -279,9 +294,23 @@ from connectome_gnn_tpu_torch.ops.fused import (
 from connectome_gnn_tpu_torch.train import reference_adam
 
 RTOL, ATOL = 1e-4, 1e-5
-#: (B, n, F, H, L): flagship batch 16 and 512, the largest fused shape, a small one
-SHAPES = [(16, 88, 5, 64, 3), (512, 88, 5, 64, 3), (7, 128, 5, 128, 1), (3, 24, 5, 32, 2)]
+#: (B, n, F, H, L): flagship batch 16 and 512, the largest fused shape, a
+#: small one; then the shapes that take every cluster size the rule picks
+#: (n = 88 at 1, 48, 64, 80 and 100 graphs, n = 128 at 36) and n = 40, not
+#: a multiple of 16, at H = 32, 72 (nine n8 tiles), 128 and 37 (odd, F = 7)
+SHAPES = [(16, 88, 5, 64, 3), (512, 88, 5, 64, 3), (7, 128, 5, 128, 1), (3, 24, 5, 32, 2),
+          (1, 88, 5, 64, 3), (48, 88, 5, 64, 3), (64, 88, 5, 64, 3), (80, 88, 5, 64, 3),
+          (100, 88, 5, 64, 3), (36, 128, 5, 64, 2), (5, 40, 5, 32, 2), (5, 40, 5, 128, 2),
+          (200, 40, 5, 128, 2), (5, 40, 5, 72, 2), (300, 40, 5, 72, 2), (5, 40, 7, 37, 2)]
+#: (B, n, F, H, L) a kernel takes with the compact layout (the padded
+#: strides do not fit at one CTA a graph): odd widths, no 8-byte access
+COMPACT_SHAPES = {"gcn": (140, 128, 5, 161, 1), "sage": (140, 128, 5, 151, 1)}
+#: input widths at which phase 3 holds the kernels' layout to the routing rule
+LAYOUT_FEATURES = (1, 5, 16, 64, 200)
 TIMED_BATCHES = (16, 512)
+#: calls over which a fused wrapper's host time is averaged (few enough that
+#: the launch queue never fills at batch 512)
+FUSED_HOST_CALLS = 200
 KERNELS = {
     "gcn": dict(
         name="fused_gcn_forward", model=GCNConnectome, weights=gcn_weights,
@@ -635,6 +664,170 @@ def fused_bound(kind, inputs, w):
         macs = sum(edges * fin + 2 * nodes * fin * H for fin in widths)
     macs += B * (H * H2 + H2 * C)
     return bound(nbytes(*inputs, *w) + 4 * B * C, 2 * macs, "f32")
+
+
+def fused_dense_macs(kind, B, n, F, H, L) -> int:
+    """The multiply-adds of a padded batch's dense products (every node and
+    adjacency entry of the padded graphs, the head left out)."""
+    widths = [F] + [H] * (L - 1)
+    if kind == "gcn":  # h @ W, then adj_n @ hw
+        return B * sum(n * fin * H + n * n * H for fin in widths)
+    return B * sum(n * n * fin + 2 * n * fin * H for fin in widths)  # adj @ h, two weights
+
+
+def cluster_note(B, n, dev) -> str:
+    """The CTAs a graph spans at this batch (a tree whose kernels have no
+    cluster prints one block a graph)."""
+    rule = getattr(fused, "cluster_size", None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return f"cluster {rule(B, n, sms) if rule else 1} CTA(s) a graph"
+
+
+def timing_inputs_for(dev) -> dict:
+    """Phase 3's inputs and weights at the timed flagship shapes."""
+    out = {}
+    for B in TIMED_BATCHES:
+        inputs = random_dense_batch(B, 88, 5, seed=B + 88, device=dev)
+        for kind, k in KERNELS.items():
+            out[kind, B] = (inputs, k["weights"](make_model(kind, 5, 64, 3).to(dev)))
+    return out
+
+
+def main_path_setup(dev):
+    """Phase 4's 64 graphs, their dense loader on the card and one trainer
+    a model."""
+    graphs = generate_dataset(num_subjects=64, seed=42)
+    loader = ConnectomeDataLoader(graphs, batch_size=16, shuffle=False, layout="dense", device=dev)
+    trainers = {kind: Trainer(make_model(kind, 5, 64, 3), device=dev) for kind in KERNELS}
+    return graphs, loader, trainers
+
+
+def fused_launch_alone(kind, inputs, w, L=None, cs=None):
+    """K1's or K2's C entry point with its arguments ready (no wrapper), at
+    the first ``L`` of the weights' layers and ``cs`` CTAs a graph (by
+    default all layers and the rule's size; another tree's first-design
+    entry takes its byte count instead).  Counts no launch."""
+    x, adj, mask = inputs
+    B, n, F = x.shape
+    H, H2, C = w.scale.shape[1], w.w1.shape[1], w.w2.shape[1]
+    L = w.scale.shape[0] if L is None else L
+    if not hasattr(fused, "cluster_size"):  # another tree's entry: its byte count in place of cs
+        size = (fused.smem_bytes(kind, n, F, H, H2),)
+    else:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        size = (fused.cluster_size(B, n, sms) if cs is None else cs,)
+    out = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    args = (*(t.data_ptr() for t in (x, adj, mask, *w, out)), B, n, F, H, H2, C, L, *size,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _build.library()
+    entry = getattr(lib, f"cgt_fused_{kind}_forward")
+
+    def run():
+        err = entry(*args)
+        check(err == 0, (kind, L, cs, lib.cgt_error_string(err)))
+
+    return run
+
+
+def fused_breakdown(card, kind, B, inputs, w) -> None:
+    """Phase 5's breakdown of one kernel by device time (torch.profiler,
+    mean of 20): its launch alone with 0 to L layers (0: loads, degrees or
+    weight sums, pool and head), and at batch 16 at every cluster size the
+    graphs' tiles allow."""
+    if not hasattr(fused, "cluster_size"):  # another tree's kernels take no cluster size
+        return
+    L, n = w.scale.shape[0], inputs[0].shape[1]
+    by_layers = [device_ms(fused_launch_alone(kind, inputs, w, L=layers)) for layers in range(L + 1)]
+    print(f"[5 breakdown] {card} | {kind} B={B}: the launch alone with 0..{L} layers "
+          + ", ".join(f"{t:.4f}" for t in by_layers) + " ms of device time", flush=True)
+    if B <= 16:
+        sizes = range(1, min(fused.MAX_CLUSTER, -(-n // fused.TILE_ROWS)) + 1)
+        by_size = [device_ms(fused_launch_alone(kind, inputs, w, cs=cs)) for cs in sizes]
+        print(f"[5 breakdown] {card} | {kind} B={B}: the launch alone at " + ", ".join(
+            f"{cs} CTA(s) a graph {t:.4f}" for cs, t in zip(sizes, by_size)) + " ms of device time", flush=True)
+
+
+def fused_times(dev, card, timing_inputs, graphs, loader, trainers) -> dict:
+    """Phase 5: each fused kernel at the timed batches, then ``predict``."""
+    times = {}
+    for (kind, B), (inputs, w) in sorted(timing_inputs.items()):
+        k = KERNELS[kind]
+        run_kernel = lambda: k["kernel"](*inputs, w)  # noqa: E731
+        run_plain = lambda: k["plain"](*inputs, w)  # noqa: E731
+        times[kind, B] = cuda_ms([run_kernel, run_plain])
+        dev_kernel, dev_plain = device_ms(run_kernel), device_ms(run_plain)
+        wrapper_us = host_us(run_kernel, calls=FUSED_HOST_CALLS)
+        b_ms, b_by = fused_bound(kind, inputs, w)
+        n, F = inputs[0].shape[1:]
+        L, H = w.scale.shape
+        macs = fused_dense_macs(kind, B, n, F, H, L)
+        print(
+            f"[5 times] {card} | {kind} B={B} n={n} H={H} L={L}, {cluster_note(B, n, dev)}: "
+            f"kernel {times[kind, B][0]:.4f} ms, plain {times[kind, B][1]:.4f} ms per call (CUDA events, "
+            f"median of 100, in turns); device time kernel {dev_kernel:.4f} ms, plain {dev_plain:.4f} ms "
+            f"(torch.profiler, mean of 20); the wrapper's host time {wrapper_us:.1f} us a call (host clock, "
+            f"mean of {FUSED_HOST_CALLS}, no sync); bound {b_ms:.5f} ms ({b_by}), "
+            f"{b_ms / dev_kernel * 100:.2f} % of the device time; dense work {macs:,} multiply-adds: "
+            f"{2 * macs / PEAK_OPS['f32'] * 1e3:.4f} ms at 67 TFLOP/s f32, "
+            f"{6 * 2 * macs / PEAK_OPS['bf16'] * 1e3:.4f} ms as six bf16 products at 989 TFLOP/s; "
+            f"library call none (no single PyTorch call)",
+            flush=True,
+        )
+        fused_breakdown(card, kind, B, inputs, w)
+    edge_messages = 3 * sum(g.num_edges for g in graphs)
+    for kind, tr in trainers.items():
+        fused_ms, plain_ms = host_ms(
+            [lambda: tr.predict(loader), lambda: tr.predict(loader, prefer_fused=False)]
+        )
+        print(
+            f"[5 times] {card} | {kind} predict, 64 graphs in 4 batches of 16: fused {fused_ms:.3f} ms "
+            f"({64 / fused_ms * 1e3:.1f} graphs/s, {edge_messages / fused_ms * 1e3:.4g} edge-messages/s), "
+            f"unfused {plain_ms:.3f} ms ({64 / plain_ms * 1e3:.1f} graphs/s) (host clock, median of 20, in turns)",
+            flush=True,
+        )
+    return times
+
+
+def host_times(card, timing_inputs, loader, trainers) -> None:
+    """``--host-times``: the fused wrappers' host time alone at batch 16 and
+    512, the C call alone (at the rule's cluster size and, where that is
+    more than one, at one CTA a graph), and ``predict`` over the 64 graphs,
+    nothing else, so that two trees can be run in many alternating
+    processes on one machine."""
+    for (kind, B), (inputs, w) in sorted(timing_inputs.items()):
+        kernel = KERNELS[kind]["kernel"]
+        us = host_us(lambda: kernel(*inputs, w), calls=FUSED_HOST_CALLS)  # noqa: B023
+        alone = host_us(fused_launch_alone(kind, inputs, w), calls=FUSED_HOST_CALLS)
+        one, sms = "", torch.cuda.get_device_properties(inputs[0].device).multi_processor_count
+        if hasattr(fused, "cluster_size") and fused.cluster_size(B, inputs[0].shape[1], sms) > 1:
+            one = f", at one CTA a graph {host_us(fused_launch_alone(kind, inputs, w, cs=1), FUSED_HOST_CALLS):.2f}"
+        print(f"[5 host] {card} | {kind} B={B}: the wrapper's host time {us:.2f} us a call; the C call alone "
+              f"{alone:.2f}{one} (host clock, mean of {FUSED_HOST_CALLS}, no sync)", flush=True)
+    for kind, tr in trainers.items():
+        (ms,) = host_ms([lambda: tr.predict(loader)])  # noqa: B023
+        print(f"[5 host] {card} | {kind} predict, 64 graphs in 4 batches of 16: fused {ms:.3f} ms "
+              f"(host clock, median of 20)", flush=True)
+
+
+def layout_check(lib) -> None:
+    """Phase 3's check that the kernels' own layout (``cgt_fused_smem_bytes``)
+    fits one block for every shape the routing rule admits at cs = 1 (the
+    most a CTA holds): n from 1 to 128, F in LAYOUT_FEATURES, every H up to
+    the rule's largest, the model's head of H // 2."""
+    checked = 0
+    for kind in ("gcn", "sage"):
+        sage = int(kind == "sage")
+        for n in range(1, fused.MAX_FUSED_NODES + 1):
+            for F in LAYOUT_FEATURES:
+                H = 1
+                while fused.smem_bytes(kind, n, F, H, H // 2) <= fused.SMEM_LIMIT_BYTES:
+                    got = lib.cgt_fused_smem_bytes(sage, n, F, H, H // 2, 1)
+                    check(got <= fused.SMEM_LIMIT_BYTES, ("layout past the limit", kind, n, F, H, got))
+                    checked += 1
+                    H += 1
+    print(f"[3 layout] every one of {checked:,} shapes the routing rule admits (n <= 128, F in "
+          f"{LAYOUT_FEATURES}, every H up to the rule's largest, H2 = H // 2) fits the kernels' own "
+          f"layout at one CTA a graph", flush=True)
 
 
 def rowmajor_library(rows, x_pad, block):
@@ -2362,34 +2555,41 @@ def main() -> None:
     if "--train-steps" in sys.argv[1:]:
         train_steps(dev, card)
         return
+    if "--fused-times" in sys.argv[1:]:
+        fused_times(dev, card, timing_inputs_for(dev), *main_path_setup(dev))
+        return
+    if "--host-times" in sys.argv[1:]:
+        _, loader, trainers = main_path_setup(dev)
+        host_times(card, timing_inputs_for(dev), loader, trainers)
+        return
     # the timing modes above may time another tree's package; this tree's
     # kernels must neither spill nor have their wgmma serialized
     check(not spills and not serialized, ("a kernel spills or ptxas serialized its wgmma (C7518)", spills))
 
     # 3. each kernel against its plain version on the card
     max_err = {kind: 0.0 for kind in KERNELS}
-    timing_inputs = {}
-    for B, n, F, H, L in SHAPES:
+    cases = [(shape, kind) for shape in SHAPES for kind in KERNELS]
+    cases += [(shape, kind) for kind, shape in COMPACT_SHAPES.items()]
+    for (B, n, F, H, L), kind in cases:
         inputs = random_dense_batch(B, n, F, seed=B + n, device=dev)
-        for kind, k in KERNELS.items():
-            w = k["weights"](make_model(kind, F, H, L).to(dev))
-            got = k["kernel"](*inputs, w)
-            torch.cuda.synchronize()
-            want = k["plain"](*inputs, w)
-            torch.cuda.synchronize()
-            check(got.shape == (B, 2) and bool(torch.isfinite(got).all()), (kind, B, n))
-            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-            err = float((got - want).abs().max())
-            max_err[kind] = max(max_err[kind], err)
-            print(f"[3 kernel] {kind} B={B} n={n} F={F} H={H} L={L}: max|kernel-plain| = {err:.3e}", flush=True)
-            if (n, F, H, L) == (88, 5, 64, 3) and B in TIMED_BATCHES:
-                timing_inputs[kind, B] = (inputs, w)
+        k = KERNELS[kind]
+        w = k["weights"](make_model(kind, F, H, L).to(dev))
+        got = k["kernel"](*inputs, w)
+        torch.cuda.synchronize()
+        want = k["plain"](*inputs, w)
+        torch.cuda.synchronize()
+        check(got.shape == (B, 2) and bool(torch.isfinite(got).all()), (kind, B, n))
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        err = float((got - want).abs().max())
+        max_err[kind] = max(max_err[kind], err)
+        print(f"[3 kernel] {kind} B={B} n={n} F={F} H={H} L={L}, {cluster_note(B, n, dev)}: "
+              f"max|kernel-plain| = {err:.3e}", flush=True)
+    layout_check(_build.library())
+    timing_inputs = timing_inputs_for(dev)
 
     # 4. the main path
-    graphs = generate_dataset(num_subjects=64, seed=42)
-    loader = ConnectomeDataLoader(graphs, batch_size=16, shuffle=False, layout="dense", device=dev)
+    graphs, loader, trainers = main_path_setup(dev)
     cpu_loader = ConnectomeDataLoader(graphs, batch_size=16, shuffle=False, layout="dense")
-    trainers = {kind: Trainer(make_model(kind, 5, 64, 3), device=dev) for kind in KERNELS}
     cpu_logits = {
         kind: Trainer(copy.deepcopy(tr.model), device="cpu").predict(cpu_loader, prefer_fused=False)
         for kind, tr in trainers.items()
@@ -2417,32 +2617,7 @@ def main() -> None:
         )
 
     # 5. times (nothing asserted)
-    times = {}
-    for (kind, B), (inputs, w) in sorted(timing_inputs.items()):
-        k = KERNELS[kind]
-        run_kernel = lambda: k["kernel"](*inputs, w)  # noqa: E731
-        run_plain = lambda: k["plain"](*inputs, w)  # noqa: E731
-        times[kind, B] = cuda_ms([run_kernel, run_plain])
-        dev_kernel, dev_plain = device_ms(run_kernel), device_ms(run_plain)
-        b_ms, b_by = fused_bound(kind, inputs, w)
-        print(
-            f"[5 times] {card} | {kind} B={B} n=88 H=64 L=3: kernel {times[kind, B][0]:.4f} ms, "
-            f"plain {times[kind, B][1]:.4f} ms per call (CUDA events, median of 100); "
-            f"device time kernel {dev_kernel:.4f} ms, plain {dev_plain:.4f} ms (torch.profiler, mean of 20); "
-            f"bound {b_ms:.5f} ms ({b_by}); library call none (no single PyTorch call)",
-            flush=True,
-        )
-    edge_messages = 3 * sum(g.num_edges for g in graphs)
-    for kind, tr in trainers.items():
-        fused_ms, plain_ms = host_ms(
-            [lambda: tr.predict(loader), lambda: tr.predict(loader, prefer_fused=False)]
-        )
-        print(
-            f"[5 times] {card} | {kind} predict, 64 graphs in 4 batches of 16: fused {fused_ms:.3f} ms "
-            f"({64 / fused_ms * 1e3:.1f} graphs/s, {edge_messages / fused_ms * 1e3:.4g} edge-messages/s), "
-            f"unfused {plain_ms:.3f} ms ({64 / plain_ms * 1e3:.1f} graphs/s) (host clock, median of 20, in turns)",
-            flush=True,
-        )
+    times = fused_times(dev, card, timing_inputs, graphs, loader, trainers)
 
     # 6-10. the giant-graph serving path
     band_entries, graph = giant_graph_phases(dev, card)

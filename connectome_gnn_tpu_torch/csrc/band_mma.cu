@@ -286,6 +286,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "bf16_split.cuh"  // pack_bf16x2, split3
+
 namespace {
 
 // Role A is row-major (K3, K7, B2a, B2c).  Role B is feature-major: the
@@ -549,14 +551,6 @@ __device__ __forceinline__ uint32_t widen2(uint32_t v) {
   return out;
 }
 
-// Two f32 values rounded to bf16x2 (round to nearest even), lo in the low
-// half.
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  uint32_t out;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(out) : "f"(hi), "f"(lo));
-  return out;
-}
-
 // An A fragment's pair as bf16x2: an f32 pair rounded, a bf16 pair as it is.
 __device__ __forceinline__ uint32_t bf16x2(float2 v) { return pack_bf16x2(v.x, v.y); }
 __device__ __forceinline__ uint32_t bf16x2(uint32_t v) { return v; }
@@ -570,20 +564,6 @@ __device__ __forceinline__ uint32_t fold2(uint32_t v, float scale) {
   const float q0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
   const float q1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
   return pack_bf16x2(__fmul_rn(q0, scale), __fmul_rn(q1, scale));
-}
-
-// Two f32 values (x first, in the low halves) split exactly into three
-// bf16x2: hi = rn(v), mid = rn(v - hi), lo = v - hi - mid.  Both
-// subtractions are exact in f32, and lo has at most 8 significant bits, so
-// its rounding is exact too.
-__device__ __forceinline__ void split3(float2 v, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
-  hi = pack_bf16x2(v.x, v.y);
-  float r0 = __fsub_rn(v.x, __uint_as_float(hi << 16));
-  float r1 = __fsub_rn(v.y, __uint_as_float(hi & 0xFFFF0000u));
-  mid = pack_bf16x2(r0, r1);
-  r0 = __fsub_rn(r0, __uint_as_float(mid << 16));
-  r1 = __fsub_rn(r1, __uint_as_float(mid & 0xFFFF0000u));
-  lo = pack_bf16x2(r0, r1);
 }
 
 // Two neighbouring outputs (v0 at out[i], v1 at out[i + 1]), each where it is

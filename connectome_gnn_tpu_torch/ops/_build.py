@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 #: sources whose kernels' register and shared-memory use the build records
-PTXAS_VERBOSE = ("band_mma.cu",)
+PTXAS_VERBOSE = ("band_mma.cu", "fused_forward.cu")
 
 
 def sources() -> list[str]:
@@ -125,9 +125,10 @@ def ptxas_report() -> str:
 def library() -> ctypes.CDLL:
     """The built kernel library with every entry point's signature set."""
     lib = ctypes.CDLL(build())
-    ptr, i32, i64, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_size_t
-    lib.cgt_fused_gcn_forward.argtypes = [ptr] * 12 + [i32] * 7 + [size, ptr]
-    lib.cgt_fused_sage_forward.argtypes = [ptr] * 15 + [i32] * 7 + [size, ptr]
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.cgt_fused_gcn_forward.argtypes = [ptr] * 12 + [i32] * 8 + [ptr]
+    lib.cgt_fused_sage_forward.argtypes = [ptr] * 15 + [i32] * 8 + [ptr]
+    lib.cgt_fused_smem_bytes.argtypes = [i32] * 6
     lib.cgt_banded_spmm_quant.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.cgt_banded_spmm_quant_fm.argtypes = [ptr] * 4 + [i32] * 7 + [i64, i64, ptr]
     lib.cgt_banded_spmm_quant_fm_w8a8.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
@@ -151,6 +152,7 @@ def library() -> ctypes.CDLL:
         "cgt_banded_spmm_direct_bf16", "cgt_banded_spmm_w8a8_rowmajor",
         "cgt_banded_spmm_quant_fused_dot", "cgt_fm_bf16_band",
         "cgt_fm_w8a8", "cgt_fm_dma_only", "cgt_fm_compute_only", "cgt_row_gather",
+        "cgt_fused_smem_bytes",
     ):
         getattr(lib, entry).restype = i32
     lib.cgt_error_string.argtypes = [i32]

@@ -20,10 +20,18 @@ computed host-side in torch as in the JAX package:
                                     t' = (b_conv - mean) * s' + bias
 
 SAGE's bias sits inside its ReLU, so it stays separate there.
+
+At small batch a graph spans a thread-block cluster of :func:`cluster_size`
+CTAs, each owning whole 16-row tiles of its receivers; the rule reads the
+batch and the card's SM count and has no user setting.  The kernels' shared
+memory layout lives in the CUDA source alone (``make_layout``): the C
+entries size their own, and it never exceeds the routing rule's count
+(:func:`smem_bytes`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -35,10 +43,16 @@ EPS = 1e-8
 
 #: shared memory one thread block may hold on sm_90 (227 KB)
 SMEM_LIMIT_BYTES = 232_448
-#: rows of z staged per step in K2; equals kSageChunkRows in the CUDA source
+#: rows of z staged per step in the first design's K2 (its byte count)
 SAGE_CHUNK_ROWS = 16
 #: largest padded graph that forward_auto routes to the kernels
 MAX_FUSED_NODES = 128
+#: rows of an m16 tile: a CTA of a cluster owns whole tiles of receivers
+TILE_ROWS = 16
+#: CTAs a graph's cluster may span: the portable cluster size (kMaxCluster)
+MAX_CLUSTER = 8
+#: thread blocks a batch may fill per SM before clusters stop paying
+BLOCKS_PER_SM = 2
 
 
 class GCNWeights(NamedTuple):
@@ -148,14 +162,31 @@ def sage_weights(model: GraphSAGEConnectome) -> SAGEWeights:
 
 
 def smem_bytes(kind: str, n: int, F: int, H: int, H2: int) -> int:
-    """Shared memory one block of K1 (``kind="gcn"``) or K2 (``"sage"``)
-    takes for one graph: the same layout as the CUDA source."""
+    """The routing rule's shared memory for one graph of K1 (``kind="gcn"``)
+    or K2 (``"sage"``): the first design's layout, f32 rows unpadded.  The
+    kernels' own layout (``make_layout`` in the CUDA source, reported by
+    ``cgt_fused_smem_bytes``) pads its strides only where that still fits
+    one block, and otherwise takes no more than this count, so every shape
+    this admits runs."""
     D = max(F, H)
     if kind == "gcn":
         floats = n * n + n * D + n * H + 2 * n + H + H2
     else:
         floats = n * n + 2 * n * D + SAGE_CHUNK_ROWS * H + 2 * n + H + H2
     return 4 * floats
+
+
+def cluster_size(B: int, n: int, sm_count: int) -> int:
+    """CTAs a graph spans: the largest ``cs <= min(8, ceil(n / 16))`` with
+    ``B * cs <= 2 * sm_count``, else 1.  At n = 88 on 132 SMs: 6 up to 44
+    graphs, 1 from 133 on."""
+    fit = BLOCKS_PER_SM * sm_count // B if B else MAX_CLUSTER
+    return max(1, min(MAX_CLUSTER, -(-n // TILE_ROWS), fit))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -204,8 +235,9 @@ def fused_sage_forward_reference(x, adj, node_mask, w: SAGEWeights) -> torch.Ten
 
 
 def _launch(kind, entry, x, adj, node_mask, w) -> torch.Tensor:
-    """Check the operands, launch one kernel on the current stream, raise
-    on a refused launch.  Returns logits ``[B, C]``."""
+    """Check the operands, launch one kernel on the current stream with
+    :func:`cluster_size` CTAs a graph, raise on a refused launch (no retry
+    with another cluster size).  Returns logits ``[B, C]``."""
     if x.device.type != "cuda":
         raise ValueError(f"the fused {kind} kernel needs CUDA tensors, got {x.device}")
     B, n, F = x.shape
@@ -217,7 +249,7 @@ def _launch(kind, entry, x, adj, node_mask, w) -> torch.Tensor:
         )
     if node_mask.dtype != torch.bool:
         raise ValueError(f"node_mask must be bool, got {node_mask.dtype}")
-    for name, t in (("x", x), ("adj", adj), *w._asdict().items()):
+    for name, t in (("x", x), ("adj", adj), *zip(w._fields, w)):
         if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
     if not node_mask.is_contiguous() or node_mask.device != x.device:
@@ -234,11 +266,11 @@ def _launch(kind, entry, x, adj, node_mask, w) -> torch.Tensor:
     from connectome_gnn_tpu_torch.ops._build import library
 
     lib = library()
+    cs = cluster_size(B, n, _sm_count(x.device.index))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, entry)(
-            *(t.data_ptr() for t in (x, adj, node_mask, *w, out)),
-            B, n, F, H, H2, C, L, nbytes, stream,
+            *(t.data_ptr() for t in (x, adj, node_mask, *w, out)), B, n, F, H, H2, C, L, cs, stream,
         )
     if err != 0:
         raise RuntimeError(
