@@ -15,8 +15,10 @@ Phases, one line each:
    and what ``ptxas -v`` says of the fused kernels K1 and K2
    (``fused_forward.cu``) and of the tensor-core body's kernels
    (registers, spills, shared memory; role A over the int8 band with the
-   scale on the dot (K3, B2c) or folded into the tile (B2c ``wrow_bf16``)
-   and over the float32 band (K7), role A's schedule on s8 products (K5),
+   scale on the dot (K3, B2c) or folded into the tile (B2c ``wrow_bf16``),
+   over the int8 band on s8 products with an int8 frame (B2b) and over the
+   float32 band (K7), role A's schedule on s8 products (K5, B3a
+   ``fm_w8a8``),
    and role B over the int8 band on a float32 frame, feature-major (K4,
    B3c) and blocked (K6), and on a bfloat16 frame, feature-major (timed
    against K4), with B3b's panel map and blocked (B3d), among them) and any
@@ -140,22 +142,28 @@ block 256, F = 64), whose path is their entry points:
 18. K7 (``banded_spmm_direct`` over the float32 and the bfloat16 band),
     B2a (``banded_spmm_bf16``), B2b (``banded_spmm_w8a8``) and B2c
     (``banded_spmm_quant_fused_dot``, with ``wrow_bf16`` False and True)
-    against their plain versions, rtol 1e-5 / atol 1e-5, on the random
-    non-symmetric small bands (K7 over the float32 band and B2c without
+    against their plain versions, rtol 1e-5 / atol 1e-5 (B2b bit for bit,
+    and its launch alone on the operands its wrapper prepares bit for bit
+    the wrapper's output, also at blocks of 40 and 48 and F = 130), on the
+    random non-symmetric small bands (K7 over the float32 band and B2c without
     ``wrow_bf16``, whose order of sums the plain version's float32 sums
     cannot share, against their plain versions summed in float64 at 1e-5
     and against the float32 plain versions within 1e-5 of the sum of the
     products' magnitudes; the plain version's own distance from its
     float64 sums is printed beside); then the main path, each entry point
     once at 1M nodes with one launch each, its output against its plain
-    version at 1e-5 and against the float32 ``banded_spmm`` under the
-    checks phase's gate (relative Frobenius error < 3e-2,
-    ``quant_kernel_diag.py:327``);
+    version at 1e-5 (B2b bit for bit, and its launch alone) and against
+    the float32 ``banded_spmm`` under the checks phase's gate (relative
+    Frobenius error < 3e-2, ``quant_kernel_diag.py:327``);
 19. times: each variant's kernel, plain version and library call per call
-    (CUDA events, median of 10, in turns; B2b has no library call) and,
-    for the variants on the tensor-core body (K7, B2a, B2c), the launch
-    alone on the operands its wrapper prepares, G edge-messages/s and the
-    kernel's and the launch's share of the bound; the memory peak.
+    (CUDA events, median of 10, in turns; B2b has no library call) and
+    the launch alone on the operands its wrapper prepares, G
+    edge-messages/s and the kernel's and the launch's share of the bound;
+    B2b's int8 frame built three ways, bit for bit the same (the wrapper's
+    node-major quantization and the int8 values transposed as 32-bit words
+    of four senders; the same transposed byte by byte; a float32 transpose
+    and K5's feature-major quantization), each timed, and the node-major
+    quantization alone; the memory peak.
 
 Then the feature-major band-pipeline probes B3a-B3d of
 ``benchmarks/fm_kernel_diag.py`` at its 5qm geometry (the same graph: 1M
@@ -171,7 +179,9 @@ nodes, band ±512, block 256, F = 64), whose path is their entry points:
     bands, ``fm_deep`` (B3c, K4's launch) and ``fm_blocked`` (B3d, role B
     over the int8 band on a bfloat16 frame) also at blocks of 48 and 80
     and at a few (R, S, K) and (R, S) of the script's sweeps, each the one
-    result bit for bit; then the main path, each entry point once at 1M nodes with one
+    result bit for bit, ``fm_w8a8`` bit for bit its plain version and K5's
+    kernel on K5's operands, also at a block of 40 (padded to 48); then the
+    main path, each entry point once at 1M nodes with one
     launch each, against its plain version and, for ``fm_deep``,
     ``fm_blocked``, ``fm_bf16_band`` and ``fm_w8a8``, under the 3e-2 gate
     against the float32 ``banded_spmm``, the sweeps' calls the one result;
@@ -356,9 +366,8 @@ BAND_KERNELS = {
 #: K3's, K4's and K6's further shapes on the tensor-core body: a block of
 #: 16, F = 130 (three 64-feature units)
 MMA_SHAPES = [(12, 1, 16, 180, 8), (6, 1, 64, 350, 130)]
-#: the CUDA-core body of B2b
-BAND_SOURCE = "connectome_gnn_tpu_torch/csrc/banded_spmm.cu"
-#: the tensor-core body of K3-K7, B2a, B2c, B3a bf16_band, B3b, B3c and B3d
+#: the tensor-core body of K3-K7, B2a-B2c, B3a bf16_band and w8a8, B3b, B3c
+#: and B3d
 MMA_SOURCE = "connectome_gnn_tpu_torch/csrc/band_mma.cu"
 #: a train step against its plain path on the card: the f32 gate
 STEP_RTOL, STEP_ATOL = 1e-4, 1e-5
@@ -377,8 +386,8 @@ TRAIN_KERNELS = {
 #: the band variants of phases 17-19 (K7 over each band dtype, B2a-B2c):
 #: kernel wrapper, entry point, plain version, launch counter, band operand
 #: (``raw``: passed as the band tensor, num_nodes and W), the operand type
-#: of the products (for the bound), keyword arguments, the source where it
-#: is not ``BAND_SOURCE``
+#: of the products (for the bound), keyword arguments, its source, and
+#: ``exact`` where it is held to its plain version bit for bit
 VARIANTS = {
     "K7-f32": dict(name="banded_spmm_direct (float32 band)", kernel=bd.banded_spmm_direct_kernel,
                    entry=bd.banded_spmm_direct, plain=bd.banded_spmm_direct_reference,
@@ -393,7 +402,7 @@ VARIANTS = {
                 source=MMA_SOURCE, replaces="benchmarks/quant_kernel_diag.py:92"),
     "B2b": dict(name="banded_spmm_w8a8", kernel=bv.banded_spmm_w8a8_kernel, entry=bv.banded_spmm_w8a8,
                 plain=bv.banded_spmm_w8a8_reference, counter="B2b", band="int8", ops="int8",
-                replaces="benchmarks/quant_kernel_diag.py:173"),
+                source=MMA_SOURCE, exact=True, replaces="benchmarks/quant_kernel_diag.py:173"),
     "B2c": dict(name="banded_spmm_quant_fused_dot", kernel=bv.banded_spmm_quant_fused_dot_kernel,
                 entry=bv.banded_spmm_quant_fused_dot, plain=bv.banded_spmm_quant_fused_dot_reference,
                 counter="B2c", band="int8", ops="bf16", source=MMA_SOURCE,
@@ -411,6 +420,9 @@ VARIANTS = {
 #: the kernel's order of sums is not the plain version's)
 FLOAT64_SUMS = ("K7-f32", "B2c")
 MAGNITUDE_RTOL = 1e-5
+#: B2b's further shapes: a block of 48 (one partial 128-sender chunk) with
+#: three 64-feature units, a block of 40 (padded to 48) with F = 5
+B2B_SHAPES = [(6, 2, 48, 280, 130), (6, 1, 40, 230, 5)]
 #: the checks phase's gate against the float32 band SpMM
 #: (benchmarks/quant_kernel_diag.py:327)
 CHECK_GATE = 3e-2
@@ -424,7 +436,8 @@ FM_KERNELS = {
                           plain=fv.fm_bf16_band_reference, source=MMA_SOURCE,
                           replaces="benchmarks/fm_kernel_diag.py:130"),
     "B3a w8a8": dict(name="fm_w8a8", kernel=fv.fm_w8a8_kernel, entry=fv.fm_w8a8,
-                     plain=fv.fm_w8a8_reference, replaces="benchmarks/fm_kernel_diag.py:130"),
+                     plain=fv.fm_w8a8_reference, source=MMA_SOURCE,
+                     replaces="benchmarks/fm_kernel_diag.py:130"),
     "B3b": dict(name="fm_compute_only", kernel=fv.fm_compute_only_kernel, entry=fv.fm_compute_only,
                 plain=fv.fm_compute_only_reference, source=MMA_SOURCE,
                 replaces="benchmarks/fm_kernel_diag.py:242"),
@@ -448,6 +461,8 @@ FM_SHAPES = [(8, 1, 64, 512, 16, 4), (12, 0, 64, 700, 16, 2), (12, 2, 64, 768, 5
 #: B3c's and B3d's further shapes: blocks of 48 and 80, multiples of 16 but
 #: not of 64, so a 64-sender stage of role B reaches past the block
 FM_ROLE_B_SHAPES = [(12, 1, 48, 560, 16, 4), (8, 2, 80, 600, 20, 4)]
+#: fm_w8a8's further shape: a block of 40, not a multiple of 16 (padded to 48)
+FM_W8A8_SHAPES = [(8, 1, 40, 300, 5, 4)]
 #: K4's non-finite check: blocks that are not multiples of 64, each W
 NONFINITE_BLOCKS, NONFINITE_WS = (16, 32, 48), (0, 1, 2)
 #: every band kernel's launch counter
@@ -1301,7 +1316,7 @@ def giant_graph_phases(dev, card):
 
     return [
         {
-            "name": k["name"], "route": "cuda", "source": k.get("source", BAND_SOURCE),
+            "name": k["name"], "route": "cuda", "source": k["source"],
             "replaces": k["replaces"],
             "launches": launches[kid], "max_abs_err": max_err[kid],
             "ms": times[kid][0], "plain_ms": times[kid][1], "bound_ms": bounds[kid][0],
@@ -1640,15 +1655,15 @@ def variant_call(kid, fn, ops, x, **kw):
 
 def variant_launch(kid, ops, x):
     """Variant ``kid``'s launch alone on the operands its wrapper prepares
-    (built here, outside the timing), or None (B2b: not on the tensor-core
-    body)."""
+    (built here, outside the timing)."""
     v, W, block, n, F = VARIANTS[kid], ops["f32"].bandwidth, ops["f32"].block, ops["f32"].num_nodes, x.shape[1]
     if v["band"] != "int8":
         band_p, frame = band_mma.rowmajor_operands(ops[v["band"]], x)
         return lambda: band_mma.launch_rowmajor(kid, band_p, frame, n, W, block, F)
-    if kid == "B2b":
-        return None
     q = ops["int8"]
+    if kid == "B2b":
+        band_p, (xq_p, xscales) = band_mma.pad_band(q.band_q), bv.w8a8_operands(q, x)
+        return lambda: band_mma.launch_rowmajor_w8a8(kid, band_p, q.scales, xq_p, xscales, n, W, block)
     band_p, frame = band_mma.pad_band(q.band_q), band_mma.rowmajor_frame(x, n, q.num_blocks, W, block)
     wrow = v.get("kw", {}).get("wrow_bf16", False)
     return lambda: band_mma.launch_rowmajor(kid, band_p, frame, n, W, block, F, q.scales, wrow_bf16=wrow)
@@ -1673,7 +1688,10 @@ def check_variant(kid, ops, x) -> tuple[float, str]:
     torch.cuda.synchronize()
     check(got.shape == want.shape and bool(torch.isfinite(got).all()), (kid, tuple(got.shape)))
     note = ""
-    if kid in FLOAT64_SUMS:
+    if v.get("exact"):
+        check(torch.equal(got, want), (kid, "not the plain version bit for bit"))
+        check(torch.equal(variant_launch(kid, ops, x)(), got), (kid, "launch alone != wrapper"))
+    elif kid in FLOAT64_SUMS:
         abs_ops = {"f32": ops["f32"]._replace(band=ops["f32"].band.abs()),
                    "int8": ops["int8"]._replace(band_q=ops["int8"].band_q.abs())}
         magnitude = variant_call(kid, v["plain"], abs_ops, x.abs())
@@ -1710,6 +1728,13 @@ def variant_library(kid, ops, x_pad, block):
     return rowmajor_library(rows, x_pad, block)
 
 
+def b2b_frame_bytewise(q, x):
+    """B2b's int8 frame and scales with the int8 values transposed one by
+    one: the node-major quantization, then a permuting copy."""
+    xq, xscales = bv._w8a8_operands(q, x)
+    return xq.permute(2, 0, 1).contiguous().view(x.shape[1], -1), xscales
+
+
 def band_variant_phases(dev, card, graph) -> list[dict]:
     """Phases 17-19; returns the variants' entries of the JSON line."""
     block, n, E = GIANT["block"], graph.num_nodes, graph.num_edges
@@ -1736,17 +1761,18 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
     # 18. each variant against its plain version, then the main path
     max_err = dict.fromkeys(VARIANTS, 0.0)
     with torch.no_grad():
-        for shape in BAND_SHAPES + MMA_SHAPES:
+        for shape in BAND_SHAPES + MMA_SHAPES + B2B_SHAPES:
             snb, sW, sb, snodes, sF = shape
             ops = variant_operands(random_float_band(snb, sW, sb, snodes, seed=sum(shape), device=dev))
             xs = torch.from_numpy(
                 np.random.default_rng(snodes + sF).standard_normal((snodes, sF)).astype(np.float32)
             ).to(dev)
-            errs = {kid: check_variant(kid, ops, xs) for kid in VARIANTS}
+            errs = {kid: check_variant(kid, ops, xs) for kid in (VARIANTS if shape not in B2B_SHAPES else ("B2b",))}
             for kid, (err, _) in errs.items():
                 max_err[kid] = max(max_err[kid], err)
             print(f"[18 variant kernel] NB={snb} W={sW} b={sb} n={snodes} F={sF}, random non-symmetric "
                   f"band, max|kernel-plain|: " + ", ".join(f"{kid} {e:.3e}" for kid, (e, _) in errs.items())
+                  + " (B2b bit for bit, its launch alone the wrapper's)"
                   + "".join(note for _, note in errs.values()), flush=True)
         del ops, xs
         # the main path: each entry point once at the 1M-node shape
@@ -1768,6 +1794,9 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
             want = variant_call(kid, v["plain"], full, x)
             check(out.shape == (n, F_) and bool(torch.isfinite(out).all()), (kid, tuple(out.shape)))
             torch.testing.assert_close(out, want, rtol=BAND_RTOL, atol=BAND_ATOL)
+            if v.get("exact"):
+                check(torch.equal(out, want), (kid, "not the plain version bit for bit"))
+                check(torch.equal(variant_launch(kid, full, x)(), out), (kid, "launch alone != wrapper"))
             err = float((out - want).abs().max())
             max_err[kid] = max(max_err[kid], err)
             rel = float(torch.linalg.norm(out - ref) / ref_norm)
@@ -1778,8 +1807,9 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
                 note = (f"; against the float64 sums, in units of the gate: kernel "
                         f"{tolerance_ratio(out, exact):.3f}, plain {tolerance_ratio(want, exact):.3f}")
                 del exact
+            exact = "; bit for bit, and the launch alone the wrapper's" if v.get("exact") else ""
             print(f"[18 variant main path] {kid} {v['name']} at {n:,} nodes, F={F_}: output "
-                  f"{tuple(out.shape)} finite, {launched[kid]} launch; max|kernel-plain| = {err:.3e} "
+                  f"{tuple(out.shape)} finite, {launched[kid]} launch{exact}; max|kernel-plain| = {err:.3e} "
                   f"({tolerance_ratio(out, want):.3f} of the gate){note}; against the float32 banded_spmm: "
                   f"relative Frobenius error {rel:.4e} (gate {CHECK_GATE})", flush=True)
             del want
@@ -1794,9 +1824,10 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
             run_plain = lambda kid=kid, v=v: variant_call(kid, v["plain"], full, x)  # noqa: E731
             run_lib = variant_library(kid, full, x_pad, block)
             # the launch alone on the operands its wrapper prepares first in
-            # torch (x rounded to bf16, or split in three, in the padded frame)
+            # torch (x rounded to bf16, or split in three, in the padded
+            # frame; B2b: quantized into K5's int8 frame)
             run_alone = variant_launch(kid, full, x)
-            fns = [run_kernel, run_plain] + ([run_lib] if run_lib else []) + ([run_alone] if run_alone else [])
+            fns = [run_kernel, run_plain] + ([run_lib] if run_lib else []) + [run_alone]
             ms = cuda_ms(fns, iters=10, warmup=2)
             band = full[v["band"]]
             b_ms, b_by = (band_bound(q.band_q, q.scales, x, n * F_, F_, v["ops"]) if v["band"] == "int8"
@@ -1808,19 +1839,41 @@ def band_variant_phases(dev, card, graph) -> list[dict]:
                 lib_diff = float((run_lib().reshape(-1, F_)[:n] - outs[kid]).abs().max())
                 lib_note = (f"{lib_ms:.4f} ms, one torch.bmm over strided windows, max|library-kernel| "
                             f"{lib_diff:.3e} ({library_kernels(run_lib)})")
-            alone = (f"; the launch alone on its prepared operands {ms[-1]:.4f} ms, {b_ms / ms[-1]:.1%} of the "
-                     f"bound" if run_alone else "")
+            alone = f"; the launch alone on its prepared operands {ms[-1]:.4f} ms, {b_ms / ms[-1]:.1%} of the bound"
             print(f"[19 times] {card} | {kid} {v['name']} at {n:,} nodes, F={F_}: kernel {ms[0]:.4f} ms, "
                   f"plain {ms[1]:.4f} ms per call (CUDA events, median of 10, in turns){alone}; kernel "
                   f"{E / ms[0] / 1e6:.4g} G edge-messages/s; bound {b_ms:.4f} ms ({b_by}), the kernel at "
                   f"{b_ms / ms[0]:.1%} of it; library call {lib_note}", flush=True)
             entries.append({
-                "name": v["name"], "route": "cuda", "source": v.get("source", BAND_SOURCE),
+                "name": v["name"], "route": "cuda", "source": v["source"],
                 "replaces": v["replaces"],
                 "launches": launched[kid], "max_abs_err": max_err[kid], "ms": ms[0],
                 "plain_ms": ms[1], "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             })
             del run_lib, run_alone, fns
+        # B2b's int8 frame, three builds of the same bits: the wrapper's
+        # (node-major quantization, then the int8 values transposed as
+        # 32-bit words of four senders), the same with the bytes transposed
+        # one by one, and a float32 transpose, then K5's feature-major
+        # quantization; and the node-major quantization alone
+        nb, W = q.num_blocks, q.bandwidth
+        builds = {
+            "node-major quantization, int8 transposed as words (the wrapper's)": lambda: bv.w8a8_operands(q, x),
+            "node-major quantization, int8 transposed byte by byte": lambda: b2b_frame_bytewise(q, x),
+            "float32 transposed, feature-major quantization": lambda: bq.quantize_activations_fm(
+                bq._pad_fm(x[:n].T, nb, W, block, torch.float32), block),
+            "the node-major quantization alone": lambda: bv._w8a8_operands(q, x),
+        }
+        frames = [fn() for fn in list(builds.values())[:3]]
+        for other in frames[1:]:
+            check(torch.equal(frames[0][0], band_mma.fm_frame(other[0], nb, W, block))
+                  and torch.equal(frames[0][1], other[1]), "B2b's frame builds differ")
+        del frames, other
+        build_ms = cuda_ms(list(builds.values()), iters=10, warmup=2)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        print(f"[19 B2b frame] {card} | B2b's int8 frame [{F_}, {(nb + 2 * W) * block:,}] and scales at {n:,} "
+              f"nodes, three builds bit for bit the same (CUDA events, median of 10, in turns): "
+              + "; ".join(f"{label} {t:.4f} ms" for label, t in zip(builds, build_ms)), flush=True)
     print(f"[19 times] max_memory_allocated over phases 18-19 {peak:,} B", flush=True)
     return entries
 
@@ -1846,10 +1899,15 @@ def fm_call(kid, fn, ops, R=32, **kw):
     return fn(q, ops["xb"] if kid == "B3d" else ops["xT"], R, **kw)
 
 
+#: the B3 kernels held to their plain version bit for bit: one float32 add,
+#: and K5's launch
+FM_EXACT = ("B3a dma_only", "B3a w8a8")
+
+
 def fm_tolerance(kid) -> dict:
-    """``fm_dma_only`` (one float32 add) bitwise, the others at the band
-    kernels' 1e-5."""
-    exact = kid == "B3a dma_only"
+    """``fm_dma_only`` (one float32 add) and ``fm_w8a8`` (K5's launch)
+    bitwise, the others at the band kernels' 1e-5."""
+    exact = kid in FM_EXACT
     return {"rtol": 0.0 if exact else BAND_RTOL, "atol": 0.0 if exact else BAND_ATOL}
 
 
@@ -1863,7 +1921,20 @@ def check_fm(kid, ops, R=32, **kw) -> float:
     torch.cuda.synchronize()
     check(got.shape == want.shape and bool(torch.isfinite(got).all()), (kid, R, kw, tuple(got.shape)))
     torch.testing.assert_close(got, want, **fm_tolerance(kid), msg=f"{kid} R={R} {kw}")
+    if kid in FM_EXACT:
+        check(torch.equal(got, want), (kid, R, "not the plain version bit for bit"))
+    if kid == "B3a w8a8":
+        check_fm_w8a8_is_k5(ops, R)
     return float((got - want).abs().max())
+
+
+def check_fm_w8a8_is_k5(ops, R=32) -> None:
+    """``fm_w8a8`` on K5's operands (the float32-padded frame quantized per
+    block) against K5's kernel on ``xT``: bit for bit."""
+    q = ops["q"]
+    xq, xs = bq.quantize_activations_padded(q, ops["xT"])
+    check(torch.equal(fv.fm_w8a8_kernel(q, xq, xs, R), bq.banded_spmm_quant_fm_w8a8_kernel(q, ops["xT"])),
+          "fm_w8a8 != K5's kernel on K5's operands")
 
 
 def sweep_kw(config) -> dict:
@@ -1931,13 +2002,14 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
     # 21. each kernel against its plain version, then the main path
     max_err = dict.fromkeys(FM_KERNELS, 0.0)
     with torch.no_grad():
-        for shape in FM_SHAPES + FM_ROLE_B_SHAPES:
+        for shape in FM_SHAPES + FM_ROLE_B_SHAPES + FM_W8A8_SHAPES:
             snb, sW, sb, snodes, sF, sR = shape
             sq = bq.to_feature_major(random_quantized_band(snb, sW, sb, snodes, seed=sum(shape), device=dev))
             sxT = torch.from_numpy(np.random.default_rng(snodes + sF).standard_normal(
                 (sF, snodes)).astype(np.float32)).to(dev)
             ops = fm_operands(sq, (sq.band_qT.float() * 1.37).to(torch.bfloat16), sxT)
-            kids = FM_KERNELS if shape in FM_SHAPES else ("B3c", "B3d")
+            kids = (FM_KERNELS if shape in FM_SHAPES else ("B3c", "B3d") if shape in FM_ROLE_B_SHAPES
+                    else ("B3a w8a8", "B3c", "B3d"))
             errs = {kid: check_fm(kid, ops, sR) for kid in kids}
             errs["B3c"] = max(errs["B3c"], check_sweep("B3c", ops, DEEP_SWEEP))
             errs["B3d"] = max(errs["B3d"], check_sweep("B3d", ops, BLOCKED_SWEEP))
@@ -1945,7 +2017,9 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
                 max_err[kid] = max(max_err[kid], err)
             print(f"[21 fm kernel] NB={snb} W={sW} b={sb} n={snodes} F={sF} R={sR}, random non-symmetric "
                   f"band, fm_deep at each (R, S, K) of {DEEP_SWEEP} and fm_blocked at each (R, S) of "
-                  f"{BLOCKED_SWEEP} the one result bit for bit, max|kernel-plain|: "
+                  f"{BLOCKED_SWEEP} the one result bit for bit"
+                  + (", fm_w8a8 bit for bit its plain version and K5's kernel" if "B3a w8a8" in kids else "")
+                  + ", max|kernel-plain|: "
                   + ", ".join(f"{kid} {e:.3e}" for kid, e in errs.items()), flush=True)
         del ops, sq, sxT
         # the main path: each entry point once at the 1M-node shape
@@ -1966,6 +2040,8 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
             want = fm_call(kid, k["plain"], full)
             check(bool(torch.isfinite(out).all()) and out.shape == want.shape, (kid, tuple(out.shape)))
             torch.testing.assert_close(out, want, **fm_tolerance(kid), msg=kid)
+            if kid in FM_EXACT:
+                check(torch.equal(out, want), (kid, "not the plain version bit for bit"))
             err = float((out - want).abs().max())
             max_err[kid] = max(max_err[kid], err)
             gate = ""
@@ -1974,6 +2050,9 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
                 rel = float(torch.linalg.norm(nodes.T - ref) / ref_norm)
                 check(rel < CHECK_GATE, (kid, "against the float32 banded_spmm", rel))
                 gate = f"; against the float32 banded_spmm: relative Frobenius error {rel:.4e} (gate {CHECK_GATE})"
+            if kid == "B3a w8a8":
+                check_fm_w8a8_is_k5(full)
+                gate += "; bit for bit, and K5's kernel on K5's operands"
             sweep = {"B3c": DEEP_SWEEP, "B3d": BLOCKED_SWEEP}.get(kid, [])
             for config in sweep:
                 got = fm_call(kid, k["kernel"], full, config[0], **sweep_kw(config))

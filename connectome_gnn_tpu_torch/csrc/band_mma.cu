@@ -1,6 +1,6 @@
 // The band SpMM body on Hopper's tensor cores (built for sm_90a): wgmma
 // products on tiles staged by TMA into an mbarrier ring, one kernel body with
-// two roles, three band types and, for K5, s8 x s8 products.
+// two roles, three band types and, for K5 and B2b, s8 x s8 products.
 //
 // Replaces the Pallas TPU kernels
 //   in connectome_gnn_tpu/ops/banded_quant.py:
@@ -14,14 +14,15 @@
 //   K7  banded_spmm_pallas (pallas_call at :66)                       role A, bf16 or f32
 //   in benchmarks/quant_kernel_diag.py:
 //   B2a banded_spmm_bf16_pallas             (pallas_call at :92)      role A, bf16
+//   B2b banded_spmm_w8a8                    (pallas_call at :173)     role A, int8 x int8
 //   B2c banded_spmm_quant_fused_dot         (pallas_call at :250)     role A, int8
 //   in benchmarks/fm_kernel_diag.py:
 //   B3a _fm_pipeline (pallas_call at :130) reached by fm_bf16_band :271   role B, bf16
+//       and by fm_w8a8 :545, K5's function on given operands: K5's launch
 //   B3b fm_compute_only (pallas_call at :242), on a bf16 frame        role B, int8, panel map
 //   B3c fm_deep     (pallas_call at :393), K4's function: K4's launch     role B, int8
 //   B3d fm_blocked  (pallas_call at :495), K6's function on a bf16 frame  role B, int8, blocked
-// B2b stays on csrc/banded_spmm.cu, and the probes B3a dma-only and w8a8 on
-// csrc/fm_pipeline.cu.
+// The staging probe B3a dma-only stays on csrc/fm_pipeline.cu.
 //
 // Math.  The band holds, for row block rb and diagonal d in [0, 2W], one
 // b x b tile: bf16, f32, or int8 with one f32 scale.  x-hat is x in the
@@ -41,6 +42,10 @@
 //   frame block with one scale xscale[blk] each:
 //     out[f, rb*b + r] = sum_d fl(scale[rb, d] * xscale[rb + d])
 //                          * float(sum_s xq-hat[f, (rb + d)*b + s] * tT[rb, d][s, r])
+//   B2b takes role A's receiver-major tiles and K5's int8 frame, and stores
+//   node-major:
+//     out[rb*b + r, f] = sum_d fl(scale[rb, d] * xscale[rb + d])
+//                          * float(sum_s T[rb, d][r, s] * xq-hat[f, (rb + d)*b + s])
 //   B3b computes role B's sums for every row rb = i*R + r of chunk i of R
 //   row blocks over one panel: band row (r + i) mod R of the first R, frame
 //   block (r + d + i) mod (R + 2W) of a window of R + 2W blocks, scale row
@@ -48,10 +53,11 @@
 //   other chunk's sums go into a one-float sink.
 // As GEMMs, role A has M = receivers, N = features, and role B M =
 // features, N = receivers; in both the K axis is the senders, A is K-major
-// and B is MN-major (wgmma's transposed-B form).  K5 has role A's M and N,
-// and both operands K-major (the 8-bit forms have no transposed one).
-// Products are wgmma.mma_async.m64nNk16.f32.bf16.bf16, never TF32 (K5's
-// m64n64k32.s32.s8.s8); every bf16 x bf16 product is exact in f32.  Each tile's dot is taken in a fragment of its
+// and B is MN-major (wgmma's transposed-B form).  K5 and B2b have role A's
+// M and N, and both operands K-major (the 8-bit forms have no transposed
+// one).  Products are wgmma.mma_async.m64nNk16.f32.bf16.bf16, never TF32
+// (K5's and B2b's m64n64k32.s32.s8.s8); every bf16 x bf16 product is exact
+// in f32.  Each tile's dot is taken in a fragment of its
 // own (the tile's first k-step starts it with scale-d 0) and then added into
 // the sum in f32, times the tile's scale where it has one, as the TPU
 // kernels do (banded_quant.py:804-812, banded_pallas.py:53-57,
@@ -80,10 +86,10 @@
 //     rounded to bf16 (cvt.rn.bf16x2.f32), the plain version's two
 //     roundings; every product is then exact, and the tile's dot is added
 //     with scale 1.
-//   * int8 x int8 (K5): wgmma.mma_async.m64n64k32.s32.s8.s8, each tile's dot
-//     exact in s32 and then in f32 (|dot| <= 127^2 * b < 2^24 for b <=
-//     1040), times fl(scale * xscale), then added, each rounding apart
-//     (__fmul_rn, __fadd_rn): the plain version bit for bit.
+//   * int8 x int8 (K5, B2b): wgmma.mma_async.m64n64k32.s32.s8.s8, each
+//     tile's dot exact in s32 and then in f32 (|dot| <= 127^2 * b < 2^24
+//     for b <= 1040), times fl(scale * xscale), then added, each rounding
+//     apart (__fmul_rn, __fadd_rn): the plain version bit for bit.
 //   * f32 (K7): wgmma has no f32 x f32 form and TF32 keeps 10 bits, so each
 //     f32 value a is split exactly into three bf16 terms, hi = rn(a), mid =
 //     rn(a - hi), lo = a - hi - mid (a - hi and lo are exact in f32, and lo
@@ -135,7 +141,9 @@
 //     the ring).  K5 stages 128 senders: a 16 KB box of the transposed
 //     tile, 128 sender rows of 128 receivers, and an 8 KB box of the int8
 //     frame, 64 feature rows of 128 senders (24 KB stages, 144 KB in the
-//     ring; 620 stages a block at the main shape, role B's 1,241).  B3b
+//     ring; 620 stages a block at the main shape, role B's 1,241).  B2b
+//     stages the same bytes: role A's box of the receiver-major tile, 128
+//     receiver rows of 128 sender bytes, and K5's frame box.  B3b
 //     reads its 10.5 MB panel again for every chunk, so its band boxes are
 //     loaded under evict_last too: the panel and the window stay in L2,
 //     and B3b times role B with the HBM stream taken out.
@@ -170,6 +178,15 @@
 //     no named barrier.  The sums are stored feature-major from the
 //     permuted rows, a thread's two receivers side by side, so a warp's
 //     8-byte stores fill whole 32-byte sectors.
+//   * B2b's receiver-major tile needs no gather: a thread's s8 register,
+//     four consecutive senders of one receiver, is one aligned 32-bit load
+//     of its row (receiver 16 * warp + lane / 4, and + 8) at chunk (2k + h)
+//     ^ (row % 8), byte 4 * (lane % 4), for k-group h of k32-step k; a
+//     warp's load covers 8 rows of distinct row % 8, so 8 distinct chunks:
+//     each bank once (tests/test_torch_band_mma.py emulates it).  4 loads a
+//     k32-step, no permute; the fragment's rows are in their natural order,
+//     so the sums are stored node-major as K3 stores them.  The frame box
+//     and its descriptor are K5's.
 //   * An int8 band in role B is wgmma's B operand, which comes only from
 //     shared memory.  Each consumer warpgroup widens its own 64 receivers
 //     of the stage's int8 box into a swizzled bf16 box of 64 receivers by
@@ -259,7 +276,7 @@
 //     receivers a warpgroup (two m64n64 or one m64n128 products) in five 40
 //     KB stages over 4,096 units with no L2 policy, took 1.14-1.16 ms.  K7
 //     over the f32 band and B2c took 8.18 and 7.88-7.91 ms on the CUDA-core
-//     body of csrc/banded_spmm.cu; their times here are in PERF.md.  Role B
+//     body this one replaced; their times here are in PERF.md.  Role B
 //     over the int8 band: K4's launch (and B3c's, which is K4's) 1.11 ms,
 //     K6's 1.10 (9.0, 9.3 and 8.4 on the CUDA-core bodies; the f32
 //     torch.bmm 5.3), half of the 0.56 ms bound; on a bf16 frame, the same
@@ -272,7 +289,8 @@
 //     barrier of each), not by their bytes.  Two variants did not help: a
 //     cluster of the two receiver tiles with the frame box multicast to
 //     both (2.38 ms), and eight stages (1.13).  K5's launch takes 0.64 ms,
-//     87 % of its 0.56 ms bound (4.25 ms on the CUDA-core body).
+//     87 % of its 0.56 ms bound (4.25 ms on the CUDA-core body); B2b's
+//     0.59-0.61 ms, 92-95 % of the same bound.
 //
 // Each C entry point returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for arguments it does not take (and for a tensor
@@ -321,8 +339,9 @@ constexpr int kSwizzleAtom = 1024;                     // 8 rows of 128 bytes
 // K6) or bf16 (B3b, B3c, B3d); after the ring come each consumer
 // warpgroup's two bf16 boxes of the widened band.  K5 (kS8: an int8 frame,
 // s8 products) stages 128 senders by 128 receivers of the transposed tile
-// and their 64 features' rows of 128 bytes of the int8 frame.  Every other
-// stage's frame is bf16.
+// and their 64 features' rows of 128 bytes of the int8 frame; B2b (kS8 in
+// role A) the receiver-major tile's 128 receivers by 128 senders and the
+// same frame rows.  Every other stage's frame is bf16.
 template <Role kRole, typename Band, typename Frame>
 struct Stage {
   static constexpr bool kS8 = std::is_same_v<Frame, int8_t>;
@@ -644,8 +663,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                 "role B takes a bf16 or an int8 band");
   static_assert(kRole != Role::kBlocked || kInt8, "the blocked layout takes the int8 band");
   static_assert(std::is_same_v<Frame, __nv_bfloat16> || (S::kWiden && kF32Frame) ||
-                    (S::kS8 && kInt8 && kRole == Role::kFeatureMajor),
-                "a bf16 frame, an f32 one for role B over the int8 band, or K5's int8 one");
+                    (S::kS8 && kInt8 && kRole != Role::kBlocked),
+                "a bf16 frame, an f32 one for role B over the int8 band, or K5's and B2b's int8 one");
   static_assert(kInt8 || !kFoldBf16, "only an int8 band has a scale to fold");
   static_assert(kRowMajor || !kFoldBf16, "role B keeps the scale on the dot");
   static_assert(kXT || !kPastBlock, "only K4's 2-D map reads past the block");
@@ -703,11 +722,16 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int s0 = kc * S::kK, r0 = mt * kTileR, f0 = ft * kTileF;
           if constexpr (kRowMajor) {
             // band box {kK senders, 128 receivers, 1 tile}; frame boxes {64
-            // features, kK senders, 1 block}, one from each frame
+            // features, kK senders, 1 block}, one from each frame, or (B2b)
+            // K5's int8 frame box {128 senders, 1 block, 64 features}
             tma_load(band, &band_map, full, s0, r0, tile, stream);
+            if constexpr (S::kS8) {
+              tma_load(frame, &frame_map, full, s0, blk, f0, keep);
+            } else {
 #pragma unroll
-            for (int f = 0; f < S::kFrames; ++f)
-              tma_load(frame + f * S::kFrameBytes, &frame_map, full, f0, s0, f * blocks + blk, keep);
+              for (int f = 0; f < S::kFrames; ++f)
+                tma_load(frame + f * S::kFrameBytes, &frame_map, full, f0, s0, f * blocks + blk, keep);
+            }
           } else if constexpr (S::kWiden || S::kS8) {
             // band box {128 receivers, 64 senders (K5: 128), 1 tile}
             tma_load(band, &band_map, full, r0, s0, tile, stream);
@@ -745,28 +769,32 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else if constexpr (S::kS8) {
-    // the consumers of K5: warpgroup `group` owns receivers [64 * group, 64
-    // * group + 64) of a unit, m64n64k32 s8 products of receivers x
-    // features, exact in s32.  The A fragment's rows are receivers in a
-    // permuted order, row 16 * warp + quad receiver 16 * warp + 2 * quad and
-    // row + 8 the next one, so one 16-bit load at a sender row of the
+    // the consumers of K5 and B2b: warpgroup `group` owns receivers [64 *
+    // group, 64 * group + 64) of a unit, m64n64k32 s8 products of receivers
+    // x features, exact in s32.  K5: the A fragment's rows are receivers in
+    // a permuted order, row 16 * warp + quad receiver 16 * warp + 2 * quad
+    // and row + 8 the next one, so one 16-bit load at a sender row of the
     // swizzled transposed tile (chunk 4 * group + warp ^ s % 8, byte 2 *
     // quad) serves both of a thread's rows.  Its senders 4t + e (+ 16) of a
     // k-group go in the order e = (i + t / 2) % 4: lanes t and t + 2 then
     // meet rows of different s % 8, so different chunks, and a warp's load
     // meets each bank once.  Two byte permutes a pair of loads, then one a
     // register, give the fragment: receiver 2 * quad's senders in `lo`, 2 *
-    // quad + 1's in `hi`, sender 4t + e in byte e
+    // quad + 1's in `hi`, sender 4t + e in byte e.  B2b: the fragment's rows
+    // are receivers 16 * warp + quad and + 8 of the receiver-major box, as
+    // K3 reads them, and each register one 32-bit load of four senders
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     const int quad = lane / 4, pair = 2 * (lane % 4), rot = (lane % 4) >> 1;
     const uint8_t* const ring_ptr = smem_raw + (ring - smem_u32(smem_raw));
-    int s_off[4];
+    [[maybe_unused]] int s_off[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int s = 2 * pair + ((i + rot) & 3);  // 4t + e
       s_off[i] = s * kRowBytes + (((4 * group + warp) ^ (s & 7)) << 4) + 2 * quad;
     }
-    const uint32_t sel_lo = rot ? 0x4206u : 0x6420u, sel_hi = rot ? 0x5317u : 0x7531u;
+    [[maybe_unused]] const uint32_t sel_lo = rot ? 0x4206u : 0x6420u, sel_hi = rot ? 0x5317u : 0x7531u;
+    // B2b: the fragment's row in the stage's band box, at byte 4t of a chunk
+    [[maybe_unused]] const int frag = (kGroupR * group + 16 * warp + quad) * kRowBytes + 2 * pair;
     int stage = 0;
     uint32_t phase = 0;
     float acc[32];
@@ -785,27 +813,44 @@ __global__ void __launch_bounds__(kThreads, 1)
           const uint8_t* const rows = ring_ptr + stage * S::kBytes;
           const uint32_t frame = ring + stage * S::kBytes + S::kBandBytes;
           // the fragment's bytes of all k-steps: k-group h of k-step k is
-          // senders 32k + 16h + 4t .. + 3, two receivers a 16-bit load
-          uint32_t halves[S::kSteps][2][2], a[S::kSteps][4];
+          // senders 32k + 16h + 4t .. + 3
+          [[maybe_unused]] uint32_t halves[S::kSteps][2][2];
+          uint32_t a[S::kSteps][4];
+          if constexpr (kRowMajor) {
+            // B2b: register 2h (2h + 1: the row 8 on) of k-step k, one 32-bit
+            // load of the row at chunk (2k + h) ^ quad
 #pragma unroll
-          for (int k = 0; k < S::kSteps; ++k)
+            for (int k = 0; k < S::kSteps; ++k)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              uint32_t v[4];
+              for (int h = 0; h < 2; ++h) {
+                const int c = frag + (((2 * k + h) ^ quad) << 4);
+                a[k][2 * h] = *reinterpret_cast<const uint32_t*>(rows + c);
+                a[k][2 * h + 1] = *reinterpret_cast<const uint32_t*>(rows + 8 * kRowBytes + c);
+              }
+          } else {
+            // K5: two receivers a 16-bit load
 #pragma unroll
-              for (int i = 0; i < 4; ++i)
-                v[i] = *reinterpret_cast<const uint16_t*>(rows + (32 * k + 16 * h) * kRowBytes + s_off[i]);
-              halves[k][h][0] = __byte_perm(v[0], v[1], 0x5410);
-              halves[k][h][1] = __byte_perm(v[2], v[3], 0x5410);
-            }
+            for (int k = 0; k < S::kSteps; ++k)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                uint32_t v[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  v[i] = *reinterpret_cast<const uint16_t*>(rows + (32 * k + 16 * h) * kRowBytes + s_off[i]);
+                halves[k][h][0] = __byte_perm(v[0], v[1], 0x5410);
+                halves[k][h][1] = __byte_perm(v[2], v[3], 0x5410);
+              }
+          }
           fence_operands(dot);
 #pragma unroll
           for (int k = 0; k < S::kSteps; ++k) {
-            // gathered outside any wgmma group: each k-step is a group of its own
+            if constexpr (!kRowMajor) {
+              // gathered outside any wgmma group: each k-step is a group of its own
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              a[k][2 * h] = __byte_perm(halves[k][h][0], halves[k][h][1], sel_lo);
-              a[k][2 * h + 1] = __byte_perm(halves[k][h][0], halves[k][h][1], sel_hi);
+              for (int h = 0; h < 2; ++h) {
+                a[k][2 * h] = __byte_perm(halves[k][h][0], halves[k][h][1], sel_lo);
+                a[k][2 * h + 1] = __byte_perm(halves[k][h][0], halves[k][h][1], sel_hi);
+              }
             }
             wgmma_fence();  // orders the fragment's registers before the product reads them
             // B: the frame box's rows (features) of 128 senders, K-major, k-step 32 bytes
@@ -826,7 +871,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(scale, __int2float_rn(dot[i])));
       }
-      store_sums_s8(acc, p, rb, mt, ft, group, warp, quad, pair);
+      if constexpr (kRowMajor) {
+        store_sums<Role::kRowMajor>(acc, p, rb, mt, ft, group, warp, quad, pair);
+      } else {
+        store_sums_s8(acc, p, rb, mt, ft, group, warp, quad, pair);
+      }
     }
   } else if constexpr (S::kWiden) {
     // the consumers of role B over the int8 band: warpgroup `group` owns
@@ -1202,6 +1251,32 @@ int launch_rowmajor(const Band* band, const float* scales, const __nv_bfloat16* 
   return launch<Role::kRowMajor, Band, __nv_bfloat16, kFold>(band_map, frame_map, p, stream);
 }
 
+// B2b: role A over the int8 band (receiver-major tiles) with its scales,
+// on K5's int8 frame xq [F, (nb + 2W) * block_pad] with one scale a frame
+// block in xscales [nb + 2W]; out [num_nodes, F], node-major.
+int launch_rowmajor_w8a8(const int8_t* band_q, const float* scales, const int8_t* xq, const float* xscales,
+                         float* out, int nb, int W, int block, int block_pad, int F, int num_nodes,
+                         void* stream) {
+  if (!valid(nb, W, block, block_pad, F) || scales == nullptr || xscales == nullptr || num_nodes <= 0 ||
+      num_nodes > (long long)nb * block)
+    return (int)cudaErrorInvalidValue;
+  using S = Stage<Role::kRowMajor, int8_t, int8_t>;
+  static_assert(S::kS8 && S::kK == 128 && S::kSteps == 4 && S::kBandBytes == 16384 &&
+                    S::kFrameBytes == 8192 && S::kBytes == 24576 && S::kStages == 6 &&
+                    S::kSmemBytes == Stage<Role::kFeatureMajor, int8_t, int8_t>::kSmemBytes,
+                "B2b stages what K5 stages");
+  const uint64_t bp = block_pad, D = 2 * W + 1, blocks = (uint64_t)nb + 2 * W;
+  // role A's band box {128 senders, 128 receivers, 1 tile}; K5's frame box
+  // {128 senders, 1 block, 64 features}
+  CUtensorMap band_map, frame_map;
+  if (!tensor_map(&band_map, band_q, bp, bp, (uint64_t)nb * D, S::kK, kTileR, 1) ||
+      !tensor_map(&frame_map, xq, bp, blocks, (uint64_t)F, S::kK, 1, kTileF))
+    return (int)cudaErrorInvalidValue;
+  Params p{scales, out, nb, W, block, block_pad, F, 0, (F + kTileF - 1) / kTileF, num_nodes, F, 0, 0};
+  p.xscales = xscales;
+  return launch<Role::kRowMajor, int8_t, int8_t>(band_map, frame_map, p, stream);
+}
+
 // Role B's layout, feature-major, on a frame x_pad [F, (nb + 2W) *
 // block_pad] in the W-shifted padded frame: bf16 over a bf16 band (B3a, two
 // 64-receiver band boxes a stage) or the int8 band (B3c's bf16 route, one
@@ -1294,6 +1369,18 @@ int cgt_banded_spmm_direct_f32(const float* band, const __nv_bfloat16* frames, f
                                void* stream) {
   return launch_rowmajor(band, static_cast<const float*>(nullptr), frames, out, nb, W, block,
                          block_pad, F, F_pad, num_nodes, stream);
+}
+
+// B2b banded_spmm_w8a8: band_q [nb, 2W+1, block_pad, block_pad] int8
+// (receiver-major tiles, zero past block) with scales [nb, 2W+1]; xq [F,
+// (nb + 2W) * block_pad] int8, x quantized per frame block in the W-shifted
+// padded frame (zero past block), with xscales [nb + 2W]: K5's frame; out
+// [num_nodes, F] float32, node rb * block + r.
+int cgt_banded_spmm_w8a8_rowmajor(const int8_t* band_q, const float* scales, const int8_t* xq,
+                                  const float* xscales, float* out, int nb, int W, int block,
+                                  int block_pad, int F, int num_nodes, void* stream) {
+  return launch_rowmajor_w8a8(band_q, scales, xq, xscales, out, nb, W, block, block_pad, F, num_nodes,
+                              stream);
 }
 
 // B3a fm_bf16_band: band_T [nb, 2W+1, block_pad, block_pad] bf16

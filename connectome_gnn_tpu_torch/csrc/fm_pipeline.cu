@@ -1,41 +1,29 @@
-// Feature-major band-pipeline probes B3a for NVIDIA Hopper (built for
-// sm_90a): one kernel body over an int8 band with a two-stage cp.async ring
-// in shared memory, instantiated per body and activation type.
+// The feature-major band-pipeline probe B3a dma-only for NVIDIA Hopper
+// (built for sm_90a): a kernel body over an int8 band with a two-stage
+// cp.async ring in shared memory.
 //
 // Replaces the Pallas TPU kernel of benchmarks/fm_kernel_diag.py:
 //   B3a _fm_pipeline     (pallas_call at :130), reached by
-//       fm_dma_only  :157  copy-plus-add body           <kDmaOnly, bf16>
-//       fm_w8a8      :545  int8 band x int8 x dots      <kDots, int8>
-//       (fm_bf16_band :271, the bf16 band's dots, is role B of band_mma.cu)
+//       fm_dma_only  :157  copy-plus-add body
+//       (fm_bf16_band :271, the bf16 band's dots, is role B of band_mma.cu,
+//       and fm_w8a8 :545, K5's function on given operands, K5's launch there)
 // B3b fm_compute_only, B3c fm_deep and B3d fm_blocked are role B of
 // band_mma.cu over the int8 band on a bf16 frame (B3b with its panel map).
 //
 // Math.  The band holds, for row block rb and diagonal d in [0, 2W], one
-// transposed b x b int8 tile, tileT[s, r] = A[r, s], with one f32 scale.
-// The activations are the W-shifted padded frame, feature-major
-// x[f, blk*b + s] (ldx its row stride), blk in [0, nb + 2W), bf16, or int8
-// with one f32 scale per block.  kDots (fm_w8a8) computes
-//
-//   out[f, rb*b + r] = sum_d scale(rb, d) * sum_s x[f, (rb + d)*b + s] * tileT[rb, d][s, r]
-//
-// with scale(rb, d) = fl(scales[rb, d] * xscales[rb + d]); each tile's dot
-// is summed exactly in int32 by __dp4a, converted exactly to f32, times the
-// scale and added, each rounding apart, as K5 and the plain version do, so
-// fm_w8a8 is K5's function bit for bit.  kDmaOnly writes out[f, rb*b + c] =
+// transposed b x b int8 tile, tileT[s, r] = A[r, s].  The activations are
+// the W-shifted padded frame, feature-major bf16 x[f, blk*b + s] (ldx its
+// row stride), blk in [0, nb + 2W).  The probe writes out[f, rb*b + c] =
 // x[f, rb*b + c] + tileT[rb, 0][f, c] for f < F <= b (the padded frame, not
 // shifted back), after staging every byte of every tile and every x window.
 //
 // What bounds it on this card.  At the 1M-node shape (nb = 4096, b = 256,
-// W = 2, F = 64) the dots body multiplies every entry of the dense tiles, 86
-// G multiply-adds, on the CUDA cores (__dp4a does four int8 products an
-// instruction), above the 0.4 ms that the band's 1.34 GB take at 3.35
-// TB/s.  The products the data needs (39.8M nonzeros) take far less, so the
-// least time of the function is its bytes.  kDmaOnly does more work than
-// its output needs, by design, so its time is a rate, not a share of a
-// bound: its output needs only rows 0..F-1 of diagonal 0's tiles (67 MB of
-// the band) besides x, a bound of about 0.18 ms; it stages every byte of
-// the band and each x block once per diagonal and 64-receiver tile, about
-// 4.0 GB, so its time is the ring's staging rate.
+// W = 2, F = 64) it does more work than its output needs, by design, so its
+// time is a rate, not a share of a bound: its output needs only rows
+// 0..F-1 of diagonal 0's tiles (67 MB of the band) besides x, a bound of
+// about 0.18 ms; it stages every byte of the band and each x block once per
+// diagonal and 64-receiver tile, about 4.0 GB, so its time is the ring's
+// staging rate.
 //
 // What the design does about it.
 //   * One thread block per (chunk of R row blocks, 64-receiver tile,
@@ -51,8 +39,8 @@
 //     cp.async.wait_group 0 before use (the DMA semaphores): the next
 //     stage's copies are in flight while one is consumed.  The bytes are
 //     widened where they are used, not while they are staged.
-//   * Dead code: cp.async is never eliminated, so kDmaOnly's unused tile
-//     bytes are really staged.
+//   * Dead code: cp.async is never eliminated, so the unused tile bytes are
+//     really staged.
 //   * Each thread keeps a 4 x 4 register tile of receivers x features;
 //     neighbouring threads take neighbouring receivers, the contiguous axis
 //     of the feature-major output.  Receivers, senders and features past b
@@ -60,7 +48,7 @@
 //     store.  b must be a multiple of 16, so a 16-byte copy never straddles
 //     a row's end.  All offsets are 64-bit.
 //
-// Each C entry point returns cudaGetLastError() after its launch (or
+// The C entry point returns cudaGetLastError() after its launch (or
 // cudaErrorInvalidValue for arguments it does not take), as an int; 0 is
 // success.
 
@@ -69,7 +57,6 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -84,13 +71,9 @@ constexpr int kStages = 2;   // the ring's depth, the TPU kernel's
 
 static_assert(kGroups * (kTileN / kMicro) == kThreads, "one 4x4 tile per thread");
 
-enum class Body { kDots, kDmaOnly };
-
 struct Params {
-  const void* band;
-  const float* scales;
-  const void* x;
-  const float* xscales;
+  const int8_t* band;
+  const __nv_bfloat16* x;
   float* out;
   int W, b, F, R;
   long long ldx;  // feature-major x: row stride in elements
@@ -113,23 +96,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename T>
-__device__ __forceinline__ float widen_at(const unsigned char* row, int i) {
-  if constexpr (std::is_same_v<T, int8_t>) {
-    return (float)reinterpret_cast<const int8_t*>(row)[i];
-  } else {
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(row)[i]);
-  }
-}
+using XT = __nv_bfloat16;
+constexpr int kBandRow = kTileM + kRowPad;  // bytes of an int8 band row
+constexpr int kXRow = kTileK * (int)sizeof(XT) + kRowPad;
+constexpr int kBandStage = kTileK * kBandRow;
+constexpr int kStage = kBandStage + kTileN * kXRow;
+constexpr int kSmem = kStages * kStage;  // under the 48 KB a block has without opting in
+static_assert(kSmem <= 48 * 1024, "the ring fits the default dynamic shared memory");
 
-template <Body kBody, typename XT>
 __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
-  constexpr bool kInt8X = std::is_same_v<XT, int8_t>;
-  static_assert(kInt8X == (kBody == Body::kDots), "the dots body takes int8 activations, the probes bf16");
-  constexpr int kBandRow = kTileM + kRowPad;  // bytes of an int8 band row
-  constexpr int kXRow = kTileK * (int)sizeof(XT) + kRowPad;
-  constexpr int kBandStage = kTileK * kBandRow;
-  constexpr int kStage = kBandStage + kTileN * kXRow;
   constexpr int kBandChunks = kTileM / 16;  // 16-byte copies a band row
   constexpr int kXChunks = kTileK * (int)sizeof(XT) / 16;        // 16-byte copies an x row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -146,8 +121,8 @@ __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
   const int chunk = (int)(blockIdx.x / ftiles / mtiles);
   const int tid = threadIdx.x;
   const int tm = tid % kGroups, tn = tid / kGroups;
-  const int8_t* band = static_cast<const int8_t*>(p.band);
-  const XT* x = static_cast<const XT*>(p.x);
+  const int8_t* band = p.band;
+  const XT* x = p.x;
 
   // Stage t into slot t % kStages, band rows and x in one commit group.
   auto issue = [&](int t) {
@@ -176,7 +151,6 @@ __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
   issue(0);
 
   float acc[kMicro][kMicro] = {};
-  int dot[kMicro][kMicro] = {};
   for (int t = 0; t < T; ++t) {
     cp_async_wait<0>();  // stage t has landed
     // every thread is past stage t - 1, whose slot the next issue refills
@@ -187,58 +161,20 @@ __global__ void __launch_bounds__(kThreads) fm_pipeline_kernel(const Params p) {
     const int r = t / per_row, d = (t / nK) % D, s0 = (t % nK) * kTileK;
     const long long rb = (long long)chunk * R + r;
 
-    if constexpr (kBody == Body::kDmaOnly) {
-      // out = x[f, rb*b + c] + tileT[rb, 0][f, c]: x from window block rb
-      // (d = 0) at sender c, the band from sender row f; 0 + a + b is a + b
-      if (d == 0) {
+    // out = x[f, rb*b + c] + tileT[rb, 0][f, c]: x from window block rb
+    // (d = 0) at sender c, the band from sender row f; 0 + a + b is a + b
+    if (d == 0) {
 #pragma unroll
-        for (int i = 0; i < kMicro; ++i) {
-          const int c = m0 + tm * kMicro + i;
+      for (int i = 0; i < kMicro; ++i) {
+        const int c = m0 + tm * kMicro + i;
 #pragma unroll
-          for (int j = 0; j < kMicro; ++j) {
-            const int f = f0 + tn * kMicro + j;
-            if (c >= s0 && c < s0 + kTileK)
-              acc[i][j] += widen_at<XT>(sx + (tn * kMicro + j) * kXRow, c - s0);
-            if (f >= s0 && f < s0 + kTileK)
-              acc[i][j] += widen_at<int8_t>(sb + (f - s0) * kBandRow, tm * kMicro + i);
-          }
+        for (int j = 0; j < kMicro; ++j) {
+          const int f = f0 + tn * kMicro + j;
+          if (c >= s0 && c < s0 + kTileK)
+            acc[i][j] += __bfloat162float(reinterpret_cast<const XT*>(sx + (tn * kMicro + j) * kXRow)[c - s0]);
+          if (f >= s0 && f < s0 + kTileK)
+            acc[i][j] += (float)reinterpret_cast<const int8_t*>(sb + (f - s0) * kBandRow)[tm * kMicro + i];
         }
-      }
-    } else {
-#pragma unroll
-      for (int k0 = 0; k0 < kTileK; k0 += 4) {
-        // four sender rows of four receivers, transposed to four senders a receiver
-        unsigned a[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          a[q] = *reinterpret_cast<const unsigned*>(sb + (k0 + q) * kBandRow + tm * kMicro);
-        const unsigned lo01 = __byte_perm(a[0], a[1], 0x5140), hi01 = __byte_perm(a[0], a[1], 0x7362);
-        const unsigned lo23 = __byte_perm(a[2], a[3], 0x5140), hi23 = __byte_perm(a[2], a[3], 0x7362);
-        const int w[kMicro] = {(int)__byte_perm(lo01, lo23, 0x5410), (int)__byte_perm(lo01, lo23, 0x7632),
-                               (int)__byte_perm(hi01, hi23, 0x5410), (int)__byte_perm(hi01, hi23, 0x7632)};
-        int xw[kMicro];
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j)
-          xw[j] = *reinterpret_cast<const int*>(sx + (tn * kMicro + j) * kXRow + k0);
-#pragma unroll
-        for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-          for (int j = 0; j < kMicro; ++j) dot[i][j] = __dp4a(w[i], xw[j], dot[i][j]);
-      }
-    }
-
-    if constexpr (kBody == Body::kDots) {
-      if (t % nK == nK - 1) {  // the tile's last senders: its dot into the sum
-        // exact in f32, times fl(scale * xscale), then added: each rounding
-        // apart, as the plain version rounds
-        const float scale = __fmul_rn(p.scales[(size_t)rb * D + d], p.xscales[rb + d]);
-#pragma unroll
-        for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-          for (int j = 0; j < kMicro; ++j) {
-            acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(scale, __int2float_rn(dot[i][j])));
-            dot[i][j] = 0;
-          }
       }
     }
 
@@ -266,45 +202,20 @@ bool valid(int nb, int W, int b, int F, int R) {
   return nb > 0 && W >= 0 && b > 0 && b % 16 == 0 && F > 0 && R > 0 && nb % R == 0;
 }
 
-template <Body kBody, typename XT>
-int launch(const Params& p, int chunks, void* stream) {
-  constexpr int kStage = kTileK * (kTileM + kRowPad) +
-                         kTileN * (kTileK * (int)sizeof(XT) + kRowPad);
-  constexpr int kSmem = kStages * kStage;  // under the 48 KB a block has without opting in
-  static_assert(kSmem <= 48 * 1024, "the ring fits the default dynamic shared memory");
-  const long long blocks =
-      (long long)chunks * ((p.b + kTileM - 1) / kTileM) * ((p.F + kTileN - 1) / kTileN);
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  fm_pipeline_kernel<kBody, XT><<<(unsigned)blocks, kThreads, kSmem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-Params params(const void* band, const float* scales, const void* x, const float* xscales,
-              float* out, int W, int b, int F, int R, long long ldx, long long ldo) {
-  return Params{band, scales, x, xscales, out, W, b, F, R, ldx, ldo};
-}
-
 }  // namespace
 
 extern "C" {
-
-// B3a, fm_w8a8: xq [F, (nb + 2W) * block] int8 with one scale per block.
-int cgt_fm_w8a8(const int8_t* band_qT, const float* scales, const int8_t* xq,
-                const float* xscales, float* outT, int nb, int W, int block, int F, int R,
-                long long ldx, void* stream) {
-  if (!valid(nb, W, block, F, R)) return (int)cudaErrorInvalidValue;
-  const Params p = params(band_qT, scales, xq, xscales, outT, W, block, F, R, ldx,
-                          (long long)nb * block);
-  return launch<Body::kDots, int8_t>(p, nb / R, stream);
-}
 
 // B3a, fm_dma_only: outT [F, nb * block] = x_pad + tile (rb, 0) rows 0..F-1.
 int cgt_fm_dma_only(const int8_t* band_qT, const __nv_bfloat16* x_pad, float* outT, int nb,
                     int W, int block, int F, int R, long long ldx, void* stream) {
   if (!valid(nb, W, block, F, R) || F > block) return (int)cudaErrorInvalidValue;
-  const Params p = params(band_qT, nullptr, x_pad, nullptr, outT, W, block, F, R, ldx,
-                          (long long)nb * block);
-  return launch<Body::kDmaOnly, __nv_bfloat16>(p, nb / R, stream);
+  const Params p{band_qT, x_pad, outT, W, block, F, R, ldx, (long long)nb * block};
+  const long long blocks =
+      (long long)(nb / R) * ((block + kTileM - 1) / kTileM) * ((F + kTileN - 1) / kTileN);
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fm_pipeline_kernel<<<(unsigned)blocks, kThreads, kSmem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -137,10 +137,9 @@ def library() -> ctypes.CDLL:
     lib.cgt_banded_spmm_quant_blocked_bf16.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.cgt_banded_spmm_direct_f32.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
     lib.cgt_banded_spmm_direct_bf16.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
-    lib.cgt_banded_spmm_w8a8_rowmajor.argtypes = [ptr] * 5 + [i32] * 5 + [i64, ptr]
+    lib.cgt_banded_spmm_w8a8_rowmajor.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
     lib.cgt_banded_spmm_quant_fused_dot.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.cgt_fm_bf16_band.argtypes = [ptr] * 4 + [i32] * 5 + [i64, i64, ptr]
-    lib.cgt_fm_w8a8.argtypes = [ptr] * 5 + [i32] * 5 + [i64, ptr]
     lib.cgt_fm_dma_only.argtypes = [ptr] * 3 + [i32] * 5 + [i64, ptr]
     lib.cgt_fm_compute_only.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
     lib.cgt_row_gather.argtypes = [ptr] * 3 + [i64] * 2 + [i32] * 4 + [ptr]
@@ -151,7 +150,7 @@ def library() -> ctypes.CDLL:
         "cgt_banded_spmm_quant_blocked_bf16", "cgt_banded_spmm_direct_f32",
         "cgt_banded_spmm_direct_bf16", "cgt_banded_spmm_w8a8_rowmajor",
         "cgt_banded_spmm_quant_fused_dot", "cgt_fm_bf16_band",
-        "cgt_fm_w8a8", "cgt_fm_dma_only", "cgt_fm_compute_only", "cgt_row_gather",
+        "cgt_fm_dma_only", "cgt_fm_compute_only", "cgt_row_gather",
         "cgt_fused_smem_bytes",
     ):
         getattr(lib, entry).restype = i32

@@ -1,7 +1,8 @@
 """Operands and launches of the tensor-core band body, ``csrc/band_mma.cu``.
 
-That body serves K3, K4, K5, K6, B2c, B3b, B3c and B3d over the int8 band,
-K7 over a float32 or bfloat16 band, and B2a and B3a over a bfloat16 band.
+That body serves K3, K4, K5, K6, B2b, B2c, B3a ``fm_w8a8``, B3b, B3c and
+B3d over the int8 band, K7 over a float32 or bfloat16 band, and B2a and
+B3a ``fm_bf16_band`` over a bfloat16 band.
 Role A is row-major:
 ``out[rb·b + r] = Σ_d scale[rb, d] · (tile[rb, d] @ x̂[rb + d])`` for the
 int8 band with its per-tile scales (widened to bfloat16 in the kernel's
@@ -19,8 +20,13 @@ frame their TPU functions take (B3c B3a's feature-major one, B3d a blocked
 one).  K5 takes role A's schedule over the int8 band of transposed tiles
 and an int8 frame (:func:`fm_frame` of K5's quantized activations) with one
 scale a frame block, on ``s8 × s8`` products exact in int32
-(:func:`launch_w8a8`); B3b takes role B's on a bfloat16 window, walking one
-panel of the band for every chunk (:func:`launch_panel`).  Its products
+(:func:`launch_w8a8`; B3a's ``fm_w8a8`` is that launch on its caller's
+operands).  B2b takes role A over the int8 band of receiver-major tiles on
+the same products and K5's int8 frame, which its wrapper builds
+feature-major from the node-major quantization (:func:`w8a8_fm_frame`),
+and stores node-major (:func:`launch_rowmajor_w8a8`).  B3b takes role B's
+on a bfloat16 window, walking one panel of the band for every chunk
+(:func:`launch_panel`).  Its products
 are ``wgmma`` on tiles staged by TMA, and TMA needs 16-byte global
 strides.  So the wrappers hand it the band and the frame
 padded with zeros where they are not: the block to ``b' = ⌈b/16⌉·16`` and,
@@ -40,8 +46,9 @@ float32 band, split into its three bfloat16 terms:
 ``x`` (three for the split).  :func:`rowmajor_on_operands` and
 :func:`fm_on_operands` compute the kernel's function on the prepared
 operands in plain torch (with :func:`fm_window_frame`, the frame as K4's
-tensor map reads it), and :func:`w8a8_on_operands` K5's, so the tests can
-hold the padding against the plain versions on the original operands.
+tensor map reads it), :func:`w8a8_on_operands` K5's and
+:func:`rowmajor_w8a8_on_operands` B2b's, so the tests can hold the padding
+and the layout against the plain versions on the original operands.
 The launches here count nothing; their callers count.
 """
 
@@ -393,11 +400,72 @@ def launch_w8a8(kind: str, band_p: torch.Tensor, scales: torch.Tensor, xq_p: tor
     block scales ``[NB + 2W]``; returns ``[F, num_nodes]`` float32."""
     nb, bp, F = band_p.shape[0], band_p.shape[2], xq_p.shape[0]
     _check(kind, band_p, xq_p, (F, (nb + 2 * W) * bp), torch.int8, torch.int8)
-    if (xscales.dtype != torch.float32 or tuple(xscales.shape) != (nb + 2 * W,)
-            or not xscales.is_contiguous() or xscales.device != xq_p.device):
-        raise ValueError(f"{kind}: xscales must be contiguous float32 [{nb + 2 * W}] on {xq_p.device}")
+    _check_xscales(kind, xscales, nb + 2 * W, xq_p.device)
     out = torch.empty((F, num_nodes), dtype=torch.float32, device=xq_p.device)
     _launch(kind, "cgt_banded_spmm_quant_fm_w8a8", band_p.data_ptr(), scales.data_ptr(), xq_p.data_ptr(),
+            xscales.data_ptr(), out.data_ptr(), nb, W, block, bp, F, num_nodes, _stream(xq_p.device))
+    return out
+
+
+def w8a8_fm_frame(xq_blocks: torch.Tensor) -> torch.Tensor:
+    """Node-major int8 blocks ``[NB + 2W, b, F]`` (B2b's activations,
+    quantized per node block in the W-shifted padded frame) as K5's
+    feature-major int8 frame ``[F, (NB + 2W)·b']``, each block padded to
+    ``b'`` senders with zeros.  Four senders of one feature are packed into
+    a 32-bit word (sender 4j + i in byte i, little-endian, as the frame's
+    bytes lie), and the words are transposed: a transposing copy of a
+    quarter as many elements as the bytes', whose cost goes by elements."""
+    blocks, b, F = xq_blocks.shape
+    bp = padded(b, BLOCK_MULTIPLE)
+    if bp != b:
+        xq_p = xq_blocks.new_zeros((blocks, bp, F))
+        xq_p[:, :b] = xq_blocks
+        xq_blocks = xq_p
+    quads = xq_blocks.reshape(-1, 4, F)  # [(NB + 2W)·b' / 4, 4 senders, F]
+    low = quads.view(torch.uint8)
+    # byte 3 signed in the top byte, bytes 0-2 unsigned below it: disjoint
+    # bit fields, so the sums are the word's bits and never overflow
+    words = quads[:, 3].to(torch.int32) * (1 << 24)
+    for i in range(3):
+        words.add_(low[:, i].to(torch.int32), alpha=1 << (8 * i))
+    return words.t().contiguous().view(torch.int8).view(F, blocks * bp)
+
+
+def rowmajor_w8a8_on_operands(band_p: torch.Tensor, scales: torch.Tensor, xq_p: torch.Tensor,
+                              xscales: torch.Tensor, num_nodes: int, W: int, block: int) -> torch.Tensor:
+    """B2b's function on its prepared operands (the padded int8 band of
+    receiver-major tiles, :func:`w8a8_fm_frame`'s int8 frame ``[F, (NB +
+    2W)·b']`` and the block scales ``[NB + 2W]``), in plain torch:
+    ``[num_nodes, F]`` float32, node-major.  Each tile's dot is exact
+    (summed in float64, as the kernel's in int32), then exact in float32,
+    times ``fl(scale · xscale)`` and added in the order of the diagonals,
+    each rounding apart, as the kernel rounds: the plain version bit for
+    bit."""
+    nb, bp, F = band_p.shape[0], band_p.shape[2], xq_p.shape[0]
+    xw = xq_p.view(F, nb + 2 * W, bp).permute(1, 2, 0).to(torch.float64)
+    out = torch.zeros((nb, bp, F), dtype=torch.float32, device=xq_p.device)
+    for d in range(2 * W + 1):
+        dots = torch.bmm(band_p[:, d].to(torch.float64), xw[d : d + nb]).to(torch.float32)
+        out += (scales[:, d] * xscales[d : d + nb])[:, None, None] * dots
+    return out[:, :block].reshape(nb * block, F)[:num_nodes]
+
+
+def _check_xscales(kind: str, xscales: torch.Tensor, blocks: int, device) -> None:
+    if (xscales.dtype != torch.float32 or tuple(xscales.shape) != (blocks,)
+            or not xscales.is_contiguous() or xscales.device != device):
+        raise ValueError(f"{kind}: xscales must be contiguous float32 [{blocks}] on {device}")
+
+
+def launch_rowmajor_w8a8(kind: str, band_p: torch.Tensor, scales: torch.Tensor, xq_p: torch.Tensor,
+                         xscales: torch.Tensor, num_nodes: int, W: int, block: int) -> torch.Tensor:
+    """B2b's launch on CUDA operands: the padded int8 band of receiver-major
+    tiles and its scales, the int8 frame from :func:`w8a8_fm_frame` and its
+    block scales ``[NB + 2W]``; returns ``[num_nodes, F]`` float32."""
+    nb, bp, F = band_p.shape[0], band_p.shape[2], xq_p.shape[0]
+    _check(kind, band_p, xq_p, (F, (nb + 2 * W) * bp), torch.int8, torch.int8)
+    _check_xscales(kind, xscales, nb + 2 * W, xq_p.device)
+    out = torch.empty((num_nodes, F), dtype=torch.float32, device=xq_p.device)
+    _launch(kind, "cgt_banded_spmm_w8a8_rowmajor", band_p.data_ptr(), scales.data_ptr(), xq_p.data_ptr(),
             xscales.data_ptr(), out.data_ptr(), nb, W, block, bp, F, num_nodes, _stream(xq_p.device))
     return out
 

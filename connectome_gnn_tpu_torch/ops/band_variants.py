@@ -23,9 +23,10 @@ B2c's tile is float32 unless ``wrow_bf16``: in the TPU kernel a float32
 scalar times a bfloat16 array promotes to float32.  Its rounding differs
 from K3's, which scales each diagonal's dot.
 
-B2a and B2c are role A of the tensor-core body ``csrc/band_mma.cu`` (B2a
-is K7's bfloat16 launch; B2c has an entry point of its own over K3's
-operands, the int8 band and ``x`` rounded to bfloat16 in the padded frame).
+B2a, B2b and B2c are role A of the tensor-core body ``csrc/band_mma.cu``
+(B2a is K7's bfloat16 launch; B2c has an entry point of its own over K3's
+operands, the int8 band and ``x`` rounded to bfloat16 in the padded frame;
+B2b one over the int8 band and int8 ``x``).
 With ``wrow_bf16`` B2c's kernel folds each scale into its tile as it widens
 the int8 entries, ``bf16(fl(scale · q))``, the plain version's two
 roundings, so every product is exact and the kernel differs from the plain
@@ -37,8 +38,17 @@ differs from the plain fold by one float32 rounding of each product,
 as the order of the float32 sums.  The kernel holds 1e-5 of the fold
 summed in float64 (``sum_dtype=torch.float64``) at the card tests' data;
 there, with random signs and cancelling sums, the plain version's own
-float32 sums differ from it by more.  B2b is an instantiation of the CUDA-core band body in
-``csrc/banded_spmm.cu``.  Beside each sits its plain PyTorch version
+float32 sums differ from it by more.
+
+B2b runs on K5's ``s8 × s8`` products (``wgmma`` m64n64k32, exact in
+int32): its wrapper quantizes ``x`` per node block in torch, as the TPU
+function quantizes outside its ``pallas_call``, and hands the kernel the
+int8 values transposed to K5's feature-major frame (the 8-bit products
+take no transposed operand), padded to a block that is a multiple of 16
+where it is not one (:func:`w8a8_operands`).  Each tile's dot is exact,
+then exact in float32 (``127²·b < 2²⁴`` for ``b ≤ 1040``), times
+``fl(scale · xscale)`` and added, each rounding apart: the plain version
+bit for bit.  Beside each sits its plain PyTorch version
 (``*_reference``, the oracle of the tests and of ``chip_smoke.py``) and a
 launch counter (``*_kernel.launches``).  The entry points take the plain
 version for CPU tensors only; for a CUDA tensor they launch the kernel or
@@ -59,13 +69,9 @@ from connectome_gnn_tpu_torch.ops.banded import BandedMatrix, pad_blocks
 from connectome_gnn_tpu_torch.ops.banded_direct import banded_spmm_direct_reference, launch_direct
 from connectome_gnn_tpu_torch.ops.banded_quant import (
     MAX_EXACT_W8A8_BLOCK,
-    MAX_GRID_Y,
-    TILE_N,
     QuantizedBandedMatrix,
     _check_activations,
     _check_band,
-    _launch,
-    _stream,
     _symmetric_int8,
     banded_spmm_quant_fm,
     to_feature_major,
@@ -96,15 +102,27 @@ def _w8a8_operands(q: QuantizedBandedMatrix, x: torch.Tensor):
     return quantize_x_blocks(pad_blocks(x[:n].to(torch.float32), nb, W, block))
 
 
+def w8a8_operands(q: QuantizedBandedMatrix, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """B2b's activation operands as its kernel reads them: ``x[:num_nodes]``
+    quantized per node block in the W-shifted padded frame
+    (:func:`quantize_x_blocks`, bitwise JAX's), its int8 values transposed
+    to the feature-major frame ``[F, (NB + 2W)·b']`` (each block padded to
+    ``b'`` senders with zeros), and the block scales ``[NB + 2W]``.  The
+    quantization runs node-major, then the int8 values are transposed as
+    32-bit words of four senders (:func:`~connectome_gnn_tpu_torch.ops.
+    band_mma.w8a8_fm_frame`): on the H100 the cheapest of the builds
+    ``chip_smoke.py`` phase 19 times."""
+    xq, xscales = _w8a8_operands(q, x)
+    return band_mma.w8a8_fm_frame(xq), xscales
+
+
 def _check_x(kind: str, q: QuantizedBandedMatrix, x: torch.Tensor, dtype=None) -> None:
-    """``x [≥num_nodes, F]`` within the launch grid; of ``dtype`` and with
-    unit inner stride where ``dtype`` is given."""
+    """``x [≥num_nodes, F]``; of ``dtype`` and with unit inner stride where
+    ``dtype`` is given."""
     if dtype is not None:
         _check_activations(kind, x, q.num_nodes, x.shape[-1], dtype)
     elif x.dim() != 2 or x.shape[0] < q.num_nodes:
         raise ValueError(f"{kind}: activations {tuple(x.shape)} are not [≥{q.num_nodes}, F]")
-    if -(-x.shape[1] // TILE_N) > MAX_GRID_Y:
-        raise ValueError(f"{kind}: F={x.shape[1]} exceeds the launch grid")
 
 
 # ---------------------------------------------------------------------------
@@ -172,19 +190,20 @@ def banded_spmm_bf16_kernel(band_bf16: torch.Tensor, num_nodes: int, W: int,
 
 
 def banded_spmm_w8a8_kernel(q: QuantizedBandedMatrix, x: torch.Tensor) -> torch.Tensor:
-    """Quantize ``x [≥num_nodes, F]`` per node block in torch, then launch
-    B2b on CUDA tensors; returns ``[num_nodes, F]`` float32."""
+    """Quantize ``x [≥num_nodes, F]`` per node block in torch into the
+    feature-major int8 frame (:func:`w8a8_operands`), then launch B2b on
+    CUDA tensors, the band padded to a block that is a multiple of 16 where
+    it is not one; returns ``[num_nodes, F]`` float32, the plain version bit
+    for bit."""
     kind, n, F = "B2b banded_spmm_w8a8", q.num_nodes, x.shape[-1]
     _check_band(kind, q.band_q, q.scales, x.device)
     _check_x(kind, q, x)
-    out = torch.empty((n, F), dtype=torch.float32, device=x.device)
     if n == 0 or F == 0:
-        return out
-    xq, xscales = _w8a8_operands(q, x)
+        return torch.empty((n, F), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        _launch(kind, "cgt_banded_spmm_w8a8_rowmajor", q.band_q.data_ptr(), q.scales.data_ptr(),
-                xq.data_ptr(), xscales.data_ptr(), out.data_ptr(), q.num_blocks, q.bandwidth,
-                q.block, F, n, F, _stream(x.device))
+        xq_p, xscales = w8a8_operands(q, x)
+        out = band_mma.launch_rowmajor_w8a8(kind, band_mma.pad_band(q.band_q), q.scales, xq_p, xscales, n,
+                                            q.bandwidth, q.block)
     banded_spmm_w8a8_kernel.launches += 1
     return out
 

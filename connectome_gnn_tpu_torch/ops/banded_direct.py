@@ -46,12 +46,7 @@ import torch
 
 from connectome_gnn_tpu_torch.ops import band_mma
 from connectome_gnn_tpu_torch.ops.banded import BandedMatrix, pad_blocks
-from connectome_gnn_tpu_torch.ops.banded_quant import (
-    MAX_GRID_Y,
-    TILE_N,
-    _check_activations,
-    _check_band,
-)
+from connectome_gnn_tpu_torch.ops.banded_quant import _check_activations, _check_band
 
 #: the band dtypes K7 takes
 DTYPES = (torch.float32, torch.bfloat16)
@@ -89,8 +84,6 @@ def launch_direct(kind: str, a: BandedMatrix, x: torch.Tensor, counter) -> torch
     if band.shape[1] != 2 * a.bandwidth + 1:
         raise ValueError(f"{kind}: {band.shape[1]} diagonals for bandwidth {a.bandwidth}")
     _check_activations(kind, x, n, F, torch.float32)
-    if -(-F // TILE_N) > MAX_GRID_Y:
-        raise ValueError(f"{kind}: F={F} exceeds the launch grid")
     if n == 0 or F == 0:
         return torch.empty((n, F), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):

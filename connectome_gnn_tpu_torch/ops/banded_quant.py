@@ -72,11 +72,10 @@ from connectome_gnn_tpu_torch.ops.banded import (
 #: largest block for which K5's plain version is exact: its float32 dot of
 #: int8 values stays below 2^24 while 127² · block < 2^24
 MAX_EXACT_W8A8_BLOCK = 1040
-#: grid limits of the CUDA-core launch (B2b): x is one block per (row block,
-#: 64-receiver tile), y one per 64-feature slice (see csrc/banded_spmm.cu)
-TILE_M = TILE_N = 64
-MAX_GRID_X = 2**31 - 1
-MAX_GRID_Y = 65535
+#: the band body's limit (``valid`` in csrc/band_mma.cu): its tensor map
+#: and its work units take fewer than this many tiles, NB·(2W+1); its
+#: launches are persistent grids of at most one block an SM
+MAX_TILES = 2**31 - 1
 
 
 class QuantizedBandedMatrix(NamedTuple):
@@ -383,8 +382,8 @@ def _check_band(kind: str, band: torch.Tensor, scales: torch.Tensor | None, devi
         raise ValueError(f"{kind}: scales must be contiguous float32 [{nb}, {D}]")
     if band.device != device or (scales is not None and scales.device != device):
         raise ValueError(f"{kind}: band, scales and activations must share {device}")
-    if nb * -(-b // TILE_M) > MAX_GRID_X:
-        raise ValueError(f"{kind}: {nb} row blocks of {b} exceed the launch grid")
+    if nb * D >= MAX_TILES:
+        raise ValueError(f"{kind}: {nb} row blocks of {D} tiles exceed the kernel's {MAX_TILES - 1} tiles")
 
 
 def _check_activations(kind: str, x: torch.Tensor, rows: int, cols: int, dtype) -> None:
@@ -422,8 +421,6 @@ def banded_spmm_quant_kernel(q: QuantizedBandedMatrix, x: torch.Tensor) -> torch
     kind, n, F = "K3 banded_spmm_quant", q.num_nodes, x.shape[-1]
     _check_band(kind, q.band_q, q.scales, x.device)
     _check_activations(kind, x, n, F, torch.float32)
-    if -(-F // TILE_N) > MAX_GRID_Y:
-        raise ValueError(f"{kind}: F={F} exceeds the launch grid")
     if n == 0 or F == 0:
         return torch.empty((n, F), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -447,8 +444,6 @@ def launch_fm_int8_on_xT(kind: str, kernel, q: QuantizedBandedMatrixFM, xT: torc
     n, F = q.num_nodes, xT.shape[0]
     _check_band(kind, q.band_qT, q.scales, xT.device)
     _check_activations(kind, xT, F, n, torch.float32)
-    if -(-F // TILE_N) > MAX_GRID_Y:
-        raise ValueError(f"{kind}: F={F} exceeds the launch grid")
     if n == 0 or F == 0:
         return torch.empty((F, n), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
@@ -514,8 +509,6 @@ def banded_spmm_quant_blocked_kernel(q: QuantizedBandedMatrixFM, xb_pad: torch.T
     if xb_pad.dtype != torch.float32 or not xb_pad.is_contiguous():
         raise ValueError(f"{kind}: activations must be contiguous float32, got {xb_pad.dtype} "
                          f"strides {xb_pad.stride()}")
-    if -(-F // TILE_N) > MAX_GRID_Y:
-        raise ValueError(f"{kind}: F={F} exceeds the launch grid")
     if F == 0:
         return torch.empty((q.num_blocks, F, q.block), dtype=torch.float32, device=xb_pad.device)
     with torch.cuda.device(xb_pad.device):

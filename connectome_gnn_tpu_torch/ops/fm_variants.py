@@ -42,11 +42,13 @@ not depend on R, the depth S or the band splits K.  Where JAX asserts
 :data:`DEPTHS`, a split outside :data:`BAND_SPLITS` and, for
 ``fm_dma_only``, ``F > block``.
 
-``fm_dma_only`` and ``fm_w8a8`` are instantiations of the pipelined body in
-``csrc/fm_pipeline.cu`` (the TPU kernel's two-stage ``cp.async`` ring), and
-need a block that is a multiple of 16.  ``fm_bf16_band``,
-``fm_compute_only``, ``fm_deep`` and ``fm_blocked`` are role B of the
-tensor-core body ``csrc/band_mma.cu`` (``wgmma`` on tiles staged by TMA):
+``fm_dma_only`` is the pipelined body in ``csrc/fm_pipeline.cu`` (the TPU
+kernel's two-stage ``cp.async`` ring), and needs a block that is a
+multiple of 16.  The others run on the tensor-core body
+``csrc/band_mma.cu`` (``wgmma`` on tiles staged by TMA).  ``fm_w8a8`` is
+K5's function bit for bit on its given int8 operands, so it is K5's launch
+on them (``s8 × s8`` products, exact in int32).  ``fm_bf16_band``,
+``fm_compute_only``, ``fm_deep`` and ``fm_blocked`` are role B:
 ``fm_bf16_band`` over its bfloat16 band, the others over the int8 band,
 which the kernel widens to bfloat16 in shared memory.  ``fm_compute_only``
 walks every chunk's units over panel 0 with the loop-variant indices, the
@@ -58,10 +60,10 @@ rounds to bfloat16 in registers as ``pad_xT`` casts it: the same function
 bit for bit as role B's launch on ``pad_xT``'s bfloat16 frame, without the
 pad pass, and faster on the H100 than that pass and launch together
 (``chip_smoke.py`` phase 22 times both).  That body takes any block: the
-wrappers pad the band and the frame to a multiple of 16 with zeros where
-it is not one (:mod:`band_mma`).  Its schedule is its own, so
-``rows_per_step``, ``depth`` and ``band_splits`` are checked as the TPU
-kernels take them and shape nothing.
+wrappers pad the band and the frame (``fm_w8a8``'s int8 frame too) to a
+multiple of 16 with zeros where it is not one (:mod:`band_mma`).  Its
+schedule is its own, so ``rows_per_step``, ``depth`` and ``band_splits``
+are checked as the TPU kernels take them and shape nothing.
 Beside each kernel sit its plain PyTorch version (``*_reference``, the
 oracle of the tests and of ``chip_smoke.py``) and a launch counter
 (``*_kernel.launches``).  The entry points take the plain version for CPU
@@ -94,8 +96,8 @@ from connectome_gnn_tpu_torch.ops.banded_quant import (
 DEPTHS = (2, 3, 4, 6, 8)
 #: the band splits (K) ``fm_deep`` takes
 BAND_SPLITS = (1, 2, 4)
-#: the ``fm_pipeline.cu`` kernels stage 16-byte rows, so their block must be
-#: a multiple of this
+#: the ``fm_pipeline.cu`` kernel stages 16-byte rows, so its block must be a
+#: multiple of this
 BLOCK_MULTIPLE = 16
 
 #: ``[F, NBwin·block]`` → int8 and one float32 scale per column block (max-abs
@@ -252,6 +254,7 @@ def fm_blocked_reference(q: QuantizedBandedMatrixFM, xb: torch.Tensor, rows_per_
 
 
 def _check_card(kind: str, band: torch.Tensor, scales, device) -> None:
+    """``fm_dma_only``'s band on the card: its block a multiple of 16."""
     _check_band(kind, band, scales, device)
     if band.shape[2] % BLOCK_MULTIPLE:
         raise ValueError(f"{kind}: block {band.shape[2]} is not a multiple of {BLOCK_MULTIPLE} "
@@ -357,26 +360,27 @@ def fm_bf16_band_kernel(band_bf16T: torch.Tensor, scales: torch.Tensor, num_node
 
 def fm_w8a8_kernel(q: QuantizedBandedMatrixFM, xqT_pad: torch.Tensor, xscales: torch.Tensor,
                    rows_per_step: int = 32) -> torch.Tensor:
-    """Launch B3a's int8 × int8 dots on CUDA tensors: ``xqT_pad [F, (NB +
-    2W)·block]`` int8 and ``xscales [NB + 2W]`` float32; returns ``[F,
-    num_nodes]`` float32."""
-    kind, nb, W, b = "B3a fm_w8a8", q.num_blocks, q.bandwidth, q.block
-    R = _whole_chunks(kind, nb, rows_per_step)
-    _check_card(kind, q.band_qT, q.scales, xqT_pad.device)
+    """Launch B3a's int8 × int8 dots on CUDA tensors, K5's launch on the
+    given operands: ``xqT_pad [F, (NB + 2W)·block]`` int8 and ``xscales
+    [NB + 2W]`` float32 (the band and the frame padded to a block that is a
+    multiple of 16 where it is not one); returns ``[F, num_nodes]``
+    float32.  ``rows_per_step`` is checked as the TPU kernel takes it and
+    shapes nothing."""
+    kind, nb, W, b, n = "B3a fm_w8a8", q.num_blocks, q.bandwidth, q.block, q.num_nodes
+    _whole_chunks(kind, nb, rows_per_step)
+    _check_band(kind, q.band_qT, q.scales, xqT_pad.device)
     F = xqT_pad.shape[0]
     _check_operand(kind, xqT_pad, torch.int8, (F, (nb + 2 * W) * b))
     _check_operand(kind, xscales, torch.float32, (nb + 2 * W,))
     if xscales.device != xqT_pad.device:
         raise ValueError(f"{kind}: xscales must be on {xqT_pad.device}")
-    out = torch.empty((F, nb * b), dtype=torch.float32, device=xqT_pad.device)
-    if F == 0:
-        return out[:, : q.num_nodes]
+    if F == 0 or n == 0:
+        return torch.empty((F, n), dtype=torch.float32, device=xqT_pad.device)
     with torch.cuda.device(xqT_pad.device):
-        _launch(kind, "cgt_fm_w8a8", q.band_qT.data_ptr(), q.scales.data_ptr(), xqT_pad.data_ptr(),
-                xscales.data_ptr(), out.data_ptr(), nb, W, b, F, R, xqT_pad.stride(0),
-                _stream(xqT_pad.device))
+        out = band_mma.launch_w8a8(kind, band_mma.pad_band(q.band_qT), q.scales,
+                                   band_mma.fm_frame(xqT_pad, nb, W, b), xscales, n, W, b)
     fm_w8a8_kernel.launches += 1
-    return out[:, : q.num_nodes]
+    return out
 
 
 def fm_deep_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tensor, rows_per_step: int = 32,

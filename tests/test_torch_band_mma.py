@@ -68,7 +68,18 @@ copy), carry an Inf of x past its node block into row blocks that the
 plain version keeps finite, unless the k-steps at or past b' are set to
 zero as the kernel does; with that mask they give the plain version, NaN
 for NaN.
+
+B2b runs role A over the int8 band on K5's ``s8 × s8`` products and K5's
+int8 frame, which its wrapper builds feature-major from the node-major
+quantization.  A numpy emulation of its A-fragment loads from the swizzled
+receiver-major box rebuilds the tile, one 32-bit load a register and one
+wavefront a warp load.  On its prepared operands (the padded band, the
+transposed and padded int8 frame) its function equals the plain version
+bit for bit at blocks of 16, 40 (padded to 48) and 48, W = 0, 1, 2, F = 1,
+5 and 130 and a ragged tail, and at the saturated dot of 127²·256.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -449,20 +460,20 @@ def test_b2c_on_k3s_operands_holds_its_plain_version(shape, wrow_bf16):
 
 
 def test_k7_f32_and_b2c_launch_the_tensor_core_body():
-    """Their C entry points, and K4's and K6's, are defined in
-    ``csrc/band_mma.cu`` and in no other source, and the CUDA-core body
-    keeps nothing of theirs: no float activations, no blocked layout."""
+    """Their C entry points, and K4's, K6's and B2b's, are defined in
+    ``csrc/band_mma.cu`` and in no other source; the CUDA-core band body
+    that once held them, ``csrc/banded_spmm.cu``, is gone."""
     import os
 
     csrc = os.path.join(os.path.dirname(band_mma.__file__), "..", "csrc")
     text = {f: open(os.path.join(csrc, f)).read() for f in sorted(os.listdir(csrc)) if f.endswith(".cu")}
     for entry in ("cgt_banded_spmm_direct_f32", "cgt_banded_spmm_quant_fused_dot",
-                  "cgt_banded_spmm_quant_fm", "cgt_banded_spmm_quant_blocked"):
+                  "cgt_banded_spmm_quant_fm", "cgt_banded_spmm_quant_blocked",
+                  "cgt_banded_spmm_w8a8_rowmajor"):
         assert f"int {entry}(" in text["band_mma.cu"]
         assert not [f for f, t in text.items() if f != "band_mma.cu" and f"int {entry}(" in t]
-    assert "cgt_banded_spmm_quant_fm(" not in text["banded_spmm.cu"]
-    for gone in ("kFolded", "Act::kF32", "BandT", "Scale::", "Act::kBf16", "kBlocked", "round_bf16"):
-        assert gone not in text["banded_spmm.cu"]
+    assert "banded_spmm.cu" not in text
+    assert not [f for f, t in text.items() if "__dp4a" in t]
 
 
 # ---------------------------------------------------------------------------
@@ -954,15 +965,122 @@ def test_k5_on_its_operands_matches_jax_interpret(shape):
                                rtol=K3_RTOL, atol=K3_ATOL)
 
 
+# ---------------------------------------------------------------------------
+# B2b: role A over the int8 band on K5's s8 products and int8 frame
+# ---------------------------------------------------------------------------
+
+#: B2b's blocks (16 and 48 unpadded, one partial 128-sender chunk; 40 padded
+#: to 48), bandwidths and feature counts (one partial, one and three
+#: 64-feature units)
+B2B_BLOCKS, B2B_WS, B2B_FS = (16, 40, 48), (0, 1, 2), (1, 5, 130)
+
+
+def b2b_fragments(box: np.ndarray, group: int):
+    """Every thread of consumer warpgroup ``group`` loads its s8 A fragments
+    of a stage's four k32-steps from the swizzled receiver-major box as the
+    kernel does (``frag``, chunk (2k + h) ^ quad); returns A [64 rows, 128
+    senders] rebuilt from the registers (register 2h of k-step k: row 16
+    warp + quad, senders 32k + 16h + 4t .. + 3; register 2h + 1: the row 8
+    on), and for each load instruction of each warp the 32-bit words its
+    lanes read."""
+    A = np.full((64, 128), 999, np.int64)
+    words = {}
+    for warp in range(4):
+        for lane in range(32):
+            quad, t = lane // 4, lane % 4
+            frag = (64 * group + 16 * warp + quad) * 128 + 4 * t
+            for k in range(4):
+                for h in range(2):
+                    c = frag + (((2 * k + h) ^ quad) << 4)
+                    for j, at in enumerate((c, c + 8 * 128)):
+                        assert at % 4 == 0
+                        reg = int(box[at:at + 4].view("<u4")[0])
+                        words.setdefault((warp, k, h, j), []).append(at // 4)
+                        for e in range(4):
+                            r, s = 16 * warp + quad + 8 * j, 32 * k + 16 * h + 4 * t + e
+                            assert A[r, s] == 999
+                            A[r, s] = np.int8(np.uint8((reg >> (8 * e)) & 0xFF))
+    return A, words
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_b2b_fragment_loads_rebuild_the_tile_and_meet_each_bank_once(seed):
+    """A stage's receiver-major int8 tile (128 receivers by 128 senders,
+    128-byte swizzled as TMA writes it): each warpgroup's threads load their
+    s8 A fragments as the kernel does, 4 32-bit loads a k32-step and no
+    permute, and the fragments hold A[r, s] = tile[64 group + r, s] for
+    every receiver and sender, each once: receiver 16 warp + lane / 4 (and
+    + 8), senders 32k + 16h + 4 (lane % 4) .. + 3.  Every load of a warp
+    reads 32 distinct words, one in each bank: one wavefront."""
+    tile = np.random.default_rng(seed).integers(-128, 128, (128, 128)).astype(np.int8)
+    if seed == 1:
+        tile[9, :] = np.arange(-128, 0)  # every negative byte
+    r_idx, s_idx = np.meshgrid(np.arange(128), np.arange(128), indexing="ij")
+    box = np.zeros(128 * 128, np.uint8)
+    box[swizzled(r_idx, s_idx)] = tile.view(np.uint8)
+    for group in range(2):
+        A, words = b2b_fragments(box, group)
+        np.testing.assert_array_equal(A, tile[64 * group:64 * group + 64].astype(np.int64))
+        assert len(words) == 4 * 4 * 2 * 2  # warps x k-steps x k-groups x rows
+        for w in words.values():
+            assert wavefronts(w) == 1 and sorted(a % 32 for a in w) == list(range(32))
+
+
+@pytest.mark.parametrize("F", B2B_FS)
+@pytest.mark.parametrize("W", B2B_WS)
+@pytest.mark.parametrize("block", B2B_BLOCKS)
+def test_b2b_on_its_operands_is_its_plain_version_bit_for_bit(block, W, F):
+    """B2b's function on the operands its wrapper prepares (the band padded
+    by :func:`pad_band`, x quantized node-major and transposed into K5's
+    frame by :func:`w8a8_fm_frame`, padded to b') equals its plain version
+    on the original operands bit for bit, with a ragged tail."""
+    nb = 5
+    n = nb * block - 7
+    q, scales, x = random_quantized((nb, W, block, n, F), seed=block + 10 * W + F)
+    tqq = tq.QuantizedBandedMatrix(torch.from_numpy(q), torch.from_numpy(scales), n, W)
+    xt = torch.from_numpy(x)
+    xq_p, xscales = tv.w8a8_operands(tqq, xt)
+    bp = band_mma.padded(block, 16)
+    assert xq_p.dtype == torch.int8 and xq_p.shape == (F, (nb + 2 * W) * bp) and xq_p.is_contiguous()
+    assert xscales.shape == (nb + 2 * W,)
+    band_p = band_mma.pad_band(tqq.band_q)
+    assert (band_p is tqq.band_q) == (bp == block)
+    got = band_mma.rowmajor_w8a8_on_operands(band_p, tqq.scales, xq_p, xscales, n, W, block)
+    assert got.shape == (n, F)
+    assert torch.equal(got, tv.banded_spmm_w8a8_reference(tqq, xt))
+
+
+def test_b2b_dot_is_exact_at_the_saturated_bound():
+    """Band and x all ±127 at b = 256, one tile all +127 against a frame
+    block all +127 (a dot of 127²·256 < 2²⁴): B2b's function on its
+    operands equals the plain version bit for bit."""
+    nb, W, b, F = 4, 1, 256, 8
+    n = nb * b - 5
+    rng = np.random.default_rng(9)
+    band = (127 * rng.choice([-1, 1], (nb, 2 * W + 1, b, b))).astype(np.int8)
+    band[1, 1] = 127
+    scales = rng.uniform(1e-3, 1.1e-2, (nb, 2 * W + 1)).astype(np.float32)
+    q = tq.QuantizedBandedMatrix(torch.from_numpy(band), torch.from_numpy(scales), n, W)
+    x = torch.from_numpy(rng.choice([-1.0, 1.0], (n, F)).astype(np.float32))
+    x[b:2 * b] = 1.0  # frame block 2, which tile (1, 1) reads
+    xq_p, xscales = tv.w8a8_operands(q, x)
+    assert int(xq_p[:, W * b:(W + nb) * b - 5].abs().min()) == 127
+    got = band_mma.rowmajor_w8a8_on_operands(q.band_q, q.scales, xq_p, xscales, n, W, b)
+    assert torch.equal(got, tv.banded_spmm_w8a8_reference(q, x))
+
+
 def test_k5_left_the_cuda_core_body():
-    """K5's C entry point is in ``csrc/band_mma.cu`` on s8 products, and
-    ``csrc/banded_spmm.cu`` keeps B2b alone: no feature-major layout, no K5."""
+    """K5's and B2b's C entry points are in ``csrc/band_mma.cu`` on s8
+    products; ``csrc/banded_spmm.cu`` is gone, and ``csrc/fm_pipeline.cu``
+    holds the dma-only probe's entry alone: no int8 dots, no ``cgt_fm_w8a8``."""
     import os
 
     csrc = os.path.join(os.path.dirname(band_mma.__file__), "..", "csrc")
     mma = open(os.path.join(csrc, "band_mma.cu")).read()
-    cuda_cores = open(os.path.join(csrc, "banded_spmm.cu")).read()
+    pipeline = open(os.path.join(csrc, "fm_pipeline.cu")).read()
     assert "int cgt_banded_spmm_quant_fm_w8a8(" in mma and "m64n64k32.s32.s8.s8" in mma
-    for gone in ("cgt_banded_spmm_quant_fm_w8a8", "kFeatureMajor", "Layout", "K5  banded"):
-        assert gone not in cuda_cores
-    assert "int cgt_banded_spmm_w8a8_rowmajor(" in cuda_cores
+    assert "int cgt_banded_spmm_w8a8_rowmajor(" in mma
+    assert not os.path.exists(os.path.join(csrc, "banded_spmm.cu"))
+    assert re.findall(r"^int (cgt_\w+)\(", pipeline, re.M) == ["cgt_fm_dma_only"]
+    for gone in ("cgt_fm_w8a8", "kDots", "__dp4a", "__byte_perm", "xscales", "int8_t, int8_t"):
+        assert gone not in pipeline

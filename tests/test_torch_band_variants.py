@@ -9,7 +9,11 @@ The JAX side runs its Pallas kernels on the CPU: K7 with
 them at rtol 1e-5 / atol 1e-5 (the same exact products, float32 sums in
 another order), on a spatial graph and on random NON-symmetric bands,
 where a swapped tile axis would show: with the ragged tail, W = 0, F = 5
-and F = 1.  ``quantize_x_blocks`` is bitwise equal.  The JAX kernels'
+and F = 1.  ``quantize_x_blocks`` is bitwise equal, and so is the int8
+frame B2b's wrapper hands its kernel: the node-major quantization
+transposed to K5's feature-major frame and padded to a block that is a
+multiple of 16, against JAX's ``quantize_x_blocks`` transposed.  B2b's
+function on those operands is JAX's kernel in interpret mode at 1e-5.  The JAX kernels'
 ``rows_per_step`` changes only the order of a float32 sum, so one port
 result matches all of them.  The checks phase of the script, at a small
 size: each variant within 3e-2 relative Frobenius error of the float32
@@ -30,6 +34,7 @@ import connectome_gnn_tpu.data as jd
 import connectome_gnn_tpu.ops.banded as jb
 import connectome_gnn_tpu.ops.banded_quant as jq
 import connectome_gnn_tpu_torch.data as td
+import connectome_gnn_tpu_torch.ops.band_mma as band_mma
 import connectome_gnn_tpu_torch.ops.band_variants as tv
 import connectome_gnn_tpu_torch.ops.banded as tb
 import connectome_gnn_tpu_torch.ops.banded_direct as tdir
@@ -192,6 +197,58 @@ def test_quantize_x_blocks_is_bitwise_equal(blocks):
     np.testing.assert_array_equal(txq.numpy(), np.asarray(jxq))
     np.testing.assert_array_equal(txs.numpy(), np.asarray(jxs))
     assert txs[0] == txs[-1] == 1.0
+
+
+def b2b_case(block, W, F, seed):
+    """A random non-symmetric int8 band in both packages (70 % zeros) with a
+    ragged tail, and x, at ``block``."""
+    nb = 5
+    n = nb * block - 3
+    rng = np.random.default_rng(seed)
+    shape = (nb, 2 * W + 1, block, block)
+    band = (rng.standard_normal(shape) * (rng.random(shape) < 0.3)).astype(np.float32)
+    x = rng.standard_normal((n, F)).astype(np.float32)
+    x[: block // 2] *= 40.0  # one block's scale far from the others'
+    jqq = jq.quantize_band(jb.BandedMatrix(jnp.asarray(band), n, W))
+    tqq = tq.quantize_band(tb.BandedMatrix(torch.from_numpy(band), n, W))
+    return jqq, tqq, x
+
+
+@pytest.mark.parametrize("F", [1, 5, 130])
+@pytest.mark.parametrize("block", [16, 40, 48])
+def test_b2b_frame_is_jax_quantize_x_blocks_transposed(block, F):
+    """B2b's int8 frame and scales (:func:`w8a8_operands`) bitwise against
+    JAX's ``quantize_x_blocks`` of the padded frame, transposed to ``[F,
+    (NB + 2W)·b']`` with zeros past each block's ``b`` senders."""
+    W = 2
+    _, tqq, x = b2b_case(block, W, F, seed=block + F)
+    xq_p, xs = tv.w8a8_operands(tqq, torch.from_numpy(x))
+    nb, n = tqq.num_blocks, tqq.num_nodes
+    x_pad = np.zeros(((nb + 2 * W) * block, F), np.float32)
+    x_pad[W * block : W * block + n] = x
+    jxq, jxs = qd.quantize_x_blocks(jnp.asarray(x_pad).reshape(nb + 2 * W, block, F))
+    bp = band_mma.padded(block, 16)
+    want = np.zeros((F, nb + 2 * W, bp), np.int8)
+    want[:, :, :block] = np.asarray(jxq).transpose(2, 0, 1)
+    assert xq_p.dtype == torch.int8 and xq_p.is_contiguous()
+    np.testing.assert_array_equal(xq_p.numpy(), want.reshape(F, -1))
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(jxs))
+
+
+@pytest.mark.parametrize("W", [0, 1, 2])
+@pytest.mark.parametrize("block", [16, 40, 48])
+def test_b2b_on_its_operands_matches_jax_interpret(block, W):
+    """B2b's function on the operands its wrapper prepares against JAX's
+    ``banded_spmm_w8a8`` in interpret mode."""
+    F = 5
+    jqq, tqq, x = b2b_case(block, W, F, seed=block + W)
+    xq_p, xs = tv.w8a8_operands(tqq, torch.from_numpy(x))
+    got = band_mma.rowmajor_w8a8_on_operands(band_mma.pad_band(tqq.band_q), tqq.scales, xq_p, xs,
+                                             tqq.num_nodes, W, block)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(qd.banded_spmm_w8a8(jqq, jnp.asarray(x), 5))
+    assert got.shape == want.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("variant", VARIANTS + ["manual"])

@@ -8,8 +8,11 @@ there without the conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_band_variants_cuda.py
 
 This file imports no JAX.  Tolerance: kernel against plain version rtol
-1e-5 / atol 1e-5 (the same exact products, float32 sums in another order;
-B2b's int32 dots are exact in both).  K7 over a float32 band and B2c
+1e-5 / atol 1e-5 (the same exact products, float32 sums in another order),
+except B2b, held bit for bit (``torch.equal``): its int32 dots are exact,
+then exact in float32, and the kernel rounds the scale's product and the
+sum apart in the plain version's order, at every shape here and at blocks
+of 16, 40 and 48 with F = 1, 5 and 130.  K7 over a float32 band and B2c
 without ``wrow_bf16`` run on the tensor cores in an order of sums the plain
 version's float32 sums cannot share, and at the 4000-node shape those sums
 are themselves more than 1e-5 from the exact value of their function (by
@@ -53,8 +56,11 @@ KERNELS = {
 }
 #: the kernels held at 1e-5 to their plain version's float64 sums
 FLOAT64_SUMS = ("K7-f32", "B2c")
+#: the kernels held to their plain version bit for bit
+EXACT = ("B2b",)
 #: the C entry point each tensor-core wrapper launches, and its last flag
 ENTRY_POINTS = {"K7-f32": ("cgt_banded_spmm_direct_f32", None),
+                "B2b": ("cgt_banded_spmm_w8a8_rowmajor", None),
                 "B2c": ("cgt_banded_spmm_quant_fused_dot", 0),
                 "B2c-wrow-bf16": ("cgt_banded_spmm_quant_fused_dot", 1)}
 #: (num_blocks, W, block, num_nodes, F): the ragged tail, W = 0, F = 5,
@@ -119,10 +125,54 @@ def test_kernel_matches_plain_version(cuda, kid, shape):
     assert kernel.launches == before + 1
     assert got.shape == (n, F) and got.dtype == torch.float32
     want = call(kid, plain, a, x)
+    if kid in EXACT:
+        assert torch.equal(got, want)
+        return
     if kid in FLOAT64_SUMS:
         assert bool(((got - want).abs() <= MAGNITUDE_RTOL * magnitude(kid, a, x)).all())
         want = call(kid, plain, a, x, sum_dtype=torch.float64)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("F", [1, 5, 130])
+@pytest.mark.parametrize("W", [0, 1, 2])
+@pytest.mark.parametrize("block", [16, 40, 48])
+def test_b2b_is_its_plain_version_bit_for_bit_at_ragged_shapes(cuda, block, W, F):
+    """Blocks of 16 and 48 (one partial 128-sender chunk, its zero fill
+    from TMA) and 40 (padded to 48), one, a partial and three 64-feature
+    units, a partial last row block."""
+    nb = 6
+    n = nb * block - 5
+    a = random_band(nb, W, block, n, seed=block + 10 * W + F, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(F).standard_normal((n, F)).astype(np.float32)).to(cuda)
+    q = bq.quantize_band(a)
+    got = tv.banded_spmm_w8a8_kernel(q, x)
+    assert got.shape == (n, F)
+    assert torch.equal(got, tv.banded_spmm_w8a8_reference(q, x))
+
+
+def test_b2b_launch_alone_equals_the_wrapper_and_the_saturated_dot(cuda):
+    """At the main shape's layout (b = 256, F = 64) B2b's wrapper hands the
+    kernel the band as it is and the int8 frame it builds; the launch alone
+    on them gives the wrapper's output.  Band and x of ±127, one tile all
+    +127 against a frame block all +127 (a dot of 127²·256): bit for bit
+    the plain version."""
+    nb, W, b, F = 6, 2, 256, 64
+    n = nb * b - 37
+    rng = np.random.default_rng(12)
+    band = (127 * rng.choice([-1, 1], (nb, 2 * W + 1, b, b))).astype(np.int8)
+    band[2, W] = 127
+    scales = rng.uniform(1e-3, 1.1e-2, (nb, 2 * W + 1)).astype(np.float32)
+    q = bq.QuantizedBandedMatrix(torch.from_numpy(band).to(cuda), torch.from_numpy(scales).to(cuda), n, W)
+    x = torch.from_numpy(rng.choice([-3.0, 3.0], (n, F)).astype(np.float32)).to(cuda)
+    x[2 * b:3 * b] = 3.0  # frame block 2 + W, which tile (2, W) reads
+    xq_p, xs = tv.w8a8_operands(q, x)
+    assert band_mma.pad_band(q.band_q) is q.band_q and xq_p.shape == (F, (nb + 2 * W) * b)
+    assert int(xq_p[:, W * b:(W + nb) * b - 37].abs().min()) == 127
+    alone = band_mma.launch_rowmajor_w8a8("B2b", q.band_q, q.scales, xq_p, xs, n, W, b)
+    got = tv.banded_spmm_w8a8_kernel(q, x)
+    assert torch.equal(alone, got)
+    assert torch.equal(got, tv.banded_spmm_w8a8_reference(q, x))
 
 
 @pytest.mark.parametrize("kid", list(ENTRY_POINTS))

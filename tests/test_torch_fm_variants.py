@@ -17,8 +17,12 @@ blocked frame.  Role B's function on the operands the wrappers prepare
 (the padded band, ``xT`` as K4's map reads it, which equals role B on
 ``fm_frame(pad_xT(xT))`` bit for bit, and the blocked frame) is their
 plain versions bit for bit and JAX's in interpret mode at 1e-5, at block
-64 and at blocks of 16 and 48.  The kernels themselves run only on
-the card (``tests/test_torch_fm_variants_cuda.py``).
+64 and at blocks of 16 and 48.  ``fm_w8a8`` is K5's launch on its given
+operands: K5's function on them (the padded band and the int8 frame padded
+by ``fm_frame``) is its plain version bit for bit and JAX's at 1e-5, at
+those blocks and at a block of 40, which the wrapper pads to 48.  The
+kernels themselves run only on the card
+(``tests/test_torch_fm_variants_cuda.py``).
 """
 
 import os
@@ -243,6 +247,10 @@ def test_fm_blocked_at_each_depth_matches_one_port_result(cases, R, S):
 ROLE_B_SHAPES = {"b16-W1": (12, 1, 16, 180, 8), "b48-W2-F5-ragged": (10, 2, 48, 470, 5),
                  "b48-W0": (8, 0, 48, 380, 16)}
 ROLE_B_CASES = list(CASES) + list(ROLE_B_SHAPES)
+#: fm_w8a8's further shape on K5's launch: a block of 40, not a multiple of
+#: 16, which its wrapper pads to 48
+W8A8_SHAPES = {"b40-W1-F5-ragged": (6, 1, 40, 230, 5)}
+W8A8_CASES = ROLE_B_CASES + list(W8A8_SHAPES)
 
 
 def role_b_case(cases, case):
@@ -251,7 +259,7 @@ def role_b_case(cases, case):
     if case in CASES:
         c = cases[case]
         return c.tq, c.jq, c.xT, BLOCK
-    nb, W, block, n, F = ROLE_B_SHAPES[case]
+    nb, W, block, n, F = {**ROLE_B_SHAPES, **W8A8_SHAPES}[case]
     rng = np.random.default_rng(nb + block + n)
     shape = (nb, 2 * W + 1, block, block)
     qT = (rng.integers(-127, 128, shape) * (rng.random(shape) < 0.3)).astype(np.int8)
@@ -323,6 +331,47 @@ def test_fm_blocked_on_its_role_b_operands_matches_jax_interpret(cases, case):
     np.testing.assert_array_equal(txb.float().numpy(), as_f32(jxb))
     want = np.asarray(fd.fm_blocked(jqf, jxb, rows_per_step=4, interpret=True))
     np.testing.assert_allclose(blocked_on_operands(q, txb, block).numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def w8a8_frames(q, xT: np.ndarray, block: int):
+    """``fm_w8a8``'s given operands, the bfloat16 padded frame quantized per
+    block, in both packages (checked bitwise equal): ``(port (xq, xs), JAX
+    (xq, xs))``."""
+    n, nb, W = q.num_nodes, q.num_blocks, q.bandwidth
+    txq, txs = fv.quantize_xT_blocks(fv.pad_xT(torch.from_numpy(xT), n, nb, W, block), block)
+    jxq, jxs = fd.quantize_xT_blocks(fd._pad_xT(jnp.asarray(xT), n, nb, W, block, jnp.bfloat16), block)
+    np.testing.assert_array_equal(txq.numpy(), np.asarray(jxq))
+    np.testing.assert_array_equal(txs.numpy(), np.asarray(jxs))
+    return (txq, txs), (jxq, jxs)
+
+
+def w8a8_on_operands(q, xq: torch.Tensor, xs: torch.Tensor, block: int) -> torch.Tensor:
+    """``fm_w8a8``'s kernel function on the operands its wrapper hands K5's
+    launch: the padded int8 band and the int8 frame padded by
+    :func:`~connectome_gnn_tpu_torch.ops.band_mma.fm_frame` (itself where the
+    block is a multiple of 16)."""
+    nb, W = q.num_blocks, q.bandwidth
+    xq_p = band_mma.fm_frame(xq, nb, W, block)
+    assert (xq_p is xq) == (block % 16 == 0)
+    out = band_mma.w8a8_on_operands(band_mma.pad_band(q.band_qT), q.scales, xq_p, xs, W, block)
+    return out[:, : q.num_nodes]
+
+
+@pytest.mark.parametrize("case", W8A8_CASES)
+def test_fm_w8a8_on_k5s_operands_is_its_plain_version_bit_for_bit(cases, case):
+    q, _, xT, block = role_b_case(cases, case)
+    (xq, xs), _ = w8a8_frames(q, xT, block)
+    got = w8a8_on_operands(q, xq, xs, block)
+    assert got.shape == (xT.shape[0], q.num_nodes)
+    assert torch.equal(got, fv.fm_w8a8_reference(q, xq, xs, rows_per_step=2))
+
+
+@pytest.mark.parametrize("case", W8A8_CASES)
+def test_fm_w8a8_on_k5s_operands_matches_jax_interpret(cases, case):
+    q, jqf, xT, block = role_b_case(cases, case)
+    (xq, xs), (jxq, jxs) = w8a8_frames(q, xT, block)
+    want = np.asarray(fd.fm_w8a8(jqf, jxq, jxs, rows_per_step=2, interpret=True))
+    np.testing.assert_allclose(w8a8_on_operands(q, xq, xs, block).numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("variant", ["fm_deep", "fm_blocked", "fm_bf16_band", "fm_w8a8"])
@@ -440,20 +489,19 @@ def test_fm_deep_and_fm_blocked_left_the_cuda_core_pipeline():
                  "band_splits", "int S>", "int S)"):
         assert gone not in pipeline
     assert "constexpr int kStages = 2;" in pipeline
-    for entry in ("cgt_fm_dma_only", "cgt_fm_w8a8"):
-        assert f"int {entry}(" in pipeline
+    assert "int cgt_fm_dma_only(" in pipeline and "int cgt_fm_w8a8(" not in pipeline
     assert "int cgt_fm_compute_only(" in mma
 
 
 def test_fm_compute_only_left_the_cuda_core_pipeline():
     """B3b launches role B of ``csrc/band_mma.cu`` with its panel map;
-    ``fm_pipeline.cu`` keeps the dma-only and w8a8 probes alone: no
-    compute-only body, no sink."""
+    ``fm_pipeline.cu`` keeps the dma-only probe alone: no compute-only
+    body, no sink, no int8 dots."""
     csrc = os.path.join(os.path.dirname(fv.__file__), "..", "csrc")
     mma = open(os.path.join(csrc, "band_mma.cu")).read()
     pipeline = open(os.path.join(csrc, "fm_pipeline.cu")).read()
     assert "int cgt_fm_compute_only(" in mma and "Variant::kPanel" in mma
-    for gone in ("kComputeOnly", "cgt_fm_compute_only", "sink", "i_star"):
+    for gone in ("kComputeOnly", "cgt_fm_compute_only", "sink", "i_star", "kDots", "__dp4a"):
         assert gone not in pipeline
 
 

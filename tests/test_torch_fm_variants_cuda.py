@@ -1,8 +1,8 @@
 """The feature-major band-pipeline kernels B3a-B3d (``ops/fm_variants.py``;
-``csrc/fm_pipeline.cu`` for ``fm_dma_only`` and ``fm_w8a8``, role B of
-``csrc/band_mma.cu`` for ``fm_bf16_band``, ``fm_compute_only`` (with its
-panel map), ``fm_deep`` and ``fm_blocked``) against their plain PyTorch
-versions, on the card.
+``csrc/fm_pipeline.cu`` for ``fm_dma_only``, K5's launch on
+``csrc/band_mma.cu`` for ``fm_w8a8``, role B of ``csrc/band_mma.cu`` for
+``fm_bf16_band``, ``fm_compute_only`` (with its panel map), ``fm_deep`` and
+``fm_blocked``) against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA card and skips without one.  The machine with
 the card has no JAX, and ``tests/conftest.py`` imports it, so run them
@@ -12,9 +12,11 @@ there without the conftest:
 
 This file imports no JAX.  Tolerance: kernel against plain version rtol
 1e-5 / atol 1e-5 (the same exact products, float32 sums in another order);
-``fm_dma_only`` bitwise (one float32 add); ``fm_w8a8`` bitwise against K5's
-kernel on K5's operands (both take exact int32 dots, then round the scale's
-product and the sum apart, as the plain version does); ``fm_deep``, which
+``fm_dma_only`` bitwise (one float32 add); ``fm_w8a8`` bitwise against its
+plain version and against K5's kernel on K5's operands (it is K5's launch:
+exact int32 dots, then the scale's product and the sum rounded apart, as
+the plain version rounds), at every shape and at blocks of 40 (padded to
+48), 16 and 48; ``fm_deep``, which
 is K4's launch, bitwise against role B's launch on the bfloat16 frame
 ``pad_xT`` builds (the same products in the same order: K4 rounds x to
 bfloat16 in registers as ``pad_xT`` does).
@@ -103,6 +105,9 @@ def test_kernel_matches_plain_version(cuda, kid, shape):
     assert kernel.launches == before + 1
     want = run(kid, "plain", ops, R)
     assert got.shape == want.shape and got.dtype == torch.float32
+    if kid == "w8a8":
+        assert torch.equal(got, want)
+        return
     tol = 0 if kid == "dma_only" else RTOL
     torch.testing.assert_close(got, want, rtol=tol, atol=0 if kid == "dma_only" else ATOL)
 
@@ -183,6 +188,21 @@ def test_fm_w8a8_is_k5_on_its_operands(cuda):
     xq, xs = bq.quantize_activations_padded(ops.q, ops.xT)
     got = fv.fm_w8a8_kernel(ops.q, xq, xs, rows_per_step=4)
     assert torch.equal(got, bq.banded_spmm_quant_fm_w8a8_kernel(ops.q, ops.xT))
+
+
+@pytest.mark.parametrize("shape", [(6, 1, 40, 230, 5, 3), (12, 1, 16, 180, 8, 4), (10, 2, 48, 470, 130, 5)])
+def test_fm_w8a8_takes_any_block(cuda, shape):
+    """A block of 40, which the fm_pipeline.cu body refused and K5's launch
+    takes padded to 48, and of 16 and 48 (one partial 128-sender chunk):
+    bit for bit the plain version, and K5's kernel on K5's operands."""
+    nb, W, block, n, F, R = shape
+    ops = Operands(nb, W, block, n, F, seed=sum(shape), device=cuda)
+    got = fv.fm_w8a8_kernel(ops.q, ops.xq, ops.xscales, rows_per_step=R)
+    assert got.shape == (F, n)
+    assert torch.equal(got, fv.fm_w8a8_reference(ops.q, ops.xq, ops.xscales, rows_per_step=R))
+    xq, xs = bq.quantize_activations_padded(ops.q, ops.xT)
+    assert torch.equal(fv.fm_w8a8_kernel(ops.q, xq, xs, rows_per_step=R),
+                       bq.banded_spmm_quant_fm_w8a8_kernel(ops.q, ops.xT))
 
 
 def test_fm_compute_only_reads_only_panel_0(cuda):
