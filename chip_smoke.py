@@ -180,7 +180,8 @@ nodes, band ±512, block 256, F = 64), whose path is their entry points:
     over the int8 band on a bfloat16 frame) also at blocks of 48 and 80
     and at a few (R, S, K) and (R, S) of the script's sweeps, each the one
     result bit for bit, ``fm_w8a8`` bit for bit its plain version and K5's
-    kernel on K5's operands, also at a block of 40 (padded to 48); then the
+    kernel on K5's operands, and ``fm_dma_only``, also at a block of 40
+    (padded to 48); then the
     main path, each entry point once at 1M nodes with one
     launch each, against its plain version and, for ``fm_deep``,
     ``fm_blocked``, ``fm_bf16_band`` and ``fm_w8a8``, under the 3e-2 gate
@@ -199,10 +200,13 @@ nodes, band ±512, block 256, F = 64), whose path is their entry points:
     frame in float32 against B3d), each output equal to its pair's bit for
     bit, each with the bytes it stages into shared memory and their rate,
     and the bfloat16 route whole (``pad_xT``, then the launch) beside K4's
-    launch; the dma-only probe's staging rate; role B with the HBM stream
-    taken out: B3b (its panel in L2) against B3d (the band streamed), the
-    launches alone in turns, with their stages a block and µs a stage; the
-    memory peak.
+    launch; role B's ring alone: the dma-only probe's launch, the bytes it
+    stages (B3d's) and their rate, against the bound of its function and of
+    that stream; role B taken apart: the launches alone in turns of the
+    ring alone (dma-only), role B without its HBM stream (B3b, its panel in
+    L2), all of role B (B3d) and the feature-major bfloat16-frame launch,
+    each with its stages a block and µs a stage, and their differences a
+    stage; the memory peak.
 
 Then graph-classification training (``Trainer.fit``, which runs no
 hand-written kernel) and the random-row gather B1 of
@@ -430,7 +434,7 @@ CHECK_GATE = 3e-2
 #: (benchmarks/fm_kernel_diag.py): kernel wrapper, entry point, plain version
 FM_KERNELS = {
     "B3a dma_only": dict(name="fm_dma_only", kernel=fv.fm_dma_only_kernel, entry=fv.fm_dma_only,
-                         plain=fv.fm_dma_only_reference,
+                         plain=fv.fm_dma_only_reference, source=MMA_SOURCE,
                          replaces="benchmarks/fm_kernel_diag.py:130"),
     "B3a bf16_band": dict(name="fm_bf16_band", kernel=fv.fm_bf16_band_kernel, entry=fv.fm_bf16_band,
                           plain=fv.fm_bf16_band_reference, source=MMA_SOURCE,
@@ -448,7 +452,6 @@ FM_KERNELS = {
                 plain=fv.fm_blocked_reference, source=MMA_SOURCE,
                 replaces="benchmarks/fm_kernel_diag.py:495"),
 }
-FM_SOURCE = "connectome_gnn_tpu_torch/csrc/fm_pipeline.cu"
 #: some of the script's sweeps, fm_deep (R, S, K) at :654-657 and fm_blocked
 #: (R, S) at :679: on role B they shape nothing, so each gives the one result
 DEEP_SWEEP = [(32, 2, 1), (32, 4, 4), (16, 8, 2)]
@@ -461,8 +464,9 @@ FM_SHAPES = [(8, 1, 64, 512, 16, 4), (12, 0, 64, 700, 16, 2), (12, 2, 64, 768, 5
 #: B3c's and B3d's further shapes: blocks of 48 and 80, multiples of 16 but
 #: not of 64, so a 64-sender stage of role B reaches past the block
 FM_ROLE_B_SHAPES = [(12, 1, 48, 560, 16, 4), (8, 2, 80, 600, 20, 4)]
-#: fm_w8a8's further shape: a block of 40, not a multiple of 16 (padded to 48)
-FM_W8A8_SHAPES = [(8, 1, 40, 300, 5, 4)]
+#: fm_dma_only's and fm_w8a8's further shape: a block of 40, not a multiple
+#: of 16 (padded to 48)
+FM_ANY_BLOCK_SHAPES = [(8, 1, 40, 300, 5, 4)]
 #: K4's non-finite check: blocks that are not multiples of 64, each W
 NONFINITE_BLOCKS, NONFINITE_WS = (16, 32, 48), (0, 1, 2)
 #: every band kernel's launch counter
@@ -2002,14 +2006,14 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
     # 21. each kernel against its plain version, then the main path
     max_err = dict.fromkeys(FM_KERNELS, 0.0)
     with torch.no_grad():
-        for shape in FM_SHAPES + FM_ROLE_B_SHAPES + FM_W8A8_SHAPES:
+        for shape in FM_SHAPES + FM_ROLE_B_SHAPES + FM_ANY_BLOCK_SHAPES:
             snb, sW, sb, snodes, sF, sR = shape
             sq = bq.to_feature_major(random_quantized_band(snb, sW, sb, snodes, seed=sum(shape), device=dev))
             sxT = torch.from_numpy(np.random.default_rng(snodes + sF).standard_normal(
                 (sF, snodes)).astype(np.float32)).to(dev)
             ops = fm_operands(sq, (sq.band_qT.float() * 1.37).to(torch.bfloat16), sxT)
             kids = (FM_KERNELS if shape in FM_SHAPES else ("B3c", "B3d") if shape in FM_ROLE_B_SHAPES
-                    else ("B3a w8a8", "B3c", "B3d"))
+                    else ("B3a dma_only", "B3a w8a8", "B3c", "B3d"))
             errs = {kid: check_fm(kid, ops, sR) for kid in kids}
             errs["B3c"] = max(errs["B3c"], check_sweep("B3c", ops, DEEP_SWEEP))
             errs["B3d"] = max(errs["B3d"], check_sweep("B3d", ops, BLOCKED_SWEEP))
@@ -2018,7 +2022,8 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
             print(f"[21 fm kernel] NB={snb} W={sW} b={sb} n={snodes} F={sF} R={sR}, random non-symmetric "
                   f"band, fm_deep at each (R, S, K) of {DEEP_SWEEP} and fm_blocked at each (R, S) of "
                   f"{BLOCKED_SWEEP} the one result bit for bit"
-                  + (", fm_w8a8 bit for bit its plain version and K5's kernel" if "B3a w8a8" in kids else "")
+                  + (", fm_dma_only and fm_w8a8 bit for bit their plain versions, fm_w8a8 also K5's kernel"
+                     if "B3a w8a8" in kids else "")
                   + ", max|kernel-plain|: "
                   + ", ".join(f"{kid} {e:.3e}" for kid, e in errs.items()), flush=True)
         del ops, sq, sxT
@@ -2091,7 +2096,7 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
                 "nonzeros": 2 * F_ * nnz_panel * (nb // R) / PEAK_OPS["bf16"] * 1e3}
     # the launch alone, on operands the wrapper would build first in torch
     alone = {
-        "B3a dma_only": lambda: fv._launch_dma_only(q, x_pad, R),
+        "B3a dma_only": lambda: fv._launch_dma_only(q, x_pad),
         "B3a bf16_band": lambda: fv._launch_bf16_band(qb, x_pad),
         "B3b": lambda: fv._launch_compute_only(q, x_win, R),
     }
@@ -2137,7 +2142,7 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
                   f"{E / ms[0] / 1e6:.4g} G edge-messages/s; bound {b_ms:.4f} ms ({b_by}), the kernel at "
                   f"{b_ms / ms[0]:.1%} of it; library call {lib_note}", flush=True)
             entries.append({
-                "name": k["name"], "route": "cuda", "source": k.get("source", FM_SOURCE),
+                "name": k["name"], "route": "cuda", "source": k["source"],
                 "replaces": k["replaces"],
                 "launches": launched[kid], "max_abs_err": max_err[kid], "ms": ms[0], "plain_ms": ms[1],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
@@ -2176,26 +2181,37 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
               f"then the launch) {route_ms:.4f} ms against K4's launch on xT (B3c's route) "
               f"{frame_ms['K4 f32 frame']:.4f} ms", flush=True)
         del xb32
-        # what the dma-only ring stages by design (its output needs far less):
-        # the band once per 64-feature slice, each bf16 x block once per
-        # diagonal and 64-receiver tile (csrc/fm_pipeline.cu)
-        dma_staged = (nbytes(q.band_qT) * -(-F_ // 64)
-                      + 2 * F_ * block * nb * (2 * W + 1) * -(-block // 64))
-        print(f"[22 times] {card} | the CUDA-core probe, its launch alone: fm_dma_only (staging) "
-              f"{alone_ms['B3a dma_only']:.4f} ms, {dma_staged:,} B at "
-              f"{dma_staged / alone_ms['B3a dma_only'] / 1e9:.4g} TB/s", flush=True)
-        # role B with the HBM stream taken out: B3b's panel (10.5 MB) and
-        # window stay in L2, B3d streams the band; the same units, stages and
-        # 16 KB a stage, each widened, fenced and met at a named barrier
+        # the ring alone: fm_dma_only stages role B's stream over the int8
+        # band on the bf16 frame, B3d's bytes (its output needs far less)
+        dma_staged, dma_ms = role_b_staged(nb, W, block, F_, 2), alone_ms["B3a dma_only"]
+        print(f"[22 times] {card} | role B's ring alone, fm_dma_only's launch alone: {dma_ms:.4f} ms, "
+              f"{dma_staged / 1e9:.4g} GB staged into shared memory at {dma_staged / dma_ms / 1e9:.4g} TB/s; "
+              f"against the bound of its function {bounds['B3a dma_only'][0]:.4f} ms "
+              f"({bounds['B3a dma_only'][0] / dma_ms:.1%}) and of the stream it stages, B3d's "
+              f"{bounds['B3d'][0]:.4f} ms ({bounds['B3d'][0] / dma_ms:.1%})", flush=True)
+        # role B taken apart, the same units and 16 KB stages each: the ring
+        # alone (dma-only), each stage widened, fenced, met at a named
+        # barrier and multiplied without the HBM stream (B3b: its 10.5 MB
+        # panel and window stay in L2) and with it (B3d, blocked; the
+        # feature-major bf16-frame launch, K4's function)
         units, sms = nb * -(-block // 128) * -(-F_ // 64), torch.cuda.get_device_properties(dev).multi_processor_count
         stages = -(-units // sms) * (2 * W + 1) * -(-block // 64)
-        b3d_alone = lambda: band_mma.launch_blocked("B3d", q.band_qT, q.scales, full["xb"], W, block)  # noqa: E731
-        b3b_ms, b3d_ms = cuda_ms([alone["B3b"], b3d_alone], iters=10, warmup=2)
-        print(f"[22 role B] {card} | launches alone in turns (CUDA events, median of 10): B3b (panel in L2, "
-              f"{nbytes(q.band_qT[:R]) / 1e6:.4g} MB, evict_last) {b3b_ms:.4f} ms against B3d (the band "
-              f"streamed, {nbytes(q.band_qT) / 1e9:.4g} GB) {b3d_ms:.4f} ms, ratio {b3b_ms / b3d_ms:.3f}; "
-              f"{stages:,} stages of 16 KB a block: {b3b_ms / stages * 1e3:.4f} and {b3d_ms / stages * 1e3:.4f} "
-              f"µs a stage", flush=True)
+        parts = {
+            "dma-only (the ring alone)": alone["B3a dma_only"],
+            f"B3b (no HBM stream: panel in L2, {nbytes(q.band_qT[:R]) / 1e6:.4g} MB, evict_last)": alone["B3b"],
+            f"B3d (all of role B, the band streamed, {nbytes(q.band_qT) / 1e9:.4g} GB)":
+                lambda: band_mma.launch_blocked("B3d", q.band_qT, q.scales, full["xb"], W, block),
+            "feature-major bf16 frame (K4's function)": frames["feature-major bf16 frame"],
+        }
+        dma_ms, b3b_ms, b3d_ms, fm_ms = cuda_ms(list(parts.values()), iters=10, warmup=2)
+        us = lambda ms: ms / stages * 1e3  # noqa: E731
+        print(f"[22 role B] {card} | launches alone in turns (CUDA events, median of 10), {stages:,} stages "
+              f"of 16 KB a block: "
+              + "; ".join(f"{label} {ms:.4f} ms, {us(ms):.4f} µs a stage"
+                          for label, ms in zip(parts, (dma_ms, b3b_ms, b3d_ms, fm_ms)))
+              + f"; a stage's own work (B3d - dma-only) {us(b3d_ms - dma_ms):.4f} µs, the feature-major "
+              f"launch's (- dma-only) {us(fm_ms - dma_ms):.4f} µs; the HBM stream (B3d - B3b) "
+              f"{us(b3d_ms - b3b_ms):.4f} µs; dma-only / B3d {dma_ms / b3d_ms:.3f}", flush=True)
     print(f"[22 times] max_memory_allocated over phases 20-22 {peak:,} B", flush=True)
     return entries
 

@@ -18,11 +18,11 @@
 //   B2c banded_spmm_quant_fused_dot         (pallas_call at :250)     role A, int8
 //   in benchmarks/fm_kernel_diag.py:
 //   B3a _fm_pipeline (pallas_call at :130) reached by fm_bf16_band :271   role B, bf16
+//       by fm_dma_only :157, the staging probe: role B's ring, no dots    role B, int8, copy-plus-add
 //       and by fm_w8a8 :545, K5's function on given operands: K5's launch
 //   B3b fm_compute_only (pallas_call at :242), on a bf16 frame        role B, int8, panel map
 //   B3c fm_deep     (pallas_call at :393), K4's function: K4's launch     role B, int8
 //   B3d fm_blocked  (pallas_call at :495), K6's function on a bf16 frame  role B, int8, blocked
-// The staging probe B3a dma-only stays on csrc/fm_pipeline.cu.
 //
 // Math.  The band holds, for row block rb and diagonal d in [0, 2W], one
 // b x b tile: bf16, f32, or int8 with one f32 scale.  x-hat is x in the
@@ -51,6 +51,11 @@
 //   block (r + d + i) mod (R + 2W) of a window of R + 2W blocks, scale row
 //   rb; chunk i* (the largest even chunk) stores at column r*b + c, every
 //   other chunk's sums go into a one-float sink.
+//   B3a dma-only computes no dot.  It stages every stage that B3d stages
+//   (the int8 band on the bf16 feature-major frame) and stores, for f < F
+//   <= b, one f32 add of two exactly widened values:
+//     out[f, rb*b + c] = float(xT-hat[f, rb*b + c]) + float(tT[rb, 0][f, c])
+//   (the padded frame, not shifted back; sender row f of diagonal 0's tile).
 // As GEMMs, role A has M = receivers, N = features, and role B M =
 // features, N = receivers; in both the K axis is the senders, A is K-major
 // and B is MN-major (wgmma's transposed-B form).  K5 and B2b have role A's
@@ -137,8 +142,8 @@
 //     64 senders, and two 8 KB boxes of the f32 frame, 32 senders (128
 //     bytes) by 64 features each (K4, K6: 24 KB stages, 144 KB in the
 //     ring), or one 8 KB box of the bf16 frame, 64 senders by 64 features
-//     (B3b, B3d and the feature-major bf16 frame: 16 KB stages, 96 KB in
-//     the ring).  K5 stages 128 senders: a 16 KB box of the transposed
+//     (B3a dma-only, B3b, B3d and the feature-major bf16 frame: 16 KB
+//     stages, 96 KB in the ring).  K5 stages 128 senders: a 16 KB box of the transposed
 //     tile, 128 sender rows of 128 receivers, and an 8 KB box of the int8
 //     frame, 64 feature rows of 128 senders (24 KB stages, 144 KB in the
 //     ring; 620 stages a block at the main shape, role B's 1,241).  B2b
@@ -219,6 +224,24 @@
 //     loop, as it once did in every role B instantiation over the int8
 //     band (a version with two fragment sets chosen by the buffer's parity
 //     drew it too): the wait is after the loop.
+//   * B3a dma-only is role B's producer and ring with a consumer that does
+//     no work in its stages: no widening, no proxy fence, no named barrier,
+//     no wgmma.  It measures what the ring alone costs.  Each consumer
+//     warpgroup keeps its 64 receivers by the unit's 64 features in role
+//     B's accumulator layout (features 16 * warp + lane / 4 and + 8 by
+//     receivers 8j + 2 * (lane % 4) and + 1) and reads two of the unit's
+//     D * ceil(b_pad / 64) stages, both of diagonal 0: x from the frame box
+//     of sender chunk 2 * mt + group (a receiver's x is the sender of the
+//     same index in frame block rb), one 32-bit load of a bf16 pair at
+//     chunk j ^ (row % 8); and the band from the band box of sender chunk
+//     ft (a stage's 64 senders are a unit's 64 features, so feature f's
+//     tile row is sender row f), one 16-bit load of an int8 pair at chunk
+//     (4 * group + j / 2) ^ (row % 8).  Each load of a warp meets every
+//     bank once.  Every other stage is waited for and released untouched.
+//     TMA loads and mbarrier transactions cannot be eliminated, so every
+//     staged byte is moved: 2.68 GB into shared memory at the main shape,
+//     B3d's stream.  The widened boxes stay allocated (the Stage is B3d's),
+//     so the launch has B3d's shared memory and occupancy.
 //   * The operands are 3-D tensor maps, [NB*D tiles, b, b] for the band and
 //     [blocks, b, F] (role A; [3 * blocks, b, F] for the f32 band's three
 //     frames, frame s at block s * blocks + blk) or [F, blocks, b] (role B)
@@ -284,9 +307,14 @@
 //     the tile-end wait under a test of the last stage (C7518, above) K6
 //     took 1.31 ms and the bf16 frame 1.00.  B3b, the same stages with its
 //     panel in L2, takes 0.78 ms: 0.62 us a stage without the HBM stream
-//     against B3d's 0.67 with it, so role B's time is set mostly by the
-//     number of stages (the widening, the proxy fence and the named
-//     barrier of each), not by their bytes.  Two variants did not help: a
+//     against B3d's 0.67 with it.  B3a dma-only, the same ring and stream
+//     with no work in its stages, takes 0.67 ms (2.4 ms on the CUDA-core
+//     body it replaced), 0.53 us a stage, 78 % of its stream's 0.52 ms
+//     bound: the ring with its stream is 80 % of B3d's time, and the
+//     stage's own work (the widening, the proxy fence, the named barrier
+//     and the wgmma wait), 0.62 us a stage alone, overlaps it to 0.67.
+//     Taking that work away would save at most a fifth; the rest is the
+//     ring at 2.6 TB/s from HBM.  Two variants did not help: a
 //     cluster of the two receiver tiles with the frame box multicast to
 //     both (2.38 ms), and eight stages (1.13).  K5's launch takes 0.64 ms,
 //     87 % of its 0.56 ms bound (4.25 ms on the CUDA-core body); B2b's
@@ -318,8 +346,9 @@ enum class Role { kRowMajor, kFeatureMajor, kBlocked };
 enum class Fold { kOnDot, kIntoTileBf16 };
 // What a role B launch over the int8 band adds to K4's: nothing; the A
 // fragment's k-steps past a block that is not a multiple of 64 set to zero
-// (K4's kPastBlock); or B3b's panel map (kPanel).
-enum class Variant { kPlain, kPastBlock, kPanel };
+// (K4's kPastBlock); B3b's panel map (kPanel); or, in place of its
+// consumers' work, B3a dma-only's copy-plus-add (kDmaOnly).
+enum class Variant { kPlain, kPastBlock, kPanel, kDmaOnly };
 
 constexpr int kConsumerGroups = 2;                     // warpgroups running wgmma
 constexpr int kThreads = (kConsumerGroups + 1) * 128;  // + one producer warpgroup
@@ -659,6 +688,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr bool kScaledDot = (kInt8 && !kFoldBf16) || !kRowMajor;
   constexpr bool kPastBlock = kVariant == Variant::kPastBlock;
   constexpr bool kPanel = kVariant == Variant::kPanel;
+  constexpr bool kDmaOnly = kVariant == Variant::kDmaOnly;
   static_assert(kRowMajor || kInt8 || std::is_same_v<Band, __nv_bfloat16>,
                 "role B takes a bf16 or an int8 band");
   static_assert(kRole != Role::kBlocked || kInt8, "the blocked layout takes the int8 band");
@@ -670,6 +700,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   static_assert(kXT || !kPastBlock, "only K4's 2-D map reads past the block");
   static_assert(!kPanel || (S::kWiden && kRole == Role::kFeatureMajor && !kF32Frame),
                 "B3b's panel is role B's over the int8 band on a bf16 frame");
+  static_assert(!kDmaOnly || (kRole == Role::kFeatureMajor && kInt8 && std::is_same_v<Frame, __nv_bfloat16>),
+                "B3a dma-only is role B's feature-major launch over the int8 band on a bf16 frame");
+  static_assert(!kDmaOnly || (S::kWiden && S::kK == 64 && S::kBytes == 16384 && S::kStages == 6),
+                "B3a dma-only stages what B3d stages");
   __shared__ __align__(8) uint64_t full_bar[S::kStages];
   __shared__ __align__(8) uint64_t empty_bar[S::kStages];
   extern __shared__ uint8_t smem_raw[];
@@ -876,6 +910,66 @@ __global__ void __launch_bounds__(kThreads, 1)
       } else {
         store_sums_s8(acc, p, rb, mt, ft, group, warp, quad, pair);
       }
+    }
+  } else if constexpr (kDmaOnly) {
+    // the consumers of B3a dma-only: warpgroup `group` keeps receivers [64 *
+    // group, 64 * group + 64) of a unit by its 64 features in role B's
+    // accumulator layout, entry 4j + 2h + e feature 16 * warp + quad + 8h by
+    // receiver 8j + pair + e, and adds x and the band's tile row into it
+    // from two stages of diagonal 0; every other stage is waited for and
+    // released untouched.  Both boxes have 128-byte rows, a thread's rows
+    // (features of the frame box, sender rows of the band box) are 16 *
+    // warp + quad and + 8, and chunk c of a row sits at c ^ quad
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int quad = lane / 4, pair = 2 * (lane % 4);
+    const uint8_t* const ring_ptr = smem_raw + (ring - smem_u32(smem_raw)) + (16 * warp + quad) * kRowBytes;
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[32];
+    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+      const int ft = (int)(u % p.ftiles);
+      const int mt = (int)((u / p.ftiles) % p.mtiles);
+      const int rb = (int)(u / ((long long)p.ftiles * p.mtiles));
+      // this warpgroup's receivers are frame block rb's senders of chunk
+      // 2 mt + group; feature f's tile row is sender row f, in chunk ft
+      const int x_chunk = 2 * mt + group;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        for (int kc = 0; kc < nk; ++kc) {
+          mbar_wait(smem_u32(&full_bar[stage]), phase);
+          const uint8_t* const st = ring_ptr + stage * S::kBytes;
+          if (d == 0 && kc == x_chunk) {
+            // x: the bf16 pair of senders 8j + pair, one 32-bit load at chunk j
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const uint32_t v = *reinterpret_cast<const uint32_t*>(st + S::kBandBytes + h * 8 * kRowBytes +
+                                                                      ((j ^ quad) << 4) + 2 * pair);
+                acc[4 * j + 2 * h] += __uint_as_float(v << 16);
+                acc[4 * j + 2 * h + 1] += __uint_as_float(v & 0xFFFF0000u);
+              }
+          }
+          if (d == 0 && kc == ft) {
+            // the band: the int8 pair of receivers 64 group + 8j + pair, one
+            // 16-bit load at chunk 4 group + j / 2, byte 8 (j % 2) + pair
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const char2 v = *reinterpret_cast<const char2*>(
+                    st + h * 8 * kRowBytes + (((4 * group + (j >> 1)) ^ quad) << 4) + 8 * (j & 1) + pair);
+                acc[4 * j + 2 * h] += (float)v.x;
+                acc[4 * j + 2 * h + 1] += (float)v.y;
+              }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(smem_u32(&empty_bar[stage]));
+          if (++stage == S::kStages) stage = 0, phase ^= 1;
+        }
+      }
+      store_sums<kRole>(acc, p, rb, mt, ft, group, warp, quad, pair);
     }
   } else if constexpr (S::kWiden) {
     // the consumers of role B over the int8 band: warpgroup `group` owns
@@ -1280,15 +1374,17 @@ int launch_rowmajor_w8a8(const int8_t* band_q, const float* scales, const int8_t
 // Role B's layout, feature-major, on a frame x_pad [F, (nb + 2W) *
 // block_pad] in the W-shifted padded frame: bf16 over a bf16 band (B3a, two
 // 64-receiver band boxes a stage) or the int8 band (B3c's bf16 route, one
-// 128-receiver box, widened); int8, with one scale a frame block in
-// xscales [nb + 2W], over the int8 band (K5, s8 products).
-template <typename Band, typename Frame>
+// 128-receiver box, widened; B3a dma-only, no scales, F <= block); int8,
+// with one scale a frame block in xscales [nb + 2W], over the int8 band
+// (K5, s8 products).
+template <typename Band, typename Frame, Variant kVariant = Variant::kPlain>
 int launch_fm_frame(const Band* band_T, const float* scales, const Frame* x_pad, const float* xscales,
                     float* outT, int nb, int W, int block, int block_pad, int F, long long ldo,
                     long long num_cols, void* stream) {
   using S = Stage<Role::kFeatureMajor, Band, Frame>;
-  if (!valid(nb, W, block, block_pad, F) || scales == nullptr || num_cols <= 0 ||
-      num_cols > (long long)nb * block || ldo < num_cols || (S::kS8 && xscales == nullptr))
+  constexpr bool kDmaOnly = kVariant == Variant::kDmaOnly;
+  if (!valid(nb, W, block, block_pad, F) || (!kDmaOnly && scales == nullptr) || (kDmaOnly && F > block) ||
+      num_cols <= 0 || num_cols > (long long)nb * block || ldo < num_cols || (S::kS8 && xscales == nullptr))
     return (int)cudaErrorInvalidValue;
   const uint64_t bp = block_pad, D = 2 * W + 1, blocks = (uint64_t)nb + 2 * W;
   // band boxes of 128-byte rows: {128 int8 or 64 bf16 receivers, kK senders, 1 tile}
@@ -1298,7 +1394,7 @@ int launch_fm_frame(const Band* band_T, const float* scales, const Frame* x_pad,
     return (int)cudaErrorInvalidValue;
   Params p{scales, outT, nb, W, block, block_pad, F, 0, (F + kTileF - 1) / kTileF, num_cols, ldo, block, 0};
   p.xscales = xscales;
-  return launch<Role::kFeatureMajor, Band, Frame>(band_map, frame_map, p, stream);
+  return launch<Role::kFeatureMajor, Band, Frame, Fold::kOnDot, kVariant>(band_map, frame_map, p, stream);
 }
 
 // Role B over the int8 band, blocked, on the frame xb_pad [nb + 2W, F,
@@ -1403,6 +1499,19 @@ int cgt_banded_spmm_quant_fm_bf16(const int8_t* band_qT, const float* scales,
                                   int block_pad, int F, long long ldo, long long num_cols, void* stream) {
   return launch_fm_frame(band_qT, scales, x_pad, static_cast<const float*>(nullptr), outT, nb, W, block,
                          block_pad, F, ldo, num_cols, stream);
+}
+
+// B3a fm_dma_only, the staging probe: band_qT [nb, 2W+1, block_pad,
+// block_pad] int8 (transposed tiles, zero past block); x_pad [F, (nb + 2W)
+// * block_pad] bf16 in the W-shifted padded frame, F <= block; every stage
+// of role B over them is staged, and outT [F, ldo] float32 gets, at column
+// j = rb * block + c for the first num_cols columns, x_pad[f, rb *
+// block_pad + c] + band_qT[rb, 0][f, c].
+int cgt_fm_dma_only(const int8_t* band_qT, const __nv_bfloat16* x_pad, float* outT, int nb, int W, int block,
+                    int block_pad, int F, long long ldo, long long num_cols, void* stream) {
+  return launch_fm_frame<int8_t, __nv_bfloat16, Variant::kDmaOnly>(
+      band_qT, static_cast<const float*>(nullptr), x_pad, static_cast<const float*>(nullptr), outT, nb, W,
+      block, block_pad, F, ldo, num_cols, stream);
 }
 
 // K5 banded_spmm_quant_fm_w8a8: band_qT [nb, 2W+1, block_pad, block_pad]

@@ -140,7 +140,7 @@ def library() -> ctypes.CDLL:
     lib.cgt_banded_spmm_w8a8_rowmajor.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
     lib.cgt_banded_spmm_quant_fused_dot.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.cgt_fm_bf16_band.argtypes = [ptr] * 4 + [i32] * 5 + [i64, i64, ptr]
-    lib.cgt_fm_dma_only.argtypes = [ptr] * 3 + [i32] * 5 + [i64, ptr]
+    lib.cgt_fm_dma_only.argtypes = [ptr] * 3 + [i32] * 5 + [i64, i64, ptr]
     lib.cgt_fm_compute_only.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
     lib.cgt_row_gather.argtypes = [ptr] * 3 + [i64] * 2 + [i32] * 4 + [ptr]
     for entry in (

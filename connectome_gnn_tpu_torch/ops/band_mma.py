@@ -1,8 +1,8 @@
 """Operands and launches of the tensor-core band body, ``csrc/band_mma.cu``.
 
-That body serves K3, K4, K5, K6, B2b, B2c, B3a ``fm_w8a8``, B3b, B3c and
-B3d over the int8 band, K7 over a float32 or bfloat16 band, and B2a and
-B3a ``fm_bf16_band`` over a bfloat16 band.
+That body serves K3, K4, K5, K6, B2b, B2c, B3a ``fm_w8a8`` and
+``fm_dma_only``, B3b, B3c and B3d over the int8 band, K7 over a float32 or
+bfloat16 band, and B2a and B3a ``fm_bf16_band`` over a bfloat16 band.
 Role A is row-major:
 ``out[rb·b + r] = Σ_d scale[rb, d] · (tile[rb, d] @ x̂[rb + d])`` for the
 int8 band with its per-tile scales (widened to bfloat16 in the kernel's
@@ -26,7 +26,11 @@ the same products and K5's int8 frame, which its wrapper builds
 feature-major from the node-major quantization (:func:`w8a8_fm_frame`),
 and stores node-major (:func:`launch_rowmajor_w8a8`).  B3b takes role B's
 on a bfloat16 window, walking one panel of the band for every chunk
-(:func:`launch_panel`).  Its products
+(:func:`launch_panel`).  B3a's ``fm_dma_only`` stages what B3d stages,
+on role B's ring over the int8 band and the bfloat16 feature-major frame,
+and computes no dot: its consumers add frame block ``rb``'s ``x`` and
+diagonal 0's tile rows from two stages and release the others untouched
+(:func:`launch_dma_only`).  Its products
 are ``wgmma`` on tiles staged by TMA, and TMA needs 16-byte global
 strides.  So the wrappers hand it the band and the frame
 padded with zeros where they are not: the block to ``b' = ⌈b/16⌉·16`` and,
@@ -46,9 +50,10 @@ float32 band, split into its three bfloat16 terms:
 ``x`` (three for the split).  :func:`rowmajor_on_operands` and
 :func:`fm_on_operands` compute the kernel's function on the prepared
 operands in plain torch (with :func:`fm_window_frame`, the frame as K4's
-tensor map reads it), :func:`w8a8_on_operands` K5's and
-:func:`rowmajor_w8a8_on_operands` B2b's, so the tests can hold the padding
-and the layout against the plain versions on the original operands.
+tensor map reads it), :func:`w8a8_on_operands` K5's,
+:func:`rowmajor_w8a8_on_operands` B2b's and :func:`dma_only_on_operands`
+B3a dma-only's, so the tests can hold the padding and the layout against
+the plain versions on the original operands.
 The launches here count nothing; their callers count.
 """
 
@@ -252,6 +257,23 @@ def fm_on_operands(band_p: torch.Tensor, scales: torch.Tensor, x_pad_p: torch.Te
     return out[:, :, :block].permute(1, 0, 2).reshape(F, nb * block)
 
 
+def dma_only_on_operands(band_p: torch.Tensor, frame_p: torch.Tensor, num_nodes: int, W: int,
+                         block: int, F: int) -> torch.Tensor:
+    """B3a dma-only's function on its prepared operands (the padded int8
+    band of transposed tiles and :func:`fm_frame`'s bfloat16 frame ``[F,
+    (NB + 2W)·b']``), in plain torch: ``[F, num_nodes]`` float32, column
+    ``rb·b + c`` the sum of frame block ``rb``'s sender ``c`` (the padded
+    frame, not shifted back) and row ``f`` of tile ``(rb, 0)`` at receiver
+    ``c``.  It reads only what the kernel's stores take: the first ``b`` of
+    the ``b'`` senders of frame blocks ``0 .. NB - 1`` and receivers of
+    diagonal 0's tiles, and those tiles' first ``F ≤ b`` rows; ``F`` is the
+    frame's features."""
+    nb, bp = band_p.shape[0], band_p.shape[2]
+    x = frame_p[:F].view(F, nb + 2 * W, bp)[:, :nb, :block].to(torch.float32)
+    rows = band_p[:, 0, :F, :block].to(torch.float32).transpose(0, 1)
+    return (x + rows).reshape(F, nb * block)[:, :num_nodes]
+
+
 def _check(kind: str, band_p: torch.Tensor, frame: torch.Tensor, frame_shape,
            band_dtype=torch.bfloat16, frame_dtype=torch.bfloat16) -> None:
     bp = band_p.shape[2]
@@ -322,6 +344,20 @@ def launch_fm(kind: str, band_p: torch.Tensor, scales: torch.Tensor, x_pad_p: to
     _launch(kind, FM_BF16_FRAME_ENTRIES[band_dtype], band_p.data_ptr(), scales.data_ptr(),
             x_pad_p.data_ptr(), out.data_ptr(), nb, W, block, bp, F, nb * block, nb * block,
             _stream(x_pad_p.device))
+    return out
+
+
+def launch_dma_only(kind: str, band_p: torch.Tensor, x_pad_p: torch.Tensor, num_nodes: int, W: int,
+                    block: int) -> torch.Tensor:
+    """B3a dma-only's launch on CUDA operands: the padded int8 band of
+    transposed tiles and the bfloat16 frame from :func:`fm_frame`, ``F ≤
+    block`` features; every stage of role B over them is staged.  Returns
+    ``[F, num_nodes]`` float32."""
+    nb, bp, F = band_p.shape[0], band_p.shape[2], x_pad_p.shape[0]
+    _check(kind, band_p, x_pad_p, (F, (nb + 2 * W) * bp), torch.int8)
+    out = torch.empty((F, num_nodes), dtype=torch.float32, device=x_pad_p.device)
+    _launch(kind, "cgt_fm_dma_only", band_p.data_ptr(), x_pad_p.data_ptr(), out.data_ptr(), nb, W, block,
+            bp, F, num_nodes, num_nodes, _stream(x_pad_p.device))
     return out
 
 

@@ -42,15 +42,17 @@ not depend on R, the depth S or the band splits K.  Where JAX asserts
 :data:`DEPTHS`, a split outside :data:`BAND_SPLITS` and, for
 ``fm_dma_only``, ``F > block``.
 
-``fm_dma_only`` is the pipelined body in ``csrc/fm_pipeline.cu`` (the TPU
-kernel's two-stage ``cp.async`` ring), and needs a block that is a
-multiple of 16.  The others run on the tensor-core body
-``csrc/band_mma.cu`` (``wgmma`` on tiles staged by TMA).  ``fm_w8a8`` is
-K5's function bit for bit on its given int8 operands, so it is K5's launch
-on them (``s8 × s8`` products, exact in int32).  ``fm_bf16_band``,
+All six run on the tensor-core body ``csrc/band_mma.cu`` (``wgmma`` on
+tiles staged by TMA into an ``mbarrier`` ring).  ``fm_w8a8`` is K5's
+function bit for bit on its given int8 operands, so it is K5's launch on
+them (``s8 × s8`` products, exact in int32).  ``fm_bf16_band``,
 ``fm_compute_only``, ``fm_deep`` and ``fm_blocked`` are role B:
 ``fm_bf16_band`` over its bfloat16 band, the others over the int8 band,
-which the kernel widens to bfloat16 in shared memory.  ``fm_compute_only``
+which the kernel widens to bfloat16 in shared memory.  ``fm_dma_only`` is
+role B's producer and ring over the int8 band and the bfloat16 frame with
+no work in its stages (no widening, no ``wgmma``): every stage B3d stages
+is staged, and its consumers add ``x`` and diagonal 0's tile rows from two
+stages of each unit, one float32 add, bit for bit its plain version.  ``fm_compute_only``
 walks every chunk's units over panel 0 with the loop-variant indices, the
 panel under L2 evict_last, on the bfloat16 window; chunk i*'s units store
 and the others fold into a one-float sink, so no chunk's arithmetic can be
@@ -61,7 +63,8 @@ bit for bit as role B's launch on ``pad_xT``'s bfloat16 frame, without the
 pad pass, and faster on the H100 than that pass and launch together
 (``chip_smoke.py`` phase 22 times both).  That body takes any block: the
 wrappers pad the band and the frame (``fm_w8a8``'s int8 frame too) to a
-multiple of 16 with zeros where it is not one (:mod:`band_mma`).  Its
+multiple of 16 with zeros where it is not one (:mod:`band_mma`).
+``fm_dma_only`` takes any block with ``F ≤ block``.  Its
 schedule is its own, so ``rows_per_step``, ``depth`` and ``band_splits``
 are checked as the TPU kernels take them and shape nothing.
 Beside each kernel sit its plain PyTorch version (``*_reference``, the
@@ -82,9 +85,7 @@ from connectome_gnn_tpu_torch.ops.banded_quant import (
     _check_blocked,
     _fm_output,
     _fm_windows,
-    _launch,
     _pad_fm,
-    _stream,
     _windows_times_band,
     banded_spmm_quant_fm_reference,
     launch_fm_int8_on_xT,
@@ -96,9 +97,6 @@ from connectome_gnn_tpu_torch.ops.banded_quant import (
 DEPTHS = (2, 3, 4, 6, 8)
 #: the band splits (K) ``fm_deep`` takes
 BAND_SPLITS = (1, 2, 4)
-#: the ``fm_pipeline.cu`` kernel stages 16-byte rows, so its block must be a
-#: multiple of this
-BLOCK_MULTIPLE = 16
 
 #: ``[F, NBwin·block]`` → int8 and one float32 scale per column block (max-abs
 #: / 127; all-zero blocks get scale 1): K5's activation quantizer, which is
@@ -253,14 +251,6 @@ def fm_blocked_reference(q: QuantizedBandedMatrixFM, xb: torch.Tensor, rows_per_
 # ---------------------------------------------------------------------------
 
 
-def _check_card(kind: str, band: torch.Tensor, scales, device) -> None:
-    """``fm_dma_only``'s band on the card: its block a multiple of 16."""
-    _check_band(kind, band, scales, device)
-    if band.shape[2] % BLOCK_MULTIPLE:
-        raise ValueError(f"{kind}: block {band.shape[2]} is not a multiple of {BLOCK_MULTIPLE} "
-                         "(the kernel stages 16-byte rows)")
-
-
 def _check_xT(kind: str, xT: torch.Tensor, num_nodes: int) -> None:
     if xT.dim() != 2 or xT.shape[1] < num_nodes:
         raise ValueError(f"{kind}: activations {tuple(xT.shape)} are not [F, ≥{num_nodes}]")
@@ -290,19 +280,20 @@ def _launch_bf16_band(q: QuantizedBandedMatrixFM, x_pad: torch.Tensor) -> torch.
     return out
 
 
-def _launch_dma_only(q: QuantizedBandedMatrixFM, x_pad: torch.Tensor, R: int) -> torch.Tensor:
-    """B3a's copy-plus-add on the padded frame; ``[F, NB·block]``.  Counted
-    as a launch of :func:`fm_dma_only_kernel`."""
-    kind, nb, W, b = "B3a fm_dma_only", q.num_blocks, q.bandwidth, q.block
-    _check_card(kind, q.band_qT, None, x_pad.device)
+def _launch_dma_only(q: QuantizedBandedMatrixFM, x_pad: torch.Tensor) -> torch.Tensor:
+    """B3a's copy-plus-add on the padded frame, on role B's ring (the band
+    and the frame padded to a block that is a multiple of 16 where they are
+    not); ``[F, num_nodes]``.  Counted as a launch of
+    :func:`fm_dma_only_kernel`."""
+    kind, nb, W, b, n = "B3a fm_dma_only", q.num_blocks, q.bandwidth, q.block, q.num_nodes
+    _check_band(kind, q.band_qT, None, x_pad.device)
     F = x_pad.shape[0]
     _check_operand(kind, x_pad, torch.bfloat16, (F, (nb + 2 * W) * b))
-    out = torch.empty((F, nb * b), dtype=torch.float32, device=x_pad.device)
-    if F == 0:
-        return out
+    if F == 0 or n == 0:
+        return torch.empty((F, n), dtype=torch.float32, device=x_pad.device)
     with torch.cuda.device(x_pad.device):
-        _launch(kind, "cgt_fm_dma_only", q.band_qT.data_ptr(), x_pad.data_ptr(), out.data_ptr(),
-                nb, W, b, F, R, x_pad.stride(0), _stream(x_pad.device))
+        out = band_mma.launch_dma_only(kind, band_mma.pad_band(q.band_qT), band_mma.fm_frame(x_pad, nb, W, b),
+                                       n, W, b)
     fm_dma_only_kernel.launches += 1
     return out
 
@@ -328,12 +319,14 @@ def _launch_compute_only(q: QuantizedBandedMatrixFM, x_win: torch.Tensor, R: int
 def fm_dma_only_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tensor,
                        rows_per_step: int = 32) -> torch.Tensor:
     """Pad ``xT`` to the bfloat16 frame in torch, then launch B3a's
-    copy-plus-add on CUDA tensors; returns ``[F, num_nodes]`` float32."""
+    copy-plus-add on CUDA tensors; returns ``[F, num_nodes]`` float32.
+    ``rows_per_step`` is checked as the TPU kernel takes it and shapes
+    nothing."""
     kind = "B3a fm_dma_only"
-    R = _dma_only_rows(kind, q, xT.shape[0], rows_per_step)
+    _dma_only_rows(kind, q, xT.shape[0], rows_per_step)
     _check_xT(kind, xT, q.num_nodes)
     x_pad = pad_xT(xT, q.num_nodes, q.num_blocks, q.bandwidth, q.block)
-    return _launch_dma_only(q, x_pad, R)[:, : q.num_nodes]
+    return _launch_dma_only(q, x_pad)
 
 
 def fm_compute_only_kernel(q: QuantizedBandedMatrixFM, xT: torch.Tensor,

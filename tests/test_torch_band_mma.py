@@ -1071,16 +1071,139 @@ def test_b2b_dot_is_exact_at_the_saturated_bound():
 
 def test_k5_left_the_cuda_core_body():
     """K5's and B2b's C entry points are in ``csrc/band_mma.cu`` on s8
-    products; ``csrc/banded_spmm.cu`` is gone, and ``csrc/fm_pipeline.cu``
-    holds the dma-only probe's entry alone: no int8 dots, no ``cgt_fm_w8a8``."""
+    products, and so is the dma-only probe's (``Variant::kDmaOnly``, role
+    B's ring); ``csrc/banded_spmm.cu`` and ``csrc/fm_pipeline.cu`` are gone,
+    and the band body keeps no int8 CUDA-core dot and no ``cp.async`` ring."""
     import os
 
     csrc = os.path.join(os.path.dirname(band_mma.__file__), "..", "csrc")
     mma = open(os.path.join(csrc, "band_mma.cu")).read()
-    pipeline = open(os.path.join(csrc, "fm_pipeline.cu")).read()
     assert "int cgt_banded_spmm_quant_fm_w8a8(" in mma and "m64n64k32.s32.s8.s8" in mma
     assert "int cgt_banded_spmm_w8a8_rowmajor(" in mma
-    assert not os.path.exists(os.path.join(csrc, "banded_spmm.cu"))
-    assert re.findall(r"^int (cgt_\w+)\(", pipeline, re.M) == ["cgt_fm_dma_only"]
-    for gone in ("cgt_fm_w8a8", "kDots", "__dp4a", "__byte_perm", "xscales", "int8_t, int8_t"):
-        assert gone not in pipeline
+    assert "int cgt_fm_dma_only(" in mma and "Variant::kDmaOnly" in mma
+    for gone in ("banded_spmm.cu", "fm_pipeline.cu"):
+        assert not os.path.exists(os.path.join(csrc, gone))
+    assert not [name for name in os.listdir(csrc) if "__dp4a" in open(os.path.join(csrc, name)).read()]
+    for gone in ("cp.async.cg", "cp.async.wait_group", "fm_pipeline_kernel"):
+        assert gone not in mma
+
+
+# ---------------------------------------------------------------------------
+# B3a dma-only: role B's ring, a copy-plus-add consumer
+# ---------------------------------------------------------------------------
+
+#: (num_blocks, W, block, num_nodes, F) for B3a dma-only: blocks of 16, 40
+#: (padded to 48) and 48, whose one partial stage carries every receiver
+#: and feature, and 80 (a partial second stage), each at W = 0, 1, 2 and F =
+#: 1, 5 and the block, ragged tails; and F = 130 at a block of 160, three
+#: feature units, so band rows f >= 64 come from sender chunks ft >= 1
+DMA_ONLY_SHAPES = [(5, W, b, 5 * b - 3 - W, F) for b in (16, 40, 48, 80) for W in (0, 1, 2)
+                   for F in (1, 5, b)] + [(4, 1, 160, 610, 130)]
+
+
+def dma_only_operands(shape):
+    """B3a dma-only's operands: the feature-major int8 band, ``xT [F, n]``,
+    and what its wrapper hands the launch, the padded band and the padded
+    bfloat16 frame."""
+    q, scales, x = random_quantized(shape, seed=sum(shape) + 15)
+    nb, W, block, n, F = shape
+    qf = tq.QuantizedBandedMatrixFM(torch.from_numpy(np.ascontiguousarray(np.swapaxes(q, 2, 3))),
+                                    torch.from_numpy(scales), n, W)
+    xT = torch.from_numpy(np.ascontiguousarray(x.T))
+    frame_p = band_mma.fm_frame(fv.pad_xT(xT, n, nb, W, block), nb, W, block)
+    assert (frame_p.shape[1] // (nb + 2 * W)) % 16 == 0
+    return qf, xT, band_mma.pad_band(qf.band_qT), frame_p
+
+
+@pytest.mark.parametrize("shape", DMA_ONLY_SHAPES, ids=shape_id)
+def test_dma_only_on_its_operands_is_its_plain_version_bit_for_bit(shape):
+    nb, W, block, n, F = shape
+    qf, xT, band_p, frame_p = dma_only_operands(shape)
+    got = band_mma.dma_only_on_operands(band_p, frame_p, n, W, block, F)
+    assert got.shape == (F, n)
+    assert torch.equal(got, fv.fm_dma_only_reference(qf, xT, rows_per_step=1))
+
+
+def dma_only_by_stages(band_p: np.ndarray, frame_p: np.ndarray, nb: int, W: int, block: int, n: int,
+                       F: int):
+    """B3a dma-only's kernel in numpy, unit by unit, on the padded band and
+    the padded frame's bfloat16 bits: the boxes of each stage
+    of diagonal 0 as TMA writes them (128-byte rows, swizzled, zero fill
+    past b' and F), then every thread's loads at the kernel's offsets into
+    role B's accumulator layout, entry 4j + 2h + e feature 16 warp + quad +
+    8h by receiver 8j + pair + e: x from the frame box of sender chunk 2 mt
+    + group, the band from the band box of sender chunk ft; float32 adds from
+    0, stores masked to b, n and F.  Returns (out [F, n] float32, the
+    (unit, group, stage) reads, the most wavefronts any warp load takes)."""
+    bp = band_p.shape[2]
+    nk, mtiles, ftiles = -(-bp // 64), -(-bp // 128), -(-F // 64)
+    x_bits = frame_p.view(np.uint16).reshape(F, nb + 2 * W, bp)
+
+    def band_box(rb, kc, mt):  # sender rows 64 kc.., 128 receivers 128 mt.. of tile (rb, 0)
+        box = np.zeros(64 * 128, np.uint8)
+        s, r = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+        ok = (64 * kc + s < bp) & (128 * mt + r < bp)
+        box[swizzled(s[ok], r[ok])] = band_p[rb, 0][64 * kc + s[ok], 128 * mt + r[ok]].view(np.uint8)
+        return box
+
+    def frame_box(rb, kc, ft):  # feature rows 64 ft.., 64 senders 64 kc.. of frame block rb
+        box = np.zeros(64 * 64, np.uint16)
+        f, s = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+        ok = (64 * ft + f < F) & (64 * kc + s < bp)
+        box[swizzled(f[ok], 2 * s[ok]) // 2] = x_bits[64 * ft + f[ok], rb, 64 * kc + s[ok]]
+        return box.view(np.uint8)
+
+    warp, lane, j, h = np.meshgrid(np.arange(4), np.arange(32), np.arange(8), np.arange(2), indexing="ij")
+    quad, pair = lane // 4, 2 * (lane % 4)
+    row = (16 * warp + quad + 8 * h) * 128
+    out, reads, waves = np.zeros((F, n), np.float32), set(), 0
+    for u in range(nb * mtiles * ftiles):
+        ft, mt, rb = u % ftiles, (u // ftiles) % mtiles, u // (ftiles * mtiles)
+        for group in range(2):
+            acc = np.zeros((4, 32, 8, 2, 2), np.float32)  # [warp, lane, j, h, e]
+            for kc in range(nk):  # diagonal 0; the other diagonals' stages are released untouched
+                if kc == 2 * mt + group:
+                    reads.add((u, group, ("x", kc)))
+                    off = row + ((j ^ quad) << 4) + 2 * pair
+                    words = frame_box(rb, kc, ft).view("<u4")[off // 4]
+                    acc += np.stack([(words << 16).view(np.float32),
+                                     (words & 0xFFFF0000).view(np.float32)], axis=-1)
+                    waves = max(waves, max(wavefronts(list(off[w, :, jj, hh] // 4))
+                                           for w in range(4) for jj in range(8) for hh in range(2)))
+                if kc == ft:
+                    reads.add((u, group, ("band", kc)))
+                    off = row + (((4 * group + (j >> 1)) ^ quad) << 4) + 8 * (j & 1) + pair
+                    box = band_box(rb, kc, mt).view(np.int8)
+                    acc += np.stack([box[off], box[off + 1]], axis=-1).astype(np.float32)
+                    waves = max(waves, max(wavefronts(list(off[w, :, jj, hh] // 4))
+                                           for w in range(4) for jj in range(8) for hh in range(2)))
+            f = 64 * ft + np.broadcast_to((16 * warp + quad + 8 * h)[..., None], acc.shape)
+            r = 128 * mt + 64 * group + np.broadcast_to((8 * j + pair)[..., None] + np.arange(2), acc.shape)
+            node = rb * block + r
+            ok = (f < F) & (r < block) & (node < n)
+            out[f[ok], node[ok]] = acc[ok]
+    return out, reads, waves
+
+
+@pytest.mark.parametrize("shape", [(5, 0, 16, 77, 16), (5, 2, 40, 197, 5), (4, 1, 80, 317, 80),
+                                   (4, 1, 160, 610, 130), (2, 2, 256, 500, 64)], ids=shape_id)
+def test_dma_only_consumer_reads_rebuild_the_output(shape):
+    """The consumer's loads from the swizzled boxes of role B's stages, at
+    the kernel's offsets, rebuild B3a dma-only's output bit for bit its
+    plain version; each warpgroup reads two stages a unit (x from sender
+    chunk 2 mt + group where that chunk exists, the band from chunk ft), and
+    each load of a warp meets every bank once."""
+    nb, W, block, n, F = shape
+    qf, xT, band_p, frame_p = dma_only_operands(shape)
+    got, reads, waves = dma_only_by_stages(band_p.numpy(), frame_p.view(torch.int16).numpy(), nb, W, block,
+                                           n, F)
+    assert torch.equal(torch.from_numpy(got), fv.fm_dma_only_reference(qf, xT, rows_per_step=1))
+    assert waves == 1
+    bp, ftiles = band_p.shape[2], -(-F // 64)
+    nk, mtiles = -(-bp // 64), -(-bp // 128)
+    for u in range(nb * mtiles * ftiles):
+        ft, mt = u % ftiles, (u // ftiles) % mtiles
+        for group in range(2):
+            want = {(u, group, ("band", ft))} | ({(u, group, ("x", 2 * mt + group))} if 2 * mt + group < nk
+                                                 else set())
+            assert {r for r in reads if r[:2] == (u, group)} == want

@@ -22,7 +22,9 @@ operands: K5's function on them (the padded band and the int8 frame padded
 by ``fm_frame``) is its plain version bit for bit and JAX's at 1e-5, at
 those blocks and at a block of 40, which the wrapper pads to 48.  The
 kernels themselves run only on the card
-(``tests/test_torch_fm_variants_cuda.py``).
+(``tests/test_torch_fm_variants_cuda.py``); ``fm_dma_only``'s on its
+prepared operands, and a numpy emulation of its consumer's reads from role
+B's swizzled stages, are in ``tests/test_torch_band_mma.py``.
 """
 
 import os
@@ -476,33 +478,33 @@ def test_kernel_wrappers_refuse_cpu_tensors(cases, kernel):
 
 def test_fm_deep_and_fm_blocked_left_the_cuda_core_pipeline():
     """B3c and B3d launch role B of ``csrc/band_mma.cu`` (B3c through K4's
-    entry, B3d through its own bfloat16-frame entry); ``fm_pipeline.cu``
-    keeps only the probes' two-stage ring: no depth S, no band splits, no
-    blocked layout, and none of their entry points."""
+    entry, B3d through its own bfloat16-frame entry), and so does B3a
+    dma-only (``Variant::kDmaOnly`` on role B's ring); ``fm_pipeline.cu``,
+    the probes' two-stage ring, is gone, and none of its depth S, band
+    splits or ring remains."""
     csrc = os.path.join(os.path.dirname(fv.__file__), "..", "csrc")
     mma = open(os.path.join(csrc, "band_mma.cu")).read()
-    pipeline = open(os.path.join(csrc, "fm_pipeline.cu")).read()
     for entry in ("cgt_banded_spmm_quant_fm", "cgt_banded_spmm_quant_fm_bf16",
-                  "cgt_banded_spmm_quant_blocked_bf16"):
+                  "cgt_banded_spmm_quant_blocked_bf16", "cgt_fm_dma_only"):
         assert f"int {entry}(" in mma
-    for gone in ("cgt_fm_deep", "cgt_fm_blocked", "launch_int8_depth", "Layout", "kBlocked",
-                 "band_splits", "int S>", "int S)"):
-        assert gone not in pipeline
-    assert "constexpr int kStages = 2;" in pipeline
-    assert "int cgt_fm_dma_only(" in pipeline and "int cgt_fm_w8a8(" not in pipeline
-    assert "int cgt_fm_compute_only(" in mma
+    assert not os.path.exists(os.path.join(csrc, "fm_pipeline.cu"))
+    for gone in ("cgt_fm_deep", "cgt_fm_blocked", "launch_int8_depth", "band_splits", "int S>",
+                 "fm_pipeline_kernel", "cp.async.cg", "int cgt_fm_w8a8("):
+        assert gone not in mma
+    assert "Variant::kDmaOnly" in mma and "int cgt_fm_compute_only(" in mma
 
 
 def test_fm_compute_only_left_the_cuda_core_pipeline():
-    """B3b launches role B of ``csrc/band_mma.cu`` with its panel map;
-    ``fm_pipeline.cu`` keeps the dma-only probe alone: no compute-only
-    body, no sink, no int8 dots."""
+    """B3b launches role B of ``csrc/band_mma.cu`` with its panel map, and
+    B3a dma-only with its copy-plus-add consumer; ``fm_pipeline.cu`` is
+    gone, so no CUDA-core probe body remains."""
     csrc = os.path.join(os.path.dirname(fv.__file__), "..", "csrc")
     mma = open(os.path.join(csrc, "band_mma.cu")).read()
-    pipeline = open(os.path.join(csrc, "fm_pipeline.cu")).read()
     assert "int cgt_fm_compute_only(" in mma and "Variant::kPanel" in mma
-    for gone in ("kComputeOnly", "cgt_fm_compute_only", "sink", "i_star", "kDots", "__dp4a"):
-        assert gone not in pipeline
+    assert "int cgt_fm_dma_only(" in mma and "Variant::kDmaOnly" in mma
+    assert not os.path.exists(os.path.join(csrc, "fm_pipeline.cu"))
+    for gone in ("kComputeOnly", "kDots", "__dp4a"):
+        assert gone not in mma
 
 
 #: R of each role B case for B3b: NB = 12 at R = 4 puts chunk i* at 2, NB =

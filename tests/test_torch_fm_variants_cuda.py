@@ -1,8 +1,9 @@
 """The feature-major band-pipeline kernels B3a-B3d (``ops/fm_variants.py``;
-``csrc/fm_pipeline.cu`` for ``fm_dma_only``, K5's launch on
-``csrc/band_mma.cu`` for ``fm_w8a8``, role B of ``csrc/band_mma.cu`` for
+all on ``csrc/band_mma.cu``: K5's launch for ``fm_w8a8``, role B for
 ``fm_bf16_band``, ``fm_compute_only`` (with its panel map), ``fm_deep`` and
-``fm_blocked``) against their plain PyTorch versions, on the card.
+``fm_blocked``, and role B's TMA ring with a copy-plus-add consumer,
+``Variant::kDmaOnly``, for ``fm_dma_only``) against their plain PyTorch
+versions, on the card.
 
 Every test here needs a CUDA card and skips without one.  The machine with
 the card has no JAX, and ``tests/conftest.py`` imports it, so run them
@@ -12,7 +13,8 @@ there without the conftest:
 
 This file imports no JAX.  Tolerance: kernel against plain version rtol
 1e-5 / atol 1e-5 (the same exact products, float32 sums in another order);
-``fm_dma_only`` bitwise (one float32 add); ``fm_w8a8`` bitwise against its
+``fm_dma_only`` bitwise (one float32 add), also at blocks of 40 (padded to
+48), 16 and 48; ``fm_w8a8`` bitwise against its
 plain version and against K5's kernel on K5's operands (it is K5's launch:
 exact int32 dots, then the scale's product and the sum rounded apart, as
 the plain version rounds), at every shape and at blocks of 40 (padded to
@@ -192,9 +194,10 @@ def test_fm_w8a8_is_k5_on_its_operands(cuda):
 
 @pytest.mark.parametrize("shape", [(6, 1, 40, 230, 5, 3), (12, 1, 16, 180, 8, 4), (10, 2, 48, 470, 130, 5)])
 def test_fm_w8a8_takes_any_block(cuda, shape):
-    """A block of 40, which the fm_pipeline.cu body refused and K5's launch
-    takes padded to 48, and of 16 and 48 (one partial 128-sender chunk):
-    bit for bit the plain version, and K5's kernel on K5's operands."""
+    """A block of 40, which the CUDA-core body it replaced refused and K5's
+    launch takes padded to 48, and of 16 and 48 (one partial 128-sender
+    chunk): bit for bit the plain version, and K5's kernel on K5's
+    operands."""
     nb, W, block, n, F, R = shape
     ops = Operands(nb, W, block, n, F, seed=sum(shape), device=cuda)
     got = fv.fm_w8a8_kernel(ops.q, ops.xq, ops.xscales, rows_per_step=R)
@@ -203,6 +206,23 @@ def test_fm_w8a8_takes_any_block(cuda, shape):
     xq, xs = bq.quantize_activations_padded(ops.q, ops.xT)
     assert torch.equal(fv.fm_w8a8_kernel(ops.q, xq, xs, rows_per_step=R),
                        bq.banded_spmm_quant_fm_w8a8_kernel(ops.q, ops.xT))
+
+
+@pytest.mark.parametrize("shape", [(6, 1, 40, 230, 5, 3), (12, 1, 16, 180, 16, 4), (10, 2, 48, 470, 48, 5),
+                                   (4, 0, 160, 610, 130, 2)])
+def test_fm_dma_only_takes_any_block(cuda, shape):
+    """A block of 40, which the CUDA-core body it replaced refused and role
+    B's ring takes padded to 48; of 16 and 48 (one partial 64-sender stage
+    carries every receiver and feature, F = b); and F = 130 at a block of
+    160 (band rows from sender chunks 0-2): bit for bit the plain version,
+    and the launch alone on the wrapper's frame the wrapper's output."""
+    nb, W, block, n, F, R = shape
+    ops = Operands(nb, W, block, n, F, seed=sum(shape), device=cuda)
+    got = fv.fm_dma_only_kernel(ops.q, ops.xT, rows_per_step=R)
+    assert got.shape == (F, n)
+    assert torch.equal(got, fv.fm_dma_only_reference(ops.q, ops.xT, rows_per_step=R))
+    x_pad = fv.pad_xT(ops.xT, n, nb, W, block)
+    assert torch.equal(fv._launch_dma_only(ops.q, x_pad), got)
 
 
 def test_fm_compute_only_reads_only_panel_0(cuda):
@@ -225,9 +245,11 @@ def test_entry_points_launch_the_kernel_on_cuda_tensors(cuda, kid):
 
 def test_kernels_refuse_operands_they_do_not_take(cuda):
     ops = Operands(8, 1, 64, 512, 16, seed=4, device=cuda)
-    odd = Operands(4, 1, 40, 160, 8, seed=4, device=cuda)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        fv.fm_dma_only_kernel(odd.q, odd.xT, rows_per_step=2)
+    wide = Operands(4, 1, 40, 160, 48, seed=4, device=cuda)
+    before = fv.fm_dma_only_kernel.launches
+    with pytest.raises(ValueError, match="exceeds the block"):
+        fv.fm_dma_only_kernel(wide.q, wide.xT, rows_per_step=2)
+    assert fv.fm_dma_only_kernel.launches == before
     with pytest.raises(ValueError, match="share"):
         fv.fm_deep_kernel(ops.q._replace(band_qT=ops.q.band_qT.cpu()), ops.xT)
     with pytest.raises(ValueError, match="depth"):
