@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and giant-graph training paths, its
 band-SpMM variants, its band-pipeline probes, graph-classification
-training and the random-row gather, once on one NVIDIA card.
+training, the random-row gather, mixed precision, the headline bench and
+entry point, and the giant-graph layout set-up, once on one NVIDIA card.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -23,7 +24,8 @@ Phases, one line each:
    B3c) and blocked (K6), and on a bfloat16 frame, feature-major (timed
    against K4), with B3b's panel map and blocked (B3d), among them) and any
    warning it gives, and C7518 (``wgmma`` serialized); the full run fails
-   if a kernel spills or draws C7518;
+   if a kernel spills or draws C7518; then ``g++`` builds the native host
+   helpers (``native.AVAILABLE``, timed; phase 28 fails without them);
 3. each fused kernel (K1 GCN, K2 SAGE) against its plain PyTorch version on
    the card at sixteen (B, n, F, H, L) shapes, rtol 1e-4 / atol 1e-5 (the
    repository's f32 gate), which take every cluster size the rule picks
@@ -212,7 +214,8 @@ Then graph-classification training (``Trainer.fit``, which runs no
 hand-written kernel) and the random-row gather B1 of
 ``benchmarks/gather_dma_experiments.py``:
 
-23. training on the card: ``examples/demo.py``'s flow (``generate_dataset(300,
+23. training on the card: ``examples/demo.py``'s flow, run by
+    ``examples/demo_torch.py``'s ``train_and_test`` (``generate_dataset(300,
     seed=42)``, its 70/15/15 split, COO batches of 16) through ``Trainer.fit``
     for GCN and SAGE at hidden 64, 3 layers, dropout 0.3, 30 epochs with
     patience 8: the history is finite, the train loss falls, no step is
@@ -245,6 +248,42 @@ hand-written kernel) and the random-row gather B1 of
     entry point at every (K, C), and where the entry point's host time goes
     (host clock, mean over many calls, piece by piece).
 
+Then this slice's paths: mixed precision, the application surface and
+the giant-graph set-up.
+
+26. bf16: the precision flags as found; ``mixed_matmul`` on the card
+    within 1e-5 of sum |a||b| from the float64 product of the rounded
+    operands, at the model's product shapes, with TF32 and bfloat16
+    reduced-precision reduction off and on (the product pins both off,
+    backward too, and restores them); GCN and SAGE at hidden 64, L=3 with
+    ``compute_dtype=torch.bfloat16`` on a dense batch of 16: against the
+    port's CPU bf16 path (1e-3) and the float32 path (0.05, argmax 0.9);
+    ``forward_auto`` of the bf16 model launches K1 or K2 once and gives
+    the float32 logits (1e-4 / 1e-5); the whole bf16 forward and one
+    product by ``mixed_matmul``'s route (round, then a float32 product)
+    and by cuBLAS on the bfloat16 operands into a float32 output (CUDA
+    events, in turns); one bf16 train step on the card against the CPU
+    (loss 1e-4, gradients 1e-2 relative Frobenius over all of them and
+    4e-2 each), and the same gates read on two faulty steps, which must
+    fail them: a bfloat16 output of every product, and each gradient
+    zeroed in turn;
+27. ``bench_torch.py`` as a subprocess: its lines, its gate passed, its
+    JSON line with ``bench.py``'s four keys; then ``entry()`` on the card
+    against ``model(batch)`` and the CPU entry point (1e-4 / 1e-5);
+28. the giant-graph set-up: ``native.AVAILABLE`` (built in phase 2); the
+    planner's two rates on the card (the port's ``coo_spmm`` per edge at
+    4,194,304 random edges and F = 64; the bytes ``_band_cost_curve``
+    prices for phase 6's band over the float32 ``banded_spmm``'s time);
+    then a scrambled graph at ``benchmarks/suite.py:738-756``'s 5c scale
+    (65,536 nodes, degree 16, band 512, 10 % shortcuts, F = 64, ids
+    permuted from a seed): ``plan_layout`` and ``build_layout`` timed on
+    the host, ``auto_layout(..., quantized=True)`` the same plan, then
+    ``BandedNodeGCN.prepare_quantized`` + ``apply_quantized`` with K3
+    launched L = 2 times and nothing else, against the float32 COO model
+    on the scrambled input through ``plan.perm`` (the int8 gate: 5e-2
+    relative Frobenius, 0.99 argmax), and the plan's predicted µs for one
+    SpMM against its measured time.
+
 It prints the card's name and power limit, the kernels' JSON line (K1 to
 K7, K4's backward, B2a-B2c, B3a-B3d and B1 at the script's three cases,
 each with its launches on the main path, its largest error against its
@@ -261,7 +300,9 @@ the machine with the card has none.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import importlib.util
 import json
 import os
 import re
@@ -287,7 +328,19 @@ from connectome_gnn_tpu_torch import (
     generate_dataset,
     generate_spatial_graph,
 )
-from connectome_gnn_tpu_torch.data import apply_ordering, bandwidth, reverse_cuthill_mckee
+from connectome_gnn_tpu_torch import entry as port_entry
+from connectome_gnn_tpu_torch import native
+from connectome_gnn_tpu_torch.data import (
+    apply_ordering,
+    auto_layout,
+    bandwidth,
+    build_layout,
+    collate_dense,
+    plan_layout,
+    reverse_cuthill_mckee,
+)
+from connectome_gnn_tpu_torch.data import layout
+from connectome_gnn_tpu_torch.models import layers as conv_layers
 from connectome_gnn_tpu_torch.ops import _build
 from connectome_gnn_tpu_torch.ops import band_mma
 from connectome_gnn_tpu_torch.ops import band_variants as bv
@@ -297,6 +350,7 @@ from connectome_gnn_tpu_torch.ops import fm_variants as fv
 from connectome_gnn_tpu_torch.ops import fused
 from connectome_gnn_tpu_torch.ops import gather_dma as gd
 from connectome_gnn_tpu_torch.ops.banded import BandedMatrix, banded_spmm, pad_blocks, to_banded, to_hybrid
+from connectome_gnn_tpu_torch.ops.segment import coo_spmm
 from connectome_gnn_tpu_torch.ops.fused import (
     fused_gcn_forward_reference,
     fused_gcn_kernel,
@@ -305,7 +359,6 @@ from connectome_gnn_tpu_torch.ops.fused import (
     gcn_weights,
     sage_weights,
 )
-from connectome_gnn_tpu_torch.train import reference_adam
 
 RTOL, ATOL = 1e-4, 1e-5
 #: (B, n, F, H, L): flagship batch 16 and 512, the largest fused shape, a
@@ -527,6 +580,25 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HOST_CALLS = 2000
 GATHER_REPLACES = "benchmarks/gather_dma_experiments.py:91"
 L2_BYTES = 50e6
+#: bf16 against the port's CPU bf16 path (one bfloat16 flip of an
+#: intermediate allowed, tests/test_torch_mixed_precision.py), and against
+#: float32 at tests/test_dense.py:95-109's gate: 0.05, argmax agreement 0.9
+BF16_CPU_TOL, BF16_F32_TOL, BF16_F32_AGREE = 1e-3, 0.05, 0.9
+#: one bf16 train step on the card against the CPU: the loss, the
+#: gradients by relative Frobenius error over all of them, and each tensor
+#: alone at a looser limit: a float32 sum in another order can flip a
+#: bfloat16 rounding downstream, which moves a small gradient such as a
+#: BatchNorm bias's by up to 1.41 % on the card, and by up to 3.6 % on the
+#: CPU under 1.2e-7 relative noise on each product's sum.  A bfloat16
+#: output of every product moved the worst tensor 5.2 % (GCN) and 22 %
+#: (SAGE) on the CPU, all of them 2.6 % and 7.7 %
+BF16_STEP_LOSS_ATOL, BF16_STEP_GRAD_REL, BF16_STEP_TENSOR_REL = 1e-4, 1e-2, 4e-2
+#: the giant graph the layout phase scrambles: benchmarks/suite.py:738-756's
+#: 5c scale (65,536 nodes, degree 16, band ±512, 10 % shortcuts, F = 64),
+#: ids permuted from a seed as benchmarks/layout_experiments.py:133-135 does
+SCRAMBLED = dict(num_nodes=65_536, degree=16, band=512, shortcut_frac=0.1, feat=64, seed=0)
+#: the scatter rate's COO SpMM: random edges over the giant graph's nodes
+SCATTER = dict(num_nodes=1 << 20, num_edges=1 << 22, feat=64)
 
 
 def check(ok: bool, what) -> None:
@@ -545,9 +617,9 @@ def randomize_batch_norms(model, rng: np.random.Generator) -> None:
             bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, H).astype(np.float32)))
 
 
-def make_model(kind, F, H, L, seed=0):
+def make_model(kind, F, H, L, seed=0, compute_dtype=torch.float32):
     model = KERNELS[kind]["model"](
-        in_channels=F, hidden_dim=H, num_classes=2, num_layers=L,
+        in_channels=F, hidden_dim=H, num_classes=2, num_layers=L, compute_dtype=compute_dtype,
         generator=torch.Generator().manual_seed(seed),
     )
     randomize_batch_norms(model, np.random.default_rng(seed))
@@ -2216,10 +2288,16 @@ def fm_pipeline_phases(dev, card, graph) -> list[dict]:
     return entries
 
 
-def demo_split(graphs):
-    """``examples/demo.py``'s 70 / 15 / 15 split."""
-    n_train, n_val = int(0.7 * len(graphs)), int(0.15 * len(graphs))
-    return graphs[:n_train], graphs[n_train : n_train + n_val], graphs[n_train + n_val :]
+def demo_module():
+    """``examples/demo_torch.py``, whose train-and-test flow phase 23 runs."""
+    spec = importlib.util.spec_from_file_location("demo_torch", os.path.join(REPO, "examples", "demo_torch.py"))
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    check((demo.NUM_SUBJECTS, demo.BATCH_SIZE, demo.HIDDEN_DIM, demo.NUM_LAYERS, demo.DROPOUT, demo.EPOCHS,
+           demo.PATIENCE, demo.SEED) == tuple(DEMO[k] for k in ("subjects", "batch", "hidden", "layers",
+                                                              "dropout", "epochs", "patience", "seed")),
+          "examples/demo_torch.py's constants are not the demo's")
+    return demo
 
 
 def train_model(kind, dropout, seed=0):
@@ -2278,29 +2356,23 @@ class PreemptingLoader:
 def graph_training_phases(dev, card) -> None:
     """Phase 23 and the training half of phase 25."""
     t_start = time.perf_counter()
-    # 23. training on the card: the demo's flow
+    # 23. training on the card: the demo's flow (examples/demo_torch.py)
+    demo = demo_module()
     graphs = generate_dataset(num_subjects=DEMO["subjects"], seed=DEMO["seed"])
-    train_g, val_g, test_g = demo_split(graphs)
-    for kind in TRAIN_CLASSES:
-        train = ConnectomeDataLoader(train_g, batch_size=DEMO["batch"], shuffle=True, seed=DEMO["seed"])
-        val = ConnectomeDataLoader(val_g, batch_size=DEMO["batch"], shuffle=False)
-        test = ConnectomeDataLoader(test_g, batch_size=DEMO["batch"], shuffle=False)
-        trainer = Trainer(train_model(kind, DEMO["dropout"]), optimizer=reference_adam(1e-3, 1e-4),
-                          seed=DEMO["seed"], device=dev)
-        t0 = time.perf_counter()
-        hist = trainer.fit(train, val, num_epochs=DEMO["epochs"], patience=DEMO["patience"], verbose=False)
-        torch.cuda.synchronize()
-        t_fit = time.perf_counter() - t0
-        ev = trainer.evaluate(test)
+    train_g, val_g, test_g = demo.split(graphs)
+    loaders = demo.make_loaders(graphs)
+    for kind, name in zip(TRAIN_CLASSES, demo.MODELS):
+        hist, ev, t_fit = demo.train_and_test(name, loaders, graphs[0].num_features, device=dev, verbose=False)
         losses = hist["train_loss"]
         check(np.isfinite(losses + hist["val_loss"]).all(), (kind, hist))
         check(min(losses[1:]) < losses[0], (kind, "train loss did not fall", losses))
         check(set(hist["skipped_steps"]) == {0}, (kind, hist["skipped_steps"]))
         print(f"[23 training] {card} | {kind} fit on the card, demo flow ({len(train_g)}/{len(val_g)}/{len(test_g)} "
               f"graphs, COO batches of {DEMO['batch']}, hidden {DEMO['hidden']}, L={DEMO['layers']}, dropout "
-              f"{DEMO['dropout']}): {len(losses)} epochs in {t_fit:.2f} s, train loss {losses[0]:.4f} -> "
-              f"{losses[-1]:.4f} (least {min(losses):.4f}), best val loss {min(hist['val_loss']):.4f}, "
-              f"skipped steps 0; test accuracy {ev['accuracy']:.3f} ({ev['correct']}/{ev['total']})",
+              f"{DEMO['dropout']}; examples/demo_torch.py's train_and_test): {len(losses)} epochs in "
+              f"{t_fit:.2f} s, train loss {losses[0]:.4f} -> {losses[-1]:.4f} (least {min(losses):.4f}), best "
+              f"val loss {min(hist['val_loss']):.4f}, skipped steps 0; test accuracy {ev['accuracy']:.3f} "
+              f"({ev['correct']}/{ev['total']}; the reference run {demo.BASELINE_ACCURACY[name]:.3f})",
               flush=True)
 
     # three steps with dropout 0 on the card against the port on the CPU
@@ -2607,6 +2679,339 @@ def gather_phases(dev, card) -> list[dict]:
     return entries
 
 
+def product_gate(a, b, got) -> float:
+    """The worst ratio of |got - the float64 product of the bfloat16-rounded
+    operands| to 1e-5 · Σ|a|·|b| (tests/test_torch_mixed_precision.py)."""
+    a64, b64 = conv_layers.round_bf16(a).double(), conv_layers.round_bf16(b).double()
+    want = torch.matmul(a64, b64)
+    return float(((got.double() - want).abs() / (1e-5 * torch.matmul(a64.abs(), b64.abs()))).max())
+
+
+def grad_rel_errors(on_card, on_cpu, kind, zeroed=None) -> dict:
+    """Relative Frobenius error of each gradient on the card against the
+    CPU's, and of all of them as one vector (``"all"``); a GCN conv's bias
+    left out: BatchNorm follows it, so its gradient is float32 noise
+    (tests/test_torch_mixed_precision.py).  ``zeroed`` names a gradient
+    read as zeros, a control the gates must refuse."""
+    out, card, cpu = {}, [], []
+    for (name, pc), pg in zip(on_cpu.model.named_parameters(), on_card.model.parameters()):
+        if kind == "gcn" and name.startswith("convs.") and name.endswith(".bias"):
+            continue
+        g = torch.zeros_like(pc.grad) if name == zeroed else pg.grad.cpu()
+        out[name] = float(torch.linalg.norm(g - pc.grad) / torch.linalg.norm(pc.grad))
+        card.append(g.flatten())
+        cpu.append(pc.grad.flatten())
+    card, cpu = torch.cat(card), torch.cat(cpu)
+    out["all"] = float(torch.linalg.norm(card - cpu) / torch.linalg.norm(cpu))
+    return out
+
+
+def step_gates_pass(rel) -> bool:
+    """The bf16 train step's gradient gates: all of them, and each alone."""
+    return rel["all"] <= BF16_STEP_GRAD_REL and max(v for k, v in rel.items() if k != "all") <= BF16_STEP_TENSOR_REL
+
+
+def out_dtype_product(a, b):
+    """The other route to ``mixed_matmul``'s bf16 product, timed against
+    it and used nowhere in the port: cuBLAS on the bfloat16 operands into
+    a float32 output (``out_dtype``, which has no derivative)."""
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    with conv_layers.exact_products():
+        if b.dim() == 2:
+            out = torch.mm(a16.reshape(-1, a.shape[-1]), b16, out_dtype=torch.float32)
+            return out.view(*a.shape[:-1], b.shape[-1])
+        return torch.bmm(a16, b16, out_dtype=torch.float32)
+
+
+@contextlib.contextmanager
+def products_by(product):
+    """The dense layers' bf16 products computed by ``product(a, b)``
+    instead of ``mixed_matmul``'s (float32 products stay as they are)."""
+    taken = conv_layers.mixed_matmul
+
+    def mixed(a, b, compute_dtype=torch.float32):
+        return product(a, b) if compute_dtype == torch.bfloat16 else taken(a, b, compute_dtype)
+
+    conv_layers.mixed_matmul = mixed
+    try:
+        yield
+    finally:
+        conv_layers.mixed_matmul = taken
+
+
+def bf16_output_product(a, b, exact=conv_layers.mixed_matmul):
+    """A faulty bf16 product, the train step's control: ``mixed_matmul``'s
+    result rounded to bfloat16, as a bfloat16 output would round it."""
+    return conv_layers.round_bf16(exact(a, b, torch.bfloat16))
+
+
+def grad_gate(a, b, out, got, want) -> float:
+    """The worst ratio of the card's gradients of ``sum(out²)`` to the
+    CPU's: each is a float32 sum of exact products rounded to bfloat16
+    last, so they may sit one bfloat16 step (2^-7 relative) apart, plus
+    1e-5 of the sum of the products' magnitudes for the sums' order."""
+    a16, b16, g = conv_layers.round_bf16(a).abs(), conv_layers.round_bf16(b).abs(), 2 * out.abs()
+    if b.dim() == 2:
+        scale_b = a16.reshape(-1, a.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+    else:
+        scale_b = a16.transpose(-1, -2) @ g
+    scales = (g @ b16.transpose(-1, -2), scale_b)
+    return max(float(((gc - g0).abs() / (2.0 ** -7 * g0.abs() + 1e-5 * sc)).max())
+               for gc, g0, sc in zip(got, want, scales))
+
+
+def bf16_phase(dev, card) -> None:
+    """Phase 26: mixed precision (``compute_dtype=torch.bfloat16``) on the card."""
+    t_start = time.perf_counter()
+    flags = torch.backends.cuda.matmul
+    found = flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction
+    print(f"[26 bf16] {card} | precision flags as found: allow_tf32 {found[0]} (phase 1 switched it off), "
+          f"allow_bf16_reduced_precision_reduction {found[1]}; mixed_matmul (round the operands, then a "
+          f"float32 product) pins both off around its products, backward too", flush=True)
+    graphs = generate_dataset(num_subjects=DEMO["batch"], seed=DEMO["seed"])
+    batch_cpu = collate_dense(graphs)
+    batch = batch_cpu.to(dev)
+    B, n = batch.node_features.shape[:2]
+    H, L = DEMO["hidden"], DEMO["layers"]
+
+    # the product and its gradients on the card against the CPU's, with the
+    # caller's flags off and on
+    rng = np.random.default_rng(0)
+    shapes = [((B * n, 5), (5, H)), ((B * n, H), (H, H)), ((B, n, n), (B, n, H)), ((B, n, 2 * H), (2 * H, H))]
+    operands = [tuple(torch.from_numpy(rng.standard_normal(sh).astype(np.float32)) for sh in pair)
+                for pair in shapes]
+    worst, worst_grad = 0.0, 0.0
+    for on in (False, True):
+        flags.allow_tf32 = flags.allow_bf16_reduced_precision_reduction = on
+        try:
+            for a, b in operands:
+                ac, bc = (t.to(dev).clone().requires_grad_() for t in (a, b))
+                got = conv_layers.mixed_matmul(ac, bc, torch.bfloat16)
+                got.square().sum().backward()
+                torch.cuda.synchronize()
+                check((flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction) == (on, on),
+                      "mixed_matmul did not restore the flags")
+                worst = max(worst, product_gate(a, b, got.detach().cpu()))
+                a0, b0 = (t.detach().clone().requires_grad_() for t in (a, b))
+                out0 = conv_layers.mixed_matmul(a0, b0, torch.bfloat16)
+                out0.square().sum().backward()
+                worst_grad = max(worst_grad, grad_gate(a, b, out0.detach(), (ac.grad.cpu(), bc.grad.cpu()),
+                                                       (a0.grad, b0.grad)))
+        finally:
+            flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction = found
+    check(worst <= 1.0, ("mixed_matmul on the card outside 1e-5 of sum |a||b|", worst))
+    check(worst_grad <= 1.0, ("mixed_matmul's gradients on the card more than a bfloat16 step off", worst_grad))
+    print(f"[26 bf16] mixed_matmul on the card at the model's four product shapes, flags off and on: worst "
+          f"error {worst:.3f} of the gate (1e-5 of sum |a||b| from the float64 product of the rounded "
+          f"operands); gradients against the CPU's (round, multiply in float32) within {worst_grad:.3f} of "
+          f"a bfloat16 step (2^-7 relative)", flush=True)
+
+    for kind in KERNELS:
+        f32 = make_model(kind, 5, H, L).to(dev)
+        bf16 = make_model(kind, 5, H, L, compute_dtype=torch.bfloat16)
+        with torch.no_grad():
+            on_cpu = bf16(batch_cpu)
+            bf16.to(dev)
+            got, want = bf16(batch), f32(batch)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()), (kind, got.dtype))
+            torch.testing.assert_close(got.cpu(), on_cpu, rtol=BF16_CPU_TOL, atol=BF16_CPU_TOL)
+            torch.testing.assert_close(got, want, rtol=BF16_F32_TOL, atol=BF16_F32_TOL)
+            agree = float((got.argmax(1) == want.argmax(1)).float().mean())
+            check(agree >= BF16_F32_AGREE, (kind, "argmax agreement", agree))
+            # forward_auto serves it in float32 through K1/K2, as JAX's does
+            fused_gcn_kernel.launches = fused_sage_kernel.launches = 0
+            served = fused.forward_auto(bf16, batch)
+            torch.cuda.synchronize()
+            launches = {"gcn": fused_gcn_kernel.launches, "sage": fused_sage_kernel.launches}
+            check(launches == {k: int(k == kind) for k in launches}, (kind, launches))
+            torch.testing.assert_close(served, want, rtol=RTOL, atol=ATOL)
+
+            def other_route():
+                with products_by(out_dtype_product):
+                    return bf16(batch)
+
+            taken_ms, other_ms, f32_ms = cuda_ms([lambda: bf16(batch), other_route, lambda: f32(batch)], iters=50)
+            a, b = (t.to(dev) for t in operands[2])
+            mm_ms = cuda_ms([lambda: conv_layers.mixed_matmul(a, b, torch.bfloat16),
+                             lambda: out_dtype_product(a, b)], iters=100)
+        print(f"[26 bf16] {card} | {kind} hidden {H}, L={L}, dense batch of {B} (n={n}): bf16 forward "
+              f"against the port's CPU bf16 path max|diff| {float((got.cpu() - on_cpu).abs().max()):.3e} "
+              f"(gate {BF16_CPU_TOL}), against float32 max|diff| {float((got - want).abs().max()):.3e} "
+              f"(gate {BF16_F32_TOL}), argmax agreement {agree:.3f}; forward_auto: {launches[kind]} "
+              f"{KERNELS[kind]['name']} launch, float32 logits, max|served - float32 unfused| "
+              f"{float((served - want).abs().max()):.3e} (rtol {RTOL} / atol {ATOL}); the bf16 eval forward "
+              f"(CUDA events, median of 50, in turns): mixed_matmul's route (round, then a float32 product) "
+              f"{taken_ms:.4f} ms, the other (bf16 operands, out_dtype float32) {other_ms:.4f} ms, the "
+              f"float32 forward {f32_ms:.4f} ms; the [{B}, {n}, {n}] x [{B}, {n}, {H}] product alone: "
+              f"{mm_ms[0]:.4f} ms against {mm_ms[1]:.4f} ms", flush=True)
+
+    # one bf16 train step on the card against the CPU (dropout 0), the
+    # gates' controls, then step times
+    for kind in KERNELS:
+        model = train_model(kind, 0.0)
+        model.compute_dtype = torch.bfloat16
+        on_cpu = Trainer(copy.deepcopy(model), device="cpu", prefetch_depth=0)
+        faulty = Trainer(copy.deepcopy(model), device=dev, prefetch_depth=0)
+        on_card = Trainer(model, device=dev, prefetch_depth=0)
+        want, got = on_cpu.train_epoch([batch_cpu]), on_card.train_epoch([batch])
+        check(abs(got - want) <= BF16_STEP_LOSS_ATOL, (kind, "bf16 step loss", got, want))
+        rel = grad_rel_errors(on_card, on_cpu, kind)
+        check(step_gates_pass(rel), (kind, "bf16 step gradients", rel))
+        worst = max((v, k) for k, v in rel.items() if k != "all")
+        with products_by(bf16_output_product):
+            faulty_loss = faulty.train_epoch([batch])
+        bad = grad_rel_errors(faulty, on_cpu, kind)
+        bad_worst = max((v, k) for k, v in bad.items() if k != "all")
+        check(not step_gates_pass(bad), (kind, "the gates passed a bfloat16 output of every product", bad))
+        dropped = [grad_rel_errors(on_card, on_cpu, kind, zeroed=name) for name in rel if name != "all"]
+        check(not any(step_gates_pass(r) for r in dropped), (kind, "the gates passed a zeroed gradient"))
+        by_all = sum(r["all"] > BF16_STEP_GRAD_REL for r in dropped)
+        f32_trainer = Trainer(train_model(kind, 0.0), device=dev, prefetch_depth=0)
+        step_ms = host_ms([lambda: on_card._train_step(batch), lambda: f32_trainer._train_step(batch)], iters=20)
+        print(f"[26 bf16] {card} | {kind}: one bf16 Adam step (dense batch of {B}, dropout 0) on the card "
+              f"against the CPU: |loss| {abs(got - want):.3e} (atol {BF16_STEP_LOSS_ATOL}), gradients' relative "
+              f"Frobenius error {rel['all']:.3e} over all of them (gate {BF16_STEP_GRAD_REL}), the worst tensor "
+              f"{worst[1]} {worst[0]:.3e} (gate {BF16_STEP_TENSOR_REL}); controls, which must fail the gates: "
+              f"a bfloat16 output of every product: |loss| {abs(faulty_loss - want):.3e}, all {bad['all']:.3e}, "
+              f"worst tensor {bad_worst[1]} {bad_worst[0]:.3e}; each of the {len(dropped)} gradients zeroed in "
+              f"turn: {by_all} refused by the gate over all of them, {len(dropped)} by each tensor's; a train "
+              f"step (host clock ending in a synchronize, median of 20, in turns): bf16 {step_ms[0]:.3f} ms, "
+              f"float32 {step_ms[1]:.3f} ms", flush=True)
+    print(f"[26 bf16] {card} | phase 26 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def bench_and_entry_phase(dev, card) -> None:
+    """Phase 27: ``bench_torch.py`` as a subprocess, then ``entry()``."""
+    t_start = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "bench_torch.py")], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, ("bench_torch.py failed", proc.returncode, proc.stderr[-3000:]))
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"[27 bench] {line}", flush=True)
+    result = json.loads(lines[-1])
+    check(set(result) == {"metric", "value", "unit", "vs_baseline"}, result)
+    check(result["metric"] == "gcn_fwd_edge_messages_per_s" and result["value"] > 0, result)
+    check(any(line.startswith("[bench] gate:") and line.endswith("passed") for line in lines), "bench gate")
+    print(f"[27 bench] {card} | bench_torch.py's last line: {lines[-1]}", flush=True)
+
+    forward, (model, batch) = port_entry.entry()
+    logits = forward(model, batch)
+    with torch.no_grad():
+        want = model(batch)
+    cpu_forward, (cpu_model, cpu_batch) = port_entry.entry(device="cpu")
+    on_cpu = cpu_forward(cpu_model, cpu_batch)
+    check(logits.is_cuda and logits.shape == (16, 2) and bool(torch.isfinite(logits).all()), logits.shape)
+    torch.testing.assert_close(logits, want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(logits.cpu(), on_cpu, rtol=RTOL, atol=ATOL)
+    print(f"[27 entry] {card} | entry() on {logits.device}: logits {tuple(logits.shape)}, max|forward - "
+          f"model(batch)| {float((logits - want).abs().max()):.3e}, max|card - CPU entry| "
+          f"{float((logits.cpu() - on_cpu).abs().max()):.3e} (rtol {RTOL} / atol {ATOL}); phase 27 took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def coo_node_logits(model, s, r, w, x):
+    """Eval-mode logits of a node GCN over a COO graph in float32: each
+    conv's COO form (``GCNConv.forward``), BatchNorm's running moments, ReLU."""
+    h = x
+    for conv, norm in zip(model.convs, model.batch_norms):
+        h = torch.relu(norm(conv(h, s, r, w)))
+    return model.head(h)
+
+
+def layout_stream_bytes(num_nodes, W, block, feat) -> float:
+    """The bytes ``plan_layout``'s cost model prices for one float32 band
+    SpMM at bandwidth W (band, activation windows, output)."""
+    cost, _ = layout._band_cost_curve(np.zeros(W + 1, np.int64), num_nodes, 0, block=block, feat=feat,
+                                      hbm_gbps=1e-9, scatter_ns_per_edge=0.0, max_band_bytes=np.inf,
+                                      quantized=False)
+    return float(cost[W])
+
+
+@torch.no_grad()
+def layout_phase(dev, card, graph) -> None:
+    """Phase 28: the giant-graph set-up: native helpers, the layout
+    pipeline on a scrambled graph into K3's hybrid serving, and the two
+    rates of the planner's cost model."""
+    t_start = time.perf_counter()
+    check(native.AVAILABLE, "the native helpers did not build on the card's host")
+    print(f"[28 layout] {card} | native.AVAILABLE {native.AVAILABLE}, {os.path.basename(native.library_path())} "
+          f"(built in phase 2); planner defaults: hbm_gbps {layout.HBM_GBPS}, scatter_ns_per_edge "
+          f"{layout.SCATTER_NS_PER_EDGE}", flush=True)
+
+    # the two rates the cost model prices, measured first
+    sc = SCATTER
+    rng = np.random.default_rng(2)
+    r = np.sort(rng.integers(0, sc["num_nodes"], sc["num_edges"]))
+    s = rng.integers(0, sc["num_nodes"], sc["num_edges"])
+    edges = [torch.from_numpy(a).to(dev) for a in (s, r)]
+    w = torch.from_numpy(rng.random(sc["num_edges"], np.float32)).to(dev)
+    xs = torch.randn(sc["num_nodes"], sc["feat"], device=dev)
+    coo_ms, = cuda_ms([lambda: coo_spmm(w, *edges, xs, sc["num_nodes"])], iters=20, warmup=3)
+    scatter_ns = coo_ms * 1e6 / sc["num_edges"]
+    del edges, w, xs
+    n, block = graph.num_nodes, GIANT["block"]
+    a = to_banded(graph.edge_index[0], graph.edge_index[1], graph.edge_weight, n, block=block, device=dev)
+    xb = torch.randn(n, sc["feat"], device=dev)
+    band_ms, = cuda_ms([lambda: banded_spmm(a, xb)], iters=20, warmup=3)
+    priced = layout_stream_bytes(n, a.bandwidth, block, sc["feat"])
+    hbm_gbps = priced / (band_ms * 1e-3) / 1e9
+    del a, xb
+    print(f"[28 layout rates] {card} | scatter_ns_per_edge {scatter_ns:.4f} (the port's coo_spmm, "
+          f"{sc['num_edges']:,} random edges over {sc['num_nodes']:,} nodes, F={sc['feat']}: {coo_ms:.4f} ms, "
+          f"CUDA events, median of 20); hbm_gbps {hbm_gbps:.2f} (the port's float32 banded_spmm on phase 6's "
+          f"band, {n:,} nodes, W=2, block {block}, F={sc['feat']}: {priced:,.0f} B priced by "
+          f"_band_cost_curve in {band_ms:.4f} ms)", flush=True)
+
+    # the scrambled graph, planned, built and served
+    cfg = SCRAMBLED
+    g = generate_spatial_graph(cfg["num_nodes"], degree=cfg["degree"], band=cfg["band"],
+                               num_features=cfg["feat"], seed=cfg["seed"], shortcut_frac=cfg["shortcut_frac"])
+    gs = apply_ordering(g, np.random.default_rng(cfg["seed"] + 1).permutation(cfg["num_nodes"]))
+    s, r, w = gs.edge_index[0], gs.edge_index[1], gs.edge_weight
+    t0 = time.perf_counter()
+    plan = plan_layout(s, r, gs.num_nodes, weights=w, feat=cfg["feat"], quantized=True)
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_layout(plan, s, r, w, gs.num_nodes, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    adj, g2, auto_plan = auto_layout(gs, quantized=True, device=dev)
+    torch.cuda.synchronize()
+    t_auto = time.perf_counter() - t0
+    check(auto_plan.format == plan.format and np.array_equal(auto_plan.perm, plan.perm), "auto_layout's plan")
+    check(plan.format in ("banded", "hybrid") and plan.reordered, ("the plan kept the scramble", plan.format))
+    model = make_node_model(BandedNodeGCN, dev)
+    x_perm = torch.from_numpy(g2.node_features).to(dev)
+    reset_counters()
+    adj_q, dinv = model.prepare_quantized(adj, feature_major=False)
+    logits = model.apply_quantized(adj_q, dinv, x_perm)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches["K3"] == GIANT["layers"] and sum(launches.values()) == GIANT["layers"], launches)
+    edges = [torch.from_numpy(a.astype(np.int64)).to(dev) for a in (s, r)]
+    ref = coo_node_logits(model, *edges, torch.from_numpy(w).to(dev), torch.from_numpy(gs.node_features).to(dev))
+    ref = ref[torch.from_numpy(plan.perm).to(dev)]
+    rel, agree = quant_gate(logits, ref, "bf16")
+    spmm = bq.serving_spmm(adj_q)
+    xf = torch.randn(gs.num_nodes, cfg["feat"], device=dev)
+    spmm_ms, = cuda_ms([lambda: spmm(adj_q, xf)], iters=20, warmup=3)
+    print(f"[28 layout] {card} | scrambled 5c graph ({gs.num_nodes:,} nodes, {gs.num_edges:,} edges, "
+          f"{cfg['shortcut_frac']:.0%} shortcuts, ids permuted): plan {plan.format}, W={plan.bandwidth} "
+          f"(block {plan.block}), remainder {plan.remainder_frac:.4f}, index bandwidth "
+          f"{plan.bandwidth_before:,} -> {plan.bandwidth_after:,}; host plan_layout {t_plan:.2f} s, "
+          f"build_layout {t_build:.2f} s (on the card), auto_layout {t_auto:.2f} s; serving "
+          f"prepare_quantized + apply_quantized: launches {launches}; against the float32 COO model on the "
+          f"scrambled input through plan.perm: relative Frobenius {rel:.3e}, argmax agreement {agree:.4f} "
+          f"(gate {GATES['bf16']}); one SpMM of the plan (serving_spmm: K3 "
+          f"{'plus the COO remainder ' if plan.format == 'hybrid' else ''}at F={cfg['feat']}): predicted "
+          f"{plan.est_us['chosen']:.1f} µs, measured {spmm_ms * 1e3:.1f} µs (CUDA events, median of 20); "
+          f"COO predicted {plan.est_us['coo']:.1f} µs; phase 28 took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
 def demangled(name: str) -> str:
     """A kernel's C++ name, through ``c++filt`` where the machine has it."""
     try:
@@ -2644,6 +3049,10 @@ def main() -> None:
     serialized = [line for line in ptxas if "C7518" in line]
     print(f"[2 build] ptxas: {len(spills)} kernels spill, {len(serialized)} have their wgmma serialized (C7518)",
           flush=True)
+    t0 = time.perf_counter()
+    available = native.AVAILABLE
+    print(f"[2 build] native host helpers (g++ -O3, connectome_gnn_tpu_torch/native/cgt_native.cpp): "
+          f"AVAILABLE {available}, {time.perf_counter() - t0:.2f} s", flush=True)
     if "--serving-forwards" in sys.argv[1:]:
         serving_forwards(dev, card)
         return
@@ -2725,13 +3134,22 @@ def main() -> None:
 
     # 20-22. the feature-major band-pipeline probes B3a-B3d
     band_entries += fm_pipeline_phases(dev, card, graph)
-    del graph
 
     # 23 and 25. graph-classification training on the card
     graph_training_phases(dev, card)
 
     # 24 and 25. the random-row gather B1
     band_entries += gather_phases(dev, card)
+
+    # 26. mixed precision on the card
+    bf16_phase(dev, card)
+
+    # 27. bench_torch.py and entry()
+    bench_and_entry_phase(dev, card)
+
+    # 28. the giant-graph set-up: native helpers, the layout pipeline, the planner's rates
+    layout_phase(dev, card, graph)
+    del graph
 
     fused_entries = []
     for kind, k in KERNELS.items():

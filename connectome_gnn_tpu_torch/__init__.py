@@ -10,12 +10,16 @@ int8 serving and training, and every TPU kernel of the JAX package:
 
 * graph classification: synthetic connectomes, COO and dense batches, the
   loader and its prefetch thread, ``GCNConnectome`` and
-  ``GraphSAGEConnectome``, and ``Trainer``: ``fit`` (early stopping, the
-  non-finite step guard, preemption-safe checkpoints that resume bitwise),
-  ``evaluate`` and ``predict``, which serves dense batches on CUDA through
-  hand-written fused forward kernels;
-* giant-graph node classification: ``generate_spatial_graph``, RCM
-  reordering, the block band (``ops.banded``) and its int8 form, and
+  ``GraphSAGEConnectome`` (``compute_dtype=torch.bfloat16``: bfloat16
+  operands, float32 sums, as the JAX package's), and ``Trainer``: ``fit``
+  (early stopping, the non-finite step guard, preemption-safe checkpoints
+  that resume bitwise), ``evaluate`` and ``predict``, which serves dense
+  batches on CUDA through hand-written fused forward kernels; the flagship
+  model ready to run in ``connectome_gnn_tpu_torch.entry``;
+* giant-graph node classification: ``generate_spatial_graph``, RCM and
+  spectral reordering, the layout planner (``data.layout``: ``plan_layout``,
+  ``build_layout``, ``auto_layout``), the native host helpers
+  (``native``), the block band (``ops.banded``) and its int8 form, and
   ``BandedNodeGCN`` / ``BandedNodeSAGE``, which serve through hand-written
   int8 band SpMM kernels (``prepare_quantized`` / ``apply_quantized``);
   ``BandedNodeGCN`` also trains on the int8 band

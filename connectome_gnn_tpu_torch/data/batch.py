@@ -36,6 +36,31 @@ def round_up(value: int, multiple: int) -> int:
     return max(((value + multiple - 1) // multiple) * multiple, multiple)
 
 
+def to_device(batch, device=None):
+    """Copy of a batch (:class:`ConnectomeBatch` or ``DenseConnectomeBatch``)
+    with every tensor moved to ``device``, the analog of JAX's
+    ``to_device`` (``connectome_gnn_tpu/data/batch.py:237-251``).
+
+    ``device`` defaults to ``cuda``; without a CUDA card that raises
+    ``RuntimeError`` (pass ``device="cpu"`` for the CPU).
+    """
+    return _to(batch, card_by_default(device, "to_device"))
+
+
+def card_by_default(device, caller: str):
+    """``device``, or ``"cuda"`` when it is ``None``: the port's entry
+    points run on the card unless asked for the CPU.  Raises
+    ``RuntimeError`` when ``device`` is ``None`` and no CUDA card is
+    available."""
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f'{caller} runs on the CUDA card by default and none is available; pass device="cpu"'
+        )
+    return "cuda"
+
+
 def _to(batch, device):
     """Copy of a batch dataclass with every tensor field moved to ``device``."""
     return dataclasses.replace(

@@ -76,8 +76,10 @@ def collate_dense(
     (default: the CPU).
 
     All graphs share one per-graph node budget (largest graph rounded up
-    to ``node_multiple``).  Duplicate edges accumulate with ``np.add.at``,
-    matching COO scatter semantics bitwise.
+    to ``node_multiple``).  Duplicate edges accumulate additively, matching
+    COO scatter semantics: by the native helper
+    (:func:`connectome_gnn_tpu_torch.native.dense_pack`) where it is built,
+    else by ``np.add.at``, bitwise the same.
     """
     if len(graphs) == 0 and (num_graphs is None or num_features is None):
         raise ValueError(
@@ -99,11 +101,16 @@ def collate_dense(
     labels = np.zeros(B, dtype=np.int64)
     label_mask = np.zeros(B, dtype=bool)
 
+    from connectome_gnn_tpu_torch import native
+
     for b, g in enumerate(graphs):
         ng = g.num_nodes
         x[b, :ng] = g.node_features
         src, dst = g.edge_index
-        np.add.at(adj[b], (dst, src), g.edge_weight)
+        if native.AVAILABLE:  # receiver-major
+            native.dense_pack(src, dst, g.edge_weight, adj[b])
+        else:
+            np.add.at(adj[b], (dst, src), g.edge_weight)
         node_mask[b, :ng] = True
         if g.label is not None:
             labels[b] = int(g.label)

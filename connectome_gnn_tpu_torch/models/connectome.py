@@ -12,6 +12,12 @@ the SAGE layer).  Train or eval mode is the module's own (``.train()`` /
 ``.eval()``); BatchNorm updates its running moments in place in train mode.
 Parameter names are the reference's ``state_dict`` keys: ``convs.{i}.*``,
 ``batch_norms.{i}.*``, ``classifier.0.*`` and ``classifier.3.*``.
+
+``compute_dtype=torch.bfloat16`` is the JAX package's mixed precision: the
+dense layout's matmul operands are rounded to bfloat16 and their products
+summed in float32 (:func:`~connectome_gnn_tpu_torch.models.layers.mixed_matmul`);
+parameters, BatchNorm statistics, the COO layout and the logits stay
+float32.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from torch import nn
 
 from connectome_gnn_tpu_torch.data.batch import ConnectomeBatch
 from connectome_gnn_tpu_torch.data.dense import DenseConnectomeBatch
-from connectome_gnn_tpu_torch.models.layers import GCNConv, SAGEConv
+from connectome_gnn_tpu_torch.models.layers import COMPUTE_DTYPES, GCNConv, SAGEConv
 from connectome_gnn_tpu_torch.nn.layers import Dense, Dropout, MaskedBatchNorm
 from connectome_gnn_tpu_torch.ops.segment import graph_mean_pool
 
@@ -46,11 +52,17 @@ class _ConnectomeModel(nn.Module):
         num_layers: int = 3,
         dropout: float = 0.3,
         *,
+        compute_dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
     ):
         """Weights are drawn from ``generator`` (default: a fresh generator
-        seeded 0): conv layers in order, then the two head layers."""
+        seeded 0): conv layers in order, then the two head layers.
+        ``compute_dtype`` (``torch.float32`` or ``torch.bfloat16``) reaches
+        only the dense layout's products."""
         super().__init__()
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
+        self.compute_dtype = compute_dtype
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.in_channels = int(in_channels)
@@ -95,7 +107,7 @@ class _ConnectomeModel(nn.Module):
         x = batch.node_features
         flat_mask = batch.node_mask.reshape(B * n)
         for conv, norm in zip(self.convs, self.batch_norms):
-            x = conv.forward_dense(x, batch.adj)
+            x = conv.forward_dense(x, batch.adj, self.compute_dtype)
             x = norm(x.reshape(B * n, -1), flat_mask).reshape(B, n, -1)
             if type(self)._relu_after_norm:
                 x = torch.relu(x)

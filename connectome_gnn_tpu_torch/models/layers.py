@@ -14,9 +14,16 @@ with identical numerics.  Numeric contract (reference
 Both use the ``+1e-8`` epsilon denominators of the reference.  Parameter
 names follow the reference's ``state_dict`` (``linear.weight``, GCN
 ``bias``, SAGE ``linear.bias``).
+
+Mixed precision (``compute_dtype=torch.bfloat16``, dense layout only, as in
+``connectome_gnn_tpu/models/layers.py:228-281``): each matmul's operands are
+rounded to bfloat16 and the exact products are summed in float32
+(:func:`mixed_matmul`); degrees, normalization and the output stay float32.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -27,6 +34,82 @@ from connectome_gnn_tpu_torch.ops.gcn_norm import gcn_normalize
 from connectome_gnn_tpu_torch.ops.segment import coo_spmm, segment_sum
 
 EPS = 1e-8
+#: the matmul operand types of the dense path
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (to nearest, ties to even, as JAX's
+    ``astype(jnp.bfloat16)``), held in float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+@contextlib.contextmanager
+def exact_products():
+    """cuBLAS products inside take every operand bit and sum in float32:
+    TF32 and bfloat16 reduced-precision reduction are switched off, and
+    the caller's flags restored after."""
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction
+    flags.allow_tf32 = False
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction = saved
+
+
+def mixed_matmul(a: torch.Tensor, b: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+    """``a @ b`` in float32, its operands first rounded to ``compute_dtype``.
+
+    At ``torch.float32`` the plain product.  At ``torch.bfloat16`` JAX's
+    ``dot(a.astype(bf16), b.astype(bf16), preferred_element_type=f32)``:
+    the product of two bfloat16 values is exact in float32, so the result
+    is the float32 sum of exact products, in float32 (a bfloat16 output
+    would round it a second time).  ``b`` is ``[K, N]`` (``a [..., K]``)
+    or ``[B, K, N]`` (``a [B, M, K]``).  On every device the operands are
+    rounded and multiplied in float32 under :func:`exact_products`,
+    backward too (:class:`_ExactProduct`).
+    """
+    if compute_dtype == torch.float32:
+        return torch.matmul(a, b)
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
+    return _ExactProduct.apply(round_bf16(a), round_bf16(b))
+
+
+class _ExactProduct(torch.autograd.Function):
+    """``a @ b`` with its forward and backward products under
+    :func:`exact_products`: autograd runs the backward outside the
+    caller's scope, where the flags may be on."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        with exact_products():
+            return torch.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        a, b = ctx.saved_tensors
+        grad_a = grad_b = None
+        with exact_products():
+            if ctx.needs_input_grad[0]:
+                grad_a = torch.matmul(grad, b.transpose(-1, -2))
+            if ctx.needs_input_grad[1]:
+                if b.dim() == 2:
+                    grad_b = a.reshape(-1, a.shape[-1]).t() @ grad.reshape(-1, grad.shape[-1])
+                else:
+                    grad_b = torch.matmul(a.transpose(-1, -2), grad)
+        return grad_a, grad_b
+
+
+def dense_apply(layer: Dense, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+    """``layer(x)`` with its product at ``compute_dtype``."""
+    if compute_dtype == torch.float32:
+        return layer(x)
+    y = mixed_matmul(x, layer.weight.t(), compute_dtype)
+    return y if layer.bias is None else y + layer.bias
 
 
 class GCNConv(nn.Module):
@@ -56,14 +139,18 @@ class GCNConv(nn.Module):
         out = out + norm.self_norm[:, None] * xw
         return out + self.bias
 
-    def forward_dense(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    def forward_dense(
+        self, x: torch.Tensor, adj: torch.Tensor, compute_dtype=torch.float32
+    ) -> torch.Tensor:
         """Dense layout ``x [B, n, F]``, ``adj [B, n, n]``.  The degree of
-        sender j is the column sum over receivers i, plus the self-loop."""
+        sender j is the column sum over receivers i, plus the self-loop.
+        ``compute_dtype`` rounds the operands of ``x·W`` and
+        ``adj_norm·xw``; degrees and the self-loop term stay float32."""
         deg = adj.sum(dim=1) + 1.0
         dinv = torch.rsqrt(deg + EPS)  # [B, n]
         adj_norm = dinv[:, :, None] * adj * dinv[:, None, :]
-        xw = self.linear(x)
-        out = torch.matmul(adj_norm, xw) + (dinv * dinv)[:, :, None] * xw
+        xw = dense_apply(self.linear, x, compute_dtype)
+        out = mixed_matmul(adj_norm, xw, compute_dtype) + (dinv * dinv)[:, :, None] * xw
         return out + self.bias
 
 
@@ -90,9 +177,13 @@ class SAGEConv(nn.Module):
         agg = msg_sum / (w_sum + EPS)
         return torch.relu(self.linear(torch.cat([x, agg], dim=1)))
 
-    def forward_dense(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        """Dense layout: the weight sum is a row sum (receiver-major)."""
-        msg_sum = torch.matmul(adj, x)
+    def forward_dense(
+        self, x: torch.Tensor, adj: torch.Tensor, compute_dtype=torch.float32
+    ) -> torch.Tensor:
+        """Dense layout: the weight sum is a row sum (receiver-major).
+        ``compute_dtype`` rounds the operands of ``adj·x`` and
+        ``concat·W``; the weight sum stays float32."""
+        msg_sum = mixed_matmul(adj, x, compute_dtype)
         w_sum = adj.sum(dim=-1, keepdim=True)
         agg = msg_sum / (w_sum + EPS)
-        return torch.relu(self.linear(torch.cat([x, agg], dim=-1)))
+        return torch.relu(dense_apply(self.linear, torch.cat([x, agg], dim=-1), compute_dtype))

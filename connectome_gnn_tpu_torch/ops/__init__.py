@@ -58,6 +58,7 @@ from connectome_gnn_tpu_torch.ops.gcn_norm import GCNNorm, gcn_normalize
 from connectome_gnn_tpu_torch.ops.segment import (
     coo_spmm,
     graph_mean_pool,
+    sddmm,
     segment_mean,
     segment_sum,
 )
@@ -100,6 +101,7 @@ __all__ = [
     "quantize_hybrid",
     "quantize_transposed_fm",
     "quantize_x_blocks",
+    "sddmm",
     "segment_mean",
     "segment_sum",
     "to_banded",

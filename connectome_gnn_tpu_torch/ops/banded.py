@@ -70,8 +70,10 @@ def to_banded(
     edge; an edge outside an explicitly given band raises ``ValueError``
     (reorder the graph first).  Duplicate edges accumulate additively.
 
-    With ``device`` unset the band is built on the host by ``np.add.at``,
-    bitwise equal to the JAX package's.  With a ``device`` it accumulates
+    With ``device`` unset the band is built on the host, by the native
+    helper (:func:`connectome_gnn_tpu_torch.native.band_pack`) where it is
+    built and ``np.add.at`` otherwise, bitwise equal to the JAX package's.
+    With a ``device`` it accumulates
     there, by ``index_put_(accumulate=True)`` over linear tile indices: at a
     million nodes the host build of a 5.4 GB band and its pageable copy
     take far longer than the card's scatter.  Duplicate edges then add in
@@ -96,8 +98,13 @@ def to_banded(
     D = 2 * W + 1
 
     if device is None:
+        from connectome_gnn_tpu_torch import native
+
         band = np.zeros((nb, D, block, block), np.float32)
-        np.add.at(band, (rb, d + W, receivers % block, senders % block), weights)
+        if native.AVAILABLE:
+            native.band_pack(senders, receivers, weights, band, W)
+        else:
+            np.add.at(band, (rb, d + W, receivers % block, senders % block), weights)
         return BandedMatrix(torch.from_numpy(band), int(num_nodes), W)
 
     lin = ((rb * D + d + W) * block + receivers % block) * block + senders % block
@@ -318,18 +325,27 @@ def to_hybrid(
     )
 
 
-def remainder_spmm(a, x: torch.Tensor) -> torch.Tensor:
-    """The COO remainder's share of ``A @ x``, ``[num_nodes, F]``."""
+def remainder_spmm(a, x: torch.Tensor, *, remainder_chunk: Optional[int] = None) -> torch.Tensor:
+    """The COO remainder's share of ``A @ x``, ``[num_nodes, F]``, in
+    slices of ``remainder_chunk`` edges where that is given
+    (:func:`~connectome_gnn_tpu_torch.ops.segment.coo_spmm`'s
+    ``edge_chunk``)."""
     n = a.num_nodes
     return coo_spmm(
         a.remainder_weights, a.remainder_senders, a.remainder_receivers,
-        x[:n].to(torch.float32), n,
+        x[:n].to(torch.float32), n, edge_chunk=remainder_chunk,
     )
 
 
-def hybrid_spmm(a: HybridMatrix, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` for the hybrid form: banded bulk plus scatter remainder."""
-    return banded_spmm(a.band, x) + remainder_spmm(a, x)
+def hybrid_spmm(
+    a: HybridMatrix, x: torch.Tensor, *, remainder_chunk: Optional[int] = None
+) -> torch.Tensor:
+    """``A @ x`` for the hybrid form: banded bulk plus scatter remainder.
+
+    ``remainder_chunk`` bounds the device memory of a giant remainder: its
+    gathered messages take ``E·F·4`` bytes at once without it.
+    """
+    return banded_spmm(a.band, x) + remainder_spmm(a, x, remainder_chunk=remainder_chunk)
 
 
 def hybrid_row_sum(a: HybridMatrix) -> torch.Tensor:

@@ -330,6 +330,10 @@ def forward_auto(model, batch) -> torch.Tensor:
     kernel's shared memory (:func:`smem_bytes`) fits one block, and the
     batch lies on a CUDA device.  Every other batch runs ``model(batch)``.
     The model must be in eval mode.
+
+    The rule does not read ``compute_dtype``, as JAX's ``forward_auto``
+    (``connectome_gnn_tpu/ops/fused_pallas.py:264-305``) does not: a
+    bfloat16 model that fits is served in float32 by K1/K2.
     """
     if model.training:
         raise ValueError("forward_auto is an eval-mode path; call model.eval() first")

@@ -38,15 +38,20 @@ def gcn_normalize(
     receivers: torch.Tensor,
     edge_weight: torch.Tensor,
     num_nodes: int,
+    *,
+    self_loop_weight: float = 1.0,
+    eps: float = EPS,
 ) -> GCNNorm:
-    """Self-loop-augmented symmetric normalization factors."""
-    deg = segment_sum(edge_weight, senders, num_nodes) + 1.0
-    deg_inv_sqrt = torch.rsqrt(deg + EPS)
+    """Self-loop-augmented symmetric normalization factors: the degree over
+    senders plus ``self_loop_weight``, ``(deg + eps)^-1/2``, and the
+    self-loop coefficient ``d^-1/2 · self_loop_weight · d^-1/2``."""
+    deg = segment_sum(edge_weight, senders, num_nodes) + self_loop_weight
+    deg_inv_sqrt = torch.rsqrt(deg + eps)
     last = num_nodes - 1
     edge_norm = (
         deg_inv_sqrt[senders.clamp(0, last)]
         * edge_weight
         * deg_inv_sqrt[receivers.clamp(0, last)]
     )
-    self_norm = deg_inv_sqrt * deg_inv_sqrt
+    self_norm = deg_inv_sqrt * deg_inv_sqrt * self_loop_weight
     return GCNNorm(edge_norm, self_norm, deg_inv_sqrt)

@@ -15,6 +15,8 @@ then multiplied by a zero padding weight).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 EPS = 1e-8
@@ -56,6 +58,8 @@ def coo_spmm(
     receivers: torch.Tensor,
     features: torch.Tensor,
     num_nodes: int,
+    *,
+    edge_chunk: Optional[int] = None,
 ) -> torch.Tensor:
     """``out[i] = Σ_{e : receivers[e]=i} values[e] * features[senders[e]]``.
 
@@ -67,6 +71,35 @@ def coo_spmm(
     backward of advanced indexing accumulates in a thread-dependent order,
     and that of ``index_select`` (an ``index_add_``) does not, so a COO
     training run on the CPU replays bitwise.
+
+    ``edge_chunk`` bounds the memory of a giant edge list: the gathered
+    messages take ``E·F`` values at once, so past ``edge_chunk`` edges the
+    list is taken in slices of that many, each added into an
+    ``[num_nodes + 1, F]`` carry whose last row takes the dropped ids.  The
+    float32 sum's order changes with the slicing.
     """
-    messages = features.index_select(0, senders.clamp(0, num_nodes - 1)) * values[:, None]
-    return segment_sum(messages, receivers, num_nodes)
+    last = num_nodes - 1
+    E = values.shape[0]
+    if edge_chunk is None or E <= int(edge_chunk):
+        messages = features.index_select(0, senders.clamp(0, last)) * values[:, None]
+        return segment_sum(messages, receivers, num_nodes)
+    dtype = torch.promote_types(features.dtype, values.dtype)
+    out = features.new_zeros((num_nodes + 1, features.shape[1]), dtype=dtype)
+    for lo in range(0, E, int(edge_chunk)):
+        sl = slice(lo, lo + int(edge_chunk))
+        r = receivers[sl]
+        ids = torch.where((r >= 0) & (r < num_nodes), r, num_nodes)
+        messages = features.index_select(0, senders[sl].clamp(0, last)) * values[sl, None]
+        out.index_add_(0, ids, messages)
+    return out[:num_nodes]
+
+
+def sddmm(
+    x: torch.Tensor, y: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor
+) -> torch.Tensor:
+    """Sampled dense-dense product over an edge list:
+    ``out[e] = x[receivers[e]] · y[senders[e]]``, the per-edge dot of node
+    embeddings.  Padding ids are clamped to a real row, as JAX clamps them."""
+    xr = x.index_select(0, receivers.clamp(0, x.shape[0] - 1))
+    ys = y.index_select(0, senders.clamp(0, y.shape[0] - 1))
+    return (xr * ys).sum(dim=-1)

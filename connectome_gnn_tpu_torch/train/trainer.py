@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from connectome_gnn_tpu_torch.data.batch import card_by_default
 from connectome_gnn_tpu_torch.data.prefetch import PrefetchIterator
 from connectome_gnn_tpu_torch.nn.layers import Dropout
 from connectome_gnn_tpu_torch.ops.fused import forward_auto
@@ -113,14 +114,7 @@ class Trainer:
         skip_nonfinite: bool = True,
         prefetch_depth: int = 2,
     ):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "Trainer runs on the CUDA card by default and none is available; "
-                    'pass device="cpu" to run on the CPU'
-                )
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = torch.device(card_by_default(device, "Trainer"))
         self.model = model.to(self.device)
         self.optimizer = (optimizer or reference_adam())(self.model.parameters())
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))

@@ -130,7 +130,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "connectome_gnn_tpu_torch.ops.gather_dma, connectome_gnn_tpu_torch.data.reorder, "
         "connectome_gnn_tpu_torch.data.prefetch, connectome_gnn_tpu_torch.train.fault, "
         "connectome_gnn_tpu_torch.train.checkpoint, connectome_gnn_tpu_torch.train.trainer, "
-        "connectome_gnn_tpu_torch.models.node_gcn, connectome_gnn_tpu_torch.models.node_sage\n"
+        "connectome_gnn_tpu_torch.models.node_gcn, connectome_gnn_tpu_torch.models.node_sage, "
+        "connectome_gnn_tpu_torch.native, connectome_gnn_tpu_torch.data.layout, "
+        "connectome_gnn_tpu_torch.entry\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'connectome_gnn_tpu' or m.startswith('connectome_gnn_tpu.')]\n"
         "assert not bad, bad"
