@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving and giant-graph training paths, its
 band-SpMM variants, its band-pipeline probes, graph-classification
 training, the random-row gather, mixed precision, the headline bench and
-entry point, and the giant-graph layout set-up, once on one NVIDIA card.
+entry point, the giant-graph layout set-up, and sampled node training
+(host-sampled, device-sampled and scanned epochs), once on one NVIDIA card.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -282,7 +283,27 @@ the giant-graph set-up.
     launched L = 2 times and nothing else, against the float32 COO model
     on the scrambled input through ``plan.perm`` (the int8 gate: 5e-2
     relative Frobenius, 0.99 argmax), and the plan's predicted µs for one
-    SpMM against its measured time.
+    SpMM against its measured time;
+29. host-sampled training at ``benchmarks/suite.py``'s S2 widths
+    (``SAMPLED``: the spatial graph of 1,048,576 nodes with in-degree 38 and
+    10 % shortcuts, 5 channels, hidden 64, two layers, 1024 seeds a step,
+    fanout (10, 10)): ``SampledNodeLoader`` (fused) on the card, its first
+    batch bitwise a CPU loader's; one ``NodeGCN`` step on the card against
+    the CPU (loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-5); then
+    ``Trainer.train_epoch`` over 20 steps, ms a step with prefetch 2 and 0;
+30. device-sampled training (SD2): ``device_sampled_gcn``,
+    ``device_sampled_sage`` and SAGE multiset (``dedup=False``): the CSR's
+    bytes, ``device_sample`` on the card bitwise the CPU's for one row, eval
+    logits against the CPU (1e-4 / 1e-5), a step against the CPU, ms a
+    step stepwise over 20 steps, the memory peak and the device time by
+    kernel (``torch.profiler``) with the busy share;
+31. ``Trainer(scan_epochs=True)`` (SE2 GCN, SME2 SAGE multiset): 64 steps
+    scanned, one captured CUDA graph replayed a step, against the same
+    steps stepwise and stepwise again: parameters, BatchNorm buffers and
+    Adam state bitwise or their largest difference, the epoch's loss
+    within 1e-4 of the stepwise one, ms a step both ways and the host's
+    dispatches an epoch (kernel and graph launches, copies and fills by
+    ``torch.profiler``).  ``--sampled`` runs phases 29-31 alone.
 
 It prints the card's name and power limit, the kernels' JSON line (K1 to
 K7, K4's backward, B2a-B2c, B3a-B3d and B1 at the script's three cases,
@@ -312,6 +333,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -324,18 +346,26 @@ from connectome_gnn_tpu_torch import (
     ConnectomeDataLoader,
     GCNConnectome,
     GraphSAGEConnectome,
+    NodeGCN,
+    SampledNodeLoader,
     Trainer,
+    device_sampled_gcn,
+    device_sampled_sage,
     generate_dataset,
     generate_spatial_graph,
 )
 from connectome_gnn_tpu_torch import entry as port_entry
 from connectome_gnn_tpu_torch import native
 from connectome_gnn_tpu_torch.data import (
+    DeviceGraphCSR,
+    DeviceSampledModel,
     apply_ordering,
     auto_layout,
     bandwidth,
     build_layout,
     collate_dense,
+    device_sample,
+    make_seed_batch,
     plan_layout,
     reverse_cuthill_mckee,
 )
@@ -599,6 +629,17 @@ BF16_STEP_LOSS_ATOL, BF16_STEP_GRAD_REL, BF16_STEP_TENSOR_REL = 1e-4, 1e-2, 4e-2
 SCRAMBLED = dict(num_nodes=65_536, degree=16, band=512, shortcut_frac=0.1, feat=64, seed=0)
 #: the scatter rate's COO SpMM: random edges over the giant graph's nodes
 SCATTER = dict(num_nodes=1 << 20, num_edges=1 << 22, feat=64)
+#: sampled training (phases 29-31) at benchmarks/suite.py's S2, SD2, SE2 and
+#: SME2 widths (:1174-1189, :1741-1779): the spatial graph with 10 %
+#: shortcuts, 1,048,576 nodes, in-degree 38 (39.8M edges), 5 input channels,
+#: hidden 64, two layers, 1024 seeds a step, fanout (10, 10); steps a timed
+#: epoch (S2, SD2) and steps of the scanned epoch (SE2, SME2)
+SAMPLED = dict(num_nodes=1 << 20, degree=38, band=512, shortcut_frac=0.1, hidden=64, seeds=1024,
+               fanout=(10, 10), steps=20, scan_steps=64)
+SAMPLED_FIELDS = ("node_features", "senders", "receivers", "edge_weight", "node_mask", "labels",
+                  "label_mask", "seed_mask", "node_ids")
+#: the runtime calls by which the host puts work on the card
+DISPATCH = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|MemcpyAsync|MemsetAsync|Memcpy|Memset)")
 
 
 def check(ok: bool, what) -> None:
@@ -3012,6 +3053,262 @@ def layout_phase(dev, card, graph) -> None:
           flush=True)
 
 
+def sampled_graph():
+    """S2's graph and its learnable neighborhood-mean label
+    (``benchmarks/suite.py:1174-1189``, the sums by ``bincount``)."""
+    g = generate_spatial_graph(SAMPLED["num_nodes"], degree=SAMPLED["degree"], band=SAMPLED["band"],
+                               shortcut_frac=SAMPLED["shortcut_frac"], seed=0)
+    src, dst = g.edge_index
+    num = np.bincount(dst, weights=g.edge_weight * g.node_features[src, 0], minlength=g.num_nodes)
+    den = np.bincount(dst, weights=g.edge_weight, minlength=g.num_nodes)
+    return g, (num / (den + 1e-8) > 0).astype(np.int32)
+
+
+def masked_ce(logits, batch):
+    """The Trainer's loss: cross-entropy averaged over the labelled seeds."""
+    ce = F.cross_entropy(logits, batch.labels, reduction="none")
+    m = batch.label_mask.to(logits.dtype)
+    return (ce * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def step_on(model, batch):
+    """One forward and backward of ``model`` in train mode; returns the loss
+    and the gradients on the CPU."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = masked_ce(model(batch), batch)
+    loss.backward()
+    return loss.item(), {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+
+def check_step_matches(card_step, cpu_step, what) -> tuple[float, float]:
+    """A step on the card against the same step on the CPU: loss rtol 1e-5,
+    gradients rtol 1e-4 / atol 1e-5; returns the largest differences."""
+    (loss_g, grads_g), (loss_c, grads_c) = card_step, cpu_step
+    check(abs(loss_g - loss_c) <= 1e-5 * abs(loss_c) and np.isfinite(loss_g), (what, loss_g, loss_c))
+    for name, g in grads_c.items():
+        torch.testing.assert_close(grads_g[name], g, rtol=RTOL, atol=ATOL, msg=f"{what} gradient {name}")
+    return abs(loss_g - loss_c), max(float((grads_g[k] - g).abs().max()) for k, g in grads_c.items())
+
+
+def epoch_ms(trainer, loader, steps: int) -> tuple[float, float]:
+    """One timed epoch: ms a step (host clock ending in a synchronize) and
+    its loss."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = trainer.train_epoch(loader)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps, loss
+
+
+def dispatches(fn) -> int:
+    """The runtime calls that put work on the card while ``fn`` runs:
+    kernel and graph launches, copies and fills (torch.profiler)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if DISPATCH.match(e.key))
+
+
+def state_diff(a: Trainer, b: Trainer) -> dict:
+    """The largest difference of two trainers' parameters, BatchNorm
+    buffers and Adam state (0.0 where bitwise equal)."""
+    def groups(t):
+        params = [p.detach() for p in t.model.parameters()]
+        adam = [v for p in t.model.parameters() for v in t.optimizer.state[p].values() if torch.is_tensor(v)]
+        return {"parameters": params, "buffers": list(t.model.buffers()), "Adam state": adam}
+
+    out = {}
+    for (name, xs), ys in zip(groups(a).items(), groups(b).values()):
+        check(len(xs) == len(ys), (name, len(xs), len(ys)))
+        out[name] = max(float((x.double() - y.double()).abs().max()) for x, y in zip(xs, ys))
+    return out
+
+
+def diff_text(diff: dict) -> str:
+    return ", ".join(f"{k} {'bitwise' if v == 0.0 else f'max|diff| {v:.3e}'}" for k, v in diff.items())
+
+
+def sampled_phases(dev, card) -> None:
+    """Phases 29-31: sampled node training at S2, SD2, SE2 and SME2's widths."""
+    t_start = time.perf_counter()
+    S, fanout, steps = SAMPLED["seeds"], SAMPLED["fanout"], SAMPLED["steps"]
+    t0 = time.perf_counter()
+    g, labels = sampled_graph()
+    t_gen = time.perf_counter() - t0
+    n = g.num_nodes
+    pool = np.random.default_rng(0).permutation(n)[: steps * S]
+    print(f"[29 host-sampled] {card} | S2's graph: {n:,} nodes, {g.num_edges:,} edges, {g.num_features} "
+          f"channels, labels {labels.mean():.3f} positive; generated in {t_gen:.2f} s (host)", flush=True)
+
+    # 29. host-sampled training (S2): the fused loader feeds Trainer.train_epoch
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(seed_nodes=pool, batch_size=S, fanout=fanout, seed=0)
+    loader = SampledNodeLoader(g, labels, device=dev, **kw)
+    check(loader.fused and len(loader) == steps, (loader.fused, len(loader)))
+    on_card, on_cpu = next(iter(loader)), next(iter(SampledNodeLoader(g, labels, device="cpu", **kw)))
+    for name in SAMPLED_FIELDS:
+        got = getattr(on_card, name)
+        check(got.is_cuda and torch.equal(got.cpu(), getattr(on_cpu, name)), ("S2 batch", name))
+    model = NodeGCN(g.num_features, SAMPLED["hidden"], num_layers=len(fanout),
+                    generator=torch.Generator().manual_seed(0))
+    randomize_batch_norms(model, np.random.default_rng(0))
+    d_loss, d_grad = check_step_matches(step_on(copy.deepcopy(model).to(dev), on_card),
+                                        step_on(copy.deepcopy(model), on_cpu), "S2 step")
+    real = int(on_card.node_mask.sum())
+    edges = int((on_card.edge_weight != 0).sum())
+    print(f"[29 host-sampled] {card} | SampledNodeLoader (fused: native sample and collate, one int32 and one "
+          f"float32 buffer to the card, features gathered there): budgets {loader.node_budget:,} nodes, "
+          f"{loader.edge_budget:,} edges; batch 0 holds {real:,} nodes, {edges:,} edges, bitwise the CPU "
+          f"loader's ({len(SAMPLED_FIELDS)} arrays); NodeGCN step on the card against the CPU: |loss| "
+          f"{d_loss:.3e} (rtol 1e-5), max|gradient| {d_grad:.3e} (rtol {RTOL} / atol {ATOL})", flush=True)
+    for depth in (2, 0):
+        trainer = Trainer(copy.deepcopy(model), device=dev, prefetch_depth=depth)
+        trainer.train_epoch(loader)  # warm
+        ms, loss = epoch_ms(trainer, loader, steps)
+        check(np.isfinite(loss) and trainer.last_skipped_steps == 0, ("S2 epoch", depth, loss))
+        print(f"[29 host-sampled] {card} | Trainer.train_epoch, {steps} steps of {S} seeds, fanout {fanout}, "
+              f"NodeGCN hidden {SAMPLED['hidden']}, prefetch {depth}: {ms:.3f} ms a step (host clock ending "
+              f"in a synchronize, one epoch after one warm epoch), loss {loss:.4f}, skipped 0", flush=True)
+    print(f"[29 host-sampled] {card} | max_memory_allocated {torch.cuda.max_memory_allocated():,} B; phase 29 "
+          f"took {time.perf_counter() - t_start:.1f} s", flush=True)
+    del loader, trainer, on_card
+
+    # 30. device-sampled training (SD2)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    csr_cpu = DeviceGraphCSR.from_graph(g, device="cpu")
+    t_cpu_csr = time.perf_counter() - t0
+    models = {}
+    for label, make, dedup in (("GCN", device_sampled_gcn, True), ("SAGE", device_sampled_sage, True),
+                               ("SAGE multiset", device_sampled_sage, False)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model = make(g, hidden_dim=SAMPLED["hidden"], fanout=fanout, device=dev,
+                     **({} if make is device_sampled_gcn else {"dedup": dedup}))
+        torch.cuda.synchronize()
+        t_up = time.perf_counter() - t0
+        cpu_model = DeviceSampledModel(csr_cpu, copy.deepcopy(model.inner).cpu(), fanout, dedup=dedup)
+        row = make_seed_batch(pool[:S], labels, 12345, S, device="cpu")
+        got = device_sample(model.csr, row.seeds.to(dev), row.key_words.to(dev), fanout, dedup=dedup)
+        want = device_sample(csr_cpu, row.seeds, row.key_words, fanout, dedup=dedup)
+        for name in ("node_ids", "node_mask", "node_features", "senders", "receivers", "edge_weight"):
+            check(torch.equal(getattr(got, name).cpu(), getattr(want, name)), (label, "device_sample", name))
+        for h, (a, b) in enumerate(zip(got.hop_blocks, want.hop_blocks)):
+            check(all(torch.equal(getattr(a, k).cpu(), getattr(b, k)) for k in ("senders", "weights", "recv")),
+                  (label, "hop block", h))
+        sampled_nodes, sampled_edges = int(got.node_mask.sum()), int((got.edge_weight != 0).sum())
+        with torch.no_grad():
+            lg = model.eval()(row.to(dev)).cpu()
+            lc = cpu_model.eval()(row)
+        torch.testing.assert_close(lg, lc, rtol=RTOL, atol=ATOL, msg=f"{label} eval logits")
+        d_step = check_step_matches(step_on(model, row.to(dev)), step_on(cpu_model, row), f"{label} step")
+        loader = model.make_loader(pool, labels, batch_size=S, seed=1, drop_last=True)
+        trainer = Trainer(model, device=dev)
+        trainer.train_epoch(loader)  # warm
+        ms, loss = epoch_ms(trainer, loader, steps)
+        check(np.isfinite(loss) and trainer.last_skipped_steps == 0, (label, "epoch", loss))
+        peak = torch.cuda.max_memory_allocated() - before
+        rows = device_breakdown(lambda: trainer.train_epoch(loader), iters=1)
+        busy = sum(r for _, r in rows) / steps
+        print(f"[30 device-sampled] {card} | {label} (device_sampled_{'gcn' if label == 'GCN' else 'sage'}"
+              f"{', dedup=False' if not dedup else ''}): DeviceGraphCSR {model.csr.nbytes:,} B on the card "
+              f"(packed (sender, weight) pairs, indptr, float32 features), built and uploaded in {t_up:.2f} s "
+              f"(the CPU's {t_cpu_csr:.2f} s); device_sample bitwise the CPU's ({sampled_nodes:,} nodes, "
+              f"{sampled_edges:,} edges, both modes' arrays and hop blocks); eval logits within "
+              f"{float((lg - lc).abs().max()):.3e} of the CPU's; a step: |loss| {d_step[0]:.3e}, max|gradient| "
+              f"{d_step[1]:.3e}", flush=True)
+        print(f"[30 device-sampled] {card} | {label}: {ms:.3f} ms a step stepwise (Trainer.train_epoch over a "
+              f"DeviceSeedLoader, prefetch 2, {steps} steps, host clock ending in a synchronize), loss "
+              f"{loss:.4f}; device busy {busy:.3f} ms a step ({busy / ms:.1%}; torch.profiler over one epoch, "
+              f"{len(rows)} kernels); peak {peak:,} B above the {before:,} B held before", flush=True)
+        for name, ms_k in rows[:8]:
+            print(f"[30 device-sampled] {card} |     {ms_k / steps:9.4f} ms/step  {name[:150]}", flush=True)
+        models[label] = model
+        del trainer, loader, cpu_model
+    del csr_cpu
+    print(f"[30 device-sampled] {card} | phase 30 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 31. scan_epochs (SE2, SME2): one captured CUDA graph a step against the stepwise loop
+    t_phase = time.perf_counter()
+    scan_pool = np.random.default_rng(1).permutation(n)[: SAMPLED["scan_steps"] * S]
+    for label, key, deterministic in (("SE2 GCN", "GCN", False),
+                                      ("SE2 GCN, deterministic algorithms", "GCN", True),
+                                      ("SME2 SAGE multiset", "SAGE multiset", False)):
+        # the GCN adds by atomics (index_add_ and index_select's backward),
+        # so it is compared once more under torch's deterministic
+        # algorithms; SAGE multiset adds by slices and is deterministic
+        with deterministic_algorithms(deterministic) as caught:
+            sampled_scan(card, label, models[key], labels, scan_pool, exact=deterministic or key != "GCN")
+        check(not caught, (label, "deterministic-algorithm warnings", caught))
+    del models
+    print(f"[31 scan_epochs] {card} | max_memory_allocated {torch.cuda.max_memory_allocated():,} B; phase 31 "
+          f"took {time.perf_counter() - t_phase:.1f} s; phases 29-31 {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool):
+    """``torch.use_deterministic_algorithms(on)`` inside, warnings for an op
+    without a deterministic form recorded (yielded) rather than raised, off
+    after."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(on, warn_only=True)
+        try:
+            yield caught
+        finally:
+            torch.use_deterministic_algorithms(False)
+    caught[:] = [str(w.message)[:200] for w in caught if "deterministic" in str(w.message)]
+
+
+def sampled_scan(card, label, base, labels, pool, exact: bool) -> None:
+    """Phase 31 for one model: a scanned epoch against the stepwise one and
+    a second stepwise one; ``exact`` asks for their states bitwise equal."""
+    fanout, steps, S = SAMPLED["fanout"], SAMPLED["scan_steps"], SAMPLED["seeds"]
+    trainers, loaders = {}, {}
+    for way in ("stepwise", "stepwise again", "scanned"):
+        m = DeviceSampledModel(base.csr, copy.deepcopy(base.inner), fanout, dedup=base.dedup)
+        trainers[way] = Trainer(m, device=base.csr.device, seed=0, scan_epochs=way == "scanned")
+        loaders[way] = m.make_loader(pool, labels, batch_size=S, seed=2, drop_last=True)
+    first = {way: epoch_ms(t, loaders[way], steps) for way, t in trainers.items()}
+    check(len(trainers["scanned"]._captured) == 1, "one captured step")
+    diffs = [state_diff(trainers["scanned"], trainers["stepwise"]),
+             state_diff(trainers["stepwise again"], trainers["stepwise"])]
+    second = {way: epoch_ms(t, loaders[way], steps) for way, t in trainers.items()}
+    for way in trainers:
+        check(np.isfinite(second[way][1]) and trainers[way].last_skipped_steps == 0, (label, way))
+    check(len(trainers["scanned"]._captured) == 1, "the step was captured once")
+    diffs.append(state_diff(trainers["scanned"], trainers["stepwise"]))
+    calls = {way: dispatches(lambda t=t, way=way: t.train_epoch(loaders[way]))
+             for way, t in trainers.items() if way != "stepwise again"}
+    loss_gap = abs(second["scanned"][1] - second["stepwise"][1])
+    print(f"[31 scan_epochs] {card} | {label}, {steps} steps of {S} seeds: epoch 1 "
+          f"{first['stepwise'][0]:.3f} ms a step stepwise, {first['scanned'][0]:.3f} scanned (the warm-up "
+          f"step and the capture included); epoch 2 {second['stepwise'][0]:.3f} stepwise, "
+          f"{second['stepwise again'][0]:.3f} stepwise again, {second['scanned'][0]:.3f} scanned (host "
+          f"clock ending in a synchronize); host dispatches an epoch: {calls['stepwise']:,} stepwise, "
+          f"{calls['scanned']:,} scanned (kernel and graph launches, copies, fills; torch.profiler)",
+          flush=True)
+    print(f"[31 scan_epochs] {card} | {label}: scanned against stepwise after epoch 1: {diff_text(diffs[0])}; "
+          f"after epoch 2: {diff_text(diffs[2])}, epoch-2 loss {second['scanned'][1]:.6f} against "
+          f"{second['stepwise'][1]:.6f} (|diff| {loss_gap:.3e}); stepwise against stepwise after epoch 1: "
+          f"{diff_text(diffs[1])}", flush=True)
+    for epoch, (scanned, stepwise) in enumerate(((first["scanned"], first["stepwise"]),
+                                                 (second["scanned"], second["stepwise"])), 1):
+        # the epoch's mean loss; the GCN conv biases, which BatchNorm
+        # cancels, drift apart by noise gradients and change no loss
+        check(abs(scanned[1] - stepwise[1]) <= 1e-4 * abs(stepwise[1]), (label, epoch, scanned, stepwise))
+    if exact:
+        check(all(d == 0.0 for diff in diffs for d in diff.values()), (label, "not bitwise", diffs))
+
+
 def demangled(name: str) -> str:
     """A kernel's C++ name, through ``c++filt`` where the machine has it."""
     try:
@@ -3065,6 +3362,9 @@ def main() -> None:
     if "--host-times" in sys.argv[1:]:
         _, loader, trainers = main_path_setup(dev)
         host_times(card, timing_inputs_for(dev), loader, trainers)
+        return
+    if "--sampled" in sys.argv[1:]:
+        sampled_phases(dev, card)
         return
     # the timing modes above may time another tree's package; this tree's
     # kernels must neither spill nor have their wgmma serialized
@@ -3150,6 +3450,9 @@ def main() -> None:
     # 28. the giant-graph set-up: native helpers, the layout pipeline, the planner's rates
     layout_phase(dev, card, graph)
     del graph
+
+    # 29-31. sampled node training: host-sampled, device-sampled, scan_epochs
+    sampled_phases(dev, card)
 
     fused_entries = []
     for kind, k in KERNELS.items():

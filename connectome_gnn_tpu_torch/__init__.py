@@ -25,6 +25,12 @@ int8 serving and training, and every TPU kernel of the JAX package:
   ``BandedNodeGCN`` also trains on the int8 band
   (``prepare_quant_trainable`` / ``apply_quant_trainable`` and its blocked
   variant), with the kernels in both directions;
+* sampled node training (slice D): the host sampler and its loader
+  (``SampledNodeLoader``, the native traversal), the COO node models
+  (``NodeGCN``, ``NodeSAGE`` and their blocked forms), device-side sampling
+  (``device_sampled_gcn`` / ``device_sampled_sage`` with a
+  ``DeviceSeedLoader``), and ``Trainer(scan_epochs=True)``, one captured
+  CUDA graph a step replayed from one buffer an epoch;
 * the kernels no model path calls: K7 over a float32 or bfloat16 band
   (``ops.banded_direct``), the bfloat16, w8a8 and fused-dot band kernels
   B2a-B2c (``ops.band_variants``), the band-pipeline probes B3a-B3d
@@ -75,6 +81,16 @@ Giant graph, one int8 training step:
     logits = model.apply_quant_trainable(adj_q, adj_qT, dinv, x)
     torch.nn.functional.cross_entropy(logits, labels).backward()
     opt.step()
+
+Giant graph, device-sampled training (on ``cuda`` unless ``device=``):
+
+    import numpy as np
+    from connectome_gnn_tpu_torch.data import device_sampled_gcn
+
+    sampled = device_sampled_gcn(g, hidden_dim=64, fanout=(10, 10))
+    labels = (g.node_features[:, 0] > 0).astype(np.int32)
+    loader = sampled.make_loader(np.arange(g.num_nodes), labels, batch_size=1024)
+    Trainer(sampled, scan_epochs=True).train_epoch(loader)
 """
 
 from connectome_gnn_tpu_torch.data import (
@@ -86,6 +102,10 @@ from connectome_gnn_tpu_torch.data import (
     collate_graphs,
     generate_connectome,
     generate_dataset,
+    DeviceSeedLoader,
+    SampledNodeLoader,
+    device_sampled_gcn,
+    device_sampled_sage,
     generate_spatial_graph,
     small_world_stats,
 )
@@ -94,6 +114,8 @@ from connectome_gnn_tpu_torch.models import (
     BandedNodeSAGE,
     GCNConnectome,
     GraphSAGEConnectome,
+    NodeGCN,
+    NodeSAGE,
 )
 from connectome_gnn_tpu_torch.train import Trainer
 
@@ -107,10 +129,16 @@ __all__ = [
     "ConnectomeBatch",
     "ConnectomeDataLoader",
     "ConnectomeGraph",
+    "DeviceSeedLoader",
     "GCNConnectome",
     "GraphSAGEConnectome",
+    "NodeGCN",
+    "NodeSAGE",
+    "SampledNodeLoader",
     "Trainer",
     "collate_graphs",
+    "device_sampled_gcn",
+    "device_sampled_sage",
     "generate_connectome",
     "generate_dataset",
     "generate_spatial_graph",

@@ -18,6 +18,10 @@ from connectome_gnn_tpu_torch.data.batch import collate_graphs, round_up
 from connectome_gnn_tpu_torch.data.dense import collate_dense
 from connectome_gnn_tpu_torch.data.graph import ConnectomeGraph
 
+#: what the loaders' data-parallel arguments raise
+SHARDING_NOT_PORTED = ("num_shards / process_index / process_count (data-parallel sharding) "
+                       "belong to slice E of the port and are not ported yet")
+
 
 class ConnectomeDataLoader:
     """Packs ``ConnectomeGraph`` objects into padded fixed-shape batches on
@@ -66,10 +70,7 @@ class ConnectomeDataLoader:
         device=None,
     ):
         if num_shards is not None or process_index is not None or process_count is not None:
-            raise NotImplementedError(
-                "num_shards / process_index / process_count (data-parallel "
-                "sharding) belong to slice E of the port and are not ported yet"
-            )
+            raise NotImplementedError(SHARDING_NOT_PORTED)
         if len(dataset) == 0:
             raise ValueError("dataset is empty")
         if layout not in ("coo", "dense"):

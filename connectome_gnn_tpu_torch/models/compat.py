@@ -16,9 +16,11 @@ read backwards is the whole transplant:
 ``head.*`` (node models)        ``params["head"]`` (one dense layer)
 ==============================  =======================================
 
-The node models (``BandedNodeGCN``, ``BandedNodeSAGE``) share the conv and
-BatchNorm keys; their head is one dense layer, which the table's last row
-carries.  SAGE's conv kernel is ``[2·in, out]`` in both packages.
+The node models (``BandedNodeGCN``, ``BandedNodeSAGE``, the COO
+``NodeGCN`` / ``NodeSAGE`` and their blocked forms, and a
+``DeviceSampledModel`` wrapping one) share the conv and BatchNorm keys;
+their head is one dense layer, which the table's last row carries.  SAGE's
+conv kernel is ``[2·in, out]`` in both packages.
 
 The pytrees are taken with numpy leaves (``jax.tree_util.tree_map(
 np.asarray, params)``); this module imports neither JAX nor the JAX
@@ -68,10 +70,12 @@ def load_jax_params(model: torch.nn.Module, params: Mapping, state: Mapping) -> 
     and the node models.  Raises on any key or shape mismatch; only
     ``num_batches_tracked``, which JAX does not keep, is left as is."""
     from connectome_gnn_tpu_torch.models.connectome import GraphSAGEConnectome
+    from connectome_gnn_tpu_torch.models.node_coo import NodeSAGE
     from connectome_gnn_tpu_torch.models.node_sage import BandedNodeSAGE
 
+    inner = getattr(model, "inner", model)  # a DeviceSampledModel's node model
     sd = reference_state_dict_from_params(
-        params, state, sage=isinstance(model, (GraphSAGEConnectome, BandedNodeSAGE))
+        params, state, sage=isinstance(inner, (GraphSAGEConnectome, BandedNodeSAGE, NodeSAGE))
     )
     result = model.load_state_dict(
         {k: torch.tensor(v) for k, v in sd.items()},

@@ -1,8 +1,10 @@
 """Message-passing layers: GCN and GraphSAGE convolutions.
 
-Each layer takes either the padded COO batch layout (:meth:`forward`) or
-the dense receiver-major ``[B, n, n]`` adjacency (:meth:`forward_dense`),
-with identical numerics.  Numeric contract (reference
+Each layer takes the padded COO batch layout (:meth:`forward`), the dense
+receiver-major ``[B, n, n]`` adjacency (:meth:`forward_dense`) or the
+device sampler's per-hop ``[frontier, fanout]`` blocks
+(:meth:`forward_blocked`), with the same numerics up to the order of
+float32 sums.  Numeric contract (reference
 ``connectome_gnn/models.py``, as in ``connectome_gnn_tpu.models.layers``):
 
 * :class:`GCNConv`: ``H' = D̂^{-1/2} Â D̂^{-1/2} (H W) + b`` with self-loop
@@ -104,6 +106,22 @@ class _ExactProduct(torch.autograd.Function):
         return grad_a, grad_b
 
 
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for an index of any shape, through ``index_select``,
+    whose backward on the CPU sums in a fixed order (``coo_spmm``'s note)."""
+    return x.index_select(0, idx.reshape(-1)).view(*idx.shape, *x.shape[1:])
+
+
+def add_rows(out: torch.Tensor, rows: torch.Tensor, start, idx: torch.Tensor) -> torch.Tensor:
+    """``out`` with ``rows`` added at rows ``start, start + 1, ...`` (a
+    contiguous run, when ``start`` is an int) or at rows ``idx``
+    (duplicates add up), out of place."""
+    if start is None:
+        return out.index_add(0, idx, rows)
+    stop = start + rows.shape[0]
+    return torch.cat([out[:start], out[start:stop] + rows, out[stop:]])
+
+
 def dense_apply(layer: Dense, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
     """``layer(x)`` with its product at ``compute_dtype``."""
     if compute_dtype == torch.float32:
@@ -137,6 +155,31 @@ class GCNConv(nn.Module):
         xw = self.linear(x)
         out = coo_spmm(norm.edge_norm, senders, receivers, xw, num_nodes)
         out = out + norm.self_norm[:, None] * xw
+        return out + self.bias
+
+    def forward_blocked(self, x: torch.Tensor, hop_blocks, num_seeds: int) -> torch.Tensor:
+        """:meth:`forward` over the device sampler's per-hop ``[frontier,
+        fanout]`` blocks (``gcn_layer_apply_blocked``,
+        ``connectome_gnn_tpu/models/layers.py:75``): the same math up to
+        the order of float32 sums, with fewer random-access passes.
+
+        Every hop's receivers are constant along a block row, so the
+        aggregation is a sum over each row plus a frontier-count scatter;
+        hop 0's receivers are ``arange(num_seeds)``, so it lands by a slice.
+        Only the sender-side gathers stay at edge count.
+        """
+        num_nodes = x.shape[0]
+        senders = torch.cat([b.senders.reshape(-1) for b in hop_blocks])
+        weights = torch.cat([b.weights.reshape(-1) for b in hop_blocks])
+        deg = segment_sum(weights, senders, num_nodes) + 1.0
+        dis = torch.rsqrt(deg + EPS)
+        xw = self.linear(x)
+        out = (dis * dis)[:, None] * xw  # the self-loop term (weight 1.0)
+        for h, b in enumerate(hop_blocks):
+            recv_dis = dis[:num_seeds] if h == 0 else dis[b.recv]
+            e = dis[b.senders] * b.weights * recv_dis[:, None]  # [Fb, f]
+            part = torch.einsum("bf,bfc->bc", e, gather_rows(xw, b.senders))
+            out = add_rows(out, part, 0 if h == 0 else None, b.recv)
         return out + self.bias
 
     def forward_dense(
@@ -175,6 +218,35 @@ class SAGEConv(nn.Module):
         msg_sum = coo_spmm(edge_weight, senders, receivers, x, num_nodes)
         w_sum = segment_sum(edge_weight[:, None], receivers, num_nodes)
         agg = msg_sum / (w_sum + EPS)
+        return torch.relu(self.linear(torch.cat([x, agg], dim=1)))
+
+    def forward_blocked(self, x: torch.Tensor, hop_blocks, num_seeds: int) -> torch.Tensor:
+        """:meth:`forward` over the device sampler's per-hop ``[frontier,
+        fanout]`` blocks (``sage_layer_apply_blocked``,
+        ``connectome_gnn_tpu/models/layers.py:164``): the same math up to
+        the order of float32 sums.
+
+        Each local node receives edges in one hop only, the one whose
+        frontier found it, so the weighted mean's numerator and denominator
+        reduce along block rows and land by a frontier-count scatter; hop 0
+        lands by a slice.  In the multiset mode the senders are a
+        contiguous slice of ``x`` (an invalid draw reads its own zeroed slot,
+        with weight 0) and the receivers a contiguous run of slots.
+        """
+        msg = torch.zeros_like(x)
+        w_sum = x.new_zeros(x.shape[0])
+        for h, b in enumerate(hop_blocks):
+            Fb, f = b.weights.shape
+            if b.sender_start is not None:
+                xs = x[b.sender_start : b.sender_start + Fb * f].reshape(Fb, f, -1)
+            else:
+                xs = gather_rows(x, b.senders)
+            part = torch.einsum("bf,bfc->bc", b.weights, xs)
+            wrow = b.weights.sum(dim=1)
+            start = 0 if h == 0 else b.recv_start
+            msg = add_rows(msg, part, start, b.recv)
+            w_sum = add_rows(w_sum, wrow, start, b.recv)
+        agg = msg / (w_sum + EPS)[:, None]
         return torch.relu(self.linear(torch.cat([x, agg], dim=1)))
 
     def forward_dense(

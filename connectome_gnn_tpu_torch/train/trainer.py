@@ -15,10 +15,17 @@ CUDA).  Training runs no hand-written kernel: the JAX train step is
 ``model.apply`` under ``value_and_grad`` plus optax, here autograd plus
 ``torch.optim.Adam``.
 
-Not ported here (they belong to later slices of the port): the JAX
-Trainer's ``mesh`` / ``axis_name`` data-parallel mode (slice E), its
-device-sampled and graph-sharded steps, and ``scan_epochs`` (slices D and
-E).  The JAX Trainer's ``params`` / ``state`` arguments have no counterpart:
+Sampled node training goes through the same loop: host-sampled
+:class:`~connectome_gnn_tpu_torch.data.sampled.SampledNodeBatch` es and
+device-sampled :class:`~connectome_gnn_tpu_torch.data.device_sampling.
+SeedBatch` es (through a ``DeviceSampledModel``) train, evaluate, fit and
+predict unchanged.  ``scan_epochs`` runs a device-sampled epoch from one
+uploaded buffer: on the card as one captured CUDA graph a step, replayed
+per row (the analog of the JAX package's ``lax.scan`` epoch).
+
+Not ported here (they belong to slice E of the port): the JAX Trainer's
+``mesh`` / ``axis_name`` data-parallel mode and its graph-sharded steps.
+The JAX Trainer's ``params`` / ``state`` arguments have no counterpart:
 the port's model carries its weights (``models.compat.load_jax_params``
 loads JAX ones).
 """
@@ -103,6 +110,19 @@ class Trainer:
     prefetch_depth
         Batches a background thread collates and copies ahead of the device
         (default 2; 0 iterates the loader in line).  Reorders nothing.
+    scan_epochs
+        For a ``DeviceSampledModel`` trained from a ``DeviceSeedLoader``:
+        each training epoch is packed into one ``[steps, 3 + 2S]`` buffer
+        (``pack_epoch``) and uploaded once.  On the card one train step
+        (sampling, forward, backward, the guard, Adam) is captured as a
+        CUDA graph once per trainer and shape, after one eager step of the
+        first epoch; every other step copies its row into the graph's input
+        slot on the device and replays it.  On the CPU the same steps run
+        from the buffer without a capture.  The steps are the stepwise
+        loop's, so ``fit``, early stopping, checkpoints and the guard work
+        unchanged (on the CPU the two are bitwise equal).  A failed capture
+        raises; nothing falls back to eager steps on the card.  Other
+        loaders train stepwise.
     """
 
     def __init__(
@@ -113,9 +133,12 @@ class Trainer:
         device=None,
         skip_nonfinite: bool = True,
         prefetch_depth: int = 2,
+        scan_epochs: bool = False,
     ):
         self.device = torch.device(card_by_default(device, "Trainer"))
         self.model = model.to(self.device)
+        if getattr(self.model, "csr", None) is not None:
+            self._check_csr(self.model.csr, "the model's")
         self.optimizer = (optimizer or reference_adam())(self.model.parameters())
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
         for module in self.model.modules():
@@ -125,6 +148,9 @@ class Trainer:
         self.prefetch_depth = int(prefetch_depth)
         self.last_skipped_steps = 0
         self._warned_unfusable = False
+        self.scan_epochs = bool(scan_epochs)
+        #: (row length, labelled, CSR) → the captured step (``scan_epochs`` on the card)
+        self._captured: dict = {}
 
     def _iterate(self, loader):
         """Iterate ``loader``, ``prefetch_depth`` batches ahead in a
@@ -191,14 +217,118 @@ class Trainer:
             steps += 1
         return sums, steps
 
+    def _scannable(self, loader) -> bool:
+        """Whether ``scan_epochs`` takes ``loader``'s epoch (``trainer.py:
+        458-482`` of the JAX package): a ``DeviceSeedLoader`` is scanned,
+        other loaders train stepwise, and what a scan cannot run raises."""
+        from connectome_gnn_tpu_torch.data.device_sampling import (
+            DeviceSampledModel,
+            DeviceSeedLoader,
+        )
+
+        if not isinstance(loader, DeviceSeedLoader):
+            return False
+        if not isinstance(self.model, DeviceSampledModel):
+            raise ValueError(
+                "scan_epochs samples on the device: the model must be a DeviceSampledModel "
+                f"(got {type(self.model).__name__})"
+            )
+        if loader.csr is not None:
+            self._check_csr(loader.csr, "scan_epochs: the loader's")
+        if self.device.type == "cuda" and not all(
+            g.get("capturable", True) for g in self.optimizer.param_groups
+        ):
+            raise ValueError("scan_epochs on the card captures the step: the optimizer must be "
+                             "capturable (reference_adam's is)")
+        return True
+
+    def _check_csr(self, csr, whose: str) -> None:
+        """Refuse a ``DeviceGraphCSR`` on another device than the trainer's."""
+        if csr.device != torch.empty(0, device=self.device).device:
+            raise ValueError(
+                f"{whose} DeviceGraphCSR lies on {csr.device} and the Trainer runs on "
+                f"{self.device}: the CSR does not move with the model; build it on the "
+                "Trainer's device (from_graph(device=...))"
+            )
+
+    def _seed_step(self, row, csr, num_seeds: int, labeled: bool, acc) -> None:
+        """One train step on a packed seed row, its ``[loss·n, n, ok]``
+        added into ``acc`` in place (the scanned epoch's body)."""
+        from connectome_gnn_tpu_torch.data.device_sampling import SeedBatch
+
+        batch = SeedBatch(packed=row, csr=csr, num_seeds=num_seeds, labeled=labeled)
+        loss, n, ok = self._train_step(batch)
+        acc.add_(torch.stack([loss * n, n, ok]))
+
+    def _capture(self, row0, csr, num_seeds: int, labeled: bool, acc):
+        """Run ``row0``'s step eagerly on a side stream (the warm-up that
+        makes the optimizer's state and every lazy handle), then capture one
+        step as a CUDA graph reading a static row slot; returns ``(graph,
+        slot)``."""
+        slot = row0.clone()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._seed_step(slot, csr, num_seeds, labeled, acc)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        if any(isinstance(m, Dropout) and m.p > 0 for m in self.model.modules()):
+            # dropout draws from the trainer's generator: each replay
+            # advances it as an eager step would
+            graph.register_generator_state(self.generator)
+        try:
+            with torch.cuda.graph(graph):
+                self._seed_step(slot, csr, num_seeds, labeled, acc)
+        except RuntimeError as exc:
+            raise RuntimeError(f"scan_epochs could not capture the train step: {exc}") from exc
+        return graph, slot
+
+    def _train_steps_scanned(self, loader):
+        """A ``DeviceSeedLoader``'s epoch from one uploaded buffer; the same
+        return as :meth:`_train_steps`."""
+        from connectome_gnn_tpu_torch.data.device_sampling import pack_epoch
+
+        self.model.train()
+        packed = pack_epoch(loader).to(self.device)  # advances the loader's epoch
+        steps = int(packed.shape[0])
+        csr = loader.csr if loader.csr is not None else self.model.csr
+        S, labeled = loader.batch_size, loader.node_labels is not None
+        if steps == 0:
+            return None, 0
+        if self.device.type != "cuda":
+            acc = torch.zeros(3, device=self.device)
+            for row in packed:
+                self._seed_step(row, csr, S, labeled, acc)
+            return acc, steps
+        # the graph holds its row slot and its sums by address: both live
+        # with it (and the CSR, which keeps its id unique)
+        key = (int(packed.shape[1]), labeled, id(csr))
+        if key in self._captured:
+            graph, slot, acc, _ = self._captured[key]
+            acc.zero_()
+            start = 0
+        else:
+            acc = torch.zeros(3, device=self.device)
+            graph, slot = self._capture(packed[0], csr, S, labeled, acc)
+            self._captured[key] = graph, slot, acc, csr
+            start = 1
+        for i in range(start, steps):
+            slot.copy_(packed[i])
+            graph.replay()
+        return acc.clone(), steps
+
     def train_epoch(self, loader) -> float:
         """One optimization pass over ``loader``; returns the mean loss per
         graph, ``Σ loss·n / Σ n`` (``trainer.py:452-456``).
 
         Loss, counts and the guard's flags stay on the device until the
-        epoch ends: one host sync per epoch.
+        epoch ends: one host sync per epoch.  With ``scan_epochs`` a
+        ``DeviceSeedLoader``'s epoch runs from one uploaded buffer.
         """
-        sums, steps = self._train_steps(loader)
+        if self.scan_epochs and self._scannable(loader):
+            sums, steps = self._train_steps_scanned(loader)
+        else:
+            sums, steps = self._train_steps(loader)
         if sums is None:
             self.last_skipped_steps = 0
             return 0.0
@@ -408,6 +538,7 @@ class Trainer:
                 _, index, name = key.split("/")
                 state.setdefault(int(index), {})[name] = torch.from_numpy(value)
         self.optimizer.load_state_dict({"state": state, "param_groups": meta.pop("param_groups")})
+        self._captured.clear()  # captured steps address the replaced optimizer state
         self.model.load_state_dict(tree["model"])
         self.generator.set_state(tree["generator"].cpu())
         self._best = tree["best"]

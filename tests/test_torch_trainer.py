@@ -121,6 +121,29 @@ def test_trainer_defaults_to_the_card_and_refuses_to_fall_back(monkeypatch):
     assert tp.Trainer(model, device="cpu").device == torch.device("cpu")
 
 
+def small_spatial_graph():
+    return tp.generate_spatial_graph(256, degree=4, band=16, seed=1)
+
+
+#: each entry point of sampled training, called without ``device``
+SAMPLED_ENTRY_POINTS = {
+    "SampledNodeLoader": lambda: tp.SampledNodeLoader(small_spatial_graph(), batch_size=8,
+                                                      fanout=(2, 2)),
+    "DeviceGraphCSR.from_graph": lambda: tp.data.DeviceGraphCSR.from_graph(small_spatial_graph()),
+    "DeviceSeedLoader": lambda: tp.DeviceSeedLoader(np.arange(16), batch_size=8),
+    "Trainer": lambda: tp.Trainer(tp.NodeGCN(5, 8)),
+}
+
+
+@pytest.mark.parametrize("entry", list(SAMPLED_ENTRY_POINTS))
+def test_sampled_entry_points_default_to_the_card(monkeypatch, entry):
+    """Without a card and without ``device="cpu"`` each raises and names
+    ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        SAMPLED_ENTRY_POINTS[entry]()
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, connectome_gnn_tpu_torch, connectome_gnn_tpu_torch.ops.fused, "
@@ -132,7 +155,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "connectome_gnn_tpu_torch.train.checkpoint, connectome_gnn_tpu_torch.train.trainer, "
         "connectome_gnn_tpu_torch.models.node_gcn, connectome_gnn_tpu_torch.models.node_sage, "
         "connectome_gnn_tpu_torch.native, connectome_gnn_tpu_torch.data.layout, "
-        "connectome_gnn_tpu_torch.entry\n"
+        "connectome_gnn_tpu_torch.entry, connectome_gnn_tpu_torch.data.sampling, "
+        "connectome_gnn_tpu_torch.data.sampled, connectome_gnn_tpu_torch.data.device_sampling, "
+        "connectome_gnn_tpu_torch.models.node_coo\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'connectome_gnn_tpu' or m.startswith('connectome_gnn_tpu.')]\n"
         "assert not bad, bad"
