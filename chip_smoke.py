@@ -2,8 +2,10 @@
 """Drive the PyTorch port's serving and giant-graph training paths, its
 band-SpMM variants, its band-pipeline probes, graph-classification
 training, the random-row gather, mixed precision, the headline bench and
-entry point, the giant-graph layout set-up, and sampled node training
-(host-sampled, device-sampled and scanned epochs), once on one NVIDIA card.
+entry point, the giant-graph layout set-up, sampled node training
+(host-sampled, device-sampled and scanned epochs), and the parallel modes
+(data parallelism, the edge-, band- and hybrid-partitioned models, the 2-D
+step), once on one NVIDIA card.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -305,6 +307,37 @@ the giant-graph set-up.
     dispatches an epoch (kernel and graph launches, copies and fills by
     ``torch.profiler``).  ``--sampled`` runs phases 29-31 alone.
 
+Then the parallel modes (``connectome_gnn_tpu_torch.parallel``), in one
+rank of an NCCL group of size 1 (a ``file://`` rendezvous in a temporary
+directory) holding 4 shards on the card: every collective goes through
+NCCL, crossing no card.  Each phase prints ms a forward or a step, sharded
+and unsharded (host clock ending in a synchronize, median of 3), the
+memory peak and the bytes each collective moved: what sharding costs on
+one card, not scaling.
+
+32. data-parallel graph classification, GCN and SAGE (hidden 64, 3
+    layers, dropout 0, dense layout): ``Trainer(mesh=...)`` over batches
+    of 16 graphs a shard × 4 for 8 steps against the unsharded ``Trainer``
+    at batch 64: parameters and buffers within rtol 1e-4 / atol 1e-5, a
+    GCN conv's bias within 2·k·lr and the running means it feeds within
+    momentum·lr·k·(k−1) (noise gradients: BatchNorm cancels the bias);
+    then ``evaluate`` and ``predict`` (K1/K2 on the merged shards) on the
+    same weights against the unsharded ones;
+33. ``EdgePartitionedGCN`` on the giant graph's COO form (1,048,576 nodes,
+    39.8M edges, F = H = 64, 2 layers) in 4 shards: ``partition_graph`` on
+    the host (the send table's borrowed rows printed), eval logits against
+    the unsharded COO ``NodeGCN`` (rtol 1e-4 / atol 1e-5), one step's
+    gradients by relative Frobenius error (gate 1e-4);
+34. ``ShardedBandedGCN`` and ``ShardedBandedSAGE`` forwards and the
+    ``ShardedBandedGCN`` step on the float32 band (W = 2, b = 256) against
+    ``BandedNodeGCN`` / ``BandedNodeSAGE``; then the hybrid form of the
+    graph with 10 % shortcuts against the unsharded hybrid forward;
+35. ``make_banded_train_step_2d`` on a (data 2 × edge 2) mesh over a cohort
+    of two 262,144-node subjects at the same widths, against one device's
+    ``BandedNodeGCN`` step on ``banded_block_diag`` (loss rtol 1e-5,
+    gradients by relative Frobenius error, gate 1e-4).
+``--parallel`` runs phases 32-35 alone.
+
 It prints the card's name and power limit, the kernels' JSON line (K1 to
 K7, K4's backward, B2a-B2c, B3a-B3d and B1 at the script's three cases,
 each with its launches on the main path, its largest error against its
@@ -327,6 +360,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -334,6 +368,7 @@ import sys
 import tempfile
 import time
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -371,6 +406,7 @@ from connectome_gnn_tpu_torch.data import (
 )
 from connectome_gnn_tpu_torch.data import layout
 from connectome_gnn_tpu_torch.models import layers as conv_layers
+from connectome_gnn_tpu_torch import parallel
 from connectome_gnn_tpu_torch.ops import _build
 from connectome_gnn_tpu_torch.ops import band_mma
 from connectome_gnn_tpu_torch.ops import band_variants as bv
@@ -379,7 +415,14 @@ from connectome_gnn_tpu_torch.ops import banded_quant as bq
 from connectome_gnn_tpu_torch.ops import fm_variants as fv
 from connectome_gnn_tpu_torch.ops import fused
 from connectome_gnn_tpu_torch.ops import gather_dma as gd
-from connectome_gnn_tpu_torch.ops.banded import BandedMatrix, banded_spmm, pad_blocks, to_banded, to_hybrid
+from connectome_gnn_tpu_torch.ops.banded import (
+    BandedMatrix,
+    banded_block_diag,
+    banded_spmm,
+    pad_blocks,
+    to_banded,
+    to_hybrid,
+)
 from connectome_gnn_tpu_torch.ops.segment import coo_spmm
 from connectome_gnn_tpu_torch.ops.fused import (
     fused_gcn_forward_reference,
@@ -638,6 +681,12 @@ SAMPLED = dict(num_nodes=1 << 20, degree=38, band=512, shortcut_frac=0.1, hidden
                fanout=(10, 10), steps=20, scan_steps=64)
 SAMPLED_FIELDS = ("node_features", "senders", "receivers", "edge_weight", "node_mask", "labels",
                   "label_mask", "seed_mask", "node_ids")
+#: the parallel phases (32-35): shards on the card, phase 32's batch a
+#: shard, its steps and learning rate, and phase 35's cohort
+PARALLEL = dict(shards=4, shard_batch=16, steps=8, hidden=64, layers=3, lr=1e-3, subjects=2,
+                subject_nodes=1 << 18)
+PARALLEL_NOTE = ("one rank of an NCCL group of size 1, 4 shards on one card: what sharding costs "
+                 "on one card, not scaling")
 #: the runtime calls by which the host puts work on the card
 DISPATCH = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|MemcpyAsync|MemsetAsync|Memcpy|Memset)")
 
@@ -3309,6 +3358,348 @@ def sampled_scan(card, label, base, labels, pool, exact: bool) -> None:
         check(all(d == 0.0 for diff in diffs for d in diff.values()), (label, "not bitwise", diffs))
 
 
+def synced_ms(fn, iters: int = 3) -> float:
+    """Median ms of ``fn`` by the host clock, each call ending in a
+    synchronize."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def rel_frobenius(got: dict, want: dict) -> float:
+    """Relative Frobenius error of two gradient dicts, over all of them."""
+    a, b = flat(got), flat(want)
+    return float((a - b).norm() / b.norm())
+
+
+def moved_text(mesh) -> str:
+    """Each collective's bytes and calls since the counters were cleared."""
+    return ", ".join(f"{k} {v:,} B in {mesh.calls[k]} calls" for k, v in sorted(mesh.bytes_moved.items()))
+
+
+def clear_counts(mesh) -> None:
+    mesh.bytes_moved.clear()
+    mesh.calls.clear()
+
+
+def dp_trap_atol(kind: str, name: str, k: int) -> float:
+    """A GCN conv's bias (its gradient is noise: BatchNorm cancels it) and
+    the running means it feeds, after k Adam steps; else the f32 gate."""
+    lr = PARALLEL["lr"]
+    if kind == "gcn" and name.startswith("convs.") and name.endswith(".bias"):
+        return 2 * k * lr
+    if kind == "gcn" and name.endswith("running_mean"):
+        return 0.1 * lr * k * (k - 1)
+    return ATOL
+
+
+def dp_phase(dev, card) -> None:
+    """Phase 32: data-parallel graph classification against one device."""
+    t_start = time.perf_counter()
+    D, S, k = PARALLEL["shards"], PARALLEL["shard_batch"], PARALLEL["steps"]
+    graphs = generate_dataset(num_subjects=D * S * k, seed=42)
+    sharded = ConnectomeDataLoader(graphs, batch_size=D * S, shuffle=False, num_shards=D,
+                                   layout="dense", device=dev)
+    whole = ConnectomeDataLoader(graphs, batch_size=D * S, shuffle=False, layout="dense", device=dev)
+    mesh = parallel.create_mesh((D,), ("data",), device=dev)
+    check(mesh.group is not None and mesh.world == 1 and mesh.local_shards == D, mesh)
+    for kind, cls in TRAIN_CLASSES.items():
+        base = cls(in_channels=5, hidden_dim=PARALLEL["hidden"], num_layers=PARALLEL["layers"],
+                   dropout=0.0, generator=torch.Generator().manual_seed(0))
+        one = Trainer(copy.deepcopy(base), device=dev, seed=0)
+        dp = Trainer(copy.deepcopy(base), mesh=mesh, seed=0)
+        clear_counts(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        _, loss_dp = epoch_ms(dp, sharded, k)
+        peak = torch.cuda.max_memory_allocated()
+        moved = moved_text(mesh)
+        calls = sum(mesh.calls.values()) / k
+        _, loss_one = epoch_ms(one, whole, k)
+        check(dp.last_skipped_steps == one.last_skipped_steps == 0, ("skipped", kind))
+        check(abs(loss_dp - loss_one) <= 1e-5 * abs(loss_one), (kind, loss_dp, loss_one))
+        worst = {}
+        want = one.model.state_dict()
+        for name, t in dp.model.state_dict().items():
+            if t.is_floating_point():
+                atol = dp_trap_atol(kind, name, k)
+                torch.testing.assert_close(t, want[name], rtol=RTOL, atol=atol,
+                                           msg=f"32 {kind} {name}")
+                worst[name] = float((t - want[name]).abs().max())
+        trap = max((v for n, v in worst.items() if dp_trap_atol(kind, n, k) > ATOL), default=0.0)
+        rest = max(v for n, v in worst.items() if dp_trap_atol(kind, n, k) == ATOL)
+        # evaluate and predict on the same weights
+        one.model.load_state_dict(dp.model.state_dict())
+        ev_dp, ev_one = dp.evaluate(sharded), one.evaluate(whole)
+        check(ev_dp["total"] == ev_one["total"] == len(graphs) and ev_dp["correct"] == ev_one["correct"]
+              and abs(ev_dp["loss"] - ev_one["loss"]) <= 1e-5 * abs(ev_one["loss"]), (ev_dp, ev_one))
+        # mesh-mode predict serves each merged batch through K1 (GCN) or K2 (SAGE)
+        fused_gcn_kernel.launches = fused_sage_kernel.launches = 0
+        pred_dp = dp.predict(sharded)
+        torch.cuda.synchronize()
+        launches = {"gcn": fused_gcn_kernel.launches, "sage": fused_sage_kernel.launches}
+        check(launches == {n: len(sharded) * (n == kind) for n in launches}, (kind, launches))
+        pred_one = one.predict(whole)
+        check(pred_dp.shape == (len(graphs), 2), pred_dp.shape)
+        np.testing.assert_allclose(pred_dp, pred_one, rtol=RTOL, atol=ATOL)
+        batch_s, batch_w = next(iter(sharded)), next(iter(whole))
+        steps = [lambda: dp._train_step(batch_s), lambda: one._train_step(batch_w)]
+        ms_dp, ms_one = host_ms(steps, iters=20)
+        dev_dp, dev_one = (device_ms(fn, iters=10) for fn in steps)
+        disp_dp, disp_one = (dispatches(fn) for fn in steps)
+        scalar = torch.zeros(1, device=dev)
+        ms_call = synced_ms(lambda: [mesh.reduce_(scalar, "probe") for _ in range(100)]) / 100
+        print(f"[32 data parallel] {card} | {kind.upper()} hidden {PARALLEL['hidden']}, "
+              f"L={PARALLEL['layers']}, {k} steps of {S} graphs a shard x {D} (dense) against the "
+              f"unsharded Trainer at batch {D * S}: epoch loss {loss_dp:.6f} / {loss_one:.6f}; "
+              f"max|diff| {rest:.3e} over parameters and buffers (rtol {RTOL} / atol {ATOL}), "
+              f"{trap:.3e} for the GCN conv biases and running means (2*k*lr / momentum*lr*k*(k-1)); "
+              f"evaluate loss {ev_dp['loss']:.6f} acc {ev_dp['accuracy']:.4f} total {ev_dp['total']} "
+              f"= unsharded; predict {pred_dp.shape} max|diff| {np.abs(pred_dp - pred_one).max():.3e}, "
+              f"{launches[kind]} {'K1' if kind == 'gcn' else 'K2'} launches in mesh-mode predict "
+              f"({len(sharded)} merged batches); "
+              f"ms a step sharded {ms_dp:.3f}, unsharded {ms_one:.3f} (host clock ending in a synchronize, "
+              f"median of 20 in turns), device ms {dev_dp:.3f} / {dev_one:.3f}, host dispatches "
+              f"{disp_dp} / {disp_one}; "
+              f"{calls:.0f} collective calls a step, one all_reduce of 4 B alone {ms_call:.4f} ms (host "
+              f"clock, 100 in a row); max_memory_allocated {peak:,} B; moved in the first epoch: {moved} "
+              f"({PARALLEL_NOTE})",
+              flush=True)
+    print(f"[32 data parallel] {card} | phase 32 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def giant_node_labels(graph) -> np.ndarray:
+    return (graph.node_features[:, 0] > 0).astype(np.int32)
+
+
+def node_grads(model, forward, labels, mask=None):
+    """Train-mode forward and backward of the masked mean cross-entropy;
+    ``(loss, {name: gradient})``."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    logits = forward()
+    ce = F.cross_entropy(logits, labels, reduction="none")
+    m = torch.ones_like(ce) if mask is None else mask.to(ce.dtype)
+    loss = (ce * m).sum() / m.sum()
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def lr0_step(make, model, mesh):
+    """A sharded train step from ``make`` at lr 0: each call returns ``(loss,
+    {name: reduced gradient})`` and leaves the weights as they were."""
+    step = make(model, torch.optim.SGD(model.parameters(), lr=0.0), mesh)
+
+    def run(sharded):
+        loss, _ = step(sharded)
+        return float(loss), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+    return run
+
+
+def twin(cls_sharded, cls_plain, dev):
+    """A sharded model with random weights and BatchNorm state from seed 0,
+    and the unsharded model holding the same, both on ``dev``."""
+    sharded = make_node_model(cls_sharded, dev)
+    plain = make_node_model(cls_plain, dev)
+    plain.load_state_dict(sharded.state_dict())
+    return sharded, plain
+
+
+@torch.no_grad()
+def held_logits(got, want, what) -> float:
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL, msg=what)
+    return float((got - want).abs().max())
+
+
+def edge_phase(dev, card, graph) -> None:
+    """Phase 33: the edge-partitioned GCN on the giant COO graph."""
+    t_start = time.perf_counter()
+    D, n = PARALLEL["shards"], graph.num_nodes
+    labels_np = giant_node_labels(graph)
+    t0 = time.perf_counter()
+    part = parallel.partition_graph(graph, D, node_labels=labels_np)
+    t_part = time.perf_counter() - t0
+    mesh = parallel.create_mesh((D,), ("edge",), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    sharded = mesh.place(part)
+    model, plain = twin(parallel.EdgePartitionedGCN, NodeGCN, dev)
+    s, r = (torch.from_numpy(graph.edge_index[i]).to(dev) for i in (0, 1))
+    x = torch.from_numpy(graph.node_features).to(dev)
+    batch = SimpleNamespace(node_features=x, senders=s, receivers=r,
+                            edge_weight=torch.from_numpy(graph.edge_weight).to(dev),
+                            node_mask=torch.ones(n, dtype=torch.bool, device=dev), num_seeds=n,
+                            hop_blocks=None)
+    labels = torch.from_numpy(labels_np).long().to(dev)
+    with torch.no_grad():
+        model.eval(), plain.eval()
+        clear_counts(mesh)
+        got = model(sharded, mesh).reshape(-1, 2)[:n]
+        moved = moved_text(mesh)
+        err = held_logits(got, plain(batch), "33 EdgePartitionedGCN logits")
+        ms_fwd = synced_ms(lambda: model(sharded, mesh))
+        ms_fwd_plain = synced_ms(lambda: plain(batch))
+    step = lr0_step(parallel.make_partitioned_train_step, model, mesh)
+    loss_s, g_s = step(sharded)
+    loss_p, g_p = node_grads(plain, lambda: plain(batch), labels)
+    rel = rel_frobenius(g_s, g_p)
+    check(abs(loss_s - loss_p) <= 1e-5 * abs(loss_p) and rel <= 1e-4, ("33 step", loss_s, loss_p, rel))
+    ms_step = synced_ms(lambda: step(sharded))
+    ms_step_plain = synced_ms(lambda: node_grads(plain, lambda: plain(batch), labels))
+    print(f"[33 edge partition] {card} | EdgePartitionedGCN, {n:,} nodes, {graph.num_edges:,} edges in "
+          f"{D} shards: partition_graph {t_part:.2f} s (host), {part.nodes_per_shard:,} nodes and "
+          f"{int(part.src_slot.shape[1]):,} edge slots a shard, send table [{D}, {D}, "
+          f"{part.borrowed_rows}] (borrowed rows a pair; {int((part.send_idx < part.nodes_per_shard).sum()):,} "
+          f"real); logits max|sharded - NodeGCN| {err:.3e} (rtol {RTOL} / atol {ATOL}); one step: loss "
+          f"{loss_s:.6f} / {loss_p:.6f}, gradients relative Frobenius {rel:.3e} (gate 1e-4); ms a forward "
+          f"sharded {ms_fwd:.3f}, unsharded {ms_fwd_plain:.3f}; ms a step (forward and backward) sharded "
+          f"{ms_step:.3f}, unsharded {ms_step_plain:.3f}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated():,} B; a forward moved {moved} ({PARALLEL_NOTE}); phase 33 "
+          f"took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def band_phase(dev, card, graph) -> None:
+    """Phase 34: the band- and hybrid-partitioned models on the giant graph."""
+    t_start = time.perf_counter()
+    D, n, block = PARALLEL["shards"], graph.num_nodes, GIANT["block"]
+    labels_np = giant_node_labels(graph)
+    labels = torch.from_numpy(labels_np).long().to(dev)
+    mesh = parallel.create_mesh((D,), ("edge",), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    a = to_banded(graph.edge_index[0], graph.edge_index[1], graph.edge_weight, n, block=block,
+                  device=dev)
+    x = torch.from_numpy(graph.node_features).to(dev)
+    sharded = mesh.place(parallel.partition_banded(a, graph.node_features, D, labels=labels_np))
+    check(sharded.band.data_ptr() == a.band.data_ptr(), "the partition's band is a view of the band")
+    lines = []
+    for name, cls_s, cls_p in (("GCN", parallel.ShardedBandedGCN, BandedNodeGCN),
+                               ("SAGE", parallel.ShardedBandedSAGE, BandedNodeSAGE)):
+        model, plain = twin(cls_s, cls_p, dev)
+        with torch.no_grad():
+            model.eval(), plain.eval()
+            clear_counts(mesh)
+            got = model(sharded, mesh).reshape(-1, 2)[:n]
+            moved = moved_text(mesh)
+            err = held_logits(got, plain(a, x), f"34 ShardedBanded{name} logits")
+            ms_fwd = synced_ms(lambda: model(sharded, mesh))
+            ms_fwd_plain = synced_ms(lambda: plain(a, x))
+        line = (f"ShardedBanded{name} forward: max|sharded - BandedNode{name}| {err:.3e} (rtol {RTOL} / "
+                f"atol {ATOL}), ms sharded {ms_fwd:.3f}, unsharded {ms_fwd_plain:.3f}, moved {moved}")
+        if name == "GCN":
+            step = lr0_step(parallel.make_sharded_banded_train_step, model, mesh)
+            loss_s, g_s = step(sharded)
+            loss_p, g_p = node_grads(plain, lambda: plain(a, x), labels)
+            rel = rel_frobenius(g_s, g_p)
+            check(abs(loss_s - loss_p) <= 1e-5 * abs(loss_p) and rel <= 1e-4, ("34 step", loss_s, loss_p, rel))
+            ms_step = synced_ms(lambda: step(sharded))
+            ms_step_plain = synced_ms(lambda: node_grads(plain, lambda: plain(a, x), labels))
+            line += (f"; step: loss {loss_s:.6f} / {loss_p:.6f}, gradients relative Frobenius {rel:.3e} "
+                     f"(gate 1e-4), ms a step sharded {ms_step:.3f}, unsharded float32 BandedNodeGCN "
+                     f"{ms_step_plain:.3f} (forward, normalizing the band each call, and backward)")
+        lines.append(line)
+        del model, plain
+    peak_band = torch.cuda.max_memory_allocated()
+    del sharded, a
+    torch.cuda.empty_cache()
+    # the hybrid form: the same widths with 10 % shortcuts
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g2 = generate_spatial_graph(n, degree=GIANT["degree"], band=GIANT["band"], shortcut_frac=0.1,
+                                num_features=GIANT["in_channels"], seed=0)
+    h = to_hybrid(g2.edge_index[0], g2.edge_index[1], g2.edge_weight, n, block=block, bandwidth=2,
+                  device=dev)
+    ph = mesh.place(parallel.partition_hybrid(h, g2.node_features, D, labels=giant_node_labels(g2)))
+    t_hybrid = time.perf_counter() - t0
+    x2 = torch.from_numpy(g2.node_features).to(dev)
+    model, plain = twin(parallel.ShardedBandedGCN, BandedNodeGCN, dev)
+    with torch.no_grad():
+        model.eval(), plain.eval()
+        clear_counts(mesh)
+        got = model(ph, mesh).reshape(-1, 2)[:n]
+        moved = moved_text(mesh)
+        err = held_logits(got, plain(h, x2), "34 hybrid ShardedBandedGCN logits")
+        ms_fwd = synced_ms(lambda: model(ph, mesh))
+        ms_fwd_plain = synced_ms(lambda: plain(h, x2))
+    remainder = int((ph.rem_weights > 0).sum())
+    lines.append(f"hybrid (10 % shortcuts, {remainder:,} remainder edges, send table [{D}, {D}, "
+                 f"{int(ph.send_idx.shape[-1])}], generated and partitioned in {t_hybrid:.1f} s): "
+                 f"ShardedBandedGCN max|sharded - BandedNodeGCN| {err:.3e}, ms a forward sharded "
+                 f"{ms_fwd:.3f}, unsharded {ms_fwd_plain:.3f}, moved {moved}; max_memory_allocated "
+                 f"{torch.cuda.max_memory_allocated():,} B")
+    for line in lines:
+        print(f"[34 band partition] {card} | {n:,} nodes, W=2, b={block}, F={GIANT['in_channels']}, "
+              f"H={GIANT['hidden']}, L={GIANT['layers']}, {D} shards: {line}", flush=True)
+    print(f"[34 band partition] {card} | max_memory_allocated {peak_band:,} B (band); {PARALLEL_NOTE}; "
+          f"phase 34 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def mesh2d_phase(dev, card) -> None:
+    """Phase 35: the 2-D step against the cohort's block diagonal."""
+    t_start = time.perf_counter()
+    n, block = PARALLEL["subject_nodes"], GIANT["block"]
+    subjects = []
+    for i in range(PARALLEL["subjects"]):
+        g = generate_spatial_graph(n, degree=GIANT["degree"], band=GIANT["band"],
+                                   num_features=GIANT["in_channels"], seed=1 + i)
+        a = to_banded(g.edge_index[0], g.edge_index[1], g.edge_weight, n, block=block, device=dev)
+        subjects.append((a, g.node_features, giant_node_labels(g)))
+    mesh = parallel.create_mesh((PARALLEL["subjects"], 2), ("data", "edge"), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    stacked = mesh.place(parallel.stack_partitioned(
+        [parallel.partition_banded(a, xs, 2, labels=lab) for a, xs, lab in subjects]))
+    combined, valid = banded_block_diag([a for a, _, _ in subjects])
+    x = torch.from_numpy(np.concatenate([xs for _, xs, _ in subjects])).to(dev)
+    labels = torch.from_numpy(np.concatenate([lab for _, _, lab in subjects])).long().to(dev)
+    model, oracle = twin(parallel.ShardedBandedGCN, BandedNodeGCN, dev)
+    clear_counts(mesh)
+    step = lr0_step(parallel.make_banded_train_step_2d, model, mesh)
+    loss_s, g_s = step(stacked)
+    moved = moved_text(mesh)
+    loss_p, g_p = node_grads(oracle, lambda: oracle(combined, x, node_mask=valid), labels, valid)
+    rel = rel_frobenius(g_s, g_p)
+    check(abs(loss_s - loss_p) <= 1e-5 * abs(loss_p) and rel <= 1e-4, ("35 step", loss_s, loss_p, rel))
+    ms_step = synced_ms(lambda: step(stacked))
+    ms_plain = synced_ms(lambda: node_grads(oracle, lambda: oracle(combined, x, node_mask=valid), labels,
+                                            valid))
+    print(f"[35 2-D] {card} | make_banded_train_step_2d on a (data {PARALLEL['subjects']} x edge 2) mesh, "
+          f"{PARALLEL['subjects']} subjects of {n:,} nodes (W=2, b={block}, F={GIANT['in_channels']}, "
+          f"H={GIANT['hidden']}, L={GIANT['layers']}): loss {loss_s:.6f} "
+          f"against banded_block_diag's {loss_p:.6f}, gradients relative Frobenius {rel:.3e} (gate 1e-4); "
+          f"ms a step 2-D {ms_step:.3f}, one device on the block diagonal {ms_plain:.3f}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated():,} B; a step moved {moved} "
+          f"({PARALLEL_NOTE}); phase 35 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def parallel_phases(dev, card, graph=None) -> None:
+    """Phases 32-35 in one rank of an NCCL group of size 1."""
+    import torch.distributed as dist
+
+    t_start = time.perf_counter()
+    rendezvous = tempfile.mkdtemp(prefix="cgt_nccl_")
+    parallel.initialize_distributed(f"file://{rendezvous}/rendezvous", 1, 0, device=dev)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, dist.get_backend())
+        print(f"[32 data parallel] {card} | torch.distributed {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}, nccl {'.'.join(map(str, torch.cuda.nccl.version()))}", flush=True)
+        dp_phase(dev, card)
+        if graph is None:
+            graph = generate_spatial_graph(GIANT["num_nodes"], degree=GIANT["degree"], band=GIANT["band"],
+                                           num_features=GIANT["in_channels"], seed=0)
+        edge_phase(dev, card, graph)
+        torch.cuda.empty_cache()
+        band_phase(dev, card, graph)
+        torch.cuda.empty_cache()
+        mesh2d_phase(dev, card)
+    finally:
+        parallel.shutdown_distributed()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+    print(f"[35 2-D] {card} | phases 32-35 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
 def demangled(name: str) -> str:
     """A kernel's C++ name, through ``c++filt`` where the machine has it."""
     try:
@@ -3365,6 +3756,9 @@ def main() -> None:
         return
     if "--sampled" in sys.argv[1:]:
         sampled_phases(dev, card)
+        return
+    if "--parallel" in sys.argv[1:]:
+        parallel_phases(dev, card)
         return
     # the timing modes above may time another tree's package; this tree's
     # kernels must neither spill nor have their wgmma serialized
@@ -3449,10 +3843,13 @@ def main() -> None:
 
     # 28. the giant-graph set-up: native helpers, the layout pipeline, the planner's rates
     layout_phase(dev, card, graph)
-    del graph
 
     # 29-31. sampled node training: host-sampled, device-sampled, scan_epochs
     sampled_phases(dev, card)
+
+    # 32-35. the parallel modes: data parallelism, edge, band and hybrid partitions, the 2-D step
+    parallel_phases(dev, card, graph)
+    del graph
 
     fused_entries = []
     for kind, k in KERNELS.items():

@@ -7,12 +7,14 @@ module keeps ``nn.BatchNorm1d``'s parameter and buffer names (``weight``,
 ``bias``, ``running_mean``, ``running_var``, ``num_batches_tracked``), so a
 reference checkpoint loads with ``load_state_dict``.  :class:`Dropout`
 draws from a generator it is handed (the trainer's), not the global one,
-so a resumed run replays it.
+so a resumed run replays it; over a mesh each shard draws from its own.
+Masked BatchNorm takes an optional moment reducer, which sums its batch
+moments across the shards of a mesh (sync-BatchNorm).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -60,6 +62,11 @@ class Dropout(nn.Module):
     over; it must live on the input's device.  The module has no parameters
     or buffers, so a model's ``state_dict`` keys are those it had with
     ``nn.Dropout``.
+
+    ``shard_generators`` (one per local shard of a mesh, set by the mesh's
+    owner) splits the input's first axis into that many equal parts, shard
+    by shard, and draws each part's mask from its shard's generator: the
+    masks then do not depend on how shards are spread over processes.
     """
 
     def __init__(self, p: float = 0.5):
@@ -68,6 +75,7 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout rate must be in [0, 1), got {p}")
         self.p = float(p)
         self.generator: Optional[torch.Generator] = None
+        self.shard_generators: Optional[Sequence[torch.Generator]] = None
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
@@ -76,8 +84,16 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
-        return torch.where(mask, x / keep, 0.0)
+        if self.shard_generators is None:
+            mask = torch.rand(x.shape, generator=self.generator, device=x.device)
+        else:
+            parts = len(self.shard_generators)
+            if x.shape[0] % parts:
+                raise ValueError(f"dropout over {parts} shards got a first axis of {x.shape[0]}")
+            shape = (x.shape[0] // parts,) + tuple(x.shape[1:])
+            mask = torch.cat([torch.rand(shape, generator=g, device=x.device)
+                              for g in self.shard_generators])
+        return torch.where(mask < keep, x / keep, 0.0)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -92,6 +108,12 @@ class MaskedBatchNorm(nn.Module):
     arithmetic as ``batch_norm_apply``, ``batch_norm_apply_fm`` and
     ``batch_norm_apply_blocked`` of the JAX package
     (``connectome_gnn_tpu/nn/layers.py:95-218``).
+
+    ``moment_reducer`` (None by default) is sync-BatchNorm: in train mode it
+    maps this batch's ``(n, Σx, Σx²)`` to their sums over every shard of a
+    mesh before the moments are taken, as the JAX package psums them over
+    its stats axes (``nn/layers.py:121-124``).  Without one every result is
+    what it was, bitwise.
     """
 
     eps = 1e-5
@@ -105,6 +127,7 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        self.moment_reducer: Optional[Callable] = None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Node-major ``x [N, F]``; ``mask [N]`` or None (every row real)."""
@@ -142,6 +165,8 @@ class MaskedBatchNorm(nn.Module):
         else:
             n = m.sum()
             sum_x, sum_x2 = (x * m).sum(dim=dims), (x * x * m).sum(dim=dims)
+        if self.moment_reducer is not None:
+            n, sum_x, sum_x2 = self.moment_reducer(n, sum_x, sum_x2)
         mean = sum_x / n
         var = torch.clamp(sum_x2 / n - mean * mean, min=0.0)  # biased
         y = (x - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)

@@ -17,10 +17,9 @@ plain torch (:func:`banded_spmm`, also the oracle of the int8 kernels in
 :mod:`connectome_gnn_tpu_torch.ops.banded_quant`), with the JAX package's
 custom backward ``x̄ = Aᵀ·ȳ`` one diagonal at a time.  The hybrid form
 routes the out-of-band shortcuts of small-world graphs through the COO
-scatter path (:func:`hybrid_spmm`).
-
-Waiting for the parallel slice: ``banded_block_diag`` and
-``hybrid_block_diag``.
+scatter path (:func:`hybrid_spmm`).  :func:`banded_block_diag` and
+:func:`hybrid_block_diag` concatenate a cohort of graphs block-diagonally:
+the single-device oracle of the 2-D (data × edge) sharded step.
 """
 
 from __future__ import annotations
@@ -128,54 +127,64 @@ def pad_blocks(x: torch.Tensor, num_blocks: int, bandwidth: int, block: int) -> 
     return x_pad.view(num_blocks + 2 * bandwidth, block, F)
 
 
-class _BandedSpmm(torch.autograd.Function):
-    """``A @ x`` with the JAX package's custom backward
-    (``connectome_gnn_tpu/ops/banded.py:164-208``): it saves only the band
-    and computes ``x̄ = Aᵀ·ȳ`` one diagonal at a time, one batched matmul
-    and one static slice-add each.  The band, training data and not a
-    parameter, gets no gradient; rows of ``x`` past ``num_nodes`` get
-    zeros."""
+class _BandWindows(torch.autograd.Function):
+    """``out[..., rb] = Σ_d band[..., rb, d] @ x_ext[..., rb + d]``: a band
+    ``[..., NB, 2W+1, b, b]`` times its blocks extended by ``W`` a side,
+    ``x_ext [..., NB + 2W, b, F]``, one batched matmul per diagonal with
+    every leading axis folded into its batch; ``[..., NB, b, F]``.  The
+    backward is the JAX package's (``connectome_gnn_tpu/ops/banded.py:164-208``):
+    it saves only the band and adds ``band[..., d]ᵀ · ȳ`` into the blocks
+    ``d … d + NB - 1``, one batched matmul and one static slice-add a
+    diagonal.  The band, training data and not a parameter, gets no
+    gradient.  A band stored bfloat16 is widened one diagonal at a time."""
 
     @staticmethod
-    def forward(ctx, band: torch.Tensor, x: torch.Tensor, num_nodes: int) -> torch.Tensor:
-        nb, D, block, _ = band.shape
-        W = (D - 1) // 2
-        xb = pad_blocks(x[:num_nodes].to(torch.float32), nb, W, block)
-        out = xb.new_zeros((nb, block, xb.shape[2]))
+    def forward(ctx, band: torch.Tensor, x_ext: torch.Tensor) -> torch.Tensor:
+        nb, D, block = band.shape[-4:-1]
+        F = x_ext.shape[-1]
+        out = x_ext.new_zeros((*band.shape[:-4], nb, block, F))
+        flat = out.view(-1, block, F)
         for d in range(D):
-            out += torch.bmm(band[:, d].to(torch.float32), xb[d : d + nb])
+            a = band[..., d, :, :].to(x_ext.dtype).reshape(-1, block, block)
+            flat += torch.bmm(a, x_ext[..., d : d + nb, :, :].reshape(-1, block, F))
         ctx.save_for_backward(band)
-        ctx.num_nodes, ctx.x_rows = num_nodes, x.shape[0]
-        return out.reshape(nb * block, -1)[:num_nodes]
+        ctx.ext_shape = x_ext.shape
+        return out
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         (band,) = ctx.saved_tensors
-        nb, D, block, _ = band.shape
-        W, n, F = (D - 1) // 2, ctx.num_nodes, g.shape[1]
-        g_blocks = g.new_zeros((nb * block, F), dtype=torch.float32)
-        g_blocks[:n] = g
-        g_blocks = g_blocks.view(nb, block, F)
-        # x̄ block rb + d - W collects band[rb, d]ᵀ @ ȳ[rb]
-        xbar = g_blocks.new_zeros((nb + 2 * W, block, F))
+        nb, D, block = band.shape[-4:-1]
+        F = g.shape[-1]
+        g_flat = g.reshape(-1, block, F)
+        grad = g.new_zeros(ctx.ext_shape)
         for d in range(D):
-            xbar[d : d + nb] += torch.bmm(band[:, d].to(torch.float32).transpose(1, 2), g_blocks)
-        xbar = xbar[W : W + nb].reshape(nb * block, F)[:n]
-        if ctx.x_rows > n:
-            xbar = torch.cat([xbar, xbar.new_zeros((ctx.x_rows - n, F))])
-        return None, xbar, None
+            a = band[..., d, :, :].to(g.dtype).reshape(-1, block, block).transpose(1, 2)
+            grad[..., d : d + nb, :, :] += torch.bmm(a, g_flat).view(g.shape)
+        return None, grad
+
+
+def band_windows(band: torch.Tensor, x_ext: torch.Tensor) -> torch.Tensor:
+    """``Σ_d band[..., rb, d] @ x_ext[..., rb + d]`` over blocks extended
+    by ``W`` a side (:class:`_BandWindows`): the core of
+    :func:`banded_spmm` (zero-padded blocks) and of the sharded band
+    models (halo-extended blocks, a leading shard axis)."""
+    return _BandWindows.apply(band, x_ext)
 
 
 def banded_spmm(a: BandedMatrix, x: torch.Tensor) -> torch.Tensor:
     """``out = A @ x`` over the block band in float32; ``[num_nodes, F]``.
 
-    One batched matmul per diagonal over the shifted block windows.  A band
-    stored bfloat16 (:meth:`BandedNodeGCN.prepare`) is widened one diagonal
-    at a time, with float32 accumulation, as the JAX einsum does.
-    Differentiable in ``x`` through the JAX package's custom backward
-    (:class:`_BandedSpmm`), which holds only the band.
+    One batched matmul per diagonal over the shifted block windows
+    (:func:`band_windows`).  A band stored bfloat16
+    (:meth:`BandedNodeGCN.prepare`) is widened one diagonal at a time, with
+    float32 accumulation, as the JAX einsum does.  Differentiable in ``x``
+    through the JAX package's custom backward, which holds only the band;
+    rows of ``x`` past ``num_nodes`` get zeros.
     """
-    return _BandedSpmm.apply(a.band, x, a.num_nodes)
+    nb, _, block, _ = a.band.shape
+    xb = pad_blocks(x[: a.num_nodes].to(torch.float32), nb, a.bandwidth, block)
+    return band_windows(a.band, xb).reshape(nb * block, -1)[: a.num_nodes]
 
 
 def transpose_banded(a: BandedMatrix) -> BandedMatrix:
@@ -257,6 +266,29 @@ def gcn_normalize_banded(
     return _scale_band(a, dinv), dinv
 
 
+def banded_block_diag(parts) -> tuple[BandedMatrix, torch.Tensor]:
+    """Block-diagonal concatenation of banded matrices
+    (``connectome_gnn_tpu/ops/banded.py:297``).
+
+    Out-of-range band entries are zero by construction, so stacking the
+    parts' bands along the block-row axis is the block-diagonal matrix: a
+    part's boundary blocks reach its neighbor only through all-zero tiles.
+    Returns ``(combined, node_valid_mask)``; the mask is False on each
+    part's padding rows (``num_nodes .. padded``), which callers must also
+    zero in the concatenated features.  All parts must share ``block`` and
+    ``bandwidth``.
+    """
+    blocks = {p.block for p in parts}
+    widths = {p.bandwidth for p in parts}
+    if len(blocks) != 1 or len(widths) != 1:
+        raise ValueError("banded_block_diag requires uniform block/bandwidth")
+    band = torch.cat([p.band for p in parts], dim=0)
+    valid = torch.cat([
+        torch.arange(p.num_blocks * p.block, device=band.device) < p.num_nodes for p in parts
+    ])
+    return BandedMatrix(band, int(band.shape[0]) * int(band.shape[2]), widths.pop()), valid
+
+
 class HybridMatrix(NamedTuple):
     """Band plus sparse remainder: the local bulk in a band, the long-range
     shortcuts of a small-world graph as COO.
@@ -322,6 +354,47 @@ def to_hybrid(
         torch.from_numpy(out_s).to(dev),
         torch.from_numpy(out_r).to(dev),
         torch.from_numpy(out_w).to(dev),
+    )
+
+
+def hybrid_block_diag(parts) -> tuple[HybridMatrix, torch.Tensor]:
+    """Block-diagonal concatenation of hybrid matrices
+    (``connectome_gnn_tpu/ops/banded.py:398``): the bands stack as in
+    :func:`banded_block_diag`; each part's real remainder edges are offset
+    by the part's padded start, and the combined list is receiver-sorted
+    and padded again (a part's padding ids point at its own padded end and
+    would alias the next part's rows).  Returns ``(combined,
+    node_valid_mask)``."""
+    band, valid = banded_block_diag([p.band for p in parts])
+    ss, rr, ww = [], [], []
+    off = 0
+    for p in parts:
+        padded = p.band.num_blocks * p.band.block
+        s = p.remainder_senders.cpu().numpy().astype(np.int64)
+        r = p.remainder_receivers.cpu().numpy().astype(np.int64)
+        w = p.remainder_weights.cpu().numpy().astype(np.float32)
+        real = r < padded
+        ss.append(s[real] + off)
+        rr.append(r[real] + off)
+        ww.append(w[real])
+        off += padded
+    s = np.concatenate(ss) if ss else np.empty(0, np.int64)
+    r = np.concatenate(rr) if rr else np.empty(0, np.int64)
+    w = np.concatenate(ww) if ww else np.empty(0, np.float32)
+    order = np.argsort(r, kind="stable")
+    e = s.shape[0]
+    cap = round_up(max(e, 1), 128)
+    out_s = np.full(cap, off, np.int64)
+    out_r = np.full(cap, off, np.int64)
+    out_w = np.zeros(cap, np.float32)
+    out_s[:e] = s[order]
+    out_r[:e] = r[order]
+    out_w[:e] = w[order]
+    dev = band.band.device
+    return (
+        HybridMatrix(band, torch.from_numpy(out_s).to(dev), torch.from_numpy(out_r).to(dev),
+                     torch.from_numpy(out_w).to(dev)),
+        valid,
     )
 
 

@@ -23,8 +23,16 @@ predict unchanged.  ``scan_epochs`` runs a device-sampled epoch from one
 uploaded buffer: on the card as one captured CUDA graph a step, replayed
 per row (the analog of the JAX package's ``lax.scan`` epoch).
 
-Not ported here (they belong to slice E of the port): the JAX Trainer's
-``mesh`` / ``axis_name`` data-parallel mode and its graph-sharded steps.
+``Trainer(mesh=...)`` trains graph classification data-parallel over a
+:class:`~connectome_gnn_tpu_torch.parallel.mesh.Mesh` (``trainer.py:64-68``
+and ``:134-162`` of the JAX package): loaders yield stacked batches
+(``ConnectomeDataLoader(num_shards=D)``), each rank runs its shards as one
+batch with sync-BatchNorm, and the step reduces the gradients once over
+the mesh (``parallel/data_parallel.py``); the guard decides on the global
+values, so every rank takes the same verdict.  ``evaluate`` and ``predict``
+sum and gather over the mesh.  The mesh-mode seed-batch and graph-sharded
+steps and ``scan_epochs`` over a mesh belong to slice E3 of the port and
+raise ``NotImplementedError``.
 The JAX Trainer's ``params`` / ``state`` arguments have no counterpart:
 the port's model carries its weights (``models.compat.load_jax_params``
 loads JAX ones).
@@ -55,6 +63,9 @@ from connectome_gnn_tpu_torch.train.fault import (
 
 #: builds the optimizer over the model's parameters (after they are moved)
 OptimizerFactory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
+#: what mesh mode does not run yet
+MESH_E3 = ("slice E3 of the port (sampled data parallelism, graph-sharded sampling) is not "
+           "ported yet")
 
 
 def reference_adam(learning_rate: float = 1e-3, weight_decay: float = 1e-4) -> OptimizerFactory:
@@ -74,6 +85,40 @@ def reference_adam(learning_rate: float = 1e-3, weight_decay: float = 1e-4) -> O
                                 capturable=on_card)
 
     return make
+
+
+def _optimizer_tensors(optimizer, params) -> list:
+    """``(param, key, tensor)`` of the optimizer's state, in parameter order."""
+    return [(p, k, v) for p in params for k, v in optimizer.state.get(p, {}).items()
+            if torch.is_tensor(v)]
+
+
+def guarded_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, loss_and_grads,
+                 guard: bool):
+    """One optimization step: ``loss_and_grads()`` runs the forward and the
+    backward and returns ``(loss, n)``; then the optimizer steps.  With
+    ``guard`` it is the non-finite step guard (``train/fault.py``): a step
+    with a non-finite loss, gradient or buffer keeps every old value.
+    Returns ``(loss, n, ok)`` as device scalars (a rejected step gives 0,
+    0, 0)."""
+    params, buffers = list(model.parameters()), list(model.buffers())
+    if guard:
+        opt_before = _optimizer_tensors(optimizer, params)
+        old = snapshot([p.detach() for p in params] + buffers + [v for _, _, v in opt_before])
+    optimizer.zero_grad(set_to_none=True)
+    loss, n = loss_and_grads()
+    if not guard:
+        optimizer.step()
+        return loss, n, torch.ones((), device=n.device)
+    ok = all_finite(loss, *(p.grad for p in params if p.grad is not None), *buffers)
+    optimizer.step()
+    # the snapshot's tensors in its order, then state the step created
+    # lazily (restored to its zeros)
+    seen = {(p, k) for p, k, _ in opt_before}
+    state = [optimizer.state[p][k] for p, k, _ in opt_before]
+    state += [v for p, k, v in _optimizer_tensors(optimizer, params) if (p, k) not in seen]
+    with torch.no_grad():
+        return guard_step_outputs(ok, [p.detach() for p in params] + buffers + state, old, loss, n)
 
 
 class Trainer:
@@ -110,6 +155,16 @@ class Trainer:
     prefetch_depth
         Batches a background thread collates and copies ahead of the device
         (default 2; 0 iterates the loader in line).  Reorders nothing.
+    mesh / axis_name
+        A :class:`~connectome_gnn_tpu_torch.parallel.mesh.Mesh`: train
+        data-parallel over its ``axis_name`` axis (default ``"data"``).
+        Loaders must then yield stacked batches of the mesh's shard count
+        (``ConnectomeDataLoader(..., num_shards=D)``, with ``process_index``
+        / ``process_count`` where there are several processes); the model
+        runs on the mesh's device.  Dropout draws each shard's mask from
+        its own generator, seeded from ``seed`` and the shard's index.
+        Numerics are single-device training's at the global batch, up to
+        the order of float32 sums.
     scan_epochs
         For a ``DeviceSampledModel`` trained from a ``DeviceSeedLoader``:
         each training epoch is packed into one ``[steps, 3 + 2S]`` buffer
@@ -134,16 +189,30 @@ class Trainer:
         skip_nonfinite: bool = True,
         prefetch_depth: int = 2,
         scan_epochs: bool = False,
+        mesh=None,
+        axis_name: str = "data",
     ):
+        self.mesh = mesh
+        self.axis_name = axis_name
+        if mesh is not None:
+            mesh.axis_size(axis_name)
+            if device is not None and torch.empty(0, device=device).device != mesh.device:
+                raise ValueError(f"device={device} is not the mesh's device {mesh.device}")
+            if scan_epochs:
+                raise NotImplementedError(f"scan_epochs over a mesh: {MESH_E3}")
+            device = mesh.device
         self.device = torch.device(card_by_default(device, "Trainer"))
         self.model = model.to(self.device)
         if getattr(self.model, "csr", None) is not None:
             self._check_csr(self.model.csr, "the model's")
         self.optimizer = (optimizer or reference_adam())(self.model.parameters())
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        #: mesh mode: each local shard's dropout generator
+        self.shard_generators = mesh.shard_generators(seed) if mesh is not None else None
         for module in self.model.modules():
             if isinstance(module, Dropout):
                 module.generator = self.generator
+                module.shard_generators = self.shard_generators
         self.skip_nonfinite = bool(skip_nonfinite)
         self.prefetch_depth = int(prefetch_depth)
         self.last_skipped_steps = 0
@@ -170,39 +239,45 @@ class Trainer:
     # Training
     # ------------------------------------------------------------------
 
-    def _optimizer_tensors(self, params) -> list:
-        """``(param, key, tensor)`` of the optimizer's state, in parameter order."""
-        return [(p, k, v) for p in params for k, v in self.optimizer.state.get(p, {}).items()
-                if torch.is_tensor(v)]
-
     def _train_step(self, batch):
         """One optimization step; returns ``(loss, n, ok)`` as device
         scalars (a rejected step gives 0, 0, 0)."""
-        model = self.model
-        params, buffers = list(model.parameters()), list(model.buffers())
-        if self.skip_nonfinite:
-            opt_before = self._optimizer_tensors(params)
-            old = snapshot([p.detach() for p in params] + buffers + [v for _, _, v in opt_before])
-        self.optimizer.zero_grad(set_to_none=True)
-        logits = model(batch)
+        return guarded_step(self.model, self.optimizer, lambda: self._loss_and_grads(batch),
+                            self.skip_nonfinite)
+
+    def _loss_and_grads(self, batch):
+        """Forward and backward of one step; the mean loss and the count of
+        labelled graphs (over the whole mesh in mesh mode)."""
+        if self.mesh is not None:
+            from connectome_gnn_tpu_torch.parallel.data_parallel import dp_loss_and_grads
+
+            return dp_loss_and_grads(self.model, self.mesh, self._stacked(batch))
+        logits = self.model(batch)
         ce = F.cross_entropy(logits, batch.labels, reduction="none")
         mask = batch.label_mask.to(logits.dtype)
         n = mask.sum()
         loss = (ce * mask).sum() / torch.clamp(n, min=1.0)
         loss.backward()
-        if not self.skip_nonfinite:
-            self.optimizer.step()
-            return loss.detach(), n, torch.ones((), device=n.device)
-        ok = all_finite(loss, *(p.grad for p in params if p.grad is not None), *buffers)
-        self.optimizer.step()
-        # the snapshot's tensors in its order, then state the step created
-        # lazily (restored to its zeros)
-        seen = {(p, k) for p, k, _ in opt_before}
-        state = [self.optimizer.state[p][k] for p, k, _ in opt_before]
-        state += [v for p, k, v in self._optimizer_tensors(params) if (p, k) not in seen]
-        with torch.no_grad():
-            return guard_step_outputs(ok, [p.detach() for p in params] + buffers + state, old,
-                                      loss.detach(), n)
+        return loss.detach(), n
+
+    def _stacked(self, batch):
+        """Mesh mode: ``batch``, checked to be a stacked graph batch of the
+        rank's shards."""
+        from connectome_gnn_tpu_torch.data.batch import ConnectomeBatch
+        from connectome_gnn_tpu_torch.data.dense import DenseConnectomeBatch
+        from connectome_gnn_tpu_torch.parallel.data_parallel import is_stacked
+
+        if not isinstance(batch, (ConnectomeBatch, DenseConnectomeBatch)):
+            raise NotImplementedError(
+                f"mesh-mode training of a {type(batch).__name__}: {MESH_E3}")
+        if not is_stacked(batch) or batch.label_mask.shape[0] != self.mesh.local_shards:
+            raise ValueError(
+                f"mesh-mode training needs stacked batches of this rank's {self.mesh.local_shards} "
+                f"shards: a ConnectomeDataLoader with num_shards={self.mesh.axis_size(self.axis_name)}"
+                + (f", process_index={self.mesh.rank}, process_count={self.mesh.world}"
+                   if self.mesh.world > 1 else "")
+            )
+        return batch
 
     def _train_steps(self, loader):
         """Every step of one pass over ``loader``; returns the device sums
@@ -228,6 +303,8 @@ class Trainer:
 
         if not isinstance(loader, DeviceSeedLoader):
             return False
+        if self.mesh is not None:
+            raise NotImplementedError(f"scan_epochs over a mesh: {MESH_E3}")
         if not isinstance(self.model, DeviceSampledModel):
             raise ValueError(
                 "scan_epochs samples on the device: the model must be a DeviceSampledModel "
@@ -365,6 +442,7 @@ class Trainer:
         early returns at once.
         """
         history: dict = {"train_loss": [], "val_loss": [], "val_acc": [], "skipped_steps": []}
+        verbose = verbose and (self.mesh is None or self.mesh.rank == 0)
         best_val_loss = float("inf")
         best_epoch = 0
         best = None
@@ -444,6 +522,11 @@ class Trainer:
         self.model.eval()
         sums = torch.zeros(3, device=self.device)  # loss, correct, total
         for batch in self._iterate(loader):
+            if self.mesh is not None:
+                from connectome_gnn_tpu_torch.parallel.data_parallel import dp_eval_sums
+
+                sums += dp_eval_sums(self.model, self.mesh, self._stacked(batch))
+                continue
             logits = self.model(batch)
             ce = F.cross_entropy(logits, batch.labels, reduction="none")
             mask = batch.label_mask.to(logits.dtype)
@@ -467,10 +550,20 @@ class Trainer:
         :func:`~connectome_gnn_tpu_torch.ops.fused.forward_auto`, which
         runs dense-layout batches on CUDA through the fused kernel; a COO
         batch cannot fuse, so it warns once and takes ``model(batch)``.
+
+        In mesh mode each rank serves its shards as one batch, and every
+        rank returns the logits of every shard, gathered over the mesh in
+        loader order.
         """
         self.model.eval()
         chunks = []
         for batch in self._iterate(loader):
+            graph_mask = None
+            if self.mesh is not None:
+                from connectome_gnn_tpu_torch.parallel.data_parallel import merge_shards
+
+                batch = merge_shards(self._stacked(batch))
+                graph_mask = self._gathered(batch.graph_mask.to(torch.uint8)).bool()
             if prefer_fused:
                 if not hasattr(batch, "adj") and not self._warned_unfusable:
                     warnings.warn(
@@ -486,15 +579,25 @@ class Trainer:
                 logits = self.model(batch)
             # real-graph mask, not label_mask: unlabeled graphs still get
             # predictions
-            chunks.append(logits[batch.graph_mask])
+            if graph_mask is not None:
+                chunks.append(self._gathered(logits)[graph_mask])
+            else:
+                chunks.append(logits[batch.graph_mask])
         return torch.cat(chunks).cpu().numpy()
+
+    def _gathered(self, t: torch.Tensor) -> torch.Tensor:
+        """A merged batch's per-graph rows from every rank, in shard order."""
+        S = self.mesh.local_shards
+        return self.mesh.all_gather(t.reshape(S, -1, *t.shape[1:])).flatten(0, 1)
 
     # ------------------------------------------------------------------
     # Preemption-safe fit checkpoints
     # ------------------------------------------------------------------
 
-    @staticmethod
-    def _fit_ckpt_path(directory: str) -> str:
+    def _fit_ckpt_path(self, directory: str) -> str:
+        """One file a rank: the ranks hold different dropout generators."""
+        if self.mesh is not None and self.mesh.world > 1:
+            return os.path.join(directory, f"fit_state.rank{self.mesh.rank}.npz")
         return os.path.join(directory, "fit_state.npz")
 
     def _save_fit_checkpoint(self, directory, epoch, best_epoch, best_val_loss, best, history,
@@ -515,6 +618,7 @@ class Trainer:
             "best": best if best is not None else self.model.state_dict(),
             "optimizer": opt["state"],
             "generator": self.generator.get_state(),
+            "shard_generators": [g.get_state() for g in self.shard_generators or []],
             "meta": np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
         })
 
@@ -527,6 +631,7 @@ class Trainer:
         weights = self.model.state_dict()
         tree = restore_checkpoint(path, {
             "model": weights, "best": weights, "generator": self.generator.get_state(),
+            "shard_generators": [g.get_state() for g in self.shard_generators or []],
             "meta": 0,  # shape-free leaf: restored as stored
         })
         meta = json.loads(np.asarray(tree["meta"]).tobytes().decode())
@@ -541,5 +646,7 @@ class Trainer:
         self._captured.clear()  # captured steps address the replaced optimizer state
         self.model.load_state_dict(tree["model"])
         self.generator.set_state(tree["generator"].cpu())
+        for g, state in zip(self.shard_generators or [], tree["shard_generators"]):
+            g.set_state(state.cpu())
         self._best = tree["best"]
         return meta

@@ -108,8 +108,17 @@ def test_loader_places_batches_on_device(graphs):
 
 
 def test_loader_sharding_names_its_slice(graphs):
-    _, tg = graphs
-    with pytest.raises(NotImplementedError, match="slice E"):
-        td.ConnectomeDataLoader(tg, batch_size=4, num_shards=2)
-    with pytest.raises(NotImplementedError, match="slice E"):
+    """The graph loader shards since slice E1 (stacked batches, bitwise
+    JAX's, in ``tests/test_torch_parallel.py``); its process arguments need
+    ``num_shards``, as JAX's do, and the sampled loaders' sharding names
+    slice E3, which is still to come."""
+    jg, tg = graphs
+    batch = next(iter(td.ConnectomeDataLoader(tg, batch_size=4, shuffle=False, num_shards=2)))
+    want = next(iter(jd.ConnectomeDataLoader(jg, batch_size=4, shuffle=False, num_shards=2)))
+    assert batch.node_features.shape[0] == 2 and batch.num_graphs == want.num_graphs == 2
+    assert_same(batch.senders, want.senders)
+    with pytest.raises(ValueError, match="requires num_shards"):
         td.ConnectomeDataLoader(tg, batch_size=4, process_index=0, process_count=2)
+    with pytest.raises(NotImplementedError, match="slice E3"):
+        td.SampledNodeLoader(td.generate_spatial_graph(64, degree=4, band=8), num_shards=2,
+                             device="cpu")

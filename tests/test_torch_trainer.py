@@ -157,7 +157,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "connectome_gnn_tpu_torch.native, connectome_gnn_tpu_torch.data.layout, "
         "connectome_gnn_tpu_torch.entry, connectome_gnn_tpu_torch.data.sampling, "
         "connectome_gnn_tpu_torch.data.sampled, connectome_gnn_tpu_torch.data.device_sampling, "
-        "connectome_gnn_tpu_torch.models.node_coo\n"
+        "connectome_gnn_tpu_torch.models.node_coo, connectome_gnn_tpu_torch.parallel, "
+        "connectome_gnn_tpu_torch.parallel.mesh, connectome_gnn_tpu_torch.parallel.distributed, "
+        "connectome_gnn_tpu_torch.parallel.shard_forward, "
+        "connectome_gnn_tpu_torch.parallel.data_parallel, "
+        "connectome_gnn_tpu_torch.parallel.edge_partition, "
+        "connectome_gnn_tpu_torch.parallel.banded_partition, "
+        "connectome_gnn_tpu_torch.parallel.hybrid_partition, "
+        "connectome_gnn_tpu_torch.parallel.launch\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'connectome_gnn_tpu' or m.startswith('connectome_gnn_tpu.')]\n"
         "assert not bad, bad"
