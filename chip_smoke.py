@@ -338,6 +338,42 @@ one card, not scaling.
     gradients by relative Frobenius error, gate 1e-4).
 ``--parallel`` runs phases 32-35 alone.
 
+Then sampled data parallelism and graph-sharded sampling (slice E3), in
+one rank of an NCCL group of size 1 holding 4 shards, at S2's widths
+(phases 29-31: 1024 seeds a step, 256 a shard).  Every byte stays on the
+card: what the exchange and the merge cost, not scaling.
+
+36. sampled data parallelism: ``SampledNodeLoader(num_shards=4)`` into
+    the data-parallel ``NodeGCN`` step (its first stacked batch bitwise a
+    CPU loader's, a step against the CPU's: loss rtol 1e-5, gradients rtol
+    1e-4 / atol 1e-5, ms a step in turns with the unsharded S2 step); then
+    the device-sampled GCN and SAGE multiset through
+    ``make_device_sampled_dp_step`` on the CSR on the card (one shard row's
+    ``device_sample`` bitwise the CPU's, a step against the CPU's, ms a
+    step against phase 30's unsharded step, device time by kernel, the
+    busy share and the peak);
+37. ``Trainer(scan_epochs=True, mesh=...)`` (SE2, SME2 over 4 shards): 64
+    steps scanned, one captured step with its NCCL collectives, against
+    the same steps stepwise: the state bitwise or its largest difference,
+    the epoch loss within 1e-4, ms a step both ways, the host's
+    dispatches an epoch, the bytes of each collective in a step and over
+    the epochs (the replays counted by the captured step's counts: exactly
+    64 a step's an epoch);
+38. ``graph_sharded_sage`` (4 shards of 262,144 nodes): the partition's
+    seconds and each shard's bytes, ``plan_compaction`` on 4 probe
+    batches, one step's ``sharded_device_sample`` on the card bitwise the
+    CPU's with both exchanges and overflow 0, compacted bitwise broadcast,
+    eval logits and a step's gradients against the CPU's (rtol 1e-4 /
+    atol 1e-5; relative Frobenius, gate 1e-4), ms a step compacted,
+    broadcast and replicated (phase 36's SAGE multiset DP step), each
+    collective's counted bytes (``count_collective_bytes``) against
+    ``sharded_sampling_comm_model``, the peak; then
+    ``entry.dryrun_multichip(4)`` on the card and the launcher's
+    ``sampled_dp``, ``device_sampled_dp``, ``device_sampled_dp_scanned``
+    and ``graph_sharded`` programs with no device argument (NCCL), each
+    with a finite loss and a first-step gradient sum.
+``--sampled-parallel`` runs phases 36-38 alone (about 112 s).
+
 It prints the card's name and power limit, the kernels' JSON line (K1 to
 K7, K4's backward, B2a-B2c, B3a-B3d and B1 at the script's three cases,
 each with its launches on the main path, its largest error against its
@@ -394,6 +430,7 @@ from connectome_gnn_tpu_torch import native
 from connectome_gnn_tpu_torch.data import (
     DeviceGraphCSR,
     DeviceSampledModel,
+    SeedBatch,
     apply_ordering,
     auto_layout,
     bandwidth,
@@ -2554,7 +2591,7 @@ def graph_training_phases(dev, card) -> None:
         sums, steps = trainer._train_steps(batches)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    total, count, oks = sums.tolist()
+    total, count, oks, _ = sums.tolist()  # loss·n, n, ok, the exchange overflow
     check(steps == len(batches) and oks == steps and count == len(train_g), (steps, count, oks))
     print(f"[23 training] {steps} steps of one epoch under torch.cuda.set_sync_debug_mode('error'): no host "
           f"sync; one at the epoch's end reads loss per graph {total / count:.4f}", flush=True)
@@ -3181,8 +3218,9 @@ def diff_text(diff: dict) -> str:
     return ", ".join(f"{k} {'bitwise' if v == 0.0 else f'max|diff| {v:.3e}'}" for k, v in diff.items())
 
 
-def sampled_phases(dev, card) -> None:
-    """Phases 29-31: sampled node training at S2, SD2, SE2 and SME2's widths."""
+def sampled_phases(dev, card):
+    """Phases 29-31: sampled node training at S2, SD2, SE2 and SME2's widths;
+    returns S2's graph and labels."""
     t_start = time.perf_counter()
     S, fanout, steps = SAMPLED["seeds"], SAMPLED["fanout"], SAMPLED["steps"]
     t0 = time.perf_counter()
@@ -3300,6 +3338,7 @@ def sampled_phases(dev, card) -> None:
     print(f"[31 scan_epochs] {card} | max_memory_allocated {torch.cuda.max_memory_allocated():,} B; phase 31 "
           f"took {time.perf_counter() - t_phase:.1f} s; phases 29-31 {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    return g, labels
 
 
 @contextlib.contextmanager
@@ -3674,17 +3713,28 @@ def mesh2d_phase(dev, card) -> None:
           f"({PARALLEL_NOTE}); phase 35 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
 
-def parallel_phases(dev, card, graph=None) -> None:
-    """Phases 32-35 in one rank of an NCCL group of size 1."""
+@contextlib.contextmanager
+def nccl_group(dev, card, tag: str):
+    """One rank of an NCCL group of size 1, by a ``file://`` rendezvous in a
+    temporary directory; shut down and removed after."""
     import torch.distributed as dist
 
-    t_start = time.perf_counter()
     rendezvous = tempfile.mkdtemp(prefix="cgt_nccl_")
     parallel.initialize_distributed(f"file://{rendezvous}/rendezvous", 1, 0, device=dev)
     try:
         check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, dist.get_backend())
-        print(f"[32 data parallel] {card} | torch.distributed {dist.get_backend()}, world size "
+        print(f"[{tag}] {card} | torch.distributed {dist.get_backend()}, world size "
               f"{dist.get_world_size()}, nccl {'.'.join(map(str, torch.cuda.nccl.version()))}", flush=True)
+        yield
+    finally:
+        parallel.shutdown_distributed()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+def parallel_phases(dev, card, graph=None) -> None:
+    """Phases 32-35 in one rank of an NCCL group of size 1."""
+    t_start = time.perf_counter()
+    with nccl_group(dev, card, "32 data parallel"):
         dp_phase(dev, card)
         if graph is None:
             graph = generate_spatial_graph(GIANT["num_nodes"], degree=GIANT["degree"], band=GIANT["band"],
@@ -3694,10 +3744,312 @@ def parallel_phases(dev, card, graph=None) -> None:
         band_phase(dev, card, graph)
         torch.cuda.empty_cache()
         mesh2d_phase(dev, card)
-    finally:
-        parallel.shutdown_distributed()
-        shutil.rmtree(rendezvous, ignore_errors=True)
     print(f"[35 2-D] {card} | phases 32-35 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+SAMPLED_PARALLEL_NOTE = ("one rank of an NCCL group of size 1 holding 4 shards on one card: every byte "
+                         "stays on the card, so this is what the exchange costs, not scaling")
+
+
+def cpu_mesh(D: int):
+    """A mesh of ``D`` shards on the CPU in this process alone (no group):
+    the reference the card's mesh is held to."""
+    return parallel.Mesh((D,), ("data",), "cpu")
+
+
+def lr0_grads(step, model, *args):
+    """A train step at lr 0: ``(loss, {name: reduced gradient on the CPU})``,
+    the weights as they were."""
+    out = step(*args)
+    return float(out[0]), {k: p.grad.detach().cpu().clone() for k, p in model.named_parameters()}
+
+
+def sgd0(model):
+    return torch.optim.SGD(model.parameters(), lr=0.0)
+
+
+def sharded_fields_equal(got, want, fields, what) -> None:
+    for name in fields:
+        a, b = getattr(got, name), getattr(want, name)
+        check(a.is_cuda and torch.equal(a.cpu(), b), (what, name))
+
+
+def sampled_dp_phase(dev, card, g, labels) -> dict:
+    """Phase 36: host- and device-sampled data parallelism over 4 shards."""
+    t_start = time.perf_counter()
+    D, S, fanout = PARALLEL["shards"], SAMPLED["seeds"], SAMPLED["fanout"]
+    mesh, ref_mesh = parallel.create_mesh((D,), ("data",), device=dev), cpu_mesh(D)
+    pool = np.random.default_rng(3).permutation(g.num_nodes)[: SAMPLED["steps"] * S]
+    torch.cuda.reset_peak_memory_stats()
+    # host-sampled (S2 over 4 shards)
+    kw = dict(seed_nodes=pool, batch_size=S, fanout=fanout, seed=0)
+    loader = SampledNodeLoader(g, labels, device=dev, num_shards=D, **kw)
+    on_card = next(iter(loader))
+    on_cpu = next(iter(SampledNodeLoader(g, labels, device="cpu", num_shards=D, **kw)))
+    sharded_fields_equal(on_card, on_cpu, SAMPLED_FIELDS, "36 stacked S2 batch")
+    check(on_card.node_features.shape[0] == D and on_card.num_seeds == S // D, on_card.num_seeds)
+    base = NodeGCN(g.num_features, SAMPLED["hidden"], num_layers=len(fanout),
+                   generator=torch.Generator().manual_seed(0))
+    randomize_batch_norms(base, np.random.default_rng(0))
+    card_model, cpu_model = copy.deepcopy(base).to(dev), copy.deepcopy(base)
+    d_step = check_step_matches(
+        lr0_grads(parallel.make_dp_train_step(card_model, sgd0(card_model), mesh), card_model,
+                  mesh.place(on_card)),
+        lr0_grads(parallel.make_dp_train_step(cpu_model, sgd0(cpu_model), ref_mesh), cpu_model,
+                  on_cpu), "36 host-sampled DP step")
+    dp = Trainer(copy.deepcopy(base), mesh=mesh, seed=0)
+    one = Trainer(copy.deepcopy(base), device=dev, seed=0)
+    whole = next(iter(SampledNodeLoader(g, labels, device=dev, **kw)))
+    ms_dp, ms_one = host_ms([lambda: dp._train_step(on_card), lambda: one._train_step(whole)], iters=10)
+    print(f"[36 sampled DP] {card} | host-sampled: SampledNodeLoader(num_shards={D}) on the card, {S} "
+          f"seeds a step ({S // D} a shard), fanout {fanout}: the first stacked batch bitwise the CPU "
+          f"loader's ({len(SAMPLED_FIELDS)} arrays); NodeGCN data-parallel step on the card against the "
+          f"CPU's: |loss| {d_step[0]:.3e}, max|gradient| {d_step[1]:.3e} (rtol {RTOL} / atol {ATOL}); ms "
+          f"a step sharded {ms_dp:.3f}, unsharded S2 step {ms_one:.3f} (host clock ending in a "
+          f"synchronize, median of 10 in turns)", flush=True)
+    del loader, dp, one, card_model
+
+    # device-sampled (SD2 over 4 shards): the CSR on the card, seed rows sharded
+    t0 = time.perf_counter()
+    csr_cpu = DeviceGraphCSR.from_graph(g, device="cpu")
+    t_csr = time.perf_counter() - t0
+    models = {}
+    for label, make, dedup in (("GCN", device_sampled_gcn, True),
+                               ("SAGE multiset", device_sampled_sage, False)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        model = make(g, hidden_dim=SAMPLED["hidden"], fanout=fanout, device=dev,
+                     **({} if dedup else {"dedup": False}))
+        cpu_model = DeviceSampledModel(csr_cpu, copy.deepcopy(model.inner).cpu(), fanout, dedup=dedup)
+        rows = model.make_loader(pool, labels, batch_size=S, seed=1, num_shards=D, drop_last=True)
+        packed = next(iter(rows)).packed
+        row = SeedBatch(packed=packed[0].cpu(), num_seeds=S // D)
+        got = device_sample(model.csr, row.seeds.to(dev), row.key_words.to(dev), fanout, dedup=dedup)
+        want = device_sample(csr_cpu, row.seeds, row.key_words, fanout, dedup=dedup)
+        for name in ("node_ids", "node_mask", "node_features", "senders", "receivers", "edge_weight"):
+            check(torch.equal(getattr(got, name).cpu(), getattr(want, name)), (label, "36 shard row", name))
+        card_step = parallel.make_device_sampled_dp_step(model, sgd0(model), mesh)
+        cpu_step = parallel.make_device_sampled_dp_step(cpu_model, sgd0(cpu_model), ref_mesh)
+        d_step = check_step_matches(lr0_grads(card_step, model, packed, model.csr),
+                                    lr0_grads(cpu_step, cpu_model, packed.cpu(), csr_cpu),
+                                    f"36 {label} device-sampled DP step")
+        dp = Trainer(model, mesh=mesh, seed=0)
+        one = Trainer(DeviceSampledModel(model.csr, copy.deepcopy(model.inner), fanout, dedup=dedup),
+                      device=dev, seed=0)
+        seeds_one = make_seed_batch(pool[:S], labels, 12345, S, csr=model.csr)
+        stacked = next(iter(rows))
+        ms_dp, ms_one = host_ms([lambda: dp._train_step(stacked), lambda: one._train_step(seeds_one)],
+                                iters=10)
+        kernels = device_breakdown(lambda: dp._train_step(stacked), iters=5)
+        busy = sum(ms for _, ms in kernels)
+        peak = torch.cuda.max_memory_allocated() - before
+        print(f"[36 sampled DP] {card} | device-sampled {label}: device_sample of shard 0's row bitwise "
+              f"the CPU's ({int(got.node_mask.sum()):,} nodes); a data-parallel step against the CPU's: "
+              f"|loss| {d_step[0]:.3e}, max|gradient| {d_step[1]:.3e}; ms a step stepwise sharded "
+              f"{ms_dp:.3f}, unsharded (phase 30's step) {ms_one:.3f} (host clock, median of 10 in turns); "
+              f"device busy {busy:.3f} ms a step ({busy / ms_dp:.1%}; torch.profiler, {len(kernels)} "
+              f"kernels); peak {peak:,} B above the {before:,} B held before (the CSR built on the host "
+              f"in {t_csr:.2f} s for the CPU copy)", flush=True)
+        for name, ms_k in kernels[:6]:
+            print(f"[36 sampled DP] {card} |     {ms_k:9.4f} ms/step  {name[:150]}", flush=True)
+        models[label] = model
+        del dp, one, cpu_model
+    print(f"[36 sampled DP] {card} | {SAMPLED_PARALLEL_NOTE}; phase 36 took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return models
+
+
+def sampled_mesh_scan_phase(dev, card, models, labels, n) -> None:
+    """Phase 37: the scanned mesh epoch (SE2, SME2 over 4 shards) against
+    stepwise."""
+    t_start = time.perf_counter()
+    D, S, steps, fanout = PARALLEL["shards"], SAMPLED["seeds"], SAMPLED["scan_steps"], SAMPLED["fanout"]
+    mesh = parallel.create_mesh((D,), ("data",), device=dev)
+    pool = np.random.default_rng(1).permutation(n)[: steps * S]
+    for label, key in (("SE2 GCN", "GCN"), ("SME2 SAGE multiset", "SAGE multiset")):
+        base = models[key]
+        trainers, loaders = {}, {}
+        for way in ("stepwise", "scanned"):
+            m = DeviceSampledModel(base.csr, copy.deepcopy(base.inner), fanout, dedup=base.dedup)
+            trainers[way] = Trainer(m, mesh=mesh, seed=0, scan_epochs=way == "scanned")
+            loaders[way] = m.make_loader(pool, labels, batch_size=S, seed=2, num_shards=D,
+                                         drop_last=True)
+        first = {way: epoch_ms(t, loaders[way], steps) for way, t in trainers.items()}
+        diff = state_diff(trainers["scanned"], trainers["stepwise"])
+        clear_counts(mesh)
+        second = {way: epoch_ms(t, loaders[way], steps) for way, t in trainers.items()}
+        check(len(trainers["scanned"]._captured) == 1, "37 one captured step")
+        epoch_moved = dict(mesh.bytes_moved)  # both epochs, the scanned one by its replays
+        for epoch in (first, second):
+            check(abs(epoch["scanned"][1] - epoch["stepwise"][1]) <= 1e-4 * abs(epoch["stepwise"][1]),
+                  (label, epoch))
+        check(trainers["scanned"].last_skipped_steps == 0, label)
+        clear_counts(mesh)
+        batch = next(iter(loaders["stepwise"]))
+        trainers["stepwise"]._train_step(batch)
+        step_moved = dict(mesh.bytes_moved)
+        check(epoch_moved == {k: 2 * steps * v for k, v in step_moved.items()},
+              ("37 counted bytes: an epoch each way is 64 steps", epoch_moved, step_moved))
+        # the stepwise epoch's dispatches from 4 steps profiled (a step's
+        # are the same every step); the scanned epoch's from a whole epoch
+        four = [b for _, b in zip(range(4), loaders["stepwise"])]
+        calls = {"stepwise": dispatches(lambda: [trainers["stepwise"]._train_step(b) for b in four])
+                 * steps // 4,
+                 "scanned": dispatches(lambda: trainers["scanned"].train_epoch(loaders["scanned"]))}
+        print(f"[37 scanned mesh epoch] {card} | {label} over {D} shards, {steps} steps of {S} seeds: "
+              f"scanned against stepwise after epoch 1: {diff_text(diff)}; epoch-2 loss "
+              f"{second['scanned'][1]:.6f} / {second['stepwise'][1]:.6f} (within 1e-4); ms a step "
+              f"stepwise {second['stepwise'][0]:.3f}, scanned {second['scanned'][0]:.3f} (epoch 2, host "
+              f"clock ending in a synchronize; epoch 1 {first['stepwise'][0]:.3f} / "
+              f"{first['scanned'][0]:.3f} with the warm-up and the capture); host dispatches an epoch "
+              f"{calls['stepwise']:,} stepwise (4 steps profiled, x {steps // 4}), {calls['scanned']:,} "
+              f"scanned (a whole epoch; torch.profiler); bytes a "
+              f"step by collective {step_moved}, over the two epochs' {2 * steps} steps a way "
+              f"{ {k: v // 2 for k, v in epoch_moved.items()} } (the scanned epoch's replays counted "
+              f"by the captured step's counts)", flush=True)
+        del trainers, loaders
+    print(f"[37 scanned mesh epoch] {card} | {SAMPLED_PARALLEL_NOTE}; phase 37 took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def graph_sharded_phase(dev, card, g, labels, models) -> None:
+    """Phase 38: graph-sharded sampling (graph_sharded_sage, 4 shards)."""
+    t_start = time.perf_counter()
+    D, S, fanout, hidden = PARALLEL["shards"], SAMPLED["seeds"] // PARALLEL["shards"], \
+        SAMPLED["fanout"], SAMPLED["hidden"]
+    mesh, ref_mesh = parallel.create_mesh((D,), ("data",), device=dev), cpu_mesh(D)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = parallel.graph_sharded_sage(g, D, hidden_dim=hidden, fanout=fanout, device=dev)
+    torch.cuda.synchronize()
+    t_part = time.perf_counter() - t0
+    csr_cpu = model.csr.to("cpu")
+    gs = parallel.shard_csr(model.csr, mesh)
+    shard_bytes = [sum(t[i].numel() * t[i].element_size()
+                       for t in (gs.indptr, gs.sender_weight, gs.node_features)) for i in range(D)]
+    rng = np.random.default_rng(5)
+    probes = rng.integers(0, g.num_nodes, size=(4, D, S))
+    t0 = time.perf_counter()
+    planned, loads = parallel.plan_compaction(gs, mesh, probes, 11, fanout, return_loads=True)
+    t_plan = time.perf_counter() - t0
+    seeds = torch.from_numpy(rng.permutation(g.num_nodes)[: D * S].reshape(D, S))
+    keys = torch.from_numpy(parallel.sharded_sampling.probe_key_words(12, 1, D)[0])
+    lab = torch.from_numpy(labels[seeds.numpy()]).long()
+    mask = torch.ones(D, S, dtype=torch.bool)
+    fields = ("node_ids", "node_mask", "node_features", "senders", "receivers", "edge_weight")
+    samples = {}
+    for name, comp in (("broadcast", None), ("compacted", planned)):
+        got, ovf = parallel.sharded_device_sample_with_stats(gs, seeds, keys, fanout, mesh,
+                                                             compaction=comp)
+        want, ovf_cpu = parallel.sharded_device_sample_with_stats(csr_cpu, seeds, keys, fanout, ref_mesh,
+                                                                  compaction=comp)
+        check(ovf.tolist() == ovf_cpu.tolist() == [0] * D, (name, ovf, ovf_cpu))
+        for a, b in zip(got, want):
+            sharded_fields_equal(a, b, fields, f"38 {name} sample")
+            for h, (x, y) in enumerate(zip(a.hop_blocks, b.hop_blocks)):
+                check(torch.equal(x.senders.cpu(), y.senders) and torch.equal(x.weights.cpu(), y.weights),
+                      (name, "hop block", h))
+        samples[name] = got
+    for a, b in zip(samples["broadcast"], samples["compacted"]):
+        for name in fields:
+            check(torch.equal(getattr(a, name), getattr(b, name)), ("38 compacted is broadcast", name))
+    inner_cpu = copy.deepcopy(model.inner).cpu()
+    randomize_batch_norms(model.inner, np.random.default_rng(1))
+    inner_cpu.load_state_dict(model.inner.state_dict())
+    fwd = parallel.make_graph_sharded_sampled_forward(model.inner, mesh, fanout, compaction=planned)
+    fwd_cpu = parallel.make_graph_sharded_sampled_forward(inner_cpu, ref_mesh, fanout, compaction=planned)
+    err = held_logits(fwd(gs, seeds, keys).cpu(), fwd_cpu(csr_cpu, seeds, keys), "38 eval logits")
+    steps = {}
+    for name, comp in (("compacted", planned), ("broadcast", None)):
+        steps[name] = parallel.make_graph_sharded_train_step(model.inner, sgd0(model.inner), mesh, fanout,
+                                                             compaction=comp)
+    step_cpu = parallel.make_graph_sharded_train_step(inner_cpu, sgd0(inner_cpu), ref_mesh, fanout,
+                                                      compaction=planned)
+    loss_g, g_g = lr0_grads(steps["compacted"], model.inner, gs, seeds, keys, lab, mask)
+    loss_c, g_c = lr0_grads(step_cpu, inner_cpu, csr_cpu, seeds, keys, lab, mask)
+    rel = rel_frobenius(g_g, g_c)
+    check(abs(loss_g - loss_c) <= 1e-5 * abs(loss_c) and rel <= 1e-4, ("38 step", loss_g, loss_c, rel))
+    counted = {name: parallel.count_collective_bytes(mesh, step, gs, seeds, keys, lab, mask)
+               for name, step in steps.items()}
+    md = max(gs.max_in_degree, max(fanout))
+    modelled = {name: parallel.sharded_sampling_comm_model(D=D, S=S, fanout=fanout, F=g.num_features,
+                                                           max_deg=md, compaction=comp)
+                for name, comp in (("compacted", planned), ("broadcast", None))}
+    for name in counted:
+        exchange = counted[name].get("all_gather", 0) + counted[name].get("all_to_all", 0)
+        check(exchange == modelled[name]["per_device_bytes_per_step"], (name, counted[name], modelled[name]))
+    # the replicated device-sampled DP step of phase 36 at the same seeds a shard
+    replicated = models["SAGE multiset"]
+    dp = Trainer(replicated, mesh=mesh, seed=0)
+    rows = replicated.make_loader(np.arange(g.num_nodes), labels, batch_size=D * S, seed=4,
+                                  num_shards=D)
+    stacked = next(iter(rows))
+    ms = host_ms([lambda: steps["compacted"](gs, seeds, keys, lab, mask),
+                  lambda: steps["broadcast"](gs, seeds, keys, lab, mask),
+                  lambda: dp._train_step(stacked)], iters=10)
+    peak = torch.cuda.max_memory_allocated() - before
+    print(f"[38 graph-sharded] {card} | graph_sharded_sage's partition of {g.num_nodes:,} nodes into {D} "
+          f"shards of {gs.nodes_per_shard:,}: {t_part:.2f} s (the host's partition and the upload); CSR "
+          f"bytes a shard "
+          f"{shard_bytes} (indptr, packed (sender, weight) pairs, features; max in-degree "
+          f"{gs.max_in_degree}); plan_compaction on 4 probe batches {t_plan:.2f} s: {planned}, loads "
+          f"{loads}; one step's sharded_device_sample on the card bitwise the CPU's, both exchanges, "
+          f"overflow 0; compacted bitwise the broadcast exchange", flush=True)
+    print(f"[38 graph-sharded] {card} | eval logits max|card - CPU| {err:.3e} (rtol {RTOL} / atol {ATOL}); "
+          f"one step: loss {loss_g:.6f} / {loss_c:.6f}, gradients relative Frobenius {rel:.3e} (gate "
+          f"1e-4); ms a step (hidden {hidden}, fanout {fanout}, {S} seeds a shard) compacted {ms[0]:.3f}, "
+          f"broadcast {ms[1]:.3f}, the replicated device-sampled DP step (SAGE multiset) {ms[2]:.3f} "
+          f"(host clock, median of 10 in turns); bytes received a device a step, counted "
+          f"(count_collective_bytes) compacted {counted['compacted']}, broadcast {counted['broadcast']}; "
+          f"modelled (sharded_sampling_comm_model) exchange compacted "
+          f"{modelled['compacted']['per_device_bytes_per_step']:,}, broadcast "
+          f"{modelled['broadcast']['per_device_bytes_per_step']:,} = counted all_gather + all_to_all; "
+          f"peak {peak:,} B above the {before:,} B held before; {SAMPLED_PARALLEL_NOTE}; phase 38 took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def sampled_parallel_surface(card) -> None:
+    """``entry.dryrun_multichip`` on the card and the launcher's four sampled
+    programs on NCCL, with no device argument."""
+    from connectome_gnn_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    port_entry.dryrun_multichip(4)
+    t_dry = time.perf_counter() - t0
+    programs = ("sampled_dp", "device_sampled_dp", "device_sampled_dp_scanned", "graph_sharded")
+    t0 = time.perf_counter()
+    runs = launch.launch(1, PARALLEL["shards"], programs, timeout_s=300.0)
+    out = runs[0]["results"]
+    for name in programs:
+        r = out[name]
+        check(all(np.isfinite(r["losses"])) and r["grads_sum"] > 0 and r["n"] > 0, (name, r))
+    check(out["graph_sharded"]["overflow"] == [0, 0], out["graph_sharded"])
+    print(f"[38 surface] {card} | entry.dryrun_multichip(4) on the card: {t_dry:.1f} s; "
+          f"parallel.launch (no device: NCCL, one worker on the card, 4 shards) of {', '.join(programs)}: "
+          f"{ {k: [round(x, 6) for x in v['losses']] for k, v in out.items()} } losses, first-step gradient "
+          f"sums { {k: round(v['grads_sum'], 6) for k, v in out.items()} }, graph_sharded's counted bytes "
+          f"{out['graph_sharded']['comm_bytes_per_device_per_step']}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def sampled_parallel_phases(dev, card, g=None, labels=None) -> None:
+    """Phases 36-38 in one rank of an NCCL group of size 1 holding 4 shards,
+    then the dry runs and the launcher's programs."""
+    t_start = time.perf_counter()
+    if g is None:
+        g, labels = sampled_graph()
+    with nccl_group(dev, card, "36 sampled DP"):
+        models = sampled_dp_phase(dev, card, g, labels)
+        sampled_mesh_scan_phase(dev, card, models, labels, g.num_nodes)
+        torch.cuda.empty_cache()
+        graph_sharded_phase(dev, card, g, labels, models)
+        del models
+        torch.cuda.empty_cache()
+        sampled_parallel_surface(card)
+    print(f"[38 graph-sharded] {card} | phases 36-38 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
 
 def demangled(name: str) -> str:
@@ -3759,6 +4111,9 @@ def main() -> None:
         return
     if "--parallel" in sys.argv[1:]:
         parallel_phases(dev, card)
+        return
+    if "--sampled-parallel" in sys.argv[1:]:
+        sampled_parallel_phases(dev, card)
         return
     # the timing modes above may time another tree's package; this tree's
     # kernels must neither spill nor have their wgmma serialized
@@ -3845,11 +4200,15 @@ def main() -> None:
     layout_phase(dev, card, graph)
 
     # 29-31. sampled node training: host-sampled, device-sampled, scan_epochs
-    sampled_phases(dev, card)
+    sampled_graph_, sampled_labels = sampled_phases(dev, card)
 
     # 32-35. the parallel modes: data parallelism, edge, band and hybrid partitions, the 2-D step
     parallel_phases(dev, card, graph)
     del graph
+
+    # 36-38. sampled data parallelism, the scanned mesh epoch, graph-sharded sampling
+    sampled_parallel_phases(dev, card, sampled_graph_, sampled_labels)
+    del sampled_graph_
 
     fused_entries = []
     for kind, k in KERNELS.items():

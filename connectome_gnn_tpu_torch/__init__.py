@@ -31,6 +31,14 @@ int8 serving and training, and every TPU kernel of the JAX package:
   (``device_sampled_gcn`` / ``device_sampled_sage`` with a
   ``DeviceSeedLoader``), and ``Trainer(scan_epochs=True)``, one captured
   CUDA graph a step replayed from one buffer an epoch;
+* the parallel modes (``connectome_gnn_tpu_torch.parallel``, a mesh of
+  shards on ``torch.distributed``): data-parallel graph and sampled node
+  training (``Trainer(mesh=...)`` over sharded loaders, host- or
+  device-sampled, stepwise or ``scan_epochs`` as one captured step), the
+  edge-, band- and hybrid-partitioned giant-graph models and the 2-D
+  step, graph-sharded sampling (``graph_sharded_sage``: no device holds
+  the whole graph; the broadcast or compacted exchange and its planner)
+  and the collective-bytes census (``count_collective_bytes``);
 * the kernels no model path calls: K7 over a float32 or bfloat16 band
   (``ops.banded_direct``), the bfloat16, w8a8 and fused-dot band kernels
   B2a-B2c (``ops.band_variants``), the band-pipeline probes B3a-B3d
@@ -91,6 +99,17 @@ Giant graph, device-sampled training (on ``cuda`` unless ``device=``):
     labels = (g.node_features[:, 0] > 0).astype(np.int32)
     loader = sampled.make_loader(np.arange(g.num_nodes), labels, batch_size=1024)
     Trainer(sampled, scan_epochs=True).train_epoch(loader)
+
+Graph-sharded sampled training over a mesh of 4 shards on one card:
+
+    from connectome_gnn_tpu_torch import parallel
+
+    parallel.initialize_distributed("file:///tmp/rendezvous", 1, 0, device="cuda")
+    mesh = parallel.create_mesh((4,), ("data",))
+    model = parallel.graph_sharded_sage(g, 4, hidden_dim=64, fanout=(10, 10))
+    loader = model.make_loader(np.arange(g.num_nodes), labels, batch_size=1024)
+    trainer = Trainer(model, mesh=mesh)
+    trainer.train_epoch(loader), trainer.last_sampling_overflow
 """
 
 from connectome_gnn_tpu_torch.data import (

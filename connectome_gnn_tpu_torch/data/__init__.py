@@ -18,6 +18,7 @@ from connectome_gnn_tpu_torch.data.device_sampling import (
     hop_draws,
     make_seed_batch,
     pack_epoch,
+    pack_epoch_sharded,
 )
 from connectome_gnn_tpu_torch.data.graph import ConnectomeGraph
 from connectome_gnn_tpu_torch.data.layout import (
@@ -93,6 +94,7 @@ __all__ = [
     "hop_draws",
     "make_seed_batch",
     "pack_epoch",
+    "pack_epoch_sharded",
     "plan_layout",
     "reverse_cuthill_mckee",
     "round_up",

@@ -25,8 +25,11 @@ the sample is then bitwise the JAX package's).  The draws differ from
 not bitwise; with ``fanout >= max_in_degree`` every in-edge is kept and the
 model outputs agree (the keep-all oracle).
 
-Data parallelism (``num_shards``, ``process_index`` / ``process_count``,
-``pack_epoch_sharded``) belongs to slice E of the port.
+Data parallelism: a sharded :class:`DeviceSeedLoader` (``num_shards``,
+``process_index`` / ``process_count``) yields stacked seed rows ``[D_local,
+3 + 2S]``, each with its own key, and :func:`pack_epoch_sharded` packs an
+epoch of them; ``parallel/sampled_dp.py`` samples every local row against
+one CSR replicated to the mesh's device.
 """
 
 from __future__ import annotations
@@ -40,13 +43,13 @@ from torch import nn
 
 from connectome_gnn_tpu_torch.data.batch import card_by_default
 from connectome_gnn_tpu_torch.data.graph import ConnectomeGraph
-from connectome_gnn_tpu_torch.data.loader import SHARDING_NOT_PORTED
 from connectome_gnn_tpu_torch.data.sampled import (
     HopBlock,
     SampledNodeBatch,
     _sample_seed,
     epoch_seeds,
     fanout_budgets,
+    shard_layout,
 )
 
 FEATURE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
@@ -204,35 +207,43 @@ class SeedBatch:
     train.Trainer` reads, so a :class:`DeviceSampledModel` trains through it
     unchanged.  ``csr`` (optional) names the graph to sample from; ``to()``
     moves the row and leaves the graph where it is.
+
+    A stacked batch (a sharded :class:`DeviceSeedLoader`'s) carries rows
+    ``[D_local, 3 + 2S]``, one a shard, each with its own key; every
+    property then has the leading shard axis.
     """
 
-    packed: torch.Tensor  # int32 [3 + 2 * num_seeds]
+    packed: torch.Tensor  # int32 [3 + 2 * num_seeds] (or [D_local, ...] stacked)
     csr: Optional[DeviceGraphCSR] = None
     num_seeds: int = 0
     labeled: bool = True
 
     @property
+    def stacked(self) -> bool:
+        return self.packed.dim() == 2
+
+    @property
     def seeds(self) -> torch.Tensor:
-        return self.packed[3 : 3 + self.num_seeds].long()
+        return self.packed[..., 3 : 3 + self.num_seeds].long()
 
     @property
     def key_words(self) -> torch.Tensor:
         """int64 ``[2]``: the key's two 32-bit words (hi, lo), unsigned."""
-        return self.packed[1:3].long() & _M32
+        return self.packed[..., 1:3].long() & _M32
 
     @property
     def seed_mask(self) -> torch.Tensor:
-        return torch.arange(self.num_seeds, device=self.packed.device) < self.packed[0]
+        return torch.arange(self.num_seeds, device=self.packed.device) < self.packed[..., 0:1]
 
     @property
     def label_mask(self) -> torch.Tensor:
         if not self.labeled:
-            return torch.zeros(self.num_seeds, dtype=torch.bool, device=self.packed.device)
+            return torch.zeros_like(self.seed_mask)
         return self.seed_mask
 
     @property
     def labels(self) -> torch.Tensor:
-        raw = self.packed[3 + self.num_seeds : 3 + 2 * self.num_seeds].long()
+        raw = self.packed[..., 3 + self.num_seeds : 3 + 2 * self.num_seeds].long()
         return torch.where(self.label_mask, raw, 0)
 
     @property
@@ -481,8 +492,14 @@ class DeviceSeedLoader:
     device.  Host work a step: one slice of a permutation and one ~8 KB row.
     ``device`` defaults to ``csr``'s, else ``cuda`` (without a card that
     raises ``RuntimeError``; ``device="cpu"`` asks for the CPU).
-    ``num_shards`` / ``process_index`` / ``process_count`` belong to slice E
-    of the port.
+
+    ``num_shards``: ``batch_size`` is the global seed count a step and each
+    batch is a stacked :class:`SeedBatch` of ``[D_local, 3 + 2S]`` rows,
+    ``S = batch_size / num_shards``, shard ``s`` of step ``b`` keyed
+    ``_sample_seed(seed, epoch, b, s)`` by its global index; the final
+    partial batch pads its trailing shards.  ``process_index`` /
+    ``process_count`` keep only this process's contiguous shards, so a
+    batch is the same however its shards are spread over processes.
     """
 
     def __init__(
@@ -500,8 +517,6 @@ class DeviceSeedLoader:
         process_count: Optional[int] = None,
         device=None,
     ):
-        if num_shards is not None or process_index is not None or process_count is not None:
-            raise NotImplementedError(SHARDING_NOT_PORTED)
         if device is None and csr is not None:
             device = csr.device
         self.device = torch.device(card_by_default(device, "DeviceSeedLoader"))
@@ -513,6 +528,8 @@ class DeviceSeedLoader:
         self.seed = int(seed)
         self.drop_last = bool(drop_last)
         self._epoch = 0
+        self.num_shards, self._shard_size, self._shard_lo, self._shard_hi = shard_layout(
+            self.batch_size, num_shards, process_index, process_count)
 
     def __len__(self) -> int:
         n = len(self.seeds)
@@ -523,31 +540,57 @@ class DeviceSeedLoader:
     def set_epoch(self, epoch: int) -> None:
         self._epoch = int(epoch)
 
+    @property
+    def row_shape(self) -> tuple:
+        """A batch's packed shape: ``(3 + 2S,)``, or ``(D_local, 3 + 2S)``
+        sharded."""
+        row = 3 + 2 * self._shard_size
+        return (row,) if self.num_shards is None else (self._shard_hi - self._shard_lo, row)
+
     def rows(self) -> Iterator[np.ndarray]:
-        """The next epoch's packed rows (advances the epoch)."""
+        """The next epoch's packed rows, one array a step (advances the
+        epoch)."""
         epoch = self._epoch
         self._epoch += 1
         seeds = epoch_seeds(self.seeds, self.shuffle, self.seed, epoch)
+        ss = self._shard_size
         for b, start in enumerate(range(0, len(seeds), self.batch_size)):
             chunk = seeds[start : start + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 break
-            yield _pack_seed_row(chunk, self.node_labels, _sample_seed(self.seed, epoch, b),
-                                 self.batch_size)
+            if self.num_shards is None:
+                yield _pack_seed_row(chunk, self.node_labels, _sample_seed(self.seed, epoch, b), ss)
+            else:
+                yield np.stack([
+                    _pack_seed_row(chunk[s * ss : (s + 1) * ss], self.node_labels,
+                                   _sample_seed(self.seed, epoch, b, s), ss)
+                    for s in range(self._shard_lo, self._shard_hi)
+                ])
 
     def __iter__(self) -> Iterator[SeedBatch]:
         for row in self.rows():
             yield SeedBatch(packed=torch.from_numpy(row).to(self.device), csr=self.csr,
-                            num_seeds=self.batch_size, labeled=self.node_labels is not None)
+                            num_seeds=self._shard_size, labeled=self.node_labels is not None)
 
 
 def pack_epoch(loader: DeviceSeedLoader) -> torch.Tensor:
     """One epoch of a :class:`DeviceSeedLoader` as one ``[steps, 3 + 2S]``
-    int32 tensor on the loader's device: numpy all the way, one copy
-    (advances the loader's epoch, as iterating it does)."""
+    int32 tensor on the loader's device (``[steps, D_local, 3 + 2S]`` for a
+    sharded one): numpy all the way, one copy (advances the loader's epoch,
+    as iterating it does)."""
     rows = list(loader.rows())
-    packed = np.stack(rows) if rows else np.zeros((0, 3 + 2 * loader.batch_size), np.int32)
+    packed = np.stack(rows) if rows else np.zeros((0,) + loader.row_shape, np.int32)
     return torch.from_numpy(packed).to(loader.device)
+
+
+def pack_epoch_sharded(loader: DeviceSeedLoader) -> torch.Tensor:
+    """One epoch of a sharded :class:`DeviceSeedLoader` as one ``[steps,
+    D_local, 3 + 2S]`` int32 tensor: the rows its iterator would yield step
+    by step, stacked (advances the loader's epoch)."""
+    if loader.num_shards is None:
+        raise ValueError("pack_epoch_sharded needs a sharded DeviceSeedLoader (num_shards=D); "
+                         "use pack_epoch for the single-device path")
+    return pack_epoch(loader)
 
 
 class DeviceSampledModel(nn.Module):

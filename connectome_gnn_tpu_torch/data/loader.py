@@ -24,11 +24,6 @@ from connectome_gnn_tpu_torch.data.batch import collate_graphs, round_up
 from connectome_gnn_tpu_torch.data.dense import collate_dense
 from connectome_gnn_tpu_torch.data.graph import ConnectomeGraph
 
-#: what the sampled loaders' data-parallel arguments raise
-SHARDING_NOT_PORTED = ("num_shards / process_index / process_count of the sampled loaders "
-                       "(sampled data parallelism) belong to slice E3 of the port and are not "
-                       "ported yet")
-
 
 class ConnectomeDataLoader:
     """Packs ``ConnectomeGraph`` objects into padded fixed-shape batches on

@@ -33,7 +33,6 @@ import torch
 from connectome_gnn_tpu_torch import native
 from connectome_gnn_tpu_torch.data.batch import _to, card_by_default, round_up
 from connectome_gnn_tpu_torch.data.graph import ConnectomeGraph
-from connectome_gnn_tpu_torch.data.loader import SHARDING_NOT_PORTED
 from connectome_gnn_tpu_torch.data.sampling import NeighborSampler
 
 
@@ -86,6 +85,11 @@ class SampledNodeBatch:
     hop_blocks : tuple of :class:`HopBlock` or None
         The device sampler's per-hop ``[frontier, fanout]`` views of the same
         edges, for the blocked layers; ``None`` for host-built batches.
+    shard_regions : tuple of int or None
+        Set on a rank's shards merged into one batch (``parallel.
+        data_parallel.merge_sampled``): each shard's node regions, which the
+        merge laid out region by region; the models' dropout draws each
+        shard's mask in the shard's own layout through it.
     """
 
     node_features: torch.Tensor
@@ -99,6 +103,7 @@ class SampledNodeBatch:
     node_ids: torch.Tensor
     num_seeds: int = 0
     hop_blocks: Optional[tuple] = None
+    shard_regions: Optional[tuple] = None
 
     @property
     def num_nodes(self) -> int:
@@ -334,8 +339,17 @@ class SampledNodeLoader:
     device
         Where the batches are made (default ``cuda``; without a card that
         raises ``RuntimeError``, and ``device="cpu"`` asks for the CPU).
-    num_shards / process_index / process_count
-        Data-parallel sharding; not ported yet (slice E of the port).
+    num_shards
+        When set, ``batch_size`` is the global seed count a step and each
+        batch is stacked: a leading shard axis of ``num_shards`` per-shard
+        batches of ``batch_size / num_shards`` seeds, each sampled on its
+        own (``Trainer(mesh=...)`` runs them data-parallel).  The budgets
+        are a shard's.  The final partial batch pads its trailing shards.
+    process_index / process_count
+        With both set, each batch stacks only this process's contiguous
+        ``num_shards / process_count`` shards.  The shuffle and each shard's
+        sampling stream are functions of the global shard index, so a batch
+        is the same however its shards are spread over processes.
     """
 
     def __init__(
@@ -359,8 +373,6 @@ class SampledNodeLoader:
         fused: Optional[bool] = None,
         device=None,
     ):
-        if num_shards is not None or process_index is not None or process_count is not None:
-            raise NotImplementedError(SHARDING_NOT_PORTED)
         self.device = torch.device(card_by_default(device, "SampledNodeLoader"))
         self.graph = graph
         self.node_labels = np.asarray(node_labels, np.int32) if node_labels is not None else None
@@ -376,8 +388,10 @@ class SampledNodeLoader:
         self.drop_last = bool(drop_last)
         self._epoch = 0
         self._sampler = NeighborSampler(graph)
+        self.num_shards, self._shard_size, self._shard_lo, self._shard_hi = shard_layout(
+            self.batch_size, num_shards, process_index, process_count)
 
-        worst_n, worst_e = fanout_budgets(self.batch_size, self.fanout)
+        worst_n, worst_e = fanout_budgets(self._shard_size, self.fanout)
         if node_budget is None:
             node_budget = min(worst_n, graph.num_nodes)
         if edge_budget is None:
@@ -405,22 +419,31 @@ class SampledNodeLoader:
         """Pin the shuffle and the per-step sampling streams to ``epoch``."""
         self._epoch = int(epoch)
 
-    def _sample_and_collate_fused(self, chunk: np.ndarray, sample_seed: int) -> SampledNodeBatch:
+    def _sample_and_collate_fused(self, chunk: np.ndarray, sample_seed: int,
+                                  S: int) -> SampledNodeBatch:
         """One native traversal into the ingest buffers, then the unpack
-        and the feature gather on the device (:func:`_build_sampled_batch`)."""
-        nb, eb, S = self.node_budget, self.edge_budget, self.batch_size
+        and the feature gather on the device (:func:`_build_sampled_batch`).
+        An empty chunk (a padded shard of the final batch) is all padding."""
+        nb, eb = self.node_budget, self.edge_budget
         ints = np.empty(2 + nb + 2 * eb + S, np.int32)
         weights = np.empty(eb, np.float32)
         ids = ints[2 : 2 + nb]
         senders = ints[2 + nb : 2 + nb + eb]
         receivers = ints[2 + nb + eb : 2 + nb + 2 * eb]
         labels = ints[2 + nb + 2 * eb :]
-        n_nodes, _ = self._sampler.sample_collate_into(
-            chunk, self.fanout, sample_seed,
-            node_budget=nb, edge_budget=eb,
-            out_senders=senders, out_receivers=receivers,
-            out_weights=weights, out_node_ids=ids,
-        )
+        if len(chunk) == 0:
+            n_nodes = 0
+            ids.fill(-1)
+            senders.fill(nb - 1)
+            receivers.fill(nb - 1)
+            weights.fill(0.0)
+        else:
+            n_nodes, _ = self._sampler.sample_collate_into(
+                chunk, self.fanout, sample_seed,
+                node_budget=nb, edge_budget=eb,
+                out_senders=senders, out_receivers=receivers,
+                out_weights=weights, out_node_ids=ids,
+            )
         ints[0] = n_nodes
         ints[1] = len(chunk)
         labels.fill(0)
@@ -432,14 +455,21 @@ class SampledNodeLoader:
             node_budget=nb, edge_budget=eb, num_seeds=S, labeled=self.node_labels is not None,
         )
 
-    def _sample_and_collate(self, chunk: np.ndarray, sample_seed: int) -> SampledNodeBatch:
+    def _sample_and_collate(self, chunk: np.ndarray, sample_seed: int, S: int) -> SampledNodeBatch:
         if self.fused:
-            return self._sample_and_collate_fused(chunk, sample_seed)
-        sub, node_ids = self._sampler.sample(chunk, self.fanout, seed=sample_seed)
+            return self._sample_and_collate_fused(chunk, sample_seed, S)
+        if len(chunk) == 0:
+            # a padded shard of the final batch: all padding
+            sub = ConnectomeGraph(node_features=np.zeros((0, self.graph.num_features), np.float32),
+                                  edge_index=np.zeros((2, 0), np.int32),
+                                  edge_weight=np.zeros(0, np.float32))
+            node_ids = np.zeros(0, np.int64)
+        else:
+            sub, node_ids = self._sampler.sample(chunk, self.fanout, seed=sample_seed)
         return collate_sampled(
             sub, node_ids,
             self.node_labels[chunk] if self.node_labels is not None else None,
-            num_seeds=self.batch_size, real_seeds=len(chunk),
+            num_seeds=S, real_seeds=len(chunk),
             node_budget=self.node_budget, edge_budget=self.edge_budget, device=self.device,
         )
 
@@ -453,4 +483,38 @@ class SampledNodeLoader:
             chunk = seeds[start : start + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 break
-            yield self._sample_and_collate(chunk, _sample_seed(self.seed, epoch, b))
+            if self.num_shards is None:
+                yield self._sample_and_collate(chunk, _sample_seed(self.seed, epoch, b),
+                                               self.batch_size)
+                continue
+            from connectome_gnn_tpu_torch.parallel.data_parallel import stack_batches
+
+            ss = self._shard_size
+            yield stack_batches([
+                self._sample_and_collate(chunk[s * ss : (s + 1) * ss],
+                                         _sample_seed(self.seed, epoch, b, s), ss)
+                for s in range(self._shard_lo, self._shard_hi)
+            ])
+
+
+def shard_layout(batch_size: int, num_shards, process_index, process_count):
+    """``(num_shards, seeds a shard, lo, hi)`` of a sharded loader: the
+    process's shards are ``[lo, hi)`` (all of them without a process
+    count); ``num_shards`` None means unsharded."""
+    if (process_index is None) != (process_count is None):
+        raise ValueError("process_index and process_count must be given together")
+    if num_shards is None:
+        if process_count is not None:
+            raise ValueError("process sharding requires num_shards")
+        return None, batch_size, 0, 0
+    D = int(num_shards)
+    if batch_size % D:
+        raise ValueError(f"batch_size={batch_size} not divisible by num_shards={D}")
+    if process_count is None:
+        return D, batch_size // D, 0, D
+    if D % process_count:
+        raise ValueError(f"num_shards={D} not divisible by process_count={process_count}")
+    if not 0 <= process_index < process_count:
+        raise ValueError(f"process_index={process_index} out of range [0, {process_count})")
+    per = D // process_count
+    return D, batch_size // D, process_index * per, (process_index + 1) * per

@@ -13,11 +13,14 @@ eval-mode logits ``[16, 2]``.
 
 ``dryrun_multichip(n)`` (``__graft_entry__.py:39``) builds an ``n``-shard
 ``("data",)`` mesh on the caller's device, runs one data-parallel train
-step of a small GCN over stacked batches, and, when ``n >= 4`` is even, one
-2-D (data × edge) step of a hybrid giant-graph cohort, whose exchange runs
+step of a small GCN over stacked batches, one device-sampled data-parallel
+step (the CSR on the mesh's device, seed rows sharded,
+``__graft_entry__.py:154``), one graph-sharded sampled step with the
+broadcast exchange and one with the compacted exchange, asserting no
+overflow (``__graft_entry__.py:84``), and, when ``n >= 4`` is even, one 2-D
+(data × edge) step of a hybrid giant-graph cohort, whose exchange runs
 every collective family: the halo shifts, the remainder's all-to-alls and
-the sums over both axes.  The JAX function's device-sampled and
-graph-sharded sampling dry runs belong to slice E3 of the port.
+the sums over both axes.
 
     python -m connectome_gnn_tpu_torch.entry --dryrun-multichip 8 --device cpu
 """
@@ -68,10 +71,70 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     loss, n = step(mesh.place(next(iter(loader))))
     print(f"dryrun_multichip({n_devices}): ok: loss={float(loss):.4f}, n_real={int(n)} graphs "
           f"across {n_devices} shards on {mesh.device}")
-    print("dryrun_multichip: the device-sampled and graph-sharded sampling dry runs wait for "
-          "slice E3 of the port")
+    _dryrun_device_sampled(mesh)
+    _dryrun_graph_sharded_sampling(mesh)
     if n_devices >= 4 and n_devices % 2 == 0:
         _dryrun_2d(mesh.device, 2, n_devices // 2)
+
+
+def _dryrun_device_sampled(mesh) -> None:
+    """One device-sampled data-parallel train step: the CSR on the mesh's
+    device, the seed rows sharded, sampling inside the step."""
+    import numpy as np
+
+    from connectome_gnn_tpu_torch.data import device_sampled_gcn, generate_spatial_graph
+    from connectome_gnn_tpu_torch.parallel import make_device_sampled_dp_step, replicate_csr
+
+    D = mesh.size
+    g = generate_spatial_graph(32 * D, degree=4, band=8, seed=2)
+    labels = (g.degree() > np.median(g.degree())).astype(np.int32)
+    model = device_sampled_gcn(g, hidden_dim=16, fanout=(3, 3), device=mesh.device)
+    loader = model.make_loader(np.arange(g.num_nodes), labels, batch_size=4 * D, num_shards=D,
+                               shuffle=False)
+    step = make_device_sampled_dp_step(model, torch.optim.Adam(model.parameters(), lr=1e-3), mesh)
+    loss, n = step(mesh.place(next(iter(loader)).packed), replicate_csr(model.csr, mesh))
+    print(f"dryrun_multichip device-sampled DP ({D} shards): ok: loss={float(loss):.4f}, "
+          f"n_real={int(n)} seed nodes")
+
+
+def _dryrun_graph_sharded_sampling(mesh) -> None:
+    """One graph-sharded sampled train step with each exchange: adjacency
+    and features node-partitioned over the mesh, rows resolved at their
+    owners by all_gather / all_to_all."""
+    import numpy as np
+
+    from connectome_gnn_tpu_torch.data import generate_spatial_graph
+    from connectome_gnn_tpu_torch.models.node_coo import BlockedNodeSAGE
+    from connectome_gnn_tpu_torch.parallel import (
+        CompactionConfig,
+        ShardedGraphCSR,
+        make_graph_sharded_train_step,
+    )
+
+    D, S = mesh.size, 4
+    g = generate_spatial_graph(32 * D, degree=4, band=8, seed=4)
+    labels = (g.degree() > np.median(g.degree())).astype(np.int32)
+    sg = ShardedGraphCSR.partition(g, D, device=mesh.device)
+    keys = torch.stack([torch.zeros(D, dtype=torch.long), torch.arange(D)], dim=1)
+    seeds = np.arange(D * S).reshape(D, S)
+    # the compacted step spreads each shard's seeds over all shards (the
+    # loader's uniform draw), so the capacity bound holds and it is exact
+    stride = g.num_nodes // (D * S)
+    spread = np.arange(D * S).reshape(S, D).T * stride
+    for name, comp, s in (("graph-sharded sampling", None, seeds),
+                          ("graph-sharded COMPACTED exchange", CompactionConfig(alpha=2.0,
+                                                                                rounds=2), spread)):
+        model = BlockedNodeSAGE(in_channels=5, hidden_dim=16, num_layers=2).to(mesh.device)
+        step = make_graph_sharded_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                                             mesh, (3, 3), compaction=comp)
+        out = step(sg, torch.from_numpy(s), keys, torch.from_numpy(labels[s]),
+                   torch.ones(s.shape, dtype=torch.bool))
+        tail = f"n_real={int(out[1])} seeds"
+        if comp is not None:
+            if int(out[2]) != 0:
+                raise RuntimeError(f"the compacted exchange overflowed: {int(out[2])}")
+            tail = f"overflow={int(out[2])}"
+        print(f"dryrun_multichip {name} ({D} node shards): ok: loss={float(out[0]):.4f}, {tail}")
 
 
 def _dryrun_2d(device, d_data: int, d_edge: int) -> None:

@@ -85,7 +85,7 @@ class _NodeModel(nn.Module):
             x = norm(x, batch.node_mask)
             if self.relu_after_norm:
                 x = torch.relu(x)
-            x = self.dropout(x)
+            x = self.dropout(x, getattr(batch, "shard_regions", None))
         return self.head(x[: batch.num_seeds])
 
 

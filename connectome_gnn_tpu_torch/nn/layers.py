@@ -66,7 +66,11 @@ class Dropout(nn.Module):
     ``shard_generators`` (one per local shard of a mesh, set by the mesh's
     owner) splits the input's first axis into that many equal parts, shard
     by shard, and draws each part's mask from its shard's generator: the
-    masks then do not depend on how shards are spread over processes.
+    masks then do not depend on how shards are spread over processes.  A
+    batch merged region by region (:func:`region_major`: every shard's
+    first region, then every shard's second, ...) passes its per-shard
+    region lengths as ``regions``: each shard's mask is drawn in the
+    shard's own layout and moved to the merged one.
     """
 
     def __init__(self, p: float = 0.5):
@@ -80,7 +84,7 @@ class Dropout(nn.Module):
     def extra_repr(self) -> str:
         return f"p={self.p}"
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, regions: Optional[Sequence[int]] = None) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
@@ -91,9 +95,16 @@ class Dropout(nn.Module):
             if x.shape[0] % parts:
                 raise ValueError(f"dropout over {parts} shards got a first axis of {x.shape[0]}")
             shape = (x.shape[0] // parts,) + tuple(x.shape[1:])
-            mask = torch.cat([torch.rand(shape, generator=g, device=x.device)
-                              for g in self.shard_generators])
+            masks = [torch.rand(shape, generator=g, device=x.device) for g in self.shard_generators]
+            mask = region_major(torch.stack(masks), regions) if regions else torch.cat(masks)
         return torch.where(mask < keep, x / keep, 0.0)
+
+
+def region_major(stacked: torch.Tensor, regions: Sequence[int]) -> torch.Tensor:
+    """``stacked [D, N, ...]`` (``N = Σ regions``) as one ``[D·N, ...]``
+    tensor region by region: every shard's first ``regions[0]`` rows, then
+    every shard's next ``regions[1]`` rows, and so on."""
+    return torch.cat([part.flatten(0, 1) for part in stacked.split(list(regions), dim=1)])
 
 
 class MaskedBatchNorm(nn.Module):

@@ -6,7 +6,10 @@ sharded over the mesh's ``"data"`` axis as a *stacked* batch: the loader's
 stacks them leaf-wise into ``[D_local, ...]`` tensors.
 
 Graphs are independent, so a rank runs its shards as one batch
-(:func:`merge_shards`, no loop over shards); what crosses shards is only
+(:func:`merge_shards`, no loop over shards), and so do sampled node
+batches (:func:`merge_sampled`: every shard's seeds first, then each hop's
+draws of every shard, which keeps the blocked layers' contiguous slices);
+what crosses shards is only
 BatchNorm's moments (sync-BatchNorm, summed over the mesh inside the
 forward) and the loss's sum and count.  The loss is the globally masked
 mean (:func:`~connectome_gnn_tpu_torch.parallel.shard_forward.
@@ -20,10 +23,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from connectome_gnn_tpu_torch.data.batch import ConnectomeBatch
 from connectome_gnn_tpu_torch.data.dense import DenseConnectomeBatch
+from connectome_gnn_tpu_torch.data.sampled import HopBlock, SampledNodeBatch
+from connectome_gnn_tpu_torch.nn.layers import region_major
 from connectome_gnn_tpu_torch.parallel.mesh import Mesh
 from connectome_gnn_tpu_torch.parallel.shard_forward import (
     masked_ce_sum,
@@ -35,9 +41,9 @@ from connectome_gnn_tpu_torch.parallel.shard_forward import (
 
 def stack_batches(batches: Sequence):
     """Stack per-shard batches (identical static shapes, as the sharded
-    loader makes them) leaf-wise into a leading shard axis; the result is
+    loaders make them) leaf-wise into a leading shard axis; the result is
     the same batch class with ``[D, ...]`` tensors and the per-shard
-    ``num_graphs``."""
+    ``num_graphs`` / ``num_seeds``."""
     first = batches[0]
     return dataclasses.replace(first, **{
         f.name: torch.stack([getattr(b, f.name) for b in batches])
@@ -62,6 +68,11 @@ def merge_shards(stacked):
     rank runs.  COO ids are offset per shard; padding ids go one past the
     merged end, and ``ptr``/``row_ptr`` are the merged cumulative counts."""
     S = int(stacked.label_mask.shape[0])
+    if isinstance(stacked, SampledNodeBatch):
+        return merge_sampled([dataclasses.replace(stacked, **{
+            f.name: getattr(stacked, f.name)[s] for f in dataclasses.fields(stacked)
+            if isinstance(getattr(stacked, f.name), torch.Tensor)
+        }) for s in range(S)])
     if isinstance(stacked, DenseConnectomeBatch):
         return DenseConnectomeBatch(
             node_features=stacked.node_features.flatten(0, 1), adj=stacked.adj.flatten(0, 1),
@@ -94,6 +105,71 @@ def merge_shards(stacked):
         ptr=cumulative(stacked.ptr),
         row_ptr=cumulative(stacked.row_ptr),
         num_graphs=S * B,
+    )
+
+
+def sampled_regions(batch: SampledNodeBatch) -> list[int]:
+    """A sampled batch's node regions: the seeds, then (multiset hop blocks,
+    whose draws are contiguous runs) each hop's draws, else the rest."""
+    blocks = batch.hop_blocks
+    S, N = batch.num_seeds, batch.num_nodes
+    if blocks and blocks[0].sender_start is not None:
+        return [S] + [int(b.weights.numel()) for b in blocks]
+    return [S, N - S] if N > S else [S]
+
+
+def merge_sampled(batches) -> SampledNodeBatch:
+    """Per-shard sampled batches of equal static shapes as the one batch a
+    rank runs, region by region (:func:`sampled_regions`): every shard's
+    seeds first, where the models read their logits, then every shard's
+    next region.  Node ids, edges and hop blocks are renumbered; a multiset
+    batch's hop blocks stay contiguous slices (their starts scale by the
+    shard count); ``shard_regions`` records the layout for dropout."""
+    first = batches[0]
+    D = len(batches)
+    regions = sampled_regions(first)
+    starts = np.cumsum([0] + regions[:-1]).tolist()
+    shard_base = torch.arange(D, device=first.node_features.device)
+
+    def stack(name):
+        return torch.stack([getattr(b, name) for b in batches])
+
+    def renumber(ids):  # ids [D, ...] shard-local → merged
+        # region by region from Python ints: no host-to-device copy, so a
+        # captured step can hold it
+        shard = shard_base.view((D,) + (1,) * (ids.dim() - 1))
+        out = ids
+        for start, length in zip(starts, regions):
+            inside = (ids >= start) & (ids < start + length)
+            out = torch.where(inside, ids + (D - 1) * start + shard * length, out)
+        return out
+
+    blocks = None
+    if first.hop_blocks is not None:
+        blocks = []
+        for h, b in enumerate(first.hop_blocks):
+            hb = [x.hop_blocks[h] for x in batches]
+            blocks.append(HopBlock(
+                senders=renumber(torch.stack([x.senders for x in hb])).flatten(0, 1),
+                weights=torch.stack([x.weights for x in hb]).flatten(0, 1),
+                recv=renumber(torch.stack([x.recv for x in hb])).flatten(),
+                sender_start=None if b.sender_start is None else D * b.sender_start,
+                recv_start=None if b.recv_start is None else D * b.recv_start,
+            ))
+        blocks = tuple(blocks)
+    return SampledNodeBatch(
+        node_features=region_major(stack("node_features"), regions),
+        senders=renumber(stack("senders")).flatten(),
+        receivers=renumber(stack("receivers")).flatten(),
+        edge_weight=stack("edge_weight").flatten(),
+        node_mask=region_major(stack("node_mask"), regions),
+        labels=stack("labels").flatten(),
+        label_mask=stack("label_mask").flatten(),
+        seed_mask=stack("seed_mask").flatten(),
+        node_ids=region_major(stack("node_ids"), regions),
+        num_seeds=D * first.num_seeds,
+        hop_blocks=blocks,
+        shard_regions=tuple(regions) if D > 1 else None,
     )
 
 

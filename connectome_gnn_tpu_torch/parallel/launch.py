@@ -1,7 +1,10 @@
 """Run the parallel modes in N real processes and hold them to one.
 
-The port of ``benchmarks/multiprocess.py``'s rig (programs ``dp``,
-``banded``, ``hybrid`` and ``trainer_fit``).  The parent starts ``--procs``
+The port of ``benchmarks/multiprocess.py``'s rig: programs ``dp``,
+``banded``, ``hybrid``, ``trainer_fit``, ``sampled_dp`` (host-sampled),
+``device_sampled_dp``, ``device_sampled_dp_scanned`` (an epoch from one
+buffer) and ``graph_sharded`` (the compacted exchange across processes),
+at the JAX rig's widths.  The parent starts ``--procs``
 worker processes, each joined to one process group by a ``file://``
 rendezvous (NCCL on ``--device cuda``, the default: one process a card;
 gloo on ``--device cpu``), over a mesh of ``--shards`` shards.  Each
@@ -30,13 +33,17 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 import torch
 
 from connectome_gnn_tpu_torch.data.batch import card_by_default
 
-PROGRAMS = ("dp", "banded", "hybrid", "trainer_fit")
+PROGRAMS = ("dp", "banded", "hybrid", "trainer_fit", "sampled_dp", "device_sampled_dp",
+            "device_sampled_dp_scanned", "graph_sharded")
+#: the programs over the mesh's "edge" axis; the rest run over "data"
+EDGE_PROGRAMS = ("banded", "hybrid")
 #: the JAX rig's bound for its two-step programs (benchmarks/multiprocess.py:30-37)
 RTOL = 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -164,8 +171,151 @@ def run_trainer_fit(mesh) -> dict:
             "val_acc": hist["val_acc"][-1]}
 
 
+def _sampled_graph(seed: int, D: int):
+    """The JAX rig's sampled graph (``benchmarks/multiprocess.py:187-330``):
+    64 nodes a shard, degree 6, band 16, 10 % shortcuts."""
+    from connectome_gnn_tpu_torch import generate_spatial_graph
+
+    g = generate_spatial_graph(64 * D, degree=6, band=16, seed=seed, shortcut_frac=0.1)
+    return g, (g.degree() > np.median(g.degree())).astype(np.int32)
+
+
+def _two_steps(step, args_of, model) -> dict:
+    losses, grads = [], None
+    for i in range(2):
+        out = step(*args_of(i))
+        losses.append(float(out[0]))
+        grads = grads if grads is not None else _grad_checksum(model)
+    return {"losses": losses, "params_sum": _checksum(model.parameters()), "n": float(out[1]),
+            "grads_sum": grads}
+
+
+def run_sampled_dp(mesh) -> dict:
+    """Two host-sampled data-parallel NodeGCN steps: each process samples
+    only its shards' seed chunks (streams keyed by the global shard)."""
+    from connectome_gnn_tpu_torch import NodeGCN, SampledNodeLoader
+    from connectome_gnn_tpu_torch.parallel import make_dp_train_step
+
+    D = mesh.size
+    g, labels = _sampled_graph(11, D)
+    loader = SampledNodeLoader(g, labels, batch_size=8 * D, fanout=(4, 4), seed=7, num_shards=D,
+                               device=mesh.device, **_loader_kw(mesh))
+    model = NodeGCN(5, 16, num_layers=2, generator=torch.Generator().manual_seed(0))
+    model.to(mesh.device)
+    step = make_dp_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3), mesh)
+    batches = iter(loader)
+    return _two_steps(step, lambda i: (mesh.place(next(batches)),), model)
+
+
+def _device_sampled(mesh, make, **loader_kw):
+    D = mesh.size
+    g, labels = _sampled_graph(13, D)
+    model = make(g, hidden_dim=16, fanout=(4, 4), device=mesh.device)
+    loader = model.make_loader(np.arange(g.num_nodes), labels, batch_size=8 * D, seed=7,
+                               num_shards=D, **loader_kw, **_loader_kw(mesh))
+    return model, loader
+
+
+def run_device_sampled_dp(mesh) -> dict:
+    """Two device-sampled data-parallel steps: the CSR on every rank, the
+    seed rows sharded, sampling inside the step."""
+    from connectome_gnn_tpu_torch.data import device_sampled_gcn
+    from connectome_gnn_tpu_torch.parallel import make_device_sampled_dp_step, replicate_csr
+
+    model, loader = _device_sampled(mesh, device_sampled_gcn)
+    csr = replicate_csr(model.csr, mesh)
+    step = make_device_sampled_dp_step(model, torch.optim.Adam(model.parameters(), lr=1e-3), mesh)
+    batches = iter(loader)
+    return _two_steps(step, lambda i: (next(batches).packed, csr), model)
+
+
+def run_device_sampled_dp_scanned(mesh) -> dict:
+    """Two epochs of device-sampled data parallelism, each from one buffer
+    (on the card one captured step, collectives included, replayed a row);
+    the first step alone first, for its gradients.
+
+    The model is SAGE over the multiset sampler, where the JAX rig trains
+    the GCN: a GCN conv's bias is cancelled by the BatchNorm after it, so
+    its gradient is float noise, which Adam turns into steps of ±lr; one
+    process (a rank's shards merged into one batch) and four (a shard each)
+    sum that noise in other orders, and over the 16 steps the GCN biases'
+    random walk alone moved the parameter checksum 1.02e-4 apart at 4
+    processes (every other parameter within 1e-10).  SAGE's parameters all
+    carry signal, and its hop-major merge is the one the multiset blocks
+    need."""
+    from connectome_gnn_tpu_torch.data import device_sampled_sage, pack_epoch_sharded
+    from connectome_gnn_tpu_torch.parallel import make_device_sampled_dp_epoch_runner
+
+    model, loader = _device_sampled(mesh, partial(device_sampled_sage, dedup=False),
+                                    shuffle=False)
+    # on the card the step is captured: Adam keeps its step count there
+    adam = torch.optim.Adam(model.parameters(), lr=1e-3, capturable=mesh.device.type == "cuda")
+    run = make_device_sampled_dp_epoch_runner(model, adam, mesh)
+    losses, grads, ns = [], None, None
+    for epoch in range(2):
+        packed = pack_epoch_sharded(loader)
+        parts = (packed[:1], packed[1:]) if epoch == 0 else (packed,)
+        for part in parts:
+            step_losses, ns = run(part, model.csr)
+            losses += step_losses.tolist()
+            grads = grads if grads is not None else _grad_checksum(model)
+    return {"losses": losses, "params_sum": _checksum(model.parameters()),
+            "n": float(ns.sum()), "grads_sum": grads, "epoch_steps": int(packed.shape[0])}
+
+
+def run_graph_sharded(mesh) -> dict:
+    """Two graph-sharded sampled steps with the compacted exchange across
+    processes: each rank builds only its shards (``partition_streamed``
+    with its ``shard_range``); the second step's collectives are counted
+    (``count_collective_bytes``), and ``plan_compaction`` plans on probes
+    (its loads the largest over every rank's shards)."""
+    from connectome_gnn_tpu_torch.models.node_coo import BlockedNodeSAGE
+    from connectome_gnn_tpu_torch.parallel import (
+        CompactionConfig,
+        ShardedGraphCSR,
+        count_collective_bytes,
+        make_graph_sharded_train_step,
+        plan_compaction,
+        shard_csr,
+    )
+
+    D, S = mesh.size, 8
+    g, labels = _sampled_graph(17, D)
+    src, dst = g.edge_index
+    sg = shard_csr(ShardedGraphCSR.partition_streamed(
+        lambda: iter([(src, dst, g.edge_weight)]), g.node_features, g.num_nodes, D,
+        shard_range=(mesh.lo, mesh.hi), device=mesh.device), mesh)
+    model = BlockedNodeSAGE(5, 16, num_layers=2, generator=torch.Generator().manual_seed(0))
+    model.to(mesh.device)
+    step = make_graph_sharded_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                                         mesh, (4, 4), compaction=CompactionConfig(2.0, 2))
+    comm, overflow = {}, []
+
+    def args_of(i):
+        # every rank builds the same global arrays and keeps its rows
+        seeds = np.random.default_rng(100 + i).permutation(g.num_nodes)[: D * S].reshape(D, S)
+        keys = np.stack([np.zeros(D, np.int64), 1000 * i + np.arange(D)], axis=1)
+        return sg, torch.from_numpy(seeds), torch.from_numpy(keys), torch.from_numpy(labels[seeds]), \
+            torch.ones(D, S, dtype=torch.bool)
+
+    def counted(*args):
+        out = []
+        comm.update(count_collective_bytes(mesh, lambda: out.extend(step(*args))))
+        overflow.append(int(out[2]))
+        return out
+
+    result = _two_steps(counted, args_of, model)
+    probes = np.random.default_rng(7).integers(0, g.num_nodes, size=(2, D, S))
+    planned, loads = plan_compaction(sg, mesh, probes, 3, (4, 4), return_loads=True)
+    return dict(result, overflow=overflow, comm_bytes_per_device_per_step=comm,
+                planned=[planned.alpha, planned.alpha_features], loads=loads)
+
+
 RUNNERS = {"dp": run_dp, "banded": run_banded, "hybrid": run_hybrid,
-           "trainer_fit": run_trainer_fit}
+           "trainer_fit": run_trainer_fit, "sampled_dp": run_sampled_dp,
+           "device_sampled_dp": run_device_sampled_dp,
+           "device_sampled_dp_scanned": run_device_sampled_dp_scanned,
+           "graph_sharded": run_graph_sharded}
 
 
 def worker_main(args) -> None:
@@ -183,7 +333,7 @@ def worker_main(args) -> None:
     try:
         results = {}
         for name in args.programs.split(","):
-            mesh_axis = "data" if name in ("dp", "trainer_fit") else "edge"
+            mesh_axis = "edge" if name in EDGE_PROGRAMS else "data"
             mesh = create_mesh((args.shards,), (mesh_axis,), device=device)
             t0 = time.perf_counter()
             results[name] = RUNNERS[name](mesh)

@@ -16,6 +16,7 @@ one of size 1.  Each is a ``torch.autograd.Function`` with the backward
 that JAX's autodiff gives it:
 
 * :meth:`Mesh.psum` sums over every shard (its backward is a ``psum``);
+* :meth:`Mesh.pmax` takes the largest value over every shard (no backward);
 * :meth:`Mesh.all_gather` stacks every shard (backward: the sum of the
   cotangents, sliced back to the rank's shards);
 * :meth:`Mesh.shift` moves each shard's block one step along an axis, a
@@ -162,9 +163,20 @@ class Mesh:
         ``[...]``, the same on every rank."""
         return self.all_reduce(x.sum(dim=0))
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """A per-rank value summed over ranks (differentiable)."""
-        return _AllReduce.apply(t, self)
+    def all_reduce(self, t: torch.Tensor, constant_prefix: int = 0) -> torch.Tensor:
+        """A per-rank value summed over ranks (differentiable).  The first
+        ``constant_prefix`` entries of a 1-D ``t`` are data with no
+        gradient: the backward leaves them out of its all-reduce."""
+        return _AllReduce.apply(t, self, constant_prefix)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [D_local, ...]``'s largest value over every shard of the mesh
+        (no autograd); ``[...]``, the same on every rank."""
+        out = x.amax(dim=0)
+        self._count("pmax", out)
+        if self.group is not None:
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``x [D_local, ...]`` from every rank, stacked ``[D, ...]``."""
@@ -270,8 +282,8 @@ class _AllReduce(torch.autograd.Function):
     """Sum over ranks; the backward sums the cotangents over ranks."""
 
     @staticmethod
-    def forward(ctx, t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-        ctx.mesh = mesh
+    def forward(ctx, t: torch.Tensor, mesh: Mesh, constant_prefix: int) -> torch.Tensor:
+        ctx.mesh, ctx.prefix = mesh, constant_prefix
         out = t.clone()
         mesh.reduce_(out, "psum")
         return out
@@ -279,8 +291,9 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         g = g.clone()
-        ctx.mesh.reduce_(g, "psum (backward)")
-        return g, None
+        g[: ctx.prefix] = 0.0
+        ctx.mesh.reduce_(g[ctx.prefix:], "psum (backward)")
+        return g, None, None
 
 
 class _AllGather(torch.autograd.Function):

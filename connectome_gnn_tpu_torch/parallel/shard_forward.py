@@ -44,13 +44,14 @@ class ShardForwardMixin:
             return self.apply_shard(sharded, mesh, axis_name=axis_name)
 
 
-def use_shard_generators(model: torch.nn.Module, mesh: Mesh, seed: int) -> None:
+def use_shard_generators(model: torch.nn.Module, mesh: Mesh, seed: int) -> list:
     """``model``'s :class:`Dropout` layers draw each local shard's mask from
-    its own generator (:meth:`Mesh.shard_generators`)."""
+    its own generator (:meth:`Mesh.shard_generators`); returns them."""
     gens = mesh.shard_generators(seed)
     for module in model.modules():
         if isinstance(module, Dropout):
             module.shard_generators = gens
+    return gens
 
 
 def check_sharded(sharded, mesh: Mesh, axis_name: str) -> None:
@@ -67,12 +68,13 @@ def check_sharded(sharded, mesh: Mesh, axis_name: str) -> None:
 
 def moment_reducer(mesh: Mesh):
     """Sync-BatchNorm's reducer: ``(n, Σx, Σx²)`` summed over ranks in one
-    all-reduce (the rank's shards are already in its sums)."""
+    all-reduce (the rank's shards are already in its sums); the backward
+    reduces the sums' cotangents, not the count's."""
 
     def reduce(n, sum_x, sum_x2):
         k = sum_x.numel()
         flat = mesh.all_reduce(torch.cat([n.detach().reshape(1).to(sum_x.dtype), sum_x.reshape(-1),
-                                          sum_x2.reshape(-1)]))
+                                          sum_x2.reshape(-1)]), constant_prefix=1)
         total_n, total_x, total_x2 = flat.split([1, k, k])
         # the count is data, not a function of the parameters
         return total_n.detach()[0], total_x.view(sum_x.shape), total_x2.view(sum_x2.shape)

@@ -30,9 +30,14 @@ and ``:134-162`` of the JAX package): loaders yield stacked batches
 batch with sync-BatchNorm, and the step reduces the gradients once over
 the mesh (``parallel/data_parallel.py``); the guard decides on the global
 values, so every rank takes the same verdict.  ``evaluate`` and ``predict``
-sum and gather over the mesh.  The mesh-mode seed-batch and graph-sharded
-steps and ``scan_epochs`` over a mesh belong to slice E3 of the port and
-raise ``NotImplementedError``.
+sum and gather over the mesh.  Sampled node training runs over a mesh too
+(``trainer.py:260-540`` of the JAX package): stacked host-sampled batches
+(``SampledNodeLoader(num_shards=D)``), stacked seed rows of a sharded
+``DeviceSeedLoader`` against a CSR replicated to the mesh's device
+(``parallel/sampled_dp.py``; ``scan_epochs`` replays one captured step,
+collectives included), and a ``GraphShardedSampledModel``'s graph-sharded
+steps (``parallel/sharded_sampling.py``), whose exchange overflow is
+``last_sampling_overflow``.
 The JAX Trainer's ``params`` / ``state`` arguments have no counterpart:
 the port's model carries its weights (``models.compat.load_jax_params``
 loads JAX ones).
@@ -63,9 +68,6 @@ from connectome_gnn_tpu_torch.train.fault import (
 
 #: builds the optimizer over the model's parameters (after they are moved)
 OptimizerFactory = Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
-#: what mesh mode does not run yet
-MESH_E3 = ("slice E3 of the port (sampled data parallelism, graph-sharded sampling) is not "
-           "ported yet")
 
 
 def reference_adam(learning_rate: float = 1e-3, weight_decay: float = 1e-4) -> OptimizerFactory:
@@ -164,7 +166,10 @@ class Trainer:
         runs on the mesh's device.  Dropout draws each shard's mask from
         its own generator, seeded from ``seed`` and the shard's index.
         Numerics are single-device training's at the global batch, up to
-        the order of float32 sums.
+        the order of float32 sums.  Sampled loaders shard the same way
+        (``SampledNodeLoader`` / ``DeviceSeedLoader`` with ``num_shards``);
+        a ``GraphShardedSampledModel`` trains from its ``make_loader``, its
+        partition placed once on the mesh's device.
     scan_epochs
         For a ``DeviceSampledModel`` trained from a ``DeviceSeedLoader``:
         each training epoch is packed into one ``[steps, 3 + 2S]`` buffer
@@ -177,7 +182,10 @@ class Trainer:
         loop's, so ``fit``, early stopping, checkpoints and the guard work
         unchanged (on the CPU the two are bitwise equal).  A failed capture
         raises; nothing falls back to eager steps on the card.  Other
-        loaders train stepwise.
+        loaders train stepwise.  Over a mesh the loader must be sharded
+        (``num_shards=D``) and the captured step holds the sync-BatchNorm
+        and gradient collectives; the mesh's counters grow by the captured
+        step's counts a replay.
     """
 
     def __init__(
@@ -198,12 +206,12 @@ class Trainer:
             mesh.axis_size(axis_name)
             if device is not None and torch.empty(0, device=device).device != mesh.device:
                 raise ValueError(f"device={device} is not the mesh's device {mesh.device}")
-            if scan_epochs:
-                raise NotImplementedError(f"scan_epochs over a mesh: {MESH_E3}")
             device = mesh.device
         self.device = torch.device(card_by_default(device, "Trainer"))
         self.model = model.to(self.device)
-        if getattr(self.model, "csr", None) is not None:
+        if hasattr(getattr(self.model, "csr", None), "gather_features"):
+            # a DeviceGraphCSR; a graph-sharded model's partition is placed
+            # on the mesh's device by the Trainer
             self._check_csr(self.model.csr, "the model's")
         self.optimizer = (optimizer or reference_adam())(self.model.parameters())
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
@@ -216,10 +224,19 @@ class Trainer:
         self.skip_nonfinite = bool(skip_nonfinite)
         self.prefetch_depth = int(prefetch_depth)
         self.last_skipped_steps = 0
+        #: graph-sharded training: request slots the compacted exchange
+        #: dropped over the last epoch, summed over the mesh (0: exact)
+        self.last_sampling_overflow = 0
         self._warned_unfusable = False
         self.scan_epochs = bool(scan_epochs)
-        #: (row length, labelled, CSR) → the captured step (``scan_epochs`` on the card)
+        #: (row shape, labelled, CSR) → the captured step (``scan_epochs`` on the card)
         self._captured: dict = {}
+        #: mesh mode: the replicated CSRs and placed partitions (by identity)
+        #: and the graph-sharded steps (by train and compaction config)
+        self._csr_cache: dict = {}
+        self._gs_csr_cache: dict = {}
+        self._gs_cache: dict = {}
+        self._step_overflow = None
 
     def _iterate(self, loader):
         """Iterate ``loader``, ``prefetch_depth`` batches ahead in a
@@ -242,6 +259,15 @@ class Trainer:
     def _train_step(self, batch):
         """One optimization step; returns ``(loss, n, ok)`` as device
         scalars (a rejected step gives 0, 0, 0)."""
+        self._step_overflow = None
+        if self.mesh is not None and self._is_seed_batch(batch) and self._is_graph_sharded():
+            out = self._graph_sharded_step(train=True)(
+                self._placed_sharded_csr(), batch.seeds, batch.key_words, batch.labels,
+                batch.label_mask)
+            if self.model.compaction is not None:
+                self._step_overflow = out[2]
+            ok = out[-1] if self.skip_nonfinite else torch.ones((), device=out[1].device)
+            return out[0], out[1], ok
         return guarded_step(self.model, self.optimizer, lambda: self._loss_and_grads(batch),
                             self.skip_nonfinite)
 
@@ -250,7 +276,11 @@ class Trainer:
         labelled graphs (over the whole mesh in mesh mode)."""
         if self.mesh is not None:
             from connectome_gnn_tpu_torch.parallel.data_parallel import dp_loss_and_grads
+            from connectome_gnn_tpu_torch.parallel.sampled_dp import dp_seed_loss_and_grads
 
+            if self._is_seed_batch(batch):
+                return dp_seed_loss_and_grads(self.model, self.mesh, batch.packed,
+                                              self._replicated_csr(batch), batch.labeled)
             return dp_loss_and_grads(self.model, self.mesh, self._stacked(batch))
         logits = self.model(batch)
         ce = F.cross_entropy(logits, batch.labels, reduction="none")
@@ -260,34 +290,117 @@ class Trainer:
         loss.backward()
         return loss.detach(), n
 
+    def _loader_hint(self, loader: str) -> str:
+        return (f"a {loader} with num_shards={self.mesh.axis_size(self.axis_name)}"
+                + (f", process_index={self.mesh.rank}, process_count={self.mesh.world}"
+                   if self.mesh.world > 1 else ""))
+
     def _stacked(self, batch):
-        """Mesh mode: ``batch``, checked to be a stacked graph batch of the
-        rank's shards."""
+        """Mesh mode: ``batch``, checked to be a stacked graph or sampled
+        batch of the rank's shards."""
         from connectome_gnn_tpu_torch.data.batch import ConnectomeBatch
         from connectome_gnn_tpu_torch.data.dense import DenseConnectomeBatch
+        from connectome_gnn_tpu_torch.data.sampled import SampledNodeBatch
         from connectome_gnn_tpu_torch.parallel.data_parallel import is_stacked
 
-        if not isinstance(batch, (ConnectomeBatch, DenseConnectomeBatch)):
-            raise NotImplementedError(
-                f"mesh-mode training of a {type(batch).__name__}: {MESH_E3}")
+        if not isinstance(batch, (ConnectomeBatch, DenseConnectomeBatch, SampledNodeBatch)):
+            raise TypeError(f"mesh mode cannot train a {type(batch).__name__}")
         if not is_stacked(batch) or batch.label_mask.shape[0] != self.mesh.local_shards:
+            loader = ("SampledNodeLoader" if isinstance(batch, SampledNodeBatch)
+                      else "ConnectomeDataLoader")
             raise ValueError(
                 f"mesh-mode training needs stacked batches of this rank's {self.mesh.local_shards} "
-                f"shards: a ConnectomeDataLoader with num_shards={self.mesh.axis_size(self.axis_name)}"
-                + (f", process_index={self.mesh.rank}, process_count={self.mesh.world}"
-                   if self.mesh.world > 1 else "")
-            )
+                f"shards: {self._loader_hint(loader)}")
         return batch
+
+    # ------------------------------------------------------------------
+    # Mesh mode: device-sampled and graph-sharded seed batches
+    # ------------------------------------------------------------------
+
+    def _is_seed_batch(self, batch) -> bool:
+        """Whether ``batch`` is a ``SeedBatch``; in mesh mode it must be the
+        rank's stacked rows (a sharded ``DeviceSeedLoader``'s)."""
+        from connectome_gnn_tpu_torch.data.device_sampling import SeedBatch
+
+        if not isinstance(batch, SeedBatch):
+            return False
+        if not batch.stacked or batch.packed.shape[0] != self.mesh.local_shards:
+            raise ValueError(
+                "mesh-mode training needs a sharded DeviceSeedLoader yielding stacked "
+                f"SeedBatches of this rank's {self.mesh.local_shards} shards: "
+                + self._loader_hint("DeviceSeedLoader"))
+        return True
+
+    def _is_graph_sharded(self) -> bool:
+        from connectome_gnn_tpu_torch.parallel.sharded_sampling import GraphShardedSampledModel
+
+        return isinstance(self.model, GraphShardedSampledModel)
+
+    def _replicated_csr(self, batch):
+        """The batch's (or the model's) CSR on the mesh's device, cached by
+        identity: a one-time copy."""
+        csr = batch.csr if batch.csr is not None else getattr(self.model, "csr", None)
+        if csr is None:
+            raise ValueError("stacked SeedBatch training needs a DeviceGraphCSR (build the loader "
+                             "with model.make_loader or pass csr=)")
+        key = id(csr)
+        if key not in self._csr_cache:
+            from connectome_gnn_tpu_torch.parallel.sampled_dp import replicate_csr
+
+            self._csr_cache[key] = csr, replicate_csr(csr, self.mesh)
+        return self._csr_cache[key][1]
+
+    def _placed_sharded_csr(self):
+        """The model's partition placed for this rank (``shard_csr``), cached
+        by identity; refuses a partition of another shard count."""
+        from connectome_gnn_tpu_torch.parallel.sharded_sampling import shard_csr
+
+        csr = self.model.csr
+        D = self.mesh.axis_size(self.axis_name)
+        if csr.num_shards != D:
+            raise ValueError(
+                f"graph-sharded model has {csr.num_shards} shards but the mesh axis "
+                f"'{self.axis_name}' has {D}: repartition (graph_sharded_sage(graph, "
+                f"num_shards={D}, ...)) or build a matching mesh")
+        key = id(csr)
+        if key not in self._gs_csr_cache:
+            self._gs_csr_cache.clear()  # a swapped partition drops the old placement
+            self._gs_csr_cache[key] = csr, shard_csr(csr, self.mesh, self.axis_name)
+        return self._gs_csr_cache[key][1]
+
+    def _graph_sharded_step(self, train: bool):
+        """The graph-sharded train or eval step for the model's current
+        compaction config, cached; steps of a superseded config are dropped
+        (``GraphShardedSampledModel.plan_compaction`` may re-plan mid-run)."""
+        from connectome_gnn_tpu_torch.parallel.sharded_sampling import (
+            make_graph_sharded_eval_step,
+            make_graph_sharded_train_step,
+        )
+
+        m = self.model
+        key = (train, m.compaction)
+        if key not in self._gs_cache:
+            for stale in [k for k in self._gs_cache if k[1] != m.compaction]:
+                del self._gs_cache[stale]
+            if train:
+                self._gs_cache[key] = make_graph_sharded_train_step(
+                    m.inner, self.optimizer, self.mesh, m.fanout, self.axis_name,
+                    guard=self.skip_nonfinite, compaction=m.compaction, seed=None)
+            else:
+                self._gs_cache[key] = make_graph_sharded_eval_step(
+                    m.inner, self.mesh, m.fanout, self.axis_name, compaction=m.compaction)
+        return self._gs_cache[key]
 
     def _train_steps(self, loader):
         """Every step of one pass over ``loader``; returns the device sums
-        ``[Σ loss·n, Σ n, Σ ok]`` (None for an empty loader) and the number
-        of steps.  Nothing is read back from the device."""
+        ``[Σ loss·n, Σ n, Σ ok, Σ overflow]`` (None for an empty loader) and
+        the number of steps.  Nothing is read back from the device."""
         self.model.train()
         sums, steps = None, 0
         for batch in self._iterate(loader):
             loss, n, ok = self._train_step(batch)
-            step = torch.stack([loss * n, n, ok])
+            ovf = self._step_overflow if self._step_overflow is not None else torch.zeros_like(n)
+            step = torch.stack([loss * n, n, ok, ovf.to(n.dtype)])
             sums = step if sums is None else sums + step
             steps += 1
         return sums, steps
@@ -303,8 +416,17 @@ class Trainer:
 
         if not isinstance(loader, DeviceSeedLoader):
             return False
-        if self.mesh is not None:
-            raise NotImplementedError(f"scan_epochs over a mesh: {MESH_E3}")
+        if self.mesh is None:
+            if loader.num_shards is not None:
+                raise ValueError("scan_epochs without a mesh needs an unsharded DeviceSeedLoader")
+        else:
+            if self._is_graph_sharded():
+                raise ValueError("scan_epochs is not supported for graph-sharded models (the "
+                                 "scanned epoch runs the replicated device-sampled path)")
+            if loader.num_shards != self.mesh.axis_size(self.axis_name) or \
+                    loader.row_shape[0] != self.mesh.local_shards:
+                raise ValueError("scan_epochs over a mesh needs a sharded DeviceSeedLoader: "
+                                 + self._loader_hint("DeviceSeedLoader"))
         if not isinstance(self.model, DeviceSampledModel):
             raise ValueError(
                 "scan_epochs samples on the device: the model must be a DeviceSampledModel "
@@ -329,36 +451,41 @@ class Trainer:
             )
 
     def _seed_step(self, row, csr, num_seeds: int, labeled: bool, acc) -> None:
-        """One train step on a packed seed row, its ``[loss·n, n, ok]``
-        added into ``acc`` in place (the scanned epoch's body)."""
+        """One train step on a packed seed row (the rank's stacked rows in
+        mesh mode), its ``[loss·n, n, ok, 0]`` added into ``acc`` in place
+        (the scanned epoch's body)."""
         from connectome_gnn_tpu_torch.data.device_sampling import SeedBatch
 
         batch = SeedBatch(packed=row, csr=csr, num_seeds=num_seeds, labeled=labeled)
         loss, n, ok = self._train_step(batch)
-        acc.add_(torch.stack([loss * n, n, ok]))
+        acc.add_(torch.stack([loss * n, n, ok, torch.zeros_like(n)]))
 
     def _capture(self, row0, csr, num_seeds: int, labeled: bool, acc):
         """Run ``row0``'s step eagerly on a side stream (the warm-up that
         makes the optimizer's state and every lazy handle), then capture one
         step as a CUDA graph reading a static row slot; returns ``(graph,
-        slot)``."""
+        slot, counts)``, ``counts`` one step's collective counts in mesh
+        mode (a replay runs no Python, so the mesh's counters do not tick)."""
+        from connectome_gnn_tpu_torch.parallel.sampled_dp import (
+            capture_step,
+            counts_of,
+            keep_one_run,
+        )
+
         slot = row0.clone()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._seed_step(slot, csr, num_seeds, labeled, acc)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
+        generators = []
         if any(isinstance(m, Dropout) and m.p > 0 for m in self.model.modules()):
-            # dropout draws from the trainer's generator: each replay
-            # advances it as an eager step would
-            graph.register_generator_state(self.generator)
+            # dropout draws from the trainer's generators: each replay
+            # advances them as an eager step would
+            generators = self.shard_generators if self.mesh is not None else [self.generator]
+        before = counts_of(self.mesh) if self.mesh is not None else None
         try:
-            with torch.cuda.graph(graph):
-                self._seed_step(slot, csr, num_seeds, labeled, acc)
+            graph = capture_step(lambda: self._seed_step(slot, csr, num_seeds, labeled, acc),
+                                 self.device, generators, list(self.model.parameters()))
         except RuntimeError as exc:
-            raise RuntimeError(f"scan_epochs could not capture the train step: {exc}") from exc
-        return graph, slot
+            raise RuntimeError(f"scan_epochs: {exc}") from exc
+        counts = keep_one_run(self.mesh, before) if self.mesh is not None else None
+        return graph, slot, counts
 
     def _train_steps_scanned(self, loader):
         """A ``DeviceSeedLoader``'s epoch from one uploaded buffer; the same
@@ -368,30 +495,37 @@ class Trainer:
         self.model.train()
         packed = pack_epoch(loader).to(self.device)  # advances the loader's epoch
         steps = int(packed.shape[0])
-        csr = loader.csr if loader.csr is not None else self.model.csr
-        S, labeled = loader.batch_size, loader.node_labels is not None
+        if self.mesh is not None:
+            csr = self._replicated_csr(loader)
+        else:
+            csr = loader.csr if loader.csr is not None else self.model.csr
+        S, labeled = loader._shard_size, loader.node_labels is not None
         if steps == 0:
             return None, 0
         if self.device.type != "cuda":
-            acc = torch.zeros(3, device=self.device)
+            acc = torch.zeros(4, device=self.device)
             for row in packed:
                 self._seed_step(row, csr, S, labeled, acc)
             return acc, steps
         # the graph holds its row slot and its sums by address: both live
         # with it (and the CSR, which keeps its id unique)
-        key = (int(packed.shape[1]), labeled, id(csr))
+        key = (tuple(packed.shape[1:]), labeled, id(csr))
         if key in self._captured:
-            graph, slot, acc, _ = self._captured[key]
+            graph, slot, acc, counts, _ = self._captured[key]
             acc.zero_()
             start = 0
         else:
-            acc = torch.zeros(3, device=self.device)
-            graph, slot = self._capture(packed[0], csr, S, labeled, acc)
-            self._captured[key] = graph, slot, acc, csr
+            acc = torch.zeros(4, device=self.device)
+            graph, slot, counts = self._capture(packed[0], csr, S, labeled, acc)
+            self._captured[key] = graph, slot, acc, counts, csr
             start = 1
         for i in range(start, steps):
             slot.copy_(packed[i])
             graph.replay()
+        if counts is not None:
+            from connectome_gnn_tpu_torch.parallel.sampled_dp import add_replays
+
+            add_replays(self.mesh, counts, steps - start)
         return acc.clone(), steps
 
     def train_epoch(self, loader) -> float:
@@ -407,10 +541,11 @@ class Trainer:
         else:
             sums, steps = self._train_steps(loader)
         if sums is None:
-            self.last_skipped_steps = 0
+            self.last_skipped_steps = self.last_sampling_overflow = 0
             return 0.0
-        total, graphs, oks = sums.tolist()
+        total, graphs, oks, overflow = sums.tolist()
         self.last_skipped_steps = steps - int(round(oks))
+        self.last_sampling_overflow = int(round(overflow))
         return total / max(graphs, 1.0)
 
     def fit(
@@ -523,9 +658,7 @@ class Trainer:
         sums = torch.zeros(3, device=self.device)  # loss, correct, total
         for batch in self._iterate(loader):
             if self.mesh is not None:
-                from connectome_gnn_tpu_torch.parallel.data_parallel import dp_eval_sums
-
-                sums += dp_eval_sums(self.model, self.mesh, self._stacked(batch))
+                sums += self._mesh_eval_sums(batch)
                 continue
             logits = self.model(batch)
             ce = F.cross_entropy(logits, batch.labels, reduction="none")
@@ -540,6 +673,36 @@ class Trainer:
             "correct": correct,
             "total": total,
         }
+
+    def _mesh_eval_sums(self, batch) -> torch.Tensor:
+        """Mesh mode: one batch's ``[Σ loss, correct, n_real]`` over the mesh."""
+        from connectome_gnn_tpu_torch.parallel.data_parallel import dp_eval_sums
+        from connectome_gnn_tpu_torch.parallel.sampled_dp import dp_seed_eval_sums
+
+        if not self._is_seed_batch(batch):
+            return dp_eval_sums(self.model, self.mesh, self._stacked(batch))
+        if self._is_graph_sharded():
+            out = self._graph_sharded_step(train=False)(
+                self._placed_sharded_csr(), batch.seeds, batch.key_words, batch.labels,
+                batch.label_mask)
+            return torch.stack(out)
+        return dp_seed_eval_sums(self.model, self.mesh, batch.packed, self._replicated_csr(batch),
+                                 batch.labeled)
+
+    def _merged_seed_batch(self, batch):
+        """Mesh mode: a stacked seed batch sampled and merged as the rank
+        runs it (eval-mode sampling)."""
+        if self._is_graph_sharded():
+            from connectome_gnn_tpu_torch.parallel.sharded_sampling import graph_sharded_batch
+
+            m = self.model
+            return graph_sharded_batch(self._placed_sharded_csr(), batch.seeds, batch.key_words,
+                                       batch.labels, batch.label_mask, m.fanout, self.mesh,
+                                       self.axis_name, m.compaction)[0], m.inner
+        from connectome_gnn_tpu_torch.parallel.sampled_dp import sample_shards
+
+        return sample_shards(self.model, batch.packed, self._replicated_csr(batch),
+                             batch.labeled), self.model.inner
 
     @torch.inference_mode()
     def predict(self, loader, prefer_fused: bool = True) -> np.ndarray:
@@ -559,10 +722,14 @@ class Trainer:
         chunks = []
         for batch in self._iterate(loader):
             graph_mask = None
+            model = self.model
             if self.mesh is not None:
                 from connectome_gnn_tpu_torch.parallel.data_parallel import merge_shards
 
-                batch = merge_shards(self._stacked(batch))
+                if self._is_seed_batch(batch):
+                    batch, model = self._merged_seed_batch(batch)
+                else:
+                    batch = merge_shards(self._stacked(batch))
                 graph_mask = self._gathered(batch.graph_mask.to(torch.uint8)).bool()
             if prefer_fused:
                 if not hasattr(batch, "adj") and not self._warned_unfusable:
@@ -574,9 +741,9 @@ class Trainer:
                         stacklevel=3,  # past the inference_mode wrapper
                     )
                     self._warned_unfusable = True
-                logits = forward_auto(self.model, batch)
+                logits = forward_auto(model, batch)
             else:
-                logits = self.model(batch)
+                logits = model(batch)
             # real-graph mask, not label_mask: unlabeled graphs still get
             # predictions
             if graph_mask is not None:

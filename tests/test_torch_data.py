@@ -109,9 +109,9 @@ def test_loader_places_batches_on_device(graphs):
 
 def test_loader_sharding_names_its_slice(graphs):
     """The graph loader shards since slice E1 (stacked batches, bitwise
-    JAX's, in ``tests/test_torch_parallel.py``); its process arguments need
-    ``num_shards``, as JAX's do, and the sampled loaders' sharding names
-    slice E3, which is still to come."""
+    JAX's, in ``tests/test_torch_parallel.py``), and the sampled loaders
+    since slice E3 (bitwise JAX's in ``tests/test_torch_sampled_dp.py``);
+    their process arguments need ``num_shards``, as JAX's do."""
     jg, tg = graphs
     batch = next(iter(td.ConnectomeDataLoader(tg, batch_size=4, shuffle=False, num_shards=2)))
     want = next(iter(jd.ConnectomeDataLoader(jg, batch_size=4, shuffle=False, num_shards=2)))
@@ -119,6 +119,9 @@ def test_loader_sharding_names_its_slice(graphs):
     assert_same(batch.senders, want.senders)
     with pytest.raises(ValueError, match="requires num_shards"):
         td.ConnectomeDataLoader(tg, batch_size=4, process_index=0, process_count=2)
-    with pytest.raises(NotImplementedError, match="slice E3"):
-        td.SampledNodeLoader(td.generate_spatial_graph(64, degree=4, band=8), num_shards=2,
-                             device="cpu")
+    sampled = td.SampledNodeLoader(td.generate_spatial_graph(64, degree=4, band=8), batch_size=8,
+                                   fanout=(2,), num_shards=2, device="cpu")
+    assert next(iter(sampled)).node_features.shape[0] == 2
+    with pytest.raises(ValueError, match="requires num_shards"):
+        td.SampledNodeLoader(td.generate_spatial_graph(64, degree=4, band=8), process_index=0,
+                             process_count=2, device="cpu")

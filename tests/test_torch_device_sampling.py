@@ -135,8 +135,10 @@ def test_seed_rows_are_jax(labelled):
     one = tds.make_seed_batch(pool[:10], labels, 123, 16, device="cpu")
     np.testing.assert_array_equal(one.packed.numpy(),
                                   np.asarray(jds.make_seed_batch(pool[:10], labels, 123, 16).packed))
-    with pytest.raises(NotImplementedError, match="slice E"):
-        tds.DeviceSeedLoader(pool, num_shards=2, device="cpu")
+    sharded = tds.DeviceSeedLoader(pool, batch_size=16, num_shards=2, device="cpu")
+    assert next(iter(sharded)).packed.shape == (2, 3 + 2 * 8)
+    with pytest.raises(ValueError, match="requires num_shards"):
+        tds.DeviceSeedLoader(pool, process_index=0, process_count=2, device="cpu")
 
 
 def jax_draws(key, rows, fanout, max_deg):

@@ -2,16 +2,21 @@
 that process to the JAX package.
 
 ``connectome_gnn_tpu_torch.parallel.launch`` runs the programs ``dp``,
-``banded``, ``hybrid`` and ``trainer_fit`` over 4 shards as 1 process × 4
-shards, 2 × 2 and 4 × 1, each worker building only its shards, each with
-its own time limit.  Every rank's losses, parameter checksums, counts and
+``banded``, ``hybrid``, ``trainer_fit`` and slice E3's ``sampled_dp``,
+``device_sampled_dp``, ``device_sampled_dp_scanned`` and ``graph_sharded``
+over 4 shards as 1 process × 4 shards, 2 × 2 and 4 × 1, each worker
+building only its shards, each with its own time limit.  Every rank's losses, parameter checksums, counts and
 first-step gradient checksums must agree with the one-process run within
 1e-4, the bound of the JAX rig's two-step programs
 (``benchmarks/multiprocess.py:30-37``).  A gradient counted once per
 process (a ``psum`` of the loss inside the forward, or a second all-reduce)
 would scale the gradient checksum by the process count, which
-``test_gradients_are_counted_once`` would see.  The one-process run is
-held to JAX's data-parallel step and mesh-mode Trainer on the same weights.
+``test_gradients_are_counted_once`` would see.  The graph-sharded program's
+compacted exchange drops nothing, the bytes each collective moves a
+device are the same however the shards are spread, and so is the
+planner's config.  The one-process run is
+held to JAX's data-parallel step, mesh-mode Trainer and host-sampled
+data-parallel step on the same weights.
 """
 
 import jax
@@ -23,10 +28,11 @@ import torch
 import connectome_gnn_tpu.data as jd
 import connectome_gnn_tpu.parallel as jp
 from connectome_gnn_tpu.models import GCNConnectome as JGCN
+from connectome_gnn_tpu.models.node_coo import NodeGCN as JNodeGCN
 from connectome_gnn_tpu.models.compat import params_from_reference_state_dict
 from connectome_gnn_tpu.train import Trainer as JTrainer
 
-from connectome_gnn_tpu_torch import GCNConnectome
+from connectome_gnn_tpu_torch import GCNConnectome, NodeGCN
 from connectome_gnn_tpu_torch.parallel import launch
 
 SHARDS = 4
@@ -51,7 +57,8 @@ def test_processes_agree_with_one(runs, procs, program):
 
 @pytest.mark.parametrize("procs", PROCS)
 def test_gradients_are_counted_once(runs, procs):
-    for program in ("dp", "banded", "hybrid"):
+    for program in ("dp", "banded", "hybrid", "sampled_dp", "device_sampled_dp",
+                    "device_sampled_dp_scanned", "graph_sharded"):
         want = runs[1][0]["results"][program]["grads_sum"]
         for rank in runs[procs]:
             got = rank["results"][program]["grads_sum"]
@@ -65,6 +72,20 @@ def test_replicas_stay_identical(runs, procs):
     for program in launch.PROGRAMS:
         sums = {r["results"][program]["params_sum"] for r in runs[procs]}
         assert len(sums) == 1, (program, sums)
+
+
+@pytest.mark.parametrize("procs", (1, *PROCS))
+def test_graph_sharded_exchange_is_exact_and_counted_alike(runs, procs):
+    want = runs[1][0]["results"]["graph_sharded"]["comm_bytes_per_device_per_step"]
+    assert want["all_to_all"] > 0 and want["psum"] > 0
+    plan = runs[1][0]["results"]["graph_sharded"]
+    assert plan["loads"]["feature_load"] > 0
+    for rank in runs[procs]:
+        got = rank["results"]["graph_sharded"]
+        assert got["overflow"] == [0, 0]
+        assert got["comm_bytes_per_device_per_step"] == want
+        # the planner's loads are the largest over every rank's shards
+        assert (got["loads"], got["planned"]) == (plan["loads"], plan["planned"])
 
 
 def _jax_params(model):
@@ -120,6 +141,37 @@ def test_one_process_trainer_fit_is_jax(runs):
     np.testing.assert_allclose(got["losses"], hist["train_loss"] + hist["val_loss"], rtol=1e-4)
     np.testing.assert_allclose(got["params_sum"], _checksum(trainer.params), rtol=1e-4)
     assert got["n"] == float(trainer.evaluate(val)["total"])
+
+
+def test_one_process_sampled_dp_is_jax(runs):
+    """The ``sampled_dp`` program's two steps in JAX (4 virtual devices,
+    the port's initial weights, the loader's batches bitwise the port's):
+    losses and the parameter checksum within 1e-4."""
+    got = runs[1][0]["results"]["sampled_dp"]
+    model = NodeGCN(5, 16, num_layers=2, generator=torch.Generator().manual_seed(0))
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    params = {"convs": [{"kernel": sd[f"convs.{i}.linear.weight"].T, "bias": sd[f"convs.{i}.bias"]}
+                        for i in range(2)],
+              "norms": [{"scale": sd[f"batch_norms.{i}.weight"], "bias": sd[f"batch_norms.{i}.bias"]}
+                        for i in range(2)],
+              "head": {"kernel": sd["head.weight"].T, "bias": sd["head.bias"]}}
+    state = {"norms": [{"mean": sd[f"batch_norms.{i}.running_mean"],
+                        "var": sd[f"batch_norms.{i}.running_var"]} for i in range(2)]}
+    g = jd.generate_spatial_graph(64 * SHARDS, degree=6, band=16, seed=11, shortcut_frac=0.1)
+    labels = (g.degree() > np.median(g.degree())).astype(np.int32)
+    loader = iter(jd.SampledNodeLoader(g, labels, batch_size=8 * SHARDS, fanout=(4, 4), seed=7,
+                                       num_shards=SHARDS))
+    mesh = jp.create_mesh(shape=(SHARDS,), devices=jax.devices()[:SHARDS])
+    opt = optax.adam(1e-3)
+    step = jp.make_dp_train_step(JNodeGCN(in_channels=5, hidden_dim=16, num_layers=2), opt, mesh)
+    opt_state, losses = opt.init(params), []
+    for _ in range(2):
+        params, state, opt_state, loss, n = step(params, state, opt_state, jax.random.PRNGKey(1),
+                                                 next(loader))
+        losses.append(float(loss))
+    np.testing.assert_allclose(got["losses"], losses, rtol=1e-4)
+    np.testing.assert_allclose(got["params_sum"], _checksum(params), rtol=1e-4)
+    assert got["n"] == float(n)
 
 
 def test_a_worker_past_its_limit_is_killed():

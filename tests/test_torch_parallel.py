@@ -285,12 +285,14 @@ def test_mesh_guard_rejects_a_nonfinite_shard(dataset):
 
 
 def test_mesh_mode_refuses_what_slice_e3_owns():
+    """Slice E3's mesh-mode paths run since it was ported
+    (``tests/test_torch_sampled_dp.py``, ``tests/test_torch_sharded_sampling.py``);
+    what they cannot run they refuse: an unstacked seed batch."""
     mesh = tp.create_mesh((2,), device="cpu")
-    with pytest.raises(NotImplementedError, match="E3"):
-        tpk.Trainer(tpk.NodeGCN(5, 8), mesh=mesh, scan_epochs=True)
+    assert tpk.Trainer(tpk.NodeGCN(5, 8), mesh=mesh, scan_epochs=True).scan_epochs
     trainer = tpk.Trainer(tpk.NodeGCN(5, 8), mesh=mesh, prefetch_depth=0)
     seeds = tds.make_seed_batch(np.arange(4), np.zeros(16, np.int32), 7, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="E3"):
+    with pytest.raises(ValueError, match="sharded DeviceSeedLoader"):
         trainer.train_epoch([seeds])
     with pytest.raises(ValueError, match="not the mesh's device"):
         tpk.Trainer(tpk.NodeGCN(5, 8), mesh=mesh, device="meta")
@@ -345,7 +347,9 @@ def test_dryrun_multichip_on_the_cpu(capsys):
     dryrun_multichip(4, device="cpu")
     out = capsys.readouterr().out
     assert "dryrun_multichip(4): ok" in out and "2-D (2x2 data x edge): ok" in out
-    assert "slice E3" in out
+    assert "device-sampled DP (4 shards): ok" in out
+    assert "graph-sharded sampling (4 node shards): ok" in out
+    assert "graph-sharded COMPACTED exchange (4 node shards): ok" in out and "overflow=0" in out
 
 
 def test_mesh_fit_resumes_bitwise(dataset, tmp_path):

@@ -179,9 +179,9 @@ def test_loader_moves_batches_and_refuses_what_it_cannot_run(graphs, monkeypatch
     blocked = dataclasses.replace(batch, hop_blocks=(td.HopBlock(
         batch.senders[:8].view(4, 2), batch.edge_weight[:8].view(4, 2), batch.receivers[:4]),))
     assert blocked.to("cpu").hop_blocks[0].senders.shape == (4, 2)
-    for kw in (dict(num_shards=2), dict(process_index=0, process_count=1)):
-        with pytest.raises(NotImplementedError, match="slice E"):
-            tsampled.SampledNodeLoader(tg, labels, device="cpu", **kw)
+    assert tsampled.SampledNodeLoader(tg, labels, device="cpu", num_shards=2).num_shards == 2
+    with pytest.raises(ValueError, match="requires num_shards"):
+        tsampled.SampledNodeLoader(tg, labels, device="cpu", process_index=0, process_count=1)
     monkeypatch.setattr(tnative, "AVAILABLE", False)
     assert not tsampled.SampledNodeLoader(tg, device="cpu").fused
     with pytest.raises(RuntimeError, match="native"):

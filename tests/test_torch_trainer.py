@@ -164,7 +164,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "connectome_gnn_tpu_torch.parallel.edge_partition, "
         "connectome_gnn_tpu_torch.parallel.banded_partition, "
         "connectome_gnn_tpu_torch.parallel.hybrid_partition, "
-        "connectome_gnn_tpu_torch.parallel.launch\n"
+        "connectome_gnn_tpu_torch.parallel.launch, connectome_gnn_tpu_torch.parallel.sampled_dp, "
+        "connectome_gnn_tpu_torch.parallel.sharded_sampling, "
+        "connectome_gnn_tpu_torch.parallel.comm_accounting\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'connectome_gnn_tpu' or m.startswith('connectome_gnn_tpu.')]\n"
         "assert not bad, bad"
