@@ -5,7 +5,8 @@ training, the random-row gather, mixed precision, the headline bench and
 entry point, the giant-graph layout set-up, sampled node training
 (host-sampled, device-sampled and scanned epochs), and the parallel modes
 (data parallelism, the edge-, band- and hybrid-partitioned models, the 2-D
-step), once on one NVIDIA card.
+step, sampled data parallelism and graph-sharded sampling), and the
+giant-graph demo with the profiling utilities, once on one NVIDIA card.
 
 Run from the repository root, on a machine with one CUDA card:
 
@@ -374,6 +375,24 @@ card: what the exchange and the merge cost, not scaling.
     with a finite loss and a first-step gradient sum.
 ``--sampled-parallel`` runs phases 36-38 alone (about 112 s).
 
+Then slice F, the port's last: the giant-graph demo and the profiling
+utilities.
+
+39. ``examples/giant_graph_demo_torch.py``'s ``main`` at its defaults
+    (20,000 nodes, 200 band-training steps) on the card with 4 shards in
+    this process: every parameter and the band on the card, every loss
+    finite, the sharded band and hybrid logits within 1e-4 of the single
+    model's, its host-side numbers (edges, scrambled and RCM bandwidths,
+    row blocks and diagonals, shortcuts, the sampled minibatch's nodes and
+    edges) equal to the same functions' on the CPU; each section's seconds
+    and peak memory, the graph-sharded overflow and the planner's alphas
+    and payloads, and the kernel launches on the demo's path (none: its
+    ops are the port's torch ops); then ``utils.trace`` around one
+    ``Trainer.predict`` batch at b16, whose trace must name K1's kernel,
+    and ``StepTimer.toc(result)`` around an 8192² float32 matmul, at least
+    0.9 × its CUDA-event time, beside ``toc(None)``.
+``--giant-demo`` runs phase 39 alone.
+
 It prints the card's name and power limit, the kernels' JSON line (K1 to
 K7, K4's backward, B2a-B2c, B3a-B3d and B1 at the script's three cases,
 each with its launches on the main path, its largest error against its
@@ -430,6 +449,7 @@ from connectome_gnn_tpu_torch import native
 from connectome_gnn_tpu_torch.data import (
     DeviceGraphCSR,
     DeviceSampledModel,
+    NeighborSampler,
     SeedBatch,
     apply_ordering,
     auto_layout,
@@ -461,6 +481,7 @@ from connectome_gnn_tpu_torch.ops.banded import (
     to_hybrid,
 )
 from connectome_gnn_tpu_torch.ops.segment import coo_spmm
+from connectome_gnn_tpu_torch.utils import StepTimer, trace
 from connectome_gnn_tpu_torch.ops.fused import (
     fused_gcn_forward_reference,
     fused_gcn_kernel,
@@ -724,6 +745,10 @@ PARALLEL = dict(shards=4, shard_batch=16, steps=8, hidden=64, layers=3, lr=1e-3,
                 subject_nodes=1 << 18)
 PARALLEL_NOTE = ("one rank of an NCCL group of size 1, 4 shards on one card: what sharding costs "
                  "on one card, not scaling")
+#: phase 39: examples/giant_graph_demo_torch.py at its defaults with 4
+#: shards, the sharded-vs-single gate on its logits, and StepTimer's
+#: workload (an 8192² float32 matmul, about 20 ms with TF32 off)
+GIANT_DEMO = dict(shards=4, nodes=20_000, degree=12, band=256, gate=1e-4, timer_n=8192, timer_reps=5)
 #: the runtime calls by which the host puts work on the card
 DISPATCH = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|MemcpyAsync|MemsetAsync|Memcpy|Memset)")
 
@@ -4052,6 +4077,159 @@ def sampled_parallel_phases(dev, card, g=None, labels=None) -> None:
     print(f"[38 graph-sharded] {card} | phases 36-38 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
 
+def giant_demo_module():
+    """``examples/giant_graph_demo_torch.py``, whose ``main`` phase 39 runs."""
+    spec = importlib.util.spec_from_file_location(
+        "giant_graph_demo_torch", os.path.join(REPO, "examples", "giant_graph_demo_torch.py"))
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    return demo
+
+
+def demo_host_numbers(demo) -> dict:
+    """The giant demo's host-side numbers from the same functions on the CPU
+    (its seeds and its ``default_rng(0)`` draws in its order)."""
+    n, deg, band = GIANT_DEMO["nodes"], GIANT_DEMO["degree"], GIANT_DEMO["band"]
+    rng = np.random.default_rng(0)
+    g = generate_spatial_graph(n, degree=deg, band=band, seed=0)
+    scrambled = apply_ordering(g, rng.permutation(n))
+    recovered = apply_ordering(scrambled, reverse_cuthill_mckee(scrambled.edge_index, n))
+    a = to_banded(recovered.edge_index[0], recovered.edge_index[1], recovered.edge_weight, n,
+                  block=demo.BLOCK)
+    sw = generate_spatial_graph(n, degree=deg, band=band, seed=3, shortcut_frac=0.1)
+    h = to_hybrid(sw.edge_index[0], sw.edge_index[1], sw.edge_weight, n, block=demo.BLOCK,
+                  bandwidth=-(-band // demo.BLOCK))
+    sub, _ = NeighborSampler(sw).sample(rng.integers(0, n, 512), fanout=[10, 10], seed=0)
+    return dict(edges=g.num_edges, scrambled_bandwidth=bandwidth(scrambled.edge_index),
+                rcm_bandwidth=bandwidth(recovered.edge_index), row_blocks=a.num_blocks,
+                diagonals=2 * a.bandwidth + 1, shortcuts=int((h.remainder_weights > 0).sum()),
+                sampled_nodes=sub.num_nodes, sampled_edges=sub.num_edges)
+
+
+def traced_predict(dev) -> dict:
+    """One ``Trainer.predict`` batch at b16 (GCN, flagship width) under
+    ``utils.trace``: K1's launches in it, the trace files written, and the
+    kernel events and K1 names in the trace."""
+    graphs = generate_dataset(num_subjects=16, seed=42)
+    loader = ConnectomeDataLoader(graphs, batch_size=16, shuffle=False, layout="dense", device=dev)
+    trainer = Trainer(make_model("gcn", 5, 64, 3), device=dev)
+    trainer.predict(loader)
+    torch.cuda.synchronize()
+    log_dir = tempfile.mkdtemp(prefix="cgt_trace_")
+    try:
+        fused_gcn_kernel.launches = 0
+        with trace(log_dir):
+            logits = trainer.predict(loader)
+            torch.cuda.synchronize()
+        files = [os.path.join(root, f) for root, _, names in os.walk(log_dir) for f in names]
+        with open(files[0]) as fh:
+            text = fh.read()
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    events = json.loads(text)["traceEvents"]
+    return {"launches": fused_gcn_kernel.launches, "files": len(files), "bytes": len(text),
+            "finite": logits.shape == (16, 2) and bool(np.isfinite(logits).all()),
+            "kernel_events": sum(e.get("cat") == "kernel" for e in events),
+            "k1_names": sorted({e["name"] for e in events if "fused_gcn_kernel" in str(e.get("name"))})}
+
+
+def giant_demo_phase(dev, card) -> None:
+    """Phase 39: the giant-graph demo on the card, then the profiling
+    utilities: a trace of one ``Trainer.predict`` batch and ``StepTimer``."""
+    t_start = time.perf_counter()
+    demo = giant_demo_module()
+    reset_counters()
+    fused_gcn_kernel.launches = fused_sage_kernel.launches = 0
+    out = demo.main(["--shards", str(GIANT_DEMO["shards"])])
+    launched = {**counts(), "K1": fused_gcn_kernel.launches, "K2": fused_sage_kernel.launches}
+    t_demo = time.perf_counter() - t_start
+    check(out["device"] == str(dev) and out["devices"] == [str(dev)],
+          ("39 every parameter and the band on the card", out["device"], out["devices"]))
+    check(out["shards"] == GIANT_DEMO["shards"], ("39 shards", out["shards"]))
+    for key in ("losses", "sampled_losses", "device_sampled_losses", "graph_sharded_losses"):
+        check(len(out[key]) > 0 and bool(np.isfinite(out[key]).all()), ("39 finite losses", key, out[key]))
+    for key in ("sharded_max_diff", "hybrid_sharded_max_diff"):
+        check(out[key] <= GIANT_DEMO["gate"], ("39 sharded against single", key, out[key]))
+    t0 = time.perf_counter()
+    host = demo_host_numbers(demo)
+    t_host = time.perf_counter() - t0
+    check({k: out[k] for k in host} == host, ("39 host-side numbers", {k: out[k] for k in host}, host))
+    sections = ", ".join(f"{k}: {out['seconds'][k]:.2f} s / {out['peak_bytes'][k] / 1e9:.3f} GB"
+                         for k in out["seconds"])
+    print(f"[39 giant demo] {card} | examples/giant_graph_demo_torch.py at {out['nodes']:,} nodes, "
+          f"{out['shards']} shards on {out['device']}: {t_demo:.1f} s; band and every parameter on "
+          f"{out['devices']}; sharded - single max|Δlogit| band {out['sharded_max_diff']:.3e}, hybrid "
+          f"{out['hybrid_sharded_max_diff']:.3e} (gate {GIANT_DEMO['gate']}); every loss finite; "
+          f"host-side numbers equal the CPU's ({t_host:.1f} s): {host}", flush=True)
+    print(f"[39 giant demo] {card} | band training {len(out['losses'])} steps in "
+          f"{out['train_seconds']:.2f} s, last loss {out['losses'][-1]:.4f}; sampled "
+          f"{out['sampled_steps_per_s']:.1f} steps/s, device-sampled scanned "
+          f"{out['device_sampled_steps_per_s']:.1f} steps/s; graph-sharded overflow {out['overflow']}; "
+          f"plan_compaction alpha {out['plan_alpha']:.4f}, alpha_features {out['plan_alpha_features']:.4f}, "
+          f"loads {out['draw_loads']} / {out['feature_load']}, payload MB a step a device "
+          f"{out['payload_mb']}; in_degree_cap 8: {out['max_in_degree']} -> {out['capped_max_in_degree']}; "
+          f"kernel launches on the demo's path {launched}", flush=True)
+    print(f"[39 giant demo] {card} | seconds / max_memory_allocated a section: {{{sections}}}", flush=True)
+
+    # the profiler: a trace of one predict batch at b16 names K1's kernel.
+    # Checked in a fresh process: in this one, the epoch-long profiles of
+    # phases 31 and 37 (~10^5 dispatches each) leave later torch.profiler
+    # traces short of device events, so this process's trace is printed
+    # beside it (its kernel events against the fresh one's) and not
+    # checked for the name.
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    here = traced_predict(dev)
+    code = ("import json, torch, chip_smoke; "
+            "print('TRACED ' + json.dumps(chip_smoke.traced_predict(torch.device('cuda', 0))))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, ("39 traced predict in a fresh process", proc.stderr[-3000:]))
+    fresh = json.loads(next(line for line in proc.stdout.splitlines() if line.startswith("TRACED "))[7:])
+    for where, got in (("this process", here), ("a fresh process", fresh)):
+        check(got["files"] == 1 and got["finite"] and got["launches"] == 1, ("39 traced predict", where, got))
+    check(len(fresh["k1_names"]) > 0, ("39 the trace names K1's kernel", fresh))
+    print(f"[39 profiling] {card} | trace() around one Trainer.predict batch at b16 in a fresh process: K1 "
+          f"launched {fresh['launches']} time, one Chrome trace of {fresh['bytes']:,} B with "
+          f"{fresh['kernel_events']} kernel events, naming {fresh['k1_names'][:1]} ({SOURCE}); in this process "
+          f"after the earlier phases: K1 launched {here['launches']} time, {here['kernel_events']} kernel "
+          f"events, K1 named {len(here['k1_names']) > 0}", flush=True)
+
+    # StepTimer: toc(result) waits for the device work behind its result
+    n = GIANT_DEMO["timer_n"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn(n, n, device=dev, generator=gen)
+    b = torch.randn(n, n, device=dev, generator=gen)
+    work = lambda: a @ b  # noqa: E731
+    work()
+    torch.cuda.synchronize()
+    timer, ev_ms, toc_ms, none_ms = StepTimer(), [], [], []
+    for _ in range(GIANT_DEMO["timer_reps"]):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        work()
+        end.record()
+        torch.cuda.synchronize()
+        ev_ms.append(start.elapsed_time(end))
+        timer.tic()
+        toc_ms.append(timer.toc(work()) * 1e3)
+        timer.tic()
+        result = work()
+        none_ms.append(timer.toc() * 1e3)
+        torch.cuda.synchronize()
+        del result
+    ev, toc_med, none_med = (statistics.median(v) for v in (ev_ms, toc_ms, none_ms))
+    check(all(t >= 0.9 * e for t, e in zip(toc_ms, ev_ms)), ("39 StepTimer.toc(result)", toc_ms, ev_ms))
+    summary = timer.summary()
+    print(f"[39 profiling] {card} | StepTimer around a {n}² float32 matmul: CUDA events {ev:.3f} ms, "
+          f"toc(result) {toc_med:.3f} ms (each >= 0.9 × its event time: {[f'{t:.2f}' for t in toc_ms]} "
+          f"against {[f'{e:.2f}' for e in ev_ms]}), toc(None) {none_med:.3f} ms (no wait; medians of "
+          f"{GIANT_DEMO['timer_reps']}); summary {summary}; {time.perf_counter() - t0:.1f} s, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated():,} B", flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+    print(f"[39 giant demo] {card} | phase 39 took {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
 def demangled(name: str) -> str:
     """A kernel's C++ name, through ``c++filt`` where the machine has it."""
     try:
@@ -4114,6 +4292,9 @@ def main() -> None:
         return
     if "--sampled-parallel" in sys.argv[1:]:
         sampled_parallel_phases(dev, card)
+        return
+    if "--giant-demo" in sys.argv[1:]:
+        giant_demo_phase(dev, card)
         return
     # the timing modes above may time another tree's package; this tree's
     # kernels must neither spill nor have their wgmma serialized
@@ -4209,6 +4390,10 @@ def main() -> None:
     # 36-38. sampled data parallelism, the scanned mesh epoch, graph-sharded sampling
     sampled_parallel_phases(dev, card, sampled_graph_, sampled_labels)
     del sampled_graph_
+    torch.cuda.empty_cache()
+
+    # 39. slice F: the giant-graph demo on the card, trace() and StepTimer
+    giant_demo_phase(dev, card)
 
     fused_entries = []
     for kind, k in KERNELS.items():

@@ -5,8 +5,10 @@ as the reference.  This package imports torch and numpy, never JAX and
 never the JAX package.  Module names follow the JAX package, so each
 counterpart sits at the same relative path.
 
-Ported so far, graph-classification training and serving, giant-graph
-int8 serving and training, and every TPU kernel of the JAX package:
+The port is complete: graph-classification training and serving,
+giant-graph int8 serving and training, sampled and parallel training,
+dataset I/O, profiling, the demos, and every TPU kernel of the JAX
+package:
 
 * graph classification: synthetic connectomes, COO and dense batches, the
   loader and its prefetch thread, ``GCNConnectome`` and
@@ -39,6 +41,18 @@ int8 serving and training, and every TPU kernel of the JAX package:
   step, graph-sharded sampling (``graph_sharded_sage``: no device holds
   the whole graph; the broadcast or compacted exchange and its planner)
   and the collective-bytes census (``count_collective_bytes``);
+* dataset I/O (``data.io``: ``graph_from_adjacency`` from a dense
+  connectivity matrix, ``save_dataset`` / ``load_dataset`` in the JAX
+  package's ``.npz`` layout, so either package reads the other's files);
+* profiling (``utils.profiling``): ``trace(log_dir)`` around a block
+  writes a ``torch.profiler`` Chrome trace (CUDA activity on a card), and
+  ``StepTimer`` times steps, its ``toc(result)`` waiting for the device
+  work behind ``result``;
+* the demos: ``examples/demo_torch.py`` (graph classification) and
+  ``examples/giant_graph_demo_torch.py`` (every giant-graph path in one
+  process: band training, the sharded band and hybrid forwards, the host
+  sampler, device sampling with ``scan_epochs``, graph-sharded sampling
+  and its planner);
 * the kernels no model path calls: K7 over a float32 or bfloat16 band
   (``ops.banded_direct``), the bfloat16, w8a8 and fused-dot band kernels
   B2a-B2c (``ops.band_variants``), the band-pipeline probes B3a-B3d
@@ -110,6 +124,21 @@ Graph-sharded sampled training over a mesh of 4 shards on one card:
     loader = model.make_loader(np.arange(g.num_nodes), labels, batch_size=1024)
     trainer = Trainer(model, mesh=mesh)
     trainer.train_epoch(loader), trainer.last_sampling_overflow
+
+Dataset files and timing:
+
+    from connectome_gnn_tpu_torch.data import load_dataset, save_dataset
+    from connectome_gnn_tpu_torch.utils import StepTimer, trace
+
+    save_dataset("runs/cohort.npz", graphs)
+    graphs = load_dataset("runs/cohort.npz")
+    timer = StepTimer()
+    with trace("runs/trace"):
+        for _ in range(3):
+            timer.tic()
+            trainer.train_epoch(train)
+            timer.toc(list(trainer.model.parameters()))
+    timer.summary()   # steps, total_s, mean_s, min_s (the first left out)
 """
 
 from connectome_gnn_tpu_torch.data import (

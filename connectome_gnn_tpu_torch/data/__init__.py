@@ -1,7 +1,8 @@
 """Data layer: atlas, synthetic connectomes and giant spatial graphs, graph
 containers, padded batches (COO and dense), loader, prefetching, RCM and
 spectral reordering, the giant-graph layout planner, and sampled node
-training: the host sampler and its loader, and device-side sampling."""
+training: the host sampler and its loader, and device-side sampling; and
+dataset I/O (``.npz`` files, dense adjacency matrices)."""
 
 from connectome_gnn_tpu_torch.data.atlas import NUM_REGIONS, REGION_NAMES
 from connectome_gnn_tpu_torch.data.batch import ConnectomeBatch, collate_graphs, round_up, to_device
@@ -21,6 +22,7 @@ from connectome_gnn_tpu_torch.data.device_sampling import (
     pack_epoch_sharded,
 )
 from connectome_gnn_tpu_torch.data.graph import ConnectomeGraph
+from connectome_gnn_tpu_torch.data.io import graph_from_adjacency, load_dataset, save_dataset
 from connectome_gnn_tpu_torch.data.layout import (
     LayoutPlan,
     auto_layout,
@@ -91,7 +93,9 @@ __all__ = [
     "generate_connectome",
     "generate_dataset",
     "generate_spatial_graph",
+    "graph_from_adjacency",
     "hop_draws",
+    "load_dataset",
     "make_seed_batch",
     "pack_epoch",
     "pack_epoch_sharded",
@@ -100,6 +104,7 @@ __all__ = [
     "round_up",
     "sample_subgraph",
     "sample_subgraph_fast",
+    "save_dataset",
     "small_world_stats",
     "spectral_ordering",
     "to_device",

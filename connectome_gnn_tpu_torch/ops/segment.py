@@ -35,13 +35,14 @@ def segment_sum(
 
 
 def segment_mean(
-    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, *, eps: float = EPS
 ) -> torch.Tensor:
-    """Mean of ``data`` rows per segment, with the ``+1e-8`` denominator."""
+    """Mean of ``data`` rows per segment, with the ``+eps`` denominator
+    (default ``1e-8``)."""
     totals = segment_sum(data, segment_ids, num_segments)
     ones = data.new_ones((data.shape[0], 1))
     counts = segment_sum(ones, segment_ids, num_segments)
-    return totals / (counts + EPS)
+    return totals / (counts + eps)
 
 
 def graph_mean_pool(

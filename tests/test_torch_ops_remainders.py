@@ -1,6 +1,7 @@
 """The ops' smaller API against the JAX package's: ``coo_spmm``'s
 ``edge_chunk``, ``hybrid_spmm``'s ``remainder_chunk``, ``sddmm``,
-``gcn_normalize``'s ``self_loop_weight`` and ``eps``, and ``to_device``.
+``segment_mean``'s and ``gcn_normalize``'s ``eps``, ``gcn_normalize``'s
+``self_loop_weight``, and ``to_device``.
 
 Inputs are made by numpy from a seed, with padding ids one past the end
 as the batches carry them; results are held at rtol / atol 1e-5 (a
@@ -86,6 +87,23 @@ def test_sddmm_matches_jax():
     got = ts.sddmm(torch.from_numpy(x), torch.from_numpy(y), t(s), t(r))
     assert got.shape == (512,)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("eps", [None, 1e-8, 1e-3, 0.5])
+def test_segment_mean_eps_matches_jax(eps):
+    """Segment 7 of 8 is empty (its mean is 0 at any ``eps``); padding ids
+    ``8`` drop out of both sum and count."""
+    rng = np.random.default_rng(10)
+    ids = np.concatenate([rng.integers(0, 7, 90), np.full(6, 8)]).astype(np.int32)
+    x = rng.standard_normal((96, 5)).astype(np.float32)
+    kw = {} if eps is None else {"eps": eps}
+    want = js.segment_mean(jnp.asarray(x), jnp.asarray(ids), 8, **kw)
+    got = ts.segment_mean(torch.from_numpy(x), t(ids), 8, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert not got[7].any()
+    if eps is None:
+        pooled = ts.graph_mean_pool(torch.from_numpy(x), t(ids), 8)
+        assert torch.equal(pooled, got)
 
 
 @pytest.mark.parametrize("self_loop_weight, eps", [(1.0, 1e-8), (2.5, 1e-8), (0.0, 1e-3)])

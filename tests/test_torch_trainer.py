@@ -166,7 +166,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "connectome_gnn_tpu_torch.parallel.hybrid_partition, "
         "connectome_gnn_tpu_torch.parallel.launch, connectome_gnn_tpu_torch.parallel.sampled_dp, "
         "connectome_gnn_tpu_torch.parallel.sharded_sampling, "
-        "connectome_gnn_tpu_torch.parallel.comm_accounting\n"
+        "connectome_gnn_tpu_torch.parallel.comm_accounting, connectome_gnn_tpu_torch.data.io, "
+        "connectome_gnn_tpu_torch.utils, connectome_gnn_tpu_torch.utils.profiling\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('demo', 'examples/giant_graph_demo_torch.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')) "
         "or m == 'connectome_gnn_tpu' or m.startswith('connectome_gnn_tpu.')]\n"
         "assert not bad, bad"
