@@ -390,7 +390,11 @@ utilities.
     ops are the port's torch ops); then ``utils.trace`` around one
     ``Trainer.predict`` batch at b16, whose trace must name K1's kernel,
     and ``StepTimer.toc(result)`` around an 8192² float32 matmul, at least
-    0.9 × its CUDA-event time, beside ``toc(None)``.
+    0.9 × its CUDA-event time, with the product as the result and as the
+    tensor field of a dataclass (the tree rules of ``utils/tree.py``),
+    beside ``toc(None)``; then a checkpoint of a card-resident
+    ``ConnectomeBatch`` with a NamedTuple and a ``None`` beside it, saved
+    and restored onto the card: no pickle, the template's types, bitwise.
 ``--giant-demo`` runs phase 39 alone.
 
 It prints the card's name and power limit, the kernels' JSON line (K1 to
@@ -411,6 +415,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import importlib.util
 import json
 import os
@@ -424,6 +429,7 @@ import tempfile
 import time
 import warnings
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -439,6 +445,7 @@ from connectome_gnn_tpu_torch import (
     NodeGCN,
     SampledNodeLoader,
     Trainer,
+    collate_graphs,
     device_sampled_gcn,
     device_sampled_sage,
     generate_dataset,
@@ -481,7 +488,9 @@ from connectome_gnn_tpu_torch.ops.banded import (
     to_hybrid,
 )
 from connectome_gnn_tpu_torch.ops.segment import coo_spmm
+from connectome_gnn_tpu_torch.train import restore_checkpoint, save_checkpoint
 from connectome_gnn_tpu_torch.utils import StepTimer, trace
+from connectome_gnn_tpu_torch.utils.tree import leaves_with_path, map_leaves
 from connectome_gnn_tpu_torch.ops.fused import (
     fused_gcn_forward_reference,
     fused_gcn_kernel,
@@ -4133,6 +4142,58 @@ def traced_predict(dev) -> dict:
             "k1_names": sorted({e["name"] for e in events if "fused_gcn_kernel" in str(e.get("name"))})}
 
 
+#: a step's result as a dataclass: ``StepTimer.toc`` must wait on its
+#: tensor field (phase 39).  Made by ``make_dataclass``, whose field types
+#: are objects: a class statement's string annotations would need this file
+#: registered in ``sys.modules``, which the tests that load it do not do
+TimedResult = dataclasses.make_dataclass(
+    "TimedResult", [("out", torch.Tensor), ("step", int, dataclasses.field(default=0))])
+
+
+class Moments(NamedTuple):
+    m: torch.Tensor
+    v: torch.Tensor
+
+
+def checkpoint_round_trip(dev) -> dict:
+    """Save a card-resident ``ConnectomeBatch`` with a NamedTuple and a
+    ``None`` beside it, restore it onto the card into a zeroed template,
+    and check the file (no pickle, one key a tensor leaf), the types and
+    every leaf bitwise."""
+    batch = collate_graphs(generate_dataset(num_subjects=16, seed=42), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tree = {"batch": batch, "moments": Moments(torch.randn(64, 64, device=dev, generator=gen),
+                                              torch.rand(64, device=dev, generator=gen)),
+            "opt": None}
+    template = map_leaves(tree, torch.zeros_like)
+    log_dir = tempfile.mkdtemp(prefix="cgt_ckpt_")
+    try:
+        path = os.path.join(log_dir, "tree.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, tree)
+        t_save = time.perf_counter() - t0
+        with np.load(path, allow_pickle=False) as data:
+            keys = sorted(data.keys())
+            file_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = restore_checkpoint(path, template)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    saved, restored = leaves_with_path(tree), leaves_with_path(back)
+    check(keys == sorted(k for k, _ in saved) and len(keys) == 13, ("39 checkpoint keys", keys))
+    check(type(back["batch"]) is type(batch) and back["batch"].num_graphs == batch.num_graphs
+          and type(back["moments"]) is Moments and back["opt"] is None,
+          ("39 checkpoint types", type(back["batch"]), type(back["moments"]), back["opt"]))
+    for (key, want), (_, got) in zip(saved, restored):
+        check(got.device == want.device and got.dtype == want.dtype and torch.equal(got, want),
+              ("39 checkpoint leaf bitwise on the card", key, got.device, got.dtype))
+    return {"keys": len(keys), "bytes": file_bytes, "save_ms": t_save * 1e3,
+            "restore_ms": t_restore * 1e3, "num_graphs": batch.num_graphs}
+
+
 def giant_demo_phase(dev, card) -> None:
     """Phase 39: the giant-graph demo on the card, then the profiling
     utilities: a trace of one ``Trainer.predict`` batch and ``StepTimer``."""
@@ -4202,7 +4263,7 @@ def giant_demo_phase(dev, card) -> None:
     work = lambda: a @ b  # noqa: E731
     work()
     torch.cuda.synchronize()
-    timer, ev_ms, toc_ms, none_ms = StepTimer(), [], [], []
+    timer, ev_ms, toc_ms, dc_ms, none_ms = StepTimer(), [], [], [], []
     for _ in range(GIANT_DEMO["timer_reps"]):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -4213,20 +4274,31 @@ def giant_demo_phase(dev, card) -> None:
         timer.tic()
         toc_ms.append(timer.toc(work()) * 1e3)
         timer.tic()
+        dc_ms.append(timer.toc(TimedResult(work(), step=1)) * 1e3)
+        timer.tic()
         result = work()
         none_ms.append(timer.toc() * 1e3)
         torch.cuda.synchronize()
         del result
-    ev, toc_med, none_med = (statistics.median(v) for v in (ev_ms, toc_ms, none_ms))
+    ev, toc_med, dc_med, none_med = (statistics.median(v) for v in (ev_ms, toc_ms, dc_ms, none_ms))
     check(all(t >= 0.9 * e for t, e in zip(toc_ms, ev_ms)), ("39 StepTimer.toc(result)", toc_ms, ev_ms))
+    check(all(t >= 0.9 * e for t, e in zip(dc_ms, ev_ms)), ("39 StepTimer.toc(dataclass)", dc_ms, ev_ms))
     summary = timer.summary()
     print(f"[39 profiling] {card} | StepTimer around a {n}² float32 matmul: CUDA events {ev:.3f} ms, "
           f"toc(result) {toc_med:.3f} ms (each >= 0.9 × its event time: {[f'{t:.2f}' for t in toc_ms]} "
-          f"against {[f'{e:.2f}' for e in ev_ms]}), toc(None) {none_med:.3f} ms (no wait; medians of "
-          f"{GIANT_DEMO['timer_reps']}); summary {summary}; {time.perf_counter() - t0:.1f} s, "
+          f"against {[f'{e:.2f}' for e in ev_ms]}), toc(dataclass result) {dc_med:.3f} ms (each >= 0.9 × "
+          f"its event time: {[f'{t:.2f}' for t in dc_ms]}), toc(None) {none_med:.3f} ms (no wait; medians "
+          f"of {GIANT_DEMO['timer_reps']}); summary {summary}; {time.perf_counter() - t0:.1f} s, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated():,} B", flush=True)
     del a, b
     torch.cuda.empty_cache()
+
+    # checkpoints: a card-resident ConnectomeBatch, a NamedTuple and a None
+    ck = checkpoint_round_trip(dev)
+    print(f"[39 checkpoint] {card} | a ConnectomeBatch of {ck['num_graphs']} graphs on the card with a "
+          f"NamedTuple and a None: {ck['keys']} keys, {ck['bytes']:,} B, loads with allow_pickle=False; "
+          f"save {ck['save_ms']:.2f} ms, restore onto the card {ck['restore_ms']:.2f} ms (host clock); "
+          f"the template's types, every leaf bitwise", flush=True)
     print(f"[39 giant demo] {card} | phase 39 took {time.perf_counter() - t_start:.1f} s", flush=True)
 
 

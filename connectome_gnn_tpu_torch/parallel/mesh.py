@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from connectome_gnn_tpu_torch.data.batch import card_by_default
+from connectome_gnn_tpu_torch.utils.tree import map_leaves
 
 
 def backend_for(device: torch.device) -> str:
@@ -132,9 +133,11 @@ class Mesh:
         the rank's shards: leaves of leading size ``D`` are sliced to
         ``[lo, hi)``, leaves of leading size ``D_local`` are taken as they
         are.  The counterpart of JAX's ``assemble_global``."""
-        return _map_tensors(stacked, self._place_leaf)
+        return map_leaves(stacked, self._place_leaf)
 
-    def _place_leaf(self, t: torch.Tensor) -> torch.Tensor:
+    def _place_leaf(self, t):
+        if not isinstance(t, torch.Tensor):
+            return t
         if t.dim() == 0:
             raise ValueError("a sharded leaf needs a leading shard axis")
         lead = int(t.shape[0])
@@ -255,27 +258,6 @@ class Mesh:
         return (torch.tensor(send_rows, dtype=torch.long, device=self.device),
                 torch.tensor(recv_rows, dtype=torch.long, device=self.device),
                 in_splits, out_splits, k_in)
-
-
-def _map_tensors(tree, fn):
-    """``tree`` with ``fn`` applied to every tensor leaf (dataclasses,
-    NamedTuples, dicts, lists and tuples; other leaves kept)."""
-    import dataclasses
-
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return dataclasses.replace(tree, **{
-            f.name: _map_tensors(getattr(tree, f.name), fn)
-            for f in dataclasses.fields(tree) if f.init
-        })
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map_tensors(v, fn) for v in tree))
-    if isinstance(tree, dict):
-        return {k: _map_tensors(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tensors(v, fn) for v in tree)
-    return tree
 
 
 class _AllReduce(torch.autograd.Function):

@@ -958,7 +958,7 @@ def plan_compaction(
     mesh: Mesh,
     seeds,
     key_words=0,
-    fanout: Sequence[int] = (),
+    fanout: Optional[Sequence[int]] = None,
     *,
     draws=None,
     axis_name: str = "data",
@@ -974,7 +974,9 @@ def plan_compaction(
     stage (``alpha_features``) get capacities of their own.
 
     ``seeds``: ``[D, S]`` or ``[steps, D, S]`` probe seeds (row ``d`` shard
-    ``d``'s, -1 padded).  ``key_words``: ``[steps, D, 2]`` keys, or an int
+    ``d``'s, -1 padded).  ``fanout``: the draws a hop, as the model samples
+    them; required (``ValueError`` without one or with an empty one, which
+    would plan for zero hops).  ``key_words``: ``[steps, D, 2]`` keys, or an int
     seed for :func:`probe_key_words`.  ``draws``: given uniforms, a list a
     step of :func:`sharded_device_sample`'s ``draws`` (every owner's).
     ``rounds`` / ``rounds_features``: the rounds to plan for.  Every rank
@@ -982,7 +984,10 @@ def plan_compaction(
     largest over the mesh, so every rank plans the same config.  With
     ``return_loads`` returns ``(config, {"draw_loads", "feature_load"})``.
     """
-    fanout = tuple(int(f) for f in fanout)
+    fanout = tuple(int(f) for f in fanout or ())
+    if not fanout:
+        raise ValueError("plan_compaction needs the model's fanout (the draws a hop); "
+                         f"got {fanout!r}")
     seeds = np.asarray(seeds, np.int64)
     if seeds.ndim == 2:
         seeds = seeds[None]
@@ -1006,7 +1011,7 @@ def plan_compaction(
 
     R = max(1, int(rounds))
     R_f = R if rounds_features is None else max(1, int(rounds_features))
-    max_deg = max(csr.max_in_degree, max(fanout) if fanout else 1, 1)
+    max_deg = max(csr.max_in_degree, max(fanout), 1)
     Fb, nbud, alpha = S, S, 0.0
     for h, f in enumerate(fanout):
         C_h = max(1, int(np.ceil(safety * float(draw_max[h]) / R)))

@@ -1,9 +1,12 @@
-"""Disk checkpointing for nested mappings of tensors and arrays.
+"""Disk checkpointing for trees of tensors and arrays.
 
-The port of ``connectome_gnn_tpu.train.checkpoint``: a tree (nested
-mappings and sequences, such as a ``state_dict``) is written to one
-``.npz`` file keyed by the path of each leaf, ``"model/convs.0.bias"``.
-There is no pickle: leaves round-trip as raw numpy arrays, bitwise.
+The port of ``connectome_gnn_tpu.train.checkpoint``: a tree (dataclasses,
+NamedTuples, dicts, lists and tuples, such as a ``state_dict``, walked by
+the rules of :mod:`connectome_gnn_tpu_torch.utils.tree`) is written to one
+``.npz`` file keyed by the path of each leaf, ``"model/convs.0.bias"``:
+the JAX package's keys for the same tree.  ``None`` writes nothing.  There
+is no pickle: leaves round-trip as raw numpy arrays, bitwise, and a leaf
+that would need one (an object array) raises ``TypeError`` at save.
 
 Restore is template-based: the caller gives a tree of the right structure
 (a fresh ``state_dict``, say) and gets the same structure back with every
@@ -15,27 +18,20 @@ differs from the template's raises ``ValueError``.
 from __future__ import annotations
 
 import os
-from typing import Any, Iterator, Mapping
+from typing import Any
 
 import numpy as np
 import torch
 
-
-def _flatten(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
-    if isinstance(tree, Mapping):
-        for k, v in tree.items():
-            yield from _flatten(v, f"{prefix}{k}/")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _flatten(v, f"{prefix}{i}/")
-    else:
-        yield prefix[:-1], tree
+from connectome_gnn_tpu_torch.utils.tree import leaves_with_path, map_leaves_with_path
 
 
-def _to_numpy(leaf: Any) -> np.ndarray:
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+def _to_numpy(key: str, leaf: Any) -> np.ndarray:
+    array = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+    if array.dtype.hasobject:
+        raise TypeError(f"checkpoint leaf '{key}' ({type(leaf).__name__}) is not an array: "
+                        "it would need a pickle")
+    return array
 
 
 def _npz_path(path: str) -> str:
@@ -46,7 +42,7 @@ def save_checkpoint(path: str, tree: Any) -> None:
     """Save a tree of tensors and arrays to ``path`` (``.npz`` appended if
     missing).  The write is atomic (a tmp file, then ``os.replace``), so a
     crash mid-save never corrupts the last good checkpoint."""
-    arrays = {key: _to_numpy(leaf) for key, leaf in _flatten(tree)}
+    arrays = {key: _to_numpy(key, leaf) for key, leaf in leaves_with_path(tree)}
     target = _npz_path(path)
     os.makedirs(os.path.dirname(os.path.abspath(target)), exist_ok=True)
     tmp = f"{target}.tmp{os.getpid()}.npz"  # np.savez appends .npz otherwise
@@ -66,25 +62,21 @@ def load_arrays(path: str) -> dict[str, np.ndarray]:
 
 def restore_checkpoint(path: str, template: Any) -> Any:
     """Restore a tree saved by :func:`save_checkpoint` into the structure
-    of ``template``: mappings become dicts, sequences lists; a tensor leaf
-    becomes a tensor on that leaf's device (in the stored type), any other
-    leaf the stored numpy array."""
+    of ``template``, every node of the template's own type (dataclass,
+    NamedTuple, dict, list, tuple, ``None``; a dataclass's static fields
+    the template's): a tensor leaf becomes a tensor on that leaf's device
+    (in the stored type), any other leaf the stored numpy array."""
     stored = load_arrays(path)
 
-    def fill(tree: Any, prefix: str) -> Any:
-        if isinstance(tree, Mapping):
-            return {k: fill(v, f"{prefix}{k}/") for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return [fill(v, f"{prefix}{i}/") for i, v in enumerate(tree)]
-        key = prefix[:-1]
+    def fill(key: str, leaf: Any) -> Any:
         if key not in stored:
             raise KeyError(f"checkpoint {_npz_path(path)} is missing leaf '{key}'")
         value = stored[key]
-        if hasattr(tree, "shape") and tuple(tree.shape) != value.shape:
-            raise ValueError(f"shape mismatch for '{key}': template {tuple(tree.shape)} "
+        if hasattr(leaf, "shape") and tuple(leaf.shape) != value.shape:
+            raise ValueError(f"shape mismatch for '{key}': template {tuple(leaf.shape)} "
                              f"vs checkpoint {value.shape}")
-        if isinstance(tree, torch.Tensor):
-            return torch.from_numpy(value).to(tree.device)
+        if isinstance(leaf, torch.Tensor):
+            return torch.from_numpy(value).to(leaf.device)
         return value
 
-    return fill(template, "")
+    return map_leaves_with_path(template, fill)

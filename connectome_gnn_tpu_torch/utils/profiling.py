@@ -15,6 +15,8 @@ from typing import Iterator, Optional
 
 import torch
 
+from connectome_gnn_tpu_torch.utils.tree import leaves_with_path
+
 
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[None]:
@@ -43,15 +45,12 @@ def trace(log_dir: str) -> Iterator[None]:
 
 
 def _cuda_devices(result) -> set:
-    """The CUDA devices of the tensors in ``result``: a tensor or a nested
-    list, tuple or dict of them."""
-    if isinstance(result, torch.Tensor):
-        return {result.device} if result.is_cuda else set()
-    if isinstance(result, dict):
-        result = list(result.values())
-    if isinstance(result, (list, tuple)):
-        return set().union(*(_cuda_devices(r) for r in result))
-    return set()
+    """The CUDA devices of the tensor leaves of ``result``, a tree by the
+    rules of :mod:`connectome_gnn_tpu_torch.utils.tree` (dataclasses,
+    NamedTuples, dicts, lists and tuples), as JAX's ``block_until_ready``
+    walks a pytree."""
+    return {leaf.device for _, leaf in leaves_with_path(result)
+            if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
 
 
 class StepTimer:
@@ -59,7 +58,7 @@ class StepTimer:
 
     ``tic()``/``toc(result)`` around a step; ``toc`` waits until the device
     work behind ``result`` has finished (``torch.cuda.synchronize`` on each
-    CUDA device among its tensors), so the measurement covers device
+    CUDA device among its tensor leaves, dataclasses' fields included), so the measurement covers device
     execution, not just dispatch.  ``toc()`` without a result waits for
     nothing.
     """

@@ -2,6 +2,7 @@
 package's: ``trace`` writes a trace file, and ``StepTimer`` keeps JAX's
 interface and statistics on the same ``times`` lists."""
 
+import dataclasses
 import json
 import os
 
@@ -62,3 +63,39 @@ def test_toc_synchronizes_each_cuda_device_of_its_result_once(monkeypatch):
     timer.tic()
     timer.toc()  # toc(None) waits for nothing, as JAX's
     assert len(synced) == 2 and len(timer.times) == 2
+
+
+@dataclasses.dataclass
+class _Result:
+    logits: torch.Tensor
+    state: dict
+    num_graphs: int = 2
+
+
+def test_toc_synchronizes_each_cuda_device_of_a_dataclass_result_once(monkeypatch):
+    """A dataclass result is walked to its tensor leaves, as JAX's
+    ``block_until_ready`` walks a registered dataclass; the devices are
+    stubbed (there is no card here) by the tensors' ``is_cuda`` and
+    ``device``."""
+
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+        @property
+        def device(self):
+            return torch.device("cuda", self.card)
+
+    def on_card(index):
+        t = torch.ones(1).as_subclass(OnCard)
+        t.card = index
+        return t
+
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
+    result = _Result(on_card(0), {"a": (on_card(1), on_card(0)), "b": None})
+    assert profiling._cuda_devices(result) == {torch.device("cuda", 0), torch.device("cuda", 1)}
+    timer = StepTimer()
+    timer.tic()
+    timer.toc(result)
+    assert sorted(map(str, synced)) == ["cuda:0", "cuda:1"]
+    assert profiling._cuda_devices(_Result(torch.ones(1), {})) == set()

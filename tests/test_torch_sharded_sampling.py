@@ -17,7 +17,7 @@ Mirrors ``tests/test_sharded_sampling.py`` on a 4-shard mesh in one process
   eval logits equal the port's unsharded multiset ``DeviceSampledModel``'s
   (rtol 1e-4 / atol 1e-5);
 * the census and ``plan_compaction``'s config equal JAX's on the same
-  probes;
+  probes, and the planner refuses to plan without a fanout;
 * the compacted exchange's train step (SGD at lr 1, whose update is the
   gradient) and the broadcast exchange's eval step against JAX's at rtol
   1e-4 / atol 1e-5;
@@ -313,6 +313,15 @@ def test_census_and_plan_are_jax(setup):
     assert_same(out, ref, "planned")
     with pytest.raises(ValueError, match="num_shards"):
         tp.plan_compaction(tsg, setup["tmesh"], np.zeros((3, 5), np.int32), 0, fanout)
+
+
+@pytest.mark.parametrize("fanout", ["missing", ()], ids=["no_fanout", "empty_fanout"])
+def test_plan_compaction_without_a_fanout_raises(setup, fanout):
+    """JAX's ``fanout`` is a required argument: without one the planner
+    would plan every draw stage for zero hops."""
+    kw = {} if fanout == "missing" else {"fanout": fanout}
+    with pytest.raises(ValueError, match="fanout"):
+        tp.plan_compaction(setup["tsg"], setup["tmesh"], SEEDS, 5, **kw)
 
 
 # ---------------------------------------------------------------------------
