@@ -26,9 +26,9 @@ Phases, one line each:
    ``fm_w8a8``),
    and role B over the int8 band on a float32 frame, feature-major (K4,
    B3c) and blocked (K6), and on a bfloat16 frame, feature-major (timed
-   against K4), with B3b's panel map and blocked (B3d), among them) and any
-   warning it gives, and C7518 (``wgmma`` serialized); the full run fails
-   if a kernel spills or draws C7518; then ``g++`` builds the native host
+   against K4), with B3b's panel map and blocked (B3d), among them) and of
+   B1's (``row_gather.cu``) and any warning it gives, and C7518 (``wgmma``
+   serialized); the full run fails if a kernel spills or draws C7518; then ``g++`` builds the native host
    helpers (``native.AVAILABLE``, timed; phase 28 fails without them);
 3. each fused kernel (K1 GCN, K2 SAGE) against its plain PyTorch version on
    the card at sixteen (B, n, F, H, L) shapes, rtol 1e-4 / atol 1e-5 (the
@@ -233,13 +233,13 @@ hand-written kernel) and the random-row gather B1 of
     dropout 0.3); and the steps of an epoch, fed batches already on the
     card, run under ``torch.cuda.set_sync_debug_mode("error")``;
 24. B1 (``ops.gather_dma.dma_gather``) against ``table[idx]``, bitwise: small
-    cases at every K in (4, 8, 16, 32) and C in (256, 1024), ragged L, L < C,
-    rows of 1, 2, 3, 64 and 65 elements in float32, int32 and bfloat16; an
-    index outside the table (N, then -1) fails a child process with the
-    kernel's trap, by its synchronize at the latest, and this process still
-    gathers;
-    then the script's three cases at full size (``:245-252``), one launch
-    each;
+    cases at every K in (4, 8, 16, 32) and C in (1, 7, 256, 1024,
+    ``MAX_CHUNK``), ragged L, L < C, rows of 1, 2, 3, 4, 64, 65, 68 and 1024
+    elements in float32, int32 and bfloat16; an index outside the table (N,
+    then -1) fails a child process with the kernel's trap, in 16-B and in
+    4-B words, by its synchronize at the latest, and this process still
+    gathers; then the script's three cases at full size (``:245-252``), one
+    launch each, and the launch alone at each;
 25. times: ms per train step with and without the guard (host clock ending
     in a synchronize, median, in turns), the device's busy share and a
     ``torch.profiler`` breakdown of one step, and a GCN epoch of 256 graphs at
@@ -249,8 +249,11 @@ hand-written kernel) and the random-row gather B1 of
     version and ``torch.index_select`` per call (CUDA events, median, in
     turns) and the launch and ``index_select`` by device time, with ns/row,
     GB/s, the bound and where the table stands against the 50 MB L2, the
-    entry point at every (K, C), and where the entry point's host time goes
-    (host clock, mean over many calls, piece by piece).
+    entry point at every (K, C), where the entry point's host time goes
+    against ``index_select``'s (host clock, mean over many calls, piece by
+    piece), and the launch at case (a)'s indices from tables of 4.2 to 67.1
+    MB (what bounds it: rows that miss L2).
+    ``--gather`` runs phases 24 and 25's B1 half alone.
 
 Then this slice's paths: mixed precision, the application surface and
 the giant-graph set-up.
@@ -697,18 +700,22 @@ BASELINE_EPOCH = dict(graphs=256, batch=16, cpu_s=0.395)
 GATHER_CASES = [("spmm_feature_gather", 262_144, 64, 1 << 22, "f32"),
                 ("sampler_pair_gather", 4_194_304, 2, 1 << 17, "int32"),
                 ("sampler_feature_gather", 262_144, 64, 1 << 17, "f32")]
-#: (N, F, L) of the small checks: ragged L, L < C, L = 1, rows of 1, 2, 3, 64, 65
+#: (N, F, L) of the small checks: ragged L, L < C, L = 1, rows of 1, 2, 3, 4, 64, 65, 68 and 1024
+#: elements
 GATHER_SMALL = [(4096, 64, 5000), (4096, 65, 3000), (1000, 3, 1025), (16384, 2, 700), (500, 1, 257),
-                (300, 64, 1)]
+                (300, 64, 1), (2000, 4, 3001), (1000, 68, 1777), (600, 1024, 333)]
+#: the chunks of the small checks: 1, a prime, the default and MAX_CHUNK
+GATHER_CHUNKS = (1, 7, 256, 1024, gd.MAX_CHUNK)
 GATHER_SOURCE = "connectome_gnn_tpu_torch/csrc/row_gather.cu"
-#: a child process that gathers with one index (its argument) outside a
-#: 300-row table, then synchronizes
+#: a child process that gathers from a 300-row table of F float32 (its second
+#: argument: 64 copies in 16-B words, 65 in 4-B words) with one index (its
+#: first) outside it, then synchronizes
 OUT_OF_RANGE_CHILD = """
 import sys
 import numpy as np
 import torch
 from connectome_gnn_tpu_torch.ops import gather_dma as gd
-table = torch.randn(300, 64, device="cuda")
+table = torch.randn(300, int(sys.argv[2]), device="cuda")
 idx = torch.from_numpy(np.random.default_rng(0).integers(0, 300, 1000).astype(np.int32)).cuda()
 idx[517] = int(sys.argv[1])
 gd.dma_gather(table, idx)
@@ -2684,15 +2691,24 @@ def bits(t):
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
-def bare_gather_launch(table, idx):
-    """B1's C entry point with its arguments ready (K = 8, C = 1024): the
-    launch without the wrapper's Python.  Counts no launch."""
+def bare_gather_launch(table, idx, K=8, C=1024):
+    """B1's C entry point with its arguments ready: ``(launch, out)``, where
+    ``launch()`` gathers into ``out`` without the wrapper's Python and
+    returns the entry's error code.  Counts no launch."""
     L, (N, F) = idx.numel(), table.shape
     out = torch.empty((L, F), dtype=table.dtype, device=table.device)
     args = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), L, N, F * table.element_size(),
-            gd.vector_bytes(table, out), 8, 1024, torch.cuda.current_stream(table.device).cuda_stream)
+            gd.vector_bytes(table, out), K, C, bq._stream(table.device))
     entry = _build.library().cgt_row_gather
-    return lambda: entry(*args)
+    return (lambda: entry(*args)), out
+
+
+def bare_gather(table, idx, K=8, C=1024):
+    """``table[idx]`` by the C entry alone (:func:`bare_gather_launch`)."""
+    launch, out = bare_gather_launch(table, idx, K, C)
+    err = launch()
+    check(err == 0, ("B1 launch alone failed", tuple(table.shape), K, C, err))
+    return out
 
 
 def host_us(fn, calls=HOST_CALLS) -> float:
@@ -2710,32 +2726,45 @@ def host_us(fn, calls=HOST_CALLS) -> float:
 
 def gather_host_pieces(table, idx) -> list[tuple[str, float]]:
     """Where B1's entry point spends its host time: the entry point, each
-    piece of its launch path alone, the bare C call, what a launch path
-    with a device context and a host-side index check (one reduction, one
-    host sync) would add, and ``torch.index_select``."""
+    piece of its launch path alone, the bare C call, and
+    ``torch.index_select`` (with its output allocation, as the entry
+    point's)."""
     dev = table.device
     L, F = idx.numel(), table.shape[1]
-    out = torch.empty((L, F), dtype=table.dtype, device=dev)
-
-    def device_context():
-        with torch.cuda.device(dev):
-            pass
-
+    index = dev.index
+    launch, out = bare_gather_launch(table, idx)
+    row_bytes, t_ptr, o_ptr = F * table.element_size(), table.data_ptr(), out.data_ptr()
     pieces = [
         ("dma_gather", lambda: gd.dma_gather(table, idx)),
-        ("operand checks", lambda: gd._check(table, idx, 8, 1024)),
-        ("torch.empty", lambda: torch.empty((L, F), dtype=table.dtype, device=dev)),
-        ("current_device", torch.cuda.current_device),
-        ("current stream as a torch.cuda.Stream", lambda: torch.cuda.current_stream(dev).cuda_stream),
-        ("current stream's raw handle (_stream)", lambda: bq._stream(dev)),
-        ("vector_bytes", lambda: gd.vector_bytes(table, out)),
-        ("library() and getattr", lambda: getattr(_build.library(), "cgt_row_gather")),
-        ("the bare C call", bare_gather_launch(table, idx)),
-        ("torch.cuda.device context", device_context),
-        ("aminmax and tolist (a host sync)", lambda: torch.stack(torch.aminmax(idx)).tolist()),
         ("torch.index_select", lambda: torch.index_select(table, 0, idx)),
+        ("operand checks", lambda: gd._check(table, idx, 8, 1024)),
+        ("is_cuda and is_contiguous", lambda: table.is_cuda and table.is_contiguous() and idx.is_contiguous()),
+        ("table.new_empty", lambda: table.new_empty((L, F))),
+        ("torch.empty", lambda: torch.empty((L, F), dtype=table.dtype, device=dev)),
+        ("get_device and current_device", lambda: table.get_device() != torch.cuda.current_device()),
+        ("three data_ptr()", lambda: (table.data_ptr(), idx.data_ptr(), out.data_ptr())),
+        ("the word (_word)", lambda: gd._word(row_bytes, t_ptr, o_ptr)),
+        ("the entry (_entry())", gd._entry),
+        ("the stream's raw handle", lambda: torch._C._cuda_getCurrentRawStream(index)),
+        ("the bare C call", launch),
     ]
     return [(piece, host_us(fn)) for piece, fn in pieces]
+
+
+def gather_l2_curve(dev, card) -> None:
+    """What bounds B1 at case (a): the same 4,194,304 indices of 256-B rows
+    into tables from 4.2 MB (resident in L2) to the script's 67.1 MB; the
+    launch alone, CUDA events, median of 10, with the write-only floor
+    (the 1.07 GB output over HBM's rate) beside it."""
+    floor_ms = (1 << 22) * 256 / HBM_BYTES_PER_S * 1e3
+    times = []
+    for N in (16_384, 65_536, 131_072, 196_608, 262_144):
+        table, idx = gather_operands(N, 64, 1 << 22, "f32", dev, seed=N)
+        (t,) = cuda_ms([bare_gather_launch(table, idx)[0]], iters=10, warmup=2)
+        times.append(f"{nbytes(table) / 1e6:.1f} MB {t:.4f} ms")
+        del table, idx
+    print(f"[25 gather L2] {card} | 4,194,304 rows of 256 B by table size (launch alone, CUDA events, median "
+          f"of 10): {'; '.join(times)}; the output alone over HBM's rate {floor_ms:.4f} ms", flush=True)
 
 
 def gather_phases(dev, card) -> list[dict]:
@@ -2748,28 +2777,30 @@ def gather_phases(dev, card) -> list[dict]:
             table, idx = gather_operands(N, F_, L, dtype, dev, seed=N + L)
             want = gd.dma_gather_reference(table, idx)
             for K in gd.K_OUTSTANDING:
-                for C in (256, 1024):
+                for C in GATHER_CHUNKS:
                     got = gd.dma_gather(table, idx, k_outstanding=K, chunk=C)
                     check(got.shape == want.shape and torch.equal(bits(got), bits(want)),
                           ("B1", N, F_, L, dtype, K, C))
                     checked += 1
+    torch.cuda.synchronize()
     failures = {}
-    for bad in (300, -1):  # the kernel traps, which leaves a context unusable: one child each
-        child = subprocess.run([sys.executable, "-c", OUT_OF_RANGE_CHILD, str(bad)], cwd=REPO,
-                               capture_output=True, text=True, timeout=300)
-        # the trap surfaces at the synchronize (torch's "CUDA error"), or at the
-        # launch's own error check if the kernel has already stopped by then
-        errors = [ln for ln in child.stderr.splitlines() if "CUDA error" in ln or "kernel launch failed" in ln]
-        check(child.returncode != 0 and "synchronized" not in child.stdout and bool(errors),
-              ("B1 took index", bad, child.returncode, child.stdout[-500:], child.stderr[-2000:]))
-        failures[bad] = errors[0].strip()[:160]
+    for F_ in (64, 65):  # 16-B words, then 4-B words
+        for bad in (300, -1):  # the kernel traps, which leaves a context unusable: one child each
+            child = subprocess.run([sys.executable, "-c", OUT_OF_RANGE_CHILD, str(bad), str(F_)], cwd=REPO,
+                                   capture_output=True, text=True, timeout=300)
+            # the trap surfaces at the synchronize (torch's "CUDA error"), or at the
+            # launch's own error check if the kernel has already stopped by then
+            errors = [ln for ln in child.stderr.splitlines() if "CUDA error" in ln or "kernel launch failed" in ln]
+            check(child.returncode != 0 and "synchronized" not in child.stdout and bool(errors),
+                  ("B1 took index", bad, F_, child.returncode, child.stdout[-500:], child.stderr[-2000:]))
+            failures[F_, bad] = errors[0].strip()[:120]
     table, idx = gather_operands(300, 64, 1000, "f32", dev)
     check(torch.equal(bits(gd.dma_gather(table, idx)), bits(gd.dma_gather_reference(table, idx))),
           "B1 after the children's traps")
     print(f"[24 gather] dma_gather against table[idx] on the card: {checked} calls bitwise equal (every K in "
-          f"{gd.K_OUTSTANDING} and C in (256, 1024); (N, F, L) in {GATHER_SMALL}; f32, int32, bf16); "
-          f"an index N, then -1, of a 300-row table fails a child process with the kernel's trap: "
-          f"{failures}; this process still gathers", flush=True)
+          f"{gd.K_OUTSTANDING} and C in {GATHER_CHUNKS}; (N, F, L) in {GATHER_SMALL}; f32, int32, bf16); "
+          f"an index N, then -1, of a 300-row table of F float32 fails a child process with the kernel's "
+          f"trap: {failures}; this process still gathers", flush=True)
     cases = {name: gather_operands(N, F_, L, dtype, dev) for name, N, F_, L, dtype in GATHER_CASES}
     torch.cuda.synchronize()
     reset_counters()
@@ -2784,8 +2815,10 @@ def gather_phases(dev, card) -> list[dict]:
     for name, (table, idx) in cases.items():
         want = gd.dma_gather_reference(table, idx)
         check(torch.equal(bits(outs[name]), bits(want)), (name, "not bitwise equal"))
+        check(torch.equal(bits(bare_gather(table, idx)), bits(want)), (name, "launch alone not bitwise equal"))
         print(f"[24 gather main path] {name}: table {tuple(table.shape)} {table.dtype}, {idx.numel():,} "
-              f"indices: output {tuple(outs[name].shape)}, 1 launch, bitwise equal to table[idx]", flush=True)
+              f"indices: output {tuple(outs[name].shape)}, 1 launch in {gd.vector_bytes(table, outs[name])}-B "
+              f"words, bitwise equal to table[idx], and the launch alone too", flush=True)
     del outs
 
     # 25. times (nothing asserted)
@@ -2794,7 +2827,7 @@ def gather_phases(dev, card) -> list[dict]:
         L, row_bytes = idx.numel(), table.shape[1] * table.element_size()
         distinct = int(torch.unique(idx).numel())
         b_ms, b_by = bound(distinct * row_bytes + nbytes(idx) + L * row_bytes, 0, "f32")
-        launch_alone = bare_gather_launch(table, idx)
+        launch_alone, _ = bare_gather_launch(table, idx)
         fns = [lambda: gd.dma_gather(table, idx), launch_alone,
                lambda: gd.dma_gather_reference(table, idx), lambda: torch.index_select(table, 0, idx)]
         ms = cuda_ms(fns, iters=20, warmup=3)
@@ -2836,6 +2869,7 @@ def gather_phases(dev, card) -> list[dict]:
             "library_ms": ms[3],
         })
     del cases
+    gather_l2_curve(dev, card)
     print(f"[25 gather times] {card} | phases 24 and 25 (B1) took {time.perf_counter() - t_start:.1f} s", flush=True)
     return entries
 
@@ -4367,6 +4401,9 @@ def main() -> None:
         return
     if "--giant-demo" in sys.argv[1:]:
         giant_demo_phase(dev, card)
+        return
+    if "--gather" in sys.argv[1:]:
+        gather_phases(dev, card)
         return
     # the timing modes above may time another tree's package; this tree's
     # kernels must neither spill nor have their wgmma serialized

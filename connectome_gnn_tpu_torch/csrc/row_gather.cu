@@ -8,17 +8,41 @@
 // DMAs in flight over a sliding window of K semaphores.  K and C change no
 // value; neither does anything here: every output row is one row's bytes.
 //
-// What bounds it on this card.  It is pure data movement: the rows the
-// indices touch are read, the output is written, the indices are read, once
-// each, so its least time is those bytes over 3.35 TB/s.  At the script's
-// shapes (gather_dma_experiments.py:245-252) that is about 0.35 ms for 4M
-// rows of 256 B (the output alone is 1.07 GB), 18 us for 131,072 rows of
-// 256 B and under a microsecond for 131,072 rows of 8 B, below any launch.
-// A random row is a scattered read: a 256-B row is eight 32-B sectors read
-// whole, an 8-B row one sector of which a quarter is used.
+// What bounds it on this card.  It is pure data movement.  Its least time
+// counts the touched rows read once, the output written once and the
+// indices read once, over 3.35 TB/s.  At the script's three cases
+// (gather_dma_experiments.py:245-252) that is 0.346 ms for (a), 4,194,304
+// rows of 256 B from a 67.1 MB table (the output alone is 1.07 GB, 0.32
+// ms); 18 us for (b'), 131,072 such rows; under a microsecond for (b),
+// 131,072 rows of 8 B from a 33.6 MB table, below any launch.  That bound
+// assumes the table stays in L2 while the output streams past.  It does
+// not: at the first case's 4M indices the launch takes 0.410 ms from a
+// 4.2 MB table, 0.518 from 16.8 MB, 0.607 from 33.6, 0.647 from 50.3 and
+// 0.668 from 67.1 (chip_smoke.py phase 25, "[25 gather L2]"; H100 80GB
+// HBM3, 700 W).  Rows miss L2 well below its 50 MB, and the misses, not the
+// way the rows are copied, set the time: the extra time over the 4.2 MB
+// table is what reading two thirds or more of the gathered bytes from HBM
+// takes.  L2 eviction hints (createpolicy evict_last on the table,
+// evict_first on the output, or half the table kept) changed none of these
+// times by more than noise at any of those table sizes, so the kernel
+// gives none.
 //
-// What the design does about it (a simple kernel; making it fast is later
-// work).
+// Two designs were measured against each other at the script's cases (the
+// launch alone, CUDA events, in turns, one H100 80GB HBM3 at 700 W):
+//   * rows moved by TMA: persistent blocks whose producer warp issued one
+//     cp.async.bulk a row (a lane a row, evict_last) into an mbarrier ring
+//     of shared memory, and one thread storing each full stage's slab of
+//     the output by cp.async.bulk (evict_first).  It copies without
+//     registers, but an SM completed such 256-B copies no faster than one
+//     every 16-22 ns with several blocks on it, and one every 39 ns with
+//     one: 0.695 ms at (a), 0.0425 ms at (b') with C = 1024 (128 blocks),
+//     against 0.652 and 0.0283 for the register body at 256 threads a
+//     block; from an L2-resident table it was 10 % slower at 256-B rows,
+//     even at 1-4 KB rows, and ahead only at 16 KB rows.  It was removed;
+//   * this kernel: vector loads into registers, then stores.  Made
+//     persistent, or given the L2 hints above, it was no faster.
+//
+// The design.
 //   * One thread block per chunk of C indices.  It copies its chunk's
 //     indices into shared memory itself (the SMEM index block; a block loads
 //     its own indices) and masks the ragged last chunk: C need not divide L,
@@ -32,10 +56,13 @@
 //     of the output, which is contiguous for the chunk.  There is no
 //     128-lane padding: that was a Mosaic constraint on a DMA's row, and
 //     this copy moves rows of any width.
-//   * Each thread issues K loads into registers before their K stores, so a
-//     warp has K load instructions in flight (K rows or more), in place of
-//     the TPU kernel's K outstanding DMAs.  K is 4, 8, 16 or 32, the values
-//     the script sweeps.
+//   * Each thread issues K loads into registers before their K stores, in
+//     place of the TPU kernel's K outstanding DMAs; K is 4, 8, 16 or 32, the
+//     values the script sweeps.  A block has min(1024, 8192 / K) threads,
+//     so that it keeps about 8192 words in flight at every K: at K = 8,
+//     1024 threads took 0.678 ms at (a) and 0.0321 ms at (b') where 256
+//     took 0.702 and 0.0357 (in turns, one call; K = 32 at 256 threads was
+//     as fast as 1024 at K = 8).
 //   * The kernel checks the indices itself, where they already are: each
 //     thread compares the indices it loads into shared memory with the
 //     table's row count N, and __syncthreads_or tells the whole block.  An
@@ -56,9 +83,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// The block for K loads a thread: about 8192 words in flight a block.
+constexpr int threads_for(int K) { return 8192 / K < 1024 ? 8192 / K : 1024; }
 
-template <typename Word, int K>
+template <typename Word, int K, int kThreads = threads_for(K)>
 __global__ void __launch_bounds__(kThreads)
 row_gather_kernel(const Word* __restrict__ table, const int* __restrict__ idx,
                   Word* __restrict__ out, long long L, long long N, int words, int chunk) {
@@ -99,7 +127,7 @@ int launch(const void* table, const int* idx, void* out, long long L, long long 
            int chunk, void* stream) {
   const long long blocks = (L + chunk - 1) / chunk;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  row_gather_kernel<Word, K><<<(unsigned)blocks, kThreads, chunk * sizeof(int),
+  row_gather_kernel<Word, K><<<(unsigned)blocks, threads_for(K), chunk * sizeof(int),
                                (cudaStream_t)stream>>>(
       static_cast<const Word*>(table), idx, static_cast<Word*>(out), L, N, words, chunk);
   return (int)cudaGetLastError();

@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC"]
 #: sources whose kernels' register and shared-memory use the build records
-PTXAS_VERBOSE = ("band_mma.cu", "fused_forward.cu")
+PTXAS_VERBOSE = ("band_mma.cu", "fused_forward.cu", "row_gather.cu")
 
 
 def sources() -> list[str]:

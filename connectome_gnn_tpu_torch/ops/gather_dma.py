@@ -9,11 +9,14 @@ chained-loop timing, sweeps and JSON) is not.
 :func:`dma_gather` computes ``out[i, :] = table[idx[i], :]`` for ``table
 [N, F]`` of any type and ``idx [L]`` int32; the output is ``[L, F]`` in the
 table's type.  It is a copy, so kernel and plain version agree bitwise.
-``k_outstanding`` (K, the rows each warp keeps in flight) and ``chunk`` (C,
-the indices a thread block walks) change no value; K is one of
+``k_outstanding`` (K, the loads each thread keeps in flight) and ``chunk``
+(C, the indices a thread block walks) change no value; K is one of
 :data:`K_OUTSTANDING`, the values the script sweeps, and C need not divide
 ``L`` (the TPU kernel cut C to a divisor of L; the kernel here masks the
-ragged last chunk).
+ragged last chunk).  The kernel copies rows in the widest word that
+divides a row and both base addresses (:func:`vector_bytes`);
+``csrc/row_gather.cu`` says what bounds it on the card and which designs
+were measured against it.
 
 An index outside ``[0, N)``, where the TPU's DMA leaves the row undefined
 and XLA's ``t[i]`` clamps it, is an error.  On CPU tensors it raises
@@ -33,11 +36,11 @@ it launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from connectome_gnn_tpu_torch.ops.banded_quant import _launch, _stream
-
-#: the rows in flight per warp that the kernel is built for: the script's ``--ks``
+#: the values of K the kernels are built for: the script's ``--ks``
 K_OUTSTANDING = (4, 8, 16, 32)
 #: the largest chunk whose indices fit the default 48 KB of shared memory
 MAX_CHUNK = 12288
@@ -73,14 +76,24 @@ def dma_gather_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
     return table[idx.long()]
 
 
+def _word(row_bytes: int, table_ptr: int, out_ptr: int) -> int:
+    """:func:`vector_bytes` on a row's bytes and the two base addresses."""
+    low = row_bytes | table_ptr | out_ptr
+    return min(low & -low, 16)
+
+
 def vector_bytes(table: torch.Tensor, out: torch.Tensor) -> int:
     """The widest copy word, 16, 8, 4, 2 or 1 bytes, that divides a row's
     bytes and both base addresses."""
-    row_bytes = table.shape[1] * table.element_size()
-    v = 16
-    while row_bytes % v or table.data_ptr() % v or out.data_ptr() % v:
-        v //= 2
-    return v
+    return _word(table.shape[1] * table.element_size(), table.data_ptr(), out.data_ptr())
+
+
+@functools.cache
+def _entry():
+    """B1's C entry point (the kernels are built on the first call)."""
+    from connectome_gnn_tpu_torch.ops._build import library
+
+    return library().cgt_row_gather
 
 
 def _launch_gather(table: torch.Tensor, idx: torch.Tensor, k_outstanding: int = 8,
@@ -89,23 +102,27 @@ def _launch_gather(table: torch.Tensor, idx: torch.Tensor, k_outstanding: int = 
     with no host sync (the kernel checks the indices).  Counted as a launch
     of :func:`dma_gather`."""
     _check(table, idx, k_outstanding, chunk)
-    if table.device.type != "cuda":
+    if not table.is_cuda:
         raise ValueError(f"the B1 dma_gather kernel needs CUDA tensors, got {table.device}")
     if not table.is_contiguous() or not idx.is_contiguous():
         raise ValueError("B1 dma_gather: table and idx must be contiguous")
     (N, F), L = table.shape, idx.shape[0]
-    out = torch.empty((L, F), dtype=table.dtype, device=table.device)
+    out = table.new_empty((L, F))
     if L == 0 or F == 0:
         return out
     if N == 0:
         raise ValueError(f"B1 dma_gather: {L} indices into a table of 0 rows")
-    device = table.device
-    if device.index != torch.cuda.current_device():  # a launch goes to the current device
+    device = table.get_device()
+    if device != torch.cuda.current_device():  # a launch goes to the current device
         with torch.cuda.device(device):
             return _launch_gather(table, idx, k_outstanding, chunk)
-    _launch("B1 dma_gather", "cgt_row_gather", table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            L, N, F * table.element_size(), vector_bytes(table, out), k_outstanding, chunk,
-            _stream(device))
+    row_bytes, table_ptr, out_ptr = F * table.element_size(), table.data_ptr(), out.data_ptr()
+    err = _entry()(table_ptr, idx.data_ptr(), out_ptr, L, N, row_bytes, _word(row_bytes, table_ptr, out_ptr),
+                   k_outstanding, chunk, torch._C._cuda_getCurrentRawStream(device))
+    if err:
+        from connectome_gnn_tpu_torch.ops._build import library
+
+        raise RuntimeError(f"B1 dma_gather kernel launch failed: {library().cgt_error_string(err).decode()}")
     dma_gather.launches += 1
     return out
 
@@ -117,7 +134,7 @@ def dma_gather(table: torch.Tensor, idx: torch.Tensor, *, k_outstanding: int = 8
     raises ``ValueError`` on CPU tensors; on CUDA tensors the kernel traps,
     and the error surfaces at the next synchronizing call (see the module
     docstring).  ``k_outstanding`` and ``chunk`` change no value."""
-    if table.device.type != "cpu":
+    if not table.is_cpu:
         return _launch_gather(table, idx, k_outstanding, chunk)
     _check(table, idx, k_outstanding, chunk)
     _check_indices(table, idx)

@@ -117,3 +117,34 @@ def test_vector_bytes_follows_the_base_address():
     table = torch.zeros(8 * 4 + 1)[1:].reshape(8, 4)
     assert gd.vector_bytes(torch.zeros(8, 4), torch.zeros(2, 4)) == 16
     assert gd.vector_bytes(table, torch.zeros(2, 4)) == 4
+
+
+def expected_word(row_bytes: int, offset: int) -> int:
+    """The rule written out: the widest power of two up to 16 that divides
+    the row's bytes and the table's offset (the output is aligned)."""
+    word = 16
+    while row_bytes % word or offset % word:
+        word //= 2
+    return word
+
+
+@pytest.mark.parametrize("offset", [0, 4], ids=["aligned", "4_bytes_in"])
+@pytest.mark.parametrize("F", [2, 3, 4, 64, 65, 68])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32], ids=["f32", "bf16", "int32"])
+def test_copy_word_choice(dtype, F, offset):
+    """The copy word from geometry alone: dtype × row width × a table that
+    starts 0 or 4 bytes into a larger buffer (the output, allocated by the
+    entry point, is aligned).  The choice is deterministic, and the plain
+    version gathers from the view bitwise."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    flat = torch.arange(50 * F + 4 // size).to(dtype)
+    assert flat.data_ptr() % 16 == 0
+    table = flat[offset // size:][: 50 * F].view(50, F)
+    out = torch.empty((7, F), dtype=dtype)
+    assert table.data_ptr() % 16 == offset
+    want = expected_word(F * size, offset)
+    assert gd.vector_bytes(table, out) == want
+    assert gd.vector_bytes(table, out) == want  # the same answer again
+    assert gd._word(F * size, table.data_ptr(), out.data_ptr()) == want
+    idx = torch.tensor([49, 0, 3, 3, 17, 48, 1], dtype=torch.int32)
+    assert torch.equal(gd.dma_gather(table.contiguous(), idx), table[idx.long()])

@@ -9,11 +9,13 @@ there without the conftest:
 
 This file imports no JAX.  A gather is a copy, so the kernel must equal
 ``table[idx]`` bitwise at every K and C: ragged L (C not dividing it),
-L < C, rows of 1, 2, 3, 64 and 65 elements in float32, int32 and bfloat16
-(rows that are not 16-byte multiples take a narrower copy word).  The
-kernel checks the indices itself: an index outside the table traps, which
-leaves the process's CUDA context unusable, so that case runs in a child
-process; and the entry point issues no host sync.
+L < C, rows of 1, 2, 3, 64 and 65 elements in float32, int32 and bfloat16.
+The entry point and the launch alone are also held bitwise at rows of 8,
+12, 16, 32, 256, 260, 272 and 4096 bytes, at every K and at C in (1, 7,
+256, 1024, ``MAX_CHUNK``) with ragged last chunks, and on unaligned views.
+The kernel checks the indices itself: an index outside the table traps in
+16-B and in 4-B words, which leaves the process's CUDA context unusable, so
+that case runs in a child process; and the entry point issues no host sync.
 """
 
 import os
@@ -84,12 +86,69 @@ def test_unaligned_table_view(cuda):
     assert torch.equal(bits(gd.dma_gather(table, idx)), bits(table[idx.long()]))
 
 
+def launch_alone(table, idx, K=8, C=1024):
+    """``table[idx]`` through the C entry alone (counts no launch)."""
+    (N, F), L = table.shape, idx.numel()
+    out = torch.empty((L, F), dtype=table.dtype, device=table.device)
+    err = gd._entry()(table.data_ptr(), idx.data_ptr(), out.data_ptr(), L, N, F * table.element_size(),
+                      gd.vector_bytes(table, out), K, C, torch.cuda.current_stream(table.device).cuda_stream)
+    assert err == 0, (tuple(table.shape), K, C, err)
+    return out
+
+
+#: (dtype, F, word): rows of 16, 32, 256, 272 and 4096 B in 16-B words, of
+#: 8 B in 8-B words, of 12 and 260 B in 4-B words
+ROWS = [(torch.float32, 4, 16), (torch.float32, 8, 16), (torch.float32, 64, 16), (torch.float32, 68, 16),
+        (torch.float32, 1024, 16), (torch.int32, 2, 8), (torch.int32, 3, 4), (torch.float32, 65, 4)]
+#: chunks: 1, a prime, the default and MAX_CHUNK, each leaving a ragged last chunk at L = 2 * 12288 + 5
+CHUNKS = [1, 7, 256, 1024, gd.MAX_CHUNK]
+
+
+@pytest.mark.parametrize("dtype,F,word", ROWS, ids=[f"{F * 4}B" for _, F, _ in ROWS])
+def test_row_widths_at_every_k_and_chunk(cuda, dtype, F, word):
+    """The entry point and the launch alone, bitwise ``table[idx]`` at every
+    K and C with a ragged last chunk, one launch counted a call."""
+    table, idx = operands(3000, F, 2 * gd.MAX_CHUNK + 5, dtype, cuda, seed=F)
+    want = gd.dma_gather_reference(table, idx)
+    assert gd.vector_bytes(table, want) == word
+    for K in gd.K_OUTSTANDING:
+        for C in CHUNKS:
+            assert torch.equal(bits(launch_alone(table, idx, K, C)), bits(want)), (K, C)
+            before = gd.dma_gather.launches
+            got = gd.dma_gather(table, idx, k_outstanding=K, chunk=C)
+            assert gd.dma_gather.launches == before + 1
+            assert torch.equal(bits(got), bits(want)), (K, C)
+    torch.cuda.synchronize()
+
+
+def test_at_the_scripts_feature_shape(cuda):
+    """Case (b')'s shape (131,072 rows of 256 B from a 262,144-row table)
+    and an odd L, the entry point and the launch alone, bitwise."""
+    for L in (1 << 17, (1 << 17) + 333):
+        table, idx = operands(262_144, 64, L, torch.float32, cuda, seed=L)
+        want = gd.dma_gather_reference(table, idx)
+        assert torch.equal(bits(launch_alone(table, idx)), bits(want))
+        assert torch.equal(bits(gd.dma_gather(table, idx)), bits(want))
+
+
+def test_unaligned_views(cuda):
+    """256-B rows of a table 16 bytes into its storage keep 16-B words; 4
+    bytes in, 4-B words; both bitwise."""
+    flat = torch.randn(4097 * 64, device=cuda)
+    idx = torch.randint(0, 4096, (5000,), dtype=torch.int32, device=cuda)
+    for offset, word in ((4, 16), (1, 4)):
+        table = flat[offset : offset + 4096 * 64].view(4096, 64)
+        assert gd.vector_bytes(table, torch.empty_like(table[:1])) == word
+        assert torch.equal(bits(gd.dma_gather(table, idx)), bits(table[idx.long()]))
+
+
 #: a child that gathers with one index out of range, then synchronizes
+#: (from rows of F float32, its second argument: 64 by default)
 OUT_OF_RANGE_CHILD = """
 import sys
 import torch
 from connectome_gnn_tpu_torch.ops import gather_dma as gd
-table = torch.randn(4096, 64, device="cuda")
+table = torch.randn(4096, int(sys.argv[2]) if len(sys.argv) > 2 else 64, device="cuda")
 idx = torch.randint(0, 4096, (2000,), dtype=torch.int32, device="cuda")
 idx[1234] = int(sys.argv[1])
 gd.dma_gather(table, idx)
@@ -112,6 +171,20 @@ def test_out_of_range_index_raises_before_any_launch(cuda, bad):
     assert child.returncode != 0 and "synchronized" not in child.stdout
     # the trap surfaces at the synchronize (torch's "CUDA error"), or at the
     # launch's own error check if the kernel has already stopped by then
+    assert "CUDA error" in child.stderr or "kernel launch failed" in child.stderr, child.stderr[-2000:]
+    assert torch.equal(bits(gd.dma_gather(table, idx)), bits(gd.dma_gather_reference(table, idx)))
+
+
+@pytest.mark.parametrize("bad", [-1, 4096])
+def test_out_of_range_index_traps_in_narrow_words(cuda, bad):
+    """The same trap where rows of 65 float32 are copied in 4-B words."""
+    table, idx = operands(4096, 65, 2000, torch.float32, cuda)
+    assert gd.vector_bytes(table, table) == 4
+    gd.dma_gather(table, idx)
+    torch.cuda.synchronize()
+    child = subprocess.run([sys.executable, "-c", OUT_OF_RANGE_CHILD, str(bad), "65"], cwd=REPO,
+                           capture_output=True, text=True, timeout=600)
+    assert child.returncode != 0 and "synchronized" not in child.stdout
     assert "CUDA error" in child.stderr or "kernel launch failed" in child.stderr, child.stderr[-2000:]
     assert torch.equal(bits(gd.dma_gather(table, idx)), bits(gd.dma_gather_reference(table, idx)))
 
